@@ -1,0 +1,22 @@
+"""Mamba2-370m — pure SSD (state-space duality), attention-free.
+[arXiv:2405.21060]
+
+48L, d_model 1024 (d_inner 2048, 32 ssd heads of dim 64), ssm_state 128,
+vocab 50280.
+"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="mamba2-370m",
+    family="ssm",
+    n_layers=48,
+    d_model=1024,
+    n_heads=0,
+    n_kv_heads=0,
+    d_head=0,
+    d_ff=0,
+    vocab=50280,
+    ssm_state=128,
+    ssm_head_dim=64,
+    ssm_expand=2,
+)

@@ -1,0 +1,20 @@
+"""Qwen2-0.5B — GQA with QKV bias, tied embeddings.  [arXiv:2407.10671]
+
+24L, d_model 896, 14 heads (GQA kv=2, d_head 64), d_ff 4864, vocab 151936.
+"""
+from .base import ArchConfig
+
+CONFIG = ArchConfig(
+    name="qwen2-0.5b",
+    family="dense",
+    n_layers=24,
+    d_model=896,
+    n_heads=14,
+    n_kv_heads=2,
+    d_head=64,
+    d_ff=4864,
+    vocab=151936,
+    qkv_bias=True,
+    tie_embeddings=True,
+    rope_theta=1e6,
+)

@@ -1,0 +1,48 @@
+"""Carry weights between the port and numpy (and so the JAX package).
+
+Trees are nested dicts keyed exactly as the JAX param tree.  bf16 leaves
+cross as a ``uint16`` view of their bits, the way the JAX checkpointer
+stores them, so round trips are bitwise.  On the way in, a ``uint16`` leaf
+or a numpy array whose dtype is named ``bfloat16`` (what ``np.asarray``
+gives for a JAX bf16 array) becomes a torch bf16 tensor; the param trees
+hold no genuine 16-bit integers.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..device import resolve_device
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.uint16)
+    return t.numpy()
+
+
+def _from_numpy(a, device) -> torch.Tensor:
+    a = np.array(a)                        # owned, writable, contiguous
+    if a.dtype == np.uint16 or a.dtype.name == "bfloat16":
+        t = torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    else:
+        t = torch.from_numpy(a)
+    return t.to(device)
+
+
+def params_to_numpy(params: dict) -> dict:
+    """Tensors → numpy arrays (bf16 as its uint16 bits)."""
+    return {k: params_to_numpy(v) if isinstance(v, dict) else _to_numpy(v)
+            for k, v in params.items()}
+
+
+def params_from_numpy(tree: dict, device="cuda") -> dict:
+    """numpy arrays (bf16 as uint16 bits or a ``bfloat16`` dtype) → tensors
+    on ``device``."""
+    dev = resolve_device(device)
+
+    def build(t):
+        return {k: build(v) if isinstance(v, dict) else _from_numpy(v, dev)
+                for k, v in t.items()}
+    return build(tree)

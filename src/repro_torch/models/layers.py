@@ -1,0 +1,150 @@
+"""Model building blocks of the dense family, plain PyTorch.
+
+Counterpart of ``repro/models/layers.py`` (norm, RoPE, GQA attention,
+one-token decode attention, SwiGLU).  Activations follow the JAX package's
+dtype rules:
+
+* JAX promotes mixed operands (bf16 params × f32 activations → f32); torch
+  refuses mixed-dtype products, so :func:`einsum` casts every operand to
+  the promoted type first.
+* Where JAX keeps bf16 operands with f32 accumulation
+  (``preferred_element_type``), the port upcasts the operands to f32, which
+  is exact for bf16 values, and casts the result where JAX casts it.
+"""
+from __future__ import annotations
+
+import functools
+import math
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+F32 = torch.float32
+NEG_INF = -1e30
+
+
+def einsum(eq: str, *ops: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` with JAX's type promotion across the operands."""
+    dt = functools.reduce(torch.promote_types, (o.dtype for o in ops))
+    return torch.einsum(eq, *(o.to(dt) for o in ops))
+
+
+# ---------------------------------------------------------------------------
+# normalisation / embeddings
+# ---------------------------------------------------------------------------
+
+def rms_norm(x, weight, eps: float = 1e-5):
+    x32 = x.to(F32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * weight.to(F32)).to(x.dtype)
+
+
+def rope(x, positions, theta: float = 1e4):
+    """Rotary embeddings on split halves.  x: (..., S, H, D); positions:
+    (S,) or (..., S), any integer or float tensor."""
+    half = x.shape[-1] // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=F32,
+                                          device=x.device) / half))
+    ang = positions.to(F32)[..., None] * freqs             # (..., S, half)
+    cos = torch.cos(ang)[..., None, :]                     # (..., S, 1, half)
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = torch.chunk(x.to(F32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# attention
+# ---------------------------------------------------------------------------
+
+def _mask_bias(q_pos, k_pos, causal: bool, window: Optional[int]):
+    """(Sq, Sk) additive f32 bias from causal + sliding-window constraints."""
+    ok = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                    device=q_pos.device)
+    if causal:
+        ok &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None:
+        ok &= k_pos[None, :] > q_pos[:, None] - window
+    return torch.where(ok, 0.0, NEG_INF).to(F32)
+
+
+def _sdpa(q, k, v, bias):
+    """q: (B,Sq,H,D), k/v: (B,Sk,KV,D), bias: (Sq,Sk).
+
+    Scores and the probability-weighted sum accumulate in f32; the probs are
+    cast to v's dtype before the second product, as in the JAX package."""
+    B, Sq, H, D = q.shape
+    KV = k.shape[2]
+    G = H // KV
+    qr = q.reshape(B, Sq, KV, G, D)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qr.to(F32), k.to(F32))
+    scores = scores / math.sqrt(D)
+    scores = scores + bias[None, None, None]
+    probs = torch.softmax(scores, dim=-1)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(v.dtype).to(F32),
+                       v.to(F32))
+    return out.reshape(B, Sq, H, D).to(v.dtype)
+
+
+def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+              q_offset: int = 0, chunk_q: int = 512, dense_max: int = 1024):
+    """Self/cross attention with GQA.  Chunked over query blocks when long,
+    by the same rule as the JAX package."""
+    B, Sq, H, D = q.shape
+    Sk = k.shape[1]
+    q_pos = torch.arange(Sq, device=q.device) + q_offset
+    k_pos = torch.arange(Sk, device=q.device)
+    if max(Sq, Sk) <= dense_max or Sq < 2 * chunk_q:
+        return _sdpa(q, k, v, _mask_bias(q_pos, k_pos, causal, window))
+
+    n_chunks = Sq // chunk_q
+    outs = [_sdpa(q[:, i * chunk_q:(i + 1) * chunk_q], k, v,
+                  _mask_bias(q_pos[i * chunk_q:(i + 1) * chunk_q], k_pos,
+                             causal, window))
+            for i in range(n_chunks)]
+    rem = Sq - n_chunks * chunk_q
+    if rem:
+        outs.append(_sdpa(q[:, -rem:], k, v,
+                          _mask_bias(q_pos[-rem:], k_pos, causal, window)))
+    return torch.cat(outs, dim=1)
+
+
+def decode_attention(q, k_cache, v_cache, cache_positions, pos: int,
+                     window: Optional[int] = None):
+    """One-token attention against a ring-buffer cache (lock-step).
+
+    q: (B,1,H,D); caches: (B,W,KV,D); cache_positions: (W,) int32 holding the
+    absolute position stored in each slot (−1 = empty); pos: the current
+    token's position.  The current token's own k/v must already be written.
+    """
+    valid = (cache_positions >= 0) & (cache_positions <= pos)
+    if window is not None:
+        valid &= cache_positions > pos - window
+    bias = torch.where(valid, 0.0, NEG_INF).to(F32)        # (W,)
+
+    B, Sq, H, D = q.shape
+    KV = k_cache.shape[2]
+    G = H // KV
+    qr = q.reshape(B, Sq, KV, G, D)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qr.to(F32),
+                          k_cache.to(F32)) / math.sqrt(D)
+    scores = scores + bias
+    m = torch.amax(scores, dim=-1, keepdim=True)
+    p = torch.exp(scores - m)
+    l = torch.sum(p, dim=-1, keepdim=True)
+    probs = (p / l).to(v_cache.dtype)
+    out = torch.einsum("bkgqs,bskd->bqkgd", probs.to(F32), v_cache.to(F32))
+    return out.reshape(B, Sq, H, D).to(v_cache.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def swiglu(x, w_gate, w_up, w_down):
+    g = einsum("bsd,df->bsf", x, w_gate)
+    u = einsum("bsd,df->bsf", x, w_up)
+    h = F.silu(g.to(F32)).to(x.dtype) * u
+    return einsum("bsf,fd->bsd", h, w_down)

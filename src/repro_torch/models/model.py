@@ -1,0 +1,280 @@
+"""Dense-family model: param specs, forward, prefill, lock-step decode.
+
+Counterpart of ``repro/models/model.py`` for the ``dense`` family (GQA
+attention with optional QKV bias / QK-norm, RoPE, RMSNorm, SwiGLU, tied or
+separate unembedding).  Params are a nested dict of tensors with the JAX
+tree's paths and its stacked-over-layers layout (``blocks/attn/wq`` is
+``(L, d, H, Dh)``); a Python loop over layers takes the place of
+``jax.lax.scan``.  One device, no mesh: ``_shard_act`` has no counterpart.
+
+With ``cfg.use_flash_attention`` every prefill layer's attention goes
+through ``kernels.ops.flash_attention``: the CUDA kernel on the card, its
+plain version on the CPU.  Decode attention is plain PyTorch, as in the
+JAX package.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..configs.base import ArchConfig
+from ..device import resolve_device
+from ..kernels import ops
+from . import layers as L
+from .specs import Spec, count_params, init_tree, torch_dtype
+
+_LATER = ("is not ported yet; the other model families are a later slice "
+          "(ROADMAP.md queue 1, 'The other model families')")
+
+
+def _require_dense(cfg: ArchConfig):
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} {_LATER}")
+
+
+# ============================================================================
+# parameter specs
+# ============================================================================
+
+def _attn_specs(cfg: ArchConfig, stacked: Optional[int]):
+    pre = (stacked,) if stacked else ()
+    ax = ("layers",) if stacked else ()
+    d, H, KV, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.d_head
+    s = {
+        "norm": Spec(pre + (d,), ax + ("embed",), "ones"),
+        "wq": Spec(pre + (d, H, Dh), ax + ("embed", "heads", "head"), "fan_in"),
+        "wk": Spec(pre + (d, KV, Dh), ax + ("embed", "kv_heads", "head"), "fan_in"),
+        "wv": Spec(pre + (d, KV, Dh), ax + ("embed", "kv_heads", "head"), "fan_in"),
+        "wo": Spec(pre + (H, Dh, d), ax + ("heads", "head", "embed"), "fan_in"),
+    }
+    if cfg.qkv_bias:
+        s["bq"] = Spec(pre + (H, Dh), ax + ("heads", "head"), "zeros")
+        s["bk"] = Spec(pre + (KV, Dh), ax + ("kv_heads", "head"), "zeros")
+        s["bv"] = Spec(pre + (KV, Dh), ax + ("kv_heads", "head"), "zeros")
+    if cfg.qk_norm:
+        s["q_norm"] = Spec(pre + (Dh,), ax + ("head",), "ones")
+        s["k_norm"] = Spec(pre + (Dh,), ax + ("head",), "ones")
+    return s
+
+
+def _mlp_specs(cfg: ArchConfig, stacked: Optional[int], ff: int):
+    pre = (stacked,) if stacked else ()
+    ax = ("layers",) if stacked else ()
+    d = cfg.d_model
+    return {
+        "norm": Spec(pre + (d,), ax + ("embed",), "ones"),
+        "w_gate": Spec(pre + (d, ff), ax + ("embed", "ff"), "fan_in"),
+        "w_up": Spec(pre + (d, ff), ax + ("embed", "ff"), "fan_in"),
+        "w_down": Spec(pre + (ff, d), ax + ("ff", "embed"), "fan_in"),
+    }
+
+
+def param_specs(cfg: ArchConfig) -> dict:
+    _require_dense(cfg)
+    d, V = cfg.d_model, cfg.vocab
+    specs: dict = {
+        "embed": Spec((V, d), ("vocab", "embed"), "normal"),
+        "final_norm": Spec((d,), ("embed",), "ones"),
+    }
+    if not cfg.tie_embeddings:
+        specs["lm_head"] = Spec((d, V), ("embed", "vocab"), "fan_in")
+    nl = cfg.n_layers
+    specs["blocks"] = {"attn": _attn_specs(cfg, nl),
+                       "mlp": _mlp_specs(cfg, nl, cfg.d_ff)}
+    return specs
+
+
+def init_params(cfg: ArchConfig, seed: int, device="cuda") -> dict:
+    """Random params from ``seed`` (the port's own streams, see
+    ``specs.init_tree``), placed on ``device``."""
+    return init_tree(param_specs(cfg), seed, resolve_device(device))
+
+
+def n_params(cfg: ArchConfig) -> int:
+    return count_params(param_specs(cfg))
+
+
+def _layer(tree: dict, i: int) -> dict:
+    """Layer ``i``'s slice of a stacked param tree (views, no copies)."""
+    return {k: _layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+# ============================================================================
+# block applications
+# ============================================================================
+
+def _qkv(cfg, p, x):
+    q = L.einsum("bsd,dhk->bshk", x, p["wq"])
+    k = L.einsum("bsd,dhk->bshk", x, p["wk"])
+    v = L.einsum("bsd,dhk->bshk", x, p["wv"])
+    if cfg.qkv_bias:
+        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
+    if cfg.qk_norm:
+        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
+        k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _apply_attn(cfg, p, h, *, positions, window=None, return_kv=False):
+    """Pre-norm causal self-attention block."""
+    x = L.rms_norm(h, p["norm"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, x)
+    q = L.rope(q, positions, cfg.rope_theta)
+    k = L.rope(k, positions, cfg.rope_theta)
+    if cfg.use_flash_attention:
+        o = ops.flash_attention(q, k, v, causal=True, window=window)
+    else:
+        o = L.attention(q, k, v, causal=True, window=window)
+    out = h + L.einsum("bshk,hkd->bsd", o, p["wo"])
+    if return_kv:
+        return out, (k, v)
+    return out
+
+
+def _apply_mlp(cfg, p, h):
+    x = L.rms_norm(h, p["norm"], cfg.norm_eps)
+    return h + L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+
+
+# ============================================================================
+# forward / prefill
+# ============================================================================
+
+def _embed(cfg, params, tokens):
+    return params["embed"][tokens].to(torch_dtype(cfg.dtype))
+
+
+def _unembed(cfg, params, h):
+    if cfg.tie_embeddings:
+        return L.einsum("bsd,vd->bsv", h, params["embed"])
+    return L.einsum("bsd,dv->bsv", h, params["lm_head"])
+
+
+def forward_logits(cfg: ArchConfig, params, batch, window=None):
+    """Full-sequence forward → (logits (B,S,V), aux_loss = 0.0)."""
+    _require_dense(cfg)
+    if window is None:
+        window = cfg.sliding_window
+    tokens = batch["tokens"]
+    h = _embed(cfg, params, tokens)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        h = _apply_attn(cfg, p["attn"], h, positions=positions, window=window)
+        h = _apply_mlp(cfg, p["mlp"], h)
+    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _unembed(cfg, params, h), 0.0
+
+
+def _ring_from_seq(k_seq, v_seq, W: int):
+    """(L,B,S,KV,D) stacked per-layer k/v → ring cache of the last W tokens,
+    placed at slot = pos mod W, plus the positions buffer (−1 = empty)."""
+    S = k_seq.shape[2]
+    take = min(W, S)
+    pos = torch.arange(S - take, S, device=k_seq.device)
+    slots = pos % W
+    kc = k_seq.new_zeros(k_seq.shape[:2] + (W,) + k_seq.shape[3:])
+    vc = torch.zeros_like(kc)
+    kc[:, :, slots] = k_seq[:, :, S - take:]
+    vc[:, :, slots] = v_seq[:, :, S - take:]
+    positions = torch.full((W,), -1, dtype=torch.int32, device=k_seq.device)
+    positions[slots] = pos.to(torch.int32)
+    return kc, vc, positions
+
+
+def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None):
+    """Process the prompt, return (last-token logits (B,V), decode cache).
+
+    The cache matches ``cache_specs(cfg, B, ctx_len)``; ctx_len defaults to
+    the prompt length.  Only the last position is unembedded."""
+    _require_dense(cfg)
+    window = cfg.sliding_window
+    tokens = batch["tokens"]
+    S = tokens.shape[1]
+    ctx = ctx_len or S
+    W = min(cfg.sliding_window or ctx, ctx)
+    h = _embed(cfg, params, tokens)
+    positions = torch.arange(S, device=tokens.device)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        h, (k, v) = _apply_attn(cfg, p["attn"], h, positions=positions,
+                                window=window, return_kv=True)
+        h = _apply_mlp(cfg, p["mlp"], h)
+        ks.append(k)
+        vs.append(v)
+    kc, vc, posbuf = _ring_from_seq(torch.stack(ks), torch.stack(vs), W)
+    cache = {"self": {"k": kc, "v": vc}, "positions": posbuf}
+    h = L.rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
+    return _unembed(cfg, params, h)[:, 0], cache
+
+
+# ============================================================================
+# decode (serve_step), lock-step
+# ============================================================================
+
+def cache_specs(cfg: ArchConfig, batch: int, ctx_len: int) -> dict:
+    """Lock-step cache tree as Specs: one shared (W,) positions buffer."""
+    _require_dense(cfg)
+    W = min(cfg.sliding_window or ctx_len, ctx_len)
+    KV, Dh, nl = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
+    axes = ("layers", "batch", "ctx", "kv_heads", "head")
+    return {
+        "self": {"k": Spec((nl, batch, W, KV, Dh), axes, "zeros", cfg.dtype),
+                 "v": Spec((nl, batch, W, KV, Dh), axes, "zeros", cfg.dtype)},
+        "positions": Spec((W,), ("ctx",), "zeros", "int32"),
+    }
+
+
+def init_cache(cfg: ArchConfig, batch: int, ctx_len: int,
+               device="cuda") -> dict:
+    tree = init_tree(cache_specs(cfg, batch, ctx_len), 0,
+                     resolve_device(device))
+    tree["positions"] -= 1                 # −1 = empty slot
+    return tree
+
+
+def _decode_attn(cfg, p, h, kc, vc, cache_positions, pos, window, slot):
+    """One-token attention; writes this token's k/v into ring slot ``slot``
+    of ``kc`` / ``vc`` in place, then attends."""
+    x = L.rms_norm(h, p["norm"], cfg.norm_eps)
+    q, k, v = _qkv(cfg, p, x)
+    posv = torch.full((1,), pos, device=h.device)
+    q = L.rope(q, posv, cfg.rope_theta)
+    k = L.rope(k, posv, cfg.rope_theta)
+    kc[:, slot] = k[:, 0]
+    vc[:, slot] = v[:, 0]
+    o = L.decode_attention(q, kc, vc, cache_positions, pos, window=window)
+    return h + L.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int,
+                ctx_len: int):
+    """serve_step: ONE new token per sequence against the cache.
+
+    tokens: (B,) integer tensor; pos: the current absolute position, shared
+    by every row (lock-step).  Where the JAX package donates the cache, the
+    port updates it in place: the positions buffer and each layer's ring
+    slot ``pos mod W`` are written, and the same dict is returned.
+    Returns (logits (B, V), cache)."""
+    _require_dense(cfg)
+    if isinstance(pos, torch.Tensor) and pos.dim() > 0:
+        raise NotImplementedError(
+            "ragged (per-row) decode positions belong to the slot server, "
+            "a later slice (ROADMAP.md queue 1, 'The rest of serving')")
+    pos = int(pos)
+    W = min(cfg.sliding_window or ctx_len, ctx_len)
+    slot = pos % W
+    h = _embed(cfg, params, tokens[:, None])            # (B,1,d)
+    cache["positions"][slot] = pos
+    cpos = cache["positions"]
+    for i in range(cfg.n_layers):
+        p = _layer(params["blocks"], i)
+        h = _decode_attn(cfg, p["attn"], h, cache["self"]["k"][i],
+                         cache["self"]["v"][i], cpos, pos,
+                         cfg.sliding_window, slot)
+        h = _apply_mlp(cfg, p["mlp"], h)
+    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return _unembed(cfg, params, h)[:, 0], cache

@@ -1,0 +1,49 @@
+"""The port imports neither JAX nor the JAX package."""
+import ast
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+pytest.importorskip("torch")
+
+ROOT = Path(__file__).resolve().parents[1]
+FORBIDDEN = ("jax", "jaxlib", "repro")
+
+
+def _sources():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    return files + [ROOT / "chip_smoke.py"]
+
+
+def _absolute_imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module
+
+
+def test_port_sources_import_no_jax_or_repro():
+    files = _sources()
+    assert len(files) > 10 and files[-1].exists()
+    bad = [(str(f.relative_to(ROOT)), mod) for f in files
+           for mod in _absolute_imports(f)
+           if mod.split(".")[0] in FORBIDDEN]
+    assert bad == []
+
+
+def test_port_imports_with_jax_blocked():
+    code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
+            "import repro_torch.api, repro_torch.models, repro_torch.kernels.ops\n"
+            "import repro_torch.distributed\n"
+            "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
+            "               for m in sys.modules if sys.modules[m] is not None)\n")
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run([sys.executable, "-c", code], env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr

@@ -1,0 +1,82 @@
+"""The port's lock-step serving lane against the JAX ``Server``.
+
+The port draws the params (``init_params``), they cross to JAX through
+``params_to_numpy``, and both packages serve the same ``default_rng``
+prompts in f32: the greedy token matrices must be identical."""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax                                                   # noqa: E402
+import jax.numpy as jnp                                      # noqa: E402
+
+from repro.distributed import Server, ServeConfig            # noqa: E402
+from repro.launch.mesh import make_host_mesh                 # noqa: E402
+from repro.models import prefill                             # noqa: E402
+from repro_torch.api import ExperimentSpec, ServeJob, run    # noqa: E402
+from repro_torch.distributed import Server as TServer        # noqa: E402
+from repro_torch.distributed import ServeConfig as TServeConfig  # noqa: E402
+from repro_torch.models import init_params, params_to_numpy  # noqa: E402
+
+
+def _to_jax(tree):
+    return jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a.view(jnp.bfloat16) if a.dtype == np.uint16
+                              else a), tree)
+
+
+def _jax_serve(job, T, seed, params):
+    """The JAX ServeBackend's lock-step lane on given params."""
+    cfg = job.make_arch()
+    ctx = job.prompt_len + T
+    server = Server(cfg, make_host_mesh(),
+                    ServeConfig(batch=job.batch, ctx_len=ctx, seed=seed))
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (job.batch, job.prompt_len)).astype(np.int32)
+    last, cache = prefill(cfg, params, {"tokens": jnp.asarray(prompts)},
+                          ctx_len=ctx)
+    toks = np.asarray(jnp.argmax(last, axis=-1).astype(jnp.int32))
+    gen = server.generate(params, toks, T - 1, start_pos=job.prompt_len,
+                          cache=cache)
+    return prompts, np.concatenate([toks[:, None], gen], axis=1)
+
+
+@pytest.mark.parametrize("flash", [False, True])
+def test_greedy_tokens_identical_to_jax(flash):
+    T, seed = 8, 3
+    job = ServeJob(arch="qwen2-0.5b", batch=3, prompt_len=12,
+                   arch_overrides=(("dtype", "float32"),
+                                   ("use_flash_attention", flash)))
+    res = run(ExperimentSpec(objective=job, T=T, seed=seed), device="cpu")
+    assert res.x.shape == (3, T) and res.x.dtype == np.int32
+    assert res.extra["flash_launches"] == 0          # CPU: plain version
+    assert res.extra["logits_finite"]
+
+    params = init_params(job.make_arch(), seed, device="cpu")
+    prompts, want = _jax_serve(job, T, seed, _to_jax(params_to_numpy(params)))
+    np.testing.assert_array_equal(res.extra["prompts"], prompts)
+    np.testing.assert_array_equal(res.x, want)
+
+
+def test_sampling_generator_is_threaded_across_calls():
+    job = ServeJob(batch=2, prompt_len=4)
+    cfg = job.make_arch()
+    params = init_params(cfg, 0, device="cpu")
+    srv = TServer(cfg, TServeConfig(batch=2, ctx_len=32, temperature=1.0,
+                                    seed=5), device="cpu")
+    first = srv.generate(params, np.array([1, 2]), 8)
+    second = srv.generate(params, np.array([1, 2]), 8)
+    assert not np.array_equal(first, second)         # fresh draws
+    g = torch.Generator().manual_seed(5)
+    again = srv.generate(params, np.array([1, 2]), 8, generator=g)
+    np.testing.assert_array_equal(again, first)      # explicit: reproducible
+    third = srv.generate(params, np.array([1, 2]), 8)
+    assert not np.array_equal(third, second)         # own stream untouched
+
+
+def test_slot_lane_knobs_raise():
+    with pytest.raises(NotImplementedError, match="slot lane"):
+        ServeJob(n_slots=2)
+    with pytest.raises(NotImplementedError, match="slot lane"):
+        ServeJob(admission="fedbuff:b=2")

@@ -1,0 +1,49 @@
+"""Helpers shared by the tests that hold `repro_torch` to the JAX package.
+
+Arrays cross between the packages as numpy; bf16 crosses as its bits
+(``repro_torch.models.convert``).  Inputs are drawn with numpy from a seed
+and handed to both.
+"""
+import numpy as np
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from repro_torch.models.convert import params_from_numpy
+
+TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
+       "bfloat16": dict(rtol=3e-2, atol=3e-2)}
+
+_JNP = {"float32": jnp.float32, "bfloat16": jnp.bfloat16}
+_TORCH = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def randn(rng, *shape):
+    return rng.standard_normal(shape).astype(np.float32)
+
+
+def pair(x: np.ndarray, dtype: str = "float32"):
+    """The same values as a JAX array and a CPU torch tensor of ``dtype``."""
+    return (jnp.asarray(x).astype(_JNP[dtype]),
+            torch.from_numpy(np.array(x)).to(_TORCH[dtype]))
+
+
+def f32(x) -> np.ndarray:
+    """A JAX array or torch tensor as float32 numpy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def port_params(jax_tree, device="cpu"):
+    """A JAX param/cache tree carried into the port."""
+    return params_from_numpy(jax.tree_util.tree_map(np.asarray, jax_tree),
+                             device=device)
+
+
+def tree_f32(jax_tree):
+    """Cast every floating leaf of a JAX tree to float32."""
+    return jax.tree_util.tree_map(
+        lambda a: a.astype(jnp.float32)
+        if jnp.issubdtype(a.dtype, jnp.floating) else a, jax_tree)
