@@ -7,41 +7,67 @@ Phases, each of which fails the run (non-zero exit, no result line):
 
 1. device: CUDA must be present; prints the card's name and power limit
    and turns TF32 off for float32 products;
-2. build: compiles every kernel of the serving path from ``csrc/`` with
-   ``nvcc`` for ``sm_90a``;
-3. kernels against their plain versions, on the card: the serving path's
-   prefill shape and the kernel test matrix (MHA, GQA 4:1, ragged MQA,
-   D = 128, windows, non-causal, an empty-row case), in f32 and bf16 at the
-   kernel suite's tolerances; at the main-path shape the kernel, its plain
-   version and ``scaled_dot_product_attention`` (a yardstick only: the port
-   never calls it) are timed with CUDA events;
-4. the main path at full width: ``run(ExperimentSpec(objective=ServeJob(
-   arch="qwen2-0.5b", reduced=False, batch=4, prompt_len=1024, ...)))`` with
-   the flash kernel on, which must launch it once per layer; then prefill
-   again on the same params with and without the kernel, whose last-token
-   logits must agree to bf16 tolerance;
-5. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+2. build: compiles every kernel source of the port from ``csrc/`` with
+   ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together;
+3. the flash kernel against its plain version, on the card: the serving
+   path's prefill shape and the kernel test matrix (MHA, GQA 4:1, ragged
+   MQA, D = 128, windows, non-causal, an empty-row case), in f32 and bf16
+   at the kernel suite's tolerances; at the main-path shape the kernel, its
+   plain version and ``scaled_dot_product_attention`` (a yardstick only:
+   the port never calls it) are timed with CUDA events;
+4. the serving main path at full width: ``run(ExperimentSpec(objective=
+   ServeJob(arch="qwen2-0.5b", reduced=False, batch=4, prompt_len=1024,
+   ...)))`` with the flash kernel on, which must launch it once per layer;
+   then prefill again on the same params with and without the kernel,
+   whose last-token logits must agree to bf16 tolerance;
+5. the four update kernels against their plain versions, on the card:
+   sizes 1, 127, 128·256, 128·256 + 1, 1,000,003 and the 14 leaf sizes of
+   qwen2-0.5b, f32 and bf16 params, count 1 and 7, weight decay 0 and 0.1,
+   at the tolerances of ``tests/test_kernels.py``, with gbuf′ equal to g
+   bit for bit; then over one round's 14 leaves the kernels, their plain
+   versions and a yardstick the port never calls (``torch._foreach_add_``,
+   ``torch.optim.Adam(fused=True)``) are timed with CUDA events;
+6. the training main path at full width: ``run(ExperimentSpec(objective=
+   TrainJob(arch="qwen2-0.5b", reduced=False, global_batch=8, seq_len=512,
+   update_impl="pallas"), n_workers=4, T=8, runtime="scan",
+   rounds_per_launch=4, ...))``, which must launch ``fused_adam_delayed``
+   8 × 14 times, give finite curves, and match the loss curve of the same
+   spec under ``update_impl="reference"`` to rtol 5e-3; then a warm timed
+   run of the same spec;
+7. the other three update kernels' paths, at full width and 2 layers, T 2:
+   sgd delayed (``async_update``), sgd synchronous (``sgd_step``) and adam
+   synchronous (``fused_adam``), each launching its kernel rounds × 14 times;
+8. the flash guard: the kernel's CUDA route raises for a q that requires
+   grad, where it would otherwise drop the gradient;
+9. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
    line.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 sys.path.insert(0, str(ROOT / "src"))
 
+import numpy as np                                            # noqa: E402
 import torch                                                  # noqa: E402
 import torch.nn.functional as F                               # noqa: E402
 
-from repro_torch.api import ExperimentSpec, ServeJob, run     # noqa: E402
-from repro_torch.kernels import _build                        # noqa: E402
+from repro_torch.api import (ExperimentSpec, ServeJob,        # noqa: E402
+                             TrainerBackend, TrainJob, run)
+from repro_torch.configs import get_arch                      # noqa: E402
+from repro_torch.kernels import _build, ops                   # noqa: E402
+from repro_torch.kernels import async_update as AU            # noqa: E402
 from repro_torch.kernels import flash_attention as FA         # noqa: E402
 from repro_torch.kernels.ref import attention_mask            # noqa: E402
-from repro_torch.models import init_params, prefill           # noqa: E402
+from repro_torch.models import init_params, param_specs, prefill  # noqa: E402
+from repro_torch.tree import tree_leaves, tree_map            # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -65,6 +91,34 @@ CASES = [
 ]
 SERVE = dict(arch="qwen2-0.5b", reduced=False, batch=4, prompt_len=1024,
              T=32, seed=0)
+
+SOURCES = ("flash_attention", "async_update")
+
+#: update kernels: the sizes of the test matrix (the main path's 14 leaf
+#: sizes are added), tolerances of tests/test_kernels.py as (rtol, atol)
+UPDATE_SIZES = (1, 127, 128 * 256, 128 * 256 + 1, 1_000_003)
+UPDATE_TOL = {"sgd": {torch.float32: (2e-4, 2e-4),
+                      torch.bfloat16: (3e-2, 3e-2)},
+              "adam": {torch.float32: (1e-5, 1e-6),
+                       torch.bfloat16: (3e-2, 3e-2)}}
+#: f32 operations per element of each update kernel (its Pallas body)
+UPDATE_OPS = {"async_update": 2, "sgd_step": 2, "fused_adam": 18,
+              "fused_adam_delayed": 18}
+UPDATE_LR = {"sgd": 0.01, "adam": 1e-3}
+#: the TPU kernel each update kernel replaces
+REPLACES = {"async_update": "src/repro/kernels/async_update.py:71",
+            "sgd_step": "src/repro/kernels/async_update.py:114",
+            "fused_adam": "src/repro/kernels/async_update.py:276",
+            "fused_adam_delayed": "src/repro/kernels/async_update.py:348"}
+CLIP, DELAY_SCALE = 0.5, 0.25
+
+#: the training main path and the reduced-depth paths of the other kernels
+TRAIN_JOB = dict(arch="qwen2-0.5b", reduced=False, global_batch=8,
+                 seq_len=512, update_impl="pallas")
+TRAIN_SPEC = dict(scheduler="pure", timing="fixed:slow=5", n_workers=4, T=8,
+                  stepsize=3e-4, seed=0, runtime="scan", rounds_per_launch=4)
+OTHER_PATHS = (("async_update", "sgd", 1), ("sgd_step", "sgd", 0),
+               ("fused_adam", "adam", 0))
 
 
 def log(msg: str) -> None:
@@ -119,12 +173,20 @@ def phase_device() -> str:
 
 
 def phase_build() -> None:
+    """One nvcc per source, all started together."""
+    def build(name):
+        t0 = time.perf_counter()
+        return _build.build(name), time.perf_counter() - t0
+
     t0 = time.perf_counter()
-    lib = _build.build("flash_attention")
-    log(f"build: flash_attention.cu in {time.perf_counter() - t0:.2f} s")
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"  ptxas: {line.strip()}")
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        built = dict(zip(SOURCES, pool.map(build, SOURCES)))
+    log(f"build: {len(SOURCES)} sources in {time.perf_counter() - t0:.2f} s")
+    for name, (lib, secs) in built.items():
+        log(f"  {name}.cu in {secs:.2f} s")
+        for line in lib.with_suffix(".log").read_text().splitlines():
+            if "registers" in line or "spill" in line:
+                log(f"  ptxas: {line.strip()}")
 
 
 def _compare(got, want, tol):
@@ -213,6 +275,10 @@ def phase_main_path(device, entry: dict) -> None:
         raise AssertionError(f"bad token matrix {x.dtype} {x.shape}")
 
     params = init_params(cfg, s["seed"], device)
+    # prefill below runs outside torch.no_grad(): the flash kernel's guard
+    # stays quiet only because no param requires grad
+    if any(p.requires_grad for p in tree_leaves(params)):
+        raise AssertionError("init_params returned params that require grad")
     tokens = torch.as_tensor(res.extra["prompts"], dtype=torch.int64,
                              device=device)
     ctx = s["prompt_len"] + s["T"]
@@ -236,15 +302,301 @@ def phase_main_path(device, entry: dict) -> None:
         raise AssertionError("flash and plain prefill logits disagree")
 
 
+def _update_inputs(n, dtype, device, seed=0):
+    """p (dtype), m (f32 normal · 0.1), v (f32 uniform · 0.01), gbuf and g
+    (dtype), as in tests/test_kernels.py."""
+    gen = torch.Generator(device).manual_seed(seed)
+    rn = lambda: torch.randn(n, generator=gen, device=device)
+    return {"p": rn().to(dtype), "m": rn() * 0.1,
+            "v": torch.rand(n, generator=gen, device=device) * 0.01,
+            "gb": rn().to(dtype), "g": rn().to(dtype)}
+
+
+def _kind(name):
+    return "adam" if "adam" in name else "sgd"
+
+
+def _scalar_sets(name, device):
+    """[(label, scal)]: SGD one eff; Adam count ∈ {1, 7} × wd ∈ {0, 0.1}."""
+    lr = UPDATE_LR[_kind(name)]
+    if _kind(name) == "sgd":
+        return [("", AU.sgd_scalars(lr, CLIP, DELAY_SCALE, device))]
+    out = []
+    for count in (1, 7):
+        c = torch.tensor(count, dtype=torch.int32, device=device)
+        bc1, bc2 = AU.adam_bias_corrections(0.9, 0.95, c)
+        for wd in (0.0, 0.1):
+            out.append((f" count={count} wd={wd}",
+                        AU.adam_scalars(lr, bc1, bc2, CLIP, wd, device)))
+    return out
+
+
+def _apply(name, route, t, scal):
+    """Run ``AU.<name>_<route>`` in place on the operands of ``t``."""
+    fn = getattr(AU, f"{name}_{route}")
+    if name == "async_update":
+        fn(t["p"], t["gb"], t["g"], scal)
+    elif name == "sgd_step":
+        fn(t["p"], t["g"], scal)
+    elif name == "fused_adam":
+        fn(t["p"], t["m"], t["v"], t["g"], scal)
+    else:
+        fn(t["p"], t["m"], t["v"], t["gb"], t["g"], scal)
+    return t
+
+
+def _main_leaves():
+    """The numels of qwen2-0.5b's 14 param leaves, in tree order."""
+    return [int(np.prod(s.shape)) for s in
+            tree_leaves(param_specs(get_arch(SERVE["arch"])))]
+
+
+def _bytes_per_elem(name, pdt, gdt):
+    """Bytes one element moves: each input read once, each output written
+    once (p r/w; m, v f32 r/w; gbuf r/w; g read)."""
+    p, g = pdt.itemsize, gdt.itemsize
+    adam = 16 if _kind(name) == "adam" else 0
+    buf = 2 * g if name in ("async_update", "fused_adam_delayed") else 0
+    return 2 * p + adam + buf + g
+
+
+def phase_update_kernels(device) -> dict:
+    """The four kernels against their plain versions over the matrix, then
+    timed over one round's 14 leaves; returns the kernels-line entries."""
+    entries = {name: {"name": name, "route": "cuda",
+                      "source": "src/repro_torch/csrc/async_update.cu",
+                      "replaces": REPLACES[name], "max_abs_err": 0.0}
+               for name in AU.KERNELS}
+    leaves = _main_leaves()
+    checked = 0
+    for n in UPDATE_SIZES + tuple(leaves):
+        for dtype in (torch.float32, torch.bfloat16):
+            base = _update_inputs(n, dtype, device, seed=n % 9973)
+            for name in AU.KERNELS:
+                rtol, atol = UPDATE_TOL[_kind(name)][dtype]
+                for label, scal in _scalar_sets(name, device):
+                    got = _apply(name, "cuda", tree_map(torch.clone, base),
+                                 scal)
+                    torch.cuda.synchronize()
+                    want = _apply(name, "plain",
+                                  tree_map(torch.clone, base), scal)
+                    keys = ("p", "m", "v") if _kind(name) == "adam" else ("p",)
+                    worst = 0.0
+                    for key in keys:
+                        a, b = got[key].float(), want[key].float()
+                        err = (a - b).abs()
+                        bad = int((err > atol + rtol * b.abs()).sum())
+                        if bad or not torch.isfinite(a).all():
+                            raise AssertionError(
+                                f"{name} {key} disagrees with its plain "
+                                f"version at n={n} {dtype}{label}: {bad} "
+                                f"elements, max abs err {err.max().item():.3e}")
+                        worst = max(worst, err.max().item())
+                    if name in ("async_update", "fused_adam_delayed") and not (
+                            torch.equal(got["gb"], base["g"])
+                            and torch.equal(want["gb"], base["g"])):
+                        raise AssertionError(f"{name}: gbuf' != g bitwise at "
+                                             f"n={n} {dtype}{label}")
+                    if got["p"].dtype != dtype:
+                        raise AssertionError(f"{name}: p dtype {got['p'].dtype}")
+                    if n in leaves and dtype == torch.bfloat16:
+                        e = entries[name]
+                        e["max_abs_err"] = max(e["max_abs_err"], worst)
+                    checked += 1
+            del base
+    log(f"update kernels: {checked} cases against their plain versions, all "
+        f"within tolerance, gbuf' bitwise; max abs err on the main-path "
+        f"leaves in bf16: " + ", ".join(
+            f"{k} {e['max_abs_err']:.3e}" for k, e in entries.items()))
+
+    # one round over the 14 main-path leaves: bf16 p / gbuf / g, f32 m / v
+    bf16 = torch.bfloat16
+    state = [_update_inputs(n, bf16, device, seed=i)
+             for i, n in enumerate(leaves)]
+    n_total = sum(leaves)
+    for name in AU.KERNELS:
+        scal = _scalar_sets(name, device)[-1][1]
+        e = entries[name]
+        e["ms"] = time_ms(lambda: [_apply(name, "cuda", t, scal)
+                                   for t in state], iters=10)
+        e["plain_ms"] = time_ms(lambda: [_apply(name, "plain", t, scal)
+                                         for t in state], iters=5)
+        e["library_ms"] = _update_library_ms(name, state)
+        t_bytes = n_total * _bytes_per_elem(name, bf16, bf16) / PEAK_BYTES * 1e3
+        t_ops = n_total * UPDATE_OPS[name] / PEAK_FLOPS[torch.float32] * 1e3
+        e["bound_ms"], e["bound_by"] = ((t_ops, "operations") if t_ops > t_bytes
+                                        else (t_bytes, "bytes"))
+        log(f"{name} over one round ({n_total:,} elements, {len(leaves)} "
+            f"leaves): "
+            f"kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library "
+            f"{e['library_ms']:.4f} ms, bound {e['bound_ms']:.4f} ms "
+            f"({e['bound_by']})")
+    del state
+    torch.cuda.empty_cache()
+    return entries
+
+
+def _update_library_ms(name, state):
+    """One PyTorch call over the round, a yardstick the port never calls:
+    ``torch._foreach_add_`` for the SGD kernels (p −= eff·buffer; for
+    async_update it leaves out the buffer swap) and
+    ``torch.optim.Adam(fused=True)`` for the Adam kernels.  Fused Adam keeps
+    its moments in the params' dtype, so it cannot take bf16 params with
+    f32 moments: it runs on f32 copies of p and g (no clip, no swap)."""
+    if _kind(name) == "sgd":
+        ps = [t["p"] for t in state]
+        gs = [t["gb" if name == "async_update" else "g"] for t in state]
+        eff = UPDATE_LR["sgd"] * CLIP * DELAY_SCALE
+        return time_ms(lambda: torch._foreach_add_(ps, gs, alpha=-eff),
+                       iters=10)
+    params = [torch.nn.Parameter(t["p"].float()) for t in state]
+    for prm, t in zip(params, state):
+        prm.grad = t["g"].float()
+    opt = torch.optim.Adam(params, lr=UPDATE_LR["adam"], betas=(0.9, 0.95),
+                           eps=1e-8, fused=True)
+    log(f"  {name} library yardstick: torch.optim.Adam(fused=True) in f32 "
+        "(it keeps moments in the params' dtype, so bf16 params with f32 "
+        "moments are not expressible)")
+    ms = time_ms(opt.step, iters=10)
+    del opt, params
+    torch.cuda.empty_cache()
+    return ms
+
+
+def _train_spec(T=None, **job_kw):
+    job = TrainJob(**{**TRAIN_JOB, **job_kw})
+    return ExperimentSpec(objective=job, **{**TRAIN_SPEC, "T": T or
+                                            TRAIN_SPEC["T"]})
+
+
+def _check_curves(res, label):
+    if res.losses is None or not (np.isfinite(res.losses).all()
+                                  and np.isfinite(res.grad_norms).all()):
+        raise AssertionError(f"{label}: non-finite or missing curves")
+
+
+def phase_train_main(device, entry: dict) -> None:
+    """The training main path, its reference twin and a warm timed run."""
+    spec = _train_spec()
+    cfg = spec.objective.make_arch()
+    rounds = spec.T
+    torch.cuda.reset_peak_memory_stats()
+    AU.reset_launches()
+    t0 = time.perf_counter()
+    res = run(spec, device=device)
+    secs = time.perf_counter() - t0
+    launched = dict(AU.launches)
+    entry["launches"] = launched["fused_adam_delayed"]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    n_leaves = len(tree_leaves(res.x["params"]))
+    want = {k: 0 for k in AU.KERNELS}
+    want["fused_adam_delayed"] = rounds * n_leaves
+    if launched != want or res.extra["update_launches"] != want:
+        raise AssertionError(f"update launches {launched} (extra "
+                             f"{res.extra['update_launches']}), want {want}")
+    _check_curves(res, "training main path")
+    log(f"train main path: {cfg.name} L={cfg.n_layers} d={cfg.d_model} "
+        f"vocab={cfg.vocab} batch={TRAIN_JOB['global_batch']} "
+        f"seq={TRAIN_JOB['seq_len']} T={rounds} (first call, {secs:.2f} s): "
+        f"fused_adam_delayed launches {entry['launches']} = {rounds} rounds "
+        f"x {n_leaves} leaves; loss {res.losses[0]:.5f} -> "
+        f"{res.losses[-1]:.5f}; grad_norm {res.grad_norms[-1]:.4f}; "
+        f"launches {res.extra['launches']} host_syncs "
+        f"{res.extra['host_syncs']}; peak memory {peak:.2f} GiB")
+    losses = res.losses
+    res = None
+    torch.cuda.empty_cache()
+
+    base = init_params(cfg, TRAIN_SPEC["seed"], device)
+    same_init = lambda cfg, dev: tree_map(torch.clone, base)
+    ref_spec = dataclasses.replace(spec, objective=dataclasses.replace(
+        spec.objective, update_impl="reference"))
+    ref = TrainerBackend(device, params_fn=same_init).run(ref_spec)
+    _check_curves(ref, "reference run")
+    rel = np.abs(losses - ref.losses) / np.abs(ref.losses)
+    log(f"loss curve, pallas vs reference: max rel diff {rel.max():.3e} "
+        f"(rtol 5e-3); reference {ref.losses[0]:.5f} -> {ref.losses[-1]:.5f}")
+    if not (rel <= 5e-3).all():
+        raise AssertionError("pallas and reference loss curves disagree")
+    ref = None
+    torch.cuda.empty_cache()
+
+    stamps = {}
+    timed = TrainerBackend(device, params_fn=same_init, on_step=lambda i, s, m:
+                           stamps.setdefault(i, time.perf_counter()))
+    timed.run(spec)
+    k = TRAIN_SPEC["rounds_per_launch"]
+    warm = (stamps[2 * k - 1] - stamps[k - 1]) / k * 1e3
+    log(f"train main path warm: {warm:.3f} ms per round (host clock over "
+        f"rounds {k}..{2 * k - 1}, chunk-boundary reads)")
+
+
+def phase_train_others(device, entries: dict) -> None:
+    """sgd delayed / sgd sync / adam sync at full width and 2 layers."""
+    T = 2
+    for name, opt, delay in OTHER_PATHS:
+        spec = _train_spec(T=T, opt=opt, delay_rounds=delay,
+                           arch_overrides=(("n_layers", 2),))
+        AU.reset_launches()
+        res = run(spec, device=device)
+        launched = dict(AU.launches)
+        n_leaves = len(tree_leaves(res.x["params"]))
+        want = {k: 0 for k in AU.KERNELS}
+        want[name] = T * n_leaves
+        if launched != want or res.extra["update_launches"] != want:
+            raise AssertionError(f"{name} path: launches {launched}, want "
+                                 f"{want}")
+        _check_curves(res, f"{name} path")
+        entries[name]["launches"] = launched[name]
+        log(f"{name} path (opt={opt}, delay_rounds={delay}, 2 layers, T={T}):"
+            f" {launched[name]} launches; loss {res.losses[0]:.5f} -> "
+            f"{res.losses[-1]:.5f}")
+        res = None
+        torch.cuda.empty_cache()
+
+
+def _expect_raise(fn, exc):
+    try:
+        fn()
+    except exc:
+        return
+    raise AssertionError(f"{fn} did not raise {exc.__name__}")
+
+
+def phase_flash_guard(device) -> None:
+    """The flash kernel's CUDA route raises for inputs that require grad."""
+    q, k, v = _qkv(1, 64, 64, 2, 2, 64, torch.bfloat16, device)
+    q.requires_grad_(True)
+    before = FA.launches
+    _expect_raise(lambda: FA.flash_attention_cuda(q, k, v), NotImplementedError)
+    _expect_raise(lambda: ops.flash_attention(q, k, v), NotImplementedError)
+    if FA.launches != before:
+        raise AssertionError("the flash guard raised after a launch")
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+    torch.cuda.synchronize()
+    if FA.launches != before + 1:
+        raise AssertionError("flash kernel did not launch under no_grad")
+    log("flash guard: the CUDA route raises NotImplementedError for a q that "
+        "requires grad and launches under torch.no_grad()")
+
+
 def main() -> None:
+    t0 = time.perf_counter()
     kind = phase_device()
     device = torch.device("cuda")
     phase_build()
-    entry = phase_kernels(device)
-    phase_main_path(device, entry)
+    flash = phase_kernels(device)
+    phase_main_path(device, flash)
+    updates = phase_update_kernels(device)
+    phase_train_main(device, updates["fused_adam_delayed"])
+    phase_train_others(device, updates)
+    phase_flash_guard(device)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: entry[k] for k in keys}]}))
+    entries = [flash] + [updates[k] for k in AU.KERNELS]
+    log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

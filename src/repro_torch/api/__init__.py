@@ -1,16 +1,17 @@
-"""`repro_torch.api` — one spec, run on the port (serving slice).
+"""`repro_torch.api` — one spec, run on the port.
 
 Mirrors `repro.api`::
 
-    from repro_torch.api import ExperimentSpec, ServeJob, run
+    from repro_torch.api import ExperimentSpec, TrainJob, ServeJob, run
+    res = run(ExperimentSpec(objective=TrainJob(update_impl="pallas"), T=8))
     res = run(ExperimentSpec(objective=ServeJob(arch="qwen2-0.5b"), T=16))
 
-``run`` executes on CUDA unless a ``device`` is named.  Only the lock-step
-serving lane is ported so far; see ROADMAP.md for the slices to come.
+``run`` executes on CUDA unless a ``device`` is named.  The trainer and the
+lock-step serving lane are ported; see ROADMAP.md for the slices to come.
 """
-from .spec import ExperimentSpec, StepsizePolicy, ServeJob
+from .spec import ExperimentSpec, StepsizePolicy, ServeJob, TrainJob
 from .result import RunResult
-from .backends import Backend, ServeBackend, run
+from .backends import Backend, ServeBackend, TrainerBackend, run
 
-__all__ = ["ExperimentSpec", "StepsizePolicy", "ServeJob", "RunResult",
-           "Backend", "ServeBackend", "run"]
+__all__ = ["ExperimentSpec", "StepsizePolicy", "ServeJob", "TrainJob",
+           "RunResult", "Backend", "ServeBackend", "TrainerBackend", "run"]

@@ -1,24 +1,34 @@
-"""Execute an :class:`ExperimentSpec` (serving slice).
+"""Execute an :class:`ExperimentSpec`.
 
-Counterpart of ``repro/api/backends.py``.  :class:`ServeBackend` runs the
-lock-step lane: init params from the seed, draw the prompts with numpy
-(the same ``default_rng(seed)`` stream as the JAX package), prefill, take
-the first token by argmax, then decode ``T − 1`` steps through
-:class:`repro_torch.distributed.Server`.  The simulator and trainer
-backends arrive with the training slice.
+Counterpart of ``repro/api/backends.py``:
+
+* :class:`TrainerBackend` — schedule → :class:`repro_torch.runtime.RunPlan`
+  → ``AsyncTrainer`` rounds through the whole-run executor
+  (``runtime="scan"``: K rounds per launch, or ``"eager"``: the per-round
+  parity oracle).  Same schedulers as the JAX package, identical ordering
+  and masks by construction.
+* :class:`ServeBackend` — the lock-step lane: init params from the seed,
+  draw the prompts with numpy (the same ``default_rng(seed)`` stream as the
+  JAX package), prefill, take the first token by argmax, then decode
+  ``T − 1`` steps through :class:`repro_torch.distributed.Server`.
+
+The simulator backend is a later slice.
 """
 from __future__ import annotations
 
 import time
-from typing import Optional, Protocol, runtime_checkable
+from typing import Callable, Optional, Protocol, runtime_checkable
 
 import numpy as np
 import torch
 
+from ..core import round_masks
+from ..core.trace import summarize
 from ..device import resolve_device, synchronize
+from ..kernels import async_update as update_kernels
 from ..kernels import flash_attention as flash_kernel
 from .result import RunResult
-from .spec import ExperimentSpec, ServeJob
+from .spec import ExperimentSpec, ServeJob, StepsizePolicy, TrainJob
 
 
 @runtime_checkable
@@ -26,6 +36,156 @@ class Backend(Protocol):
     name: str
 
     def run(self, spec: ExperimentSpec) -> RunResult: ...
+
+
+class TrainerBackend:
+    """Schedule → plan → ``AsyncTrainer`` rounds on ``device`` (default
+    CUDA).
+
+    ``on_step(i, state, metrics)`` is invoked once per round (at chunk
+    boundaries on the scan runtime).  ``runtime`` / ``rounds_per_launch`` /
+    ``metrics`` override the spec's fields; both unset falls back to
+    ``"scan"`` / the spec's K / ``"chunk"``.  A grid stepsize policy runs
+    the sequential loop (one run per γ, best tail loss wins).
+
+    Two injection hooks replace the port's own random streams, so a test
+    can hold a run to the JAX package's: ``params_fn(cfg, device)`` returns
+    the initial params tree, and ``batch_fn(q)`` round q's batch dict.
+
+    ``RunResult.x`` is the final state; ``extra`` carries the JAX keys the
+    port can fill plus ``update_launches``, the launches of each update
+    kernel during the run, and ``device``."""
+
+    name = "trainer"
+    default_runtime = "scan"
+    default_metrics = "chunk"
+
+    def __init__(self, device="cuda", on_step: Optional[Callable] = None,
+                 runtime: Optional[str] = None,
+                 rounds_per_launch: Optional[int] = None,
+                 metrics: Optional[str] = None,
+                 params_fn: Optional[Callable] = None,
+                 batch_fn: Optional[Callable] = None):
+        self.device = device
+        self.on_step = on_step
+        self.runtime = runtime
+        self.rounds_per_launch = rounds_per_launch
+        self.metrics = metrics
+        self.params_fn = params_fn
+        self.batch_fn = batch_fn
+
+    @staticmethod
+    def masks_for(spec: ExperimentSpec, n_groups: Optional[int] = None):
+        """((rounds, n_groups) participation masks, realised Schedule) for
+        ``spec.T`` rounds."""
+        sched = spec.make_scheduler(n_groups)
+        schedule = spec.build_schedule(T=spec.T * sched.wait_b, n=n_groups)
+        return round_masks(schedule), schedule
+
+    def resolve_runtime(self, spec: ExperimentSpec):
+        """(runtime, rounds_per_launch, metrics): constructor overrides
+        spec, both-unset → the scan/chunk defaults."""
+        runtime = self.runtime or spec.runtime or self.default_runtime
+        k = self.rounds_per_launch if self.rounds_per_launch is not None \
+            else spec.rounds_per_launch
+        metrics = self.metrics or spec.metrics or self.default_metrics
+        return runtime, int(k), metrics
+
+    def run(self, spec: ExperimentSpec) -> RunResult:
+        job = spec.objective
+        if not isinstance(job, TrainJob):
+            raise TypeError("TrainerBackend needs a TrainJob objective")
+        policy: StepsizePolicy = spec.stepsize
+        if policy.kind == "grid":
+            best = None
+            for g in policy.gammas:
+                # scoring needs loss curves, so a metrics="none" resolution
+                # is overridden
+                res = self._run_single(spec, job, g, adaptive=False,
+                                       metrics_floor="chunk")
+                score = float(np.mean(res.losses[-3:]))
+                if best is None or score < best[0]:
+                    best = (score, res)
+            return best[1]
+        return self._run_single(spec, job, policy.gamma,
+                                adaptive=policy.kind == "delay_adaptive")
+
+    def _make_trainer(self, spec: ExperimentSpec, job: TrainJob, lr: float,
+                      adaptive: bool, device):
+        from ..distributed import AsyncConfig, AsyncTrainer
+        from ..optim import OptConfig
+
+        cfg = job.make_arch()
+        tr = AsyncTrainer(
+            cfg,
+            opt=OptConfig(name=job.opt, lr=lr, clip_norm=job.clip_norm,
+                          update_impl=job.update_impl),
+            async_cfg=AsyncConfig(delay_rounds=job.delay_rounds,
+                                  delay_adaptive=adaptive,
+                                  microbatches=job.microbatches,
+                                  guards=True if job.guards else None),
+            device=device)
+        n_groups = spec.n_workers or tr.n_groups
+        tr.n_groups = n_groups
+        if job.global_batch % n_groups:
+            raise ValueError(
+                f"the {n_groups} worker groups must divide "
+                f"global_batch={job.global_batch}")
+        return tr, cfg, n_groups
+
+    def _run_single(self, spec: ExperimentSpec, job: TrainJob, lr: float,
+                    adaptive: bool,
+                    metrics_floor: Optional[str] = None) -> RunResult:
+        """One (γ, adaptive) run.  ``metrics_floor`` replaces a resolved
+        ``"none"`` with a curve-producing mode for callers that must read
+        the losses back (grid scoring)."""
+        from ..runtime import compile_plan, execute
+
+        device = resolve_device(self.device)
+        t0 = time.time()
+        tr, cfg, n_groups = self._make_trainer(spec, job, lr, adaptive,
+                                               device)
+        masks, schedule = self.masks_for(spec, n_groups)
+        params = self.params_fn(cfg, device) if self.params_fn else None
+        state = tr.init_state(spec.seed, params=params)
+        rounds = min(spec.T, masks.shape[0])
+        plan = compile_plan(schedule, job, rounds=rounds, n_groups=n_groups,
+                            seed=spec.seed, adaptive=adaptive)
+        runtime, rounds_per_launch, metrics = self.resolve_runtime(spec)
+        if metrics == "none" and metrics_floor is not None:
+            metrics = metrics_floor
+        before = dict(update_kernels.launches)
+        exec_res = execute(tr, plan, state, runtime=runtime,
+                           rounds_per_launch=rounds_per_launch,
+                           metrics=metrics, on_step=self.on_step,
+                           batch_fn=self.batch_fn)
+        update_launches = {k: update_kernels.launches[k] - before[k]
+                           for k in update_kernels.KERNELS}
+
+        have_curves = bool(exec_res.metrics)
+        return RunResult(
+            spec=spec, backend=self.name, x=exec_res.state,
+            log_ts=np.arange(rounds),
+            losses=exec_res.metrics["loss"].astype(np.float64)
+            if have_curves else None,
+            grad_norms=exec_res.metrics["grad_norm"].astype(np.float64)
+            if have_curves else None,
+            gamma=lr, schedule=schedule, trace=summarize(schedule),
+            seconds=time.time() - t0,
+            extra={"metrics": exec_res.rows, "masks": masks,
+                   "arch": cfg.name, "n_groups": n_groups,
+                   "update_impl": tr.update_impl,
+                   "delay_scales": plan.delay_scales if adaptive else None,
+                   "scenario": spec.scenario,
+                   "plan_summary": plan.summary(),
+                   "runtime": runtime,
+                   "rounds_per_launch": rounds_per_launch,
+                   "metrics_mode": metrics if runtime == "scan" else "chunk",
+                   "launches": exec_res.launches,
+                   "host_syncs": exec_res.host_syncs,
+                   "tap_events": exec_res.tap_events,
+                   "update_launches": update_launches,
+                   "device": str(device)})
 
 
 class ServeBackend:
@@ -87,12 +247,16 @@ class ServeBackend:
 
 def run(spec: ExperimentSpec, backend: Optional[Backend] = None,
         device="cuda") -> RunResult:
-    """Execute a spec on the right backend (dispatched on the objective)."""
+    """Execute a spec on the right backend (dispatched on the objective),
+    on ``device`` (default CUDA; raises when CUDA is absent)."""
     if backend is None:
-        if not isinstance(spec.objective, ServeJob):
+        if isinstance(spec.objective, TrainJob):
+            backend = TrainerBackend(device=device)
+        elif isinstance(spec.objective, ServeJob):
+            backend = ServeBackend(device=device)
+        else:
             raise NotImplementedError(
                 f"objective {type(spec.objective).__name__} is not ported "
-                "yet; the trainer and simulator backends are later slices "
-                "(ROADMAP.md queue 1)")
-        backend = ServeBackend(device=device)
+                "yet; the simulator backend is a later slice (ROADMAP.md "
+                "queue 1)")
     return backend.run(spec)

@@ -1,14 +1,13 @@
-"""Declarative experiment specs (serving slice).
+"""Declarative experiment specs.
 
-Counterpart of ``repro/api/spec.py``: :class:`ServeJob`,
+Counterpart of ``repro/api/spec.py``: :class:`TrainJob`, :class:`ServeJob`,
 :class:`ExperimentSpec` and :class:`StepsizePolicy` with the same fields and
-defaults.  This slice runs the lock-step serving lane only:
+defaults, and the same compact spec strings (scheduler ``"name[:k=v,...]"``
+over :data:`repro_torch.core.REGISTRY`, timing ``"pattern[:k=v,...]"``).
 
-* a :class:`ServeJob` that sets ``n_slots`` or any other slot-lane knob
-  raises ``NotImplementedError`` (the slot server is a later slice);
-* the scheduler, timing and scenario fields are kept so one spec object
-  reads the same in both packages, but their validation and realisation
-  arrive with ``core`` in the training slice.
+Not ported yet: a :class:`ServeJob` that sets ``n_slots`` or any other
+slot-lane knob raises ``NotImplementedError`` (the slot server is a later
+slice), and so does realising a schedule under a ``scenario``.
 """
 from __future__ import annotations
 
@@ -16,6 +15,36 @@ import dataclasses
 from typing import Any, Optional
 
 import numpy as np
+
+from ..core import (TimingModel, build_schedule, heterogeneous_speeds,
+                    make_scheduler)
+from ..core.engine import Schedule
+from ..core.schedulers import REGISTRY
+
+
+def _parse_kv(text: str) -> dict:
+    """``"b=4,reshuffle=0"`` → ``{"b": 4, "reshuffle": 0}`` (numbers coerced)."""
+    out: dict[str, Any] = {}
+    if not text:
+        return out
+    for item in text.split(","):
+        if "=" not in item:
+            raise ValueError(f"malformed spec option {item!r} (want key=value)")
+        k, v = item.split("=", 1)
+        try:
+            out[k] = int(v)
+        except ValueError:
+            try:
+                out[k] = float(v)
+            except ValueError:
+                out[k] = v
+    return out
+
+
+def parse_compact(spec: str) -> tuple[str, dict]:
+    """``"name:k=v,k=v"`` → ``(name, kwargs)``."""
+    name, _, rest = spec.partition(":")
+    return name, _parse_kv(rest)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +82,44 @@ class StepsizePolicy:
         if isinstance(value, (tuple, list, np.ndarray)):
             return cls("grid", tuple(float(g) for g in value))
         raise TypeError(f"cannot coerce {value!r} to a StepsizePolicy")
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainJob:
+    """Objective for the trainer backend: arch + data for ``AsyncTrainer``.
+
+    ``ExperimentSpec.T`` counts server *rounds* here (one aggregated model
+    update per round); the schedule realises ``T·wait_b`` gradient receipts.
+    ``update_impl``: ``"reference"`` (a tree of elementwise torch ops) or
+    ``"pallas"`` / ``"pallas_interpret"`` (the fused update kernels, one
+    per param leaf: CUDA on the card, their plain versions on the CPU);
+    ``"pallas_pooled*"`` and ``guards`` raise until they are ported.
+    """
+
+    arch: str = "qwen2-0.5b"
+    reduced: bool = True
+    remat: Optional[str] = "none"
+    arch_overrides: tuple = ()          # ((field, value), ...)
+    global_batch: int = 8
+    seq_len: int = 64
+    heterogeneity: float = 1.0
+    delay_rounds: int = 1               # 0 = synchronous baseline
+    microbatches: int = 1
+    opt: str = "adam"
+    clip_norm: Optional[float] = 1.0
+    update_impl: str = "reference"
+    guards: bool = False
+
+    def make_arch(self):
+        from ..configs import get_arch
+        cfg = get_arch(self.arch)
+        if self.reduced:
+            cfg = cfg.reduced()
+        if self.remat is not None:
+            cfg = cfg.with_(remat=self.remat)
+        if self.arch_overrides:
+            cfg = cfg.with_(**dict(self.arch_overrides))
+        return cfg
 
 
 #: ServeJob fields that only the continuous-batching slot lane reads
@@ -111,8 +178,9 @@ class ServeJob:
 @dataclasses.dataclass(frozen=True)
 class ExperimentSpec:
     """One experiment, declaratively (fields and defaults as in the JAX
-    package).  On the serve backend ``T`` counts decode steps and ``seed``
-    seeds the params, the prompts and the sampling generator."""
+    package).  ``T`` counts server rounds on the trainer backend and decode
+    steps on the serve backend; ``seed`` seeds the schedule, the params and
+    the data (or prompts and sampling)."""
 
     RUNTIMES = (None, "scan", "eager")
     METRIC_MODES = (None, "chunk", "tap", "none")
@@ -149,3 +217,48 @@ class ExperimentSpec:
         if self.speeds is not None:
             object.__setattr__(self, "speeds",
                                tuple(float(s) for s in self.speeds))
+        name, _ = parse_compact(self.scheduler)
+        if name not in REGISTRY:
+            raise ValueError(
+                f"unknown scheduler {name!r}; want one of {sorted(REGISTRY)}")
+
+    # ---- resolved pieces ---------------------------------------------------
+    @property
+    def n(self) -> int:
+        if self.n_workers is not None:
+            return int(self.n_workers)
+        n = getattr(self.objective, "n", None)
+        if n is None:
+            raise ValueError(
+                "n_workers not set and objective does not define .n")
+        return int(n)
+
+    def make_scheduler(self, n: Optional[int] = None):
+        name, kw = parse_compact(self.scheduler)
+        b = int(kw.pop("b", 1))
+        return make_scheduler(name, n or self.n, b=b, seed=self.seed, **kw)
+
+    def make_timing(self, n: Optional[int] = None) -> TimingModel:
+        pattern, kw = parse_compact(self.timing)
+        n = n or self.n
+        slow = float(kw.pop("slow", 5.0))
+        base = float(kw.pop("base", 1.0))
+        if kw:
+            raise ValueError(f"unknown timing options {sorted(kw)}")
+        if self.speeds is not None:    # explicit profile overrides slow/base
+            if len(self.speeds) != n:
+                raise ValueError("speeds length must equal n_workers")
+            speeds = np.asarray(self.speeds)
+        else:
+            speeds = heterogeneous_speeds(n, slow_factor=slow, base=base)
+        return TimingModel(speeds, pattern, seed=self.seed)
+
+    def build_schedule(self, T: Optional[int] = None,
+                       n: Optional[int] = None) -> Schedule:
+        """Realise the ordering (i_t, π_t) for this spec."""
+        if self.scenario is not None:
+            raise NotImplementedError(
+                "scenario worlds are not ported yet (ROADMAP.md queue 1, "
+                "'Copy scenarios/, faults/ and obs/')")
+        sched = self.make_scheduler(n)
+        return build_schedule(sched, self.make_timing(n), T or self.T)

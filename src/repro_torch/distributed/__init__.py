@@ -1,3 +1,4 @@
 from .serve import Server, ServeConfig
+from .async_trainer import AsyncConfig, AsyncTrainer
 
-__all__ = ["Server", "ServeConfig"]
+__all__ = ["Server", "ServeConfig", "AsyncConfig", "AsyncTrainer"]

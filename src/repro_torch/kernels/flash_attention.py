@@ -74,8 +74,18 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None):
 
     Reads q/k/v through their strides (any BSHD view); allocates only the
     output.  Raises on what the kernel does not take and when the launch
-    is refused."""
+    is refused.
+
+    The kernel is forward only, so its output carries no autograd history.
+    With grad mode on and an input that requires grad it raises rather
+    than drop the gradient through attention."""
     global launches
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "the flash attention kernel has no backward (the TPU kernel it "
+            "replaces, flash_attention_pallas, has none either); train with "
+            "use_flash_attention=False, or run under torch.no_grad().  A "
+            "backward is a later slice (ROADMAP.md queue 2, item 7)")
     _check(q, k, v)
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]

@@ -5,16 +5,55 @@ device and nothing else: a CPU tensor takes the plain PyTorch version, a
 CUDA tensor launches the kernel or the call raises.  There is no switch
 that runs the plain version on the card and no fallback after a failed
 launch.
+
+The update entry points work in place and take their scalars as a small
+f32 tensor (``async_update.sgd_scalars`` / ``adam_scalars``).
 """
 from __future__ import annotations
 
+from . import async_update as _au
 from . import flash_attention as _fa
+
+
+def _route(name, t):
+    if t.device.type in ("cpu", "cuda"):
+        return t.device.type
+    raise RuntimeError(f"{name} has no kernel for device {t.device}")
 
 
 def flash_attention(q, k, v, *, causal=True, window=None):
     """q: (B,Sq,H,D); k/v: (B,Sk,KV,D) with H % KV == 0 → (B,Sq,H,D)."""
-    if q.device.type == "cpu":
+    if _route("flash attention", q) == "cpu":
         return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
-    if q.device.type == "cuda":
-        return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
-    raise RuntimeError(f"flash attention has no kernel for device {q.device}")
+    return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+
+
+def async_update(p, gbuf, g, scal):
+    """p −= eff·gbuf; gbuf ← g.  Returns (p, gbuf)."""
+    if _route("async_update", p) == "cpu":
+        return _au.async_update_plain(p, gbuf, g, scal)
+    return _au.async_update_cuda(p, gbuf, g, scal)
+
+
+def sgd_step(p, g, scal):
+    """p −= eff·g.  Returns p."""
+    if _route("sgd_step", p) == "cpu":
+        return _au.sgd_step_plain(p, g, scal)
+    return _au.sgd_step_cuda(p, g, scal)
+
+
+def fused_adam(p, m, v, g, scal, *, beta1=0.9, beta2=0.95, eps=1e-8):
+    """One Adam step on clip·g.  Returns (p, m, v)."""
+    kw = dict(beta1=beta1, beta2=beta2, eps=eps)
+    if _route("fused_adam", p) == "cpu":
+        return _au.fused_adam_plain(p, m, v, g, scal, **kw)
+    return _au.fused_adam_cuda(p, m, v, g, scal, **kw)
+
+
+def fused_adam_delayed(p, m, v, gbuf, g, scal, *, beta1=0.9, beta2=0.95,
+                       eps=1e-8):
+    """One Adam step on clip·gbuf, then gbuf ← g.  Returns (p, m, v, gbuf)."""
+    kw = dict(beta1=beta1, beta2=beta2, eps=eps)
+    if _route("fused_adam_delayed", p) == "cpu":
+        return _au.fused_adam_delayed_plain(p, m, v, gbuf, g, scal, **kw)
+    return _au.fused_adam_delayed_cuda(p, m, v, gbuf, g, scal, **kw)

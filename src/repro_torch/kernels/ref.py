@@ -1,7 +1,14 @@
 """Plain PyTorch oracles for the port's kernels.
 
-Counterpart of ``repro/kernels/ref.py``; this slice carries the attention
-oracle.  The update and SSD oracles arrive with their kernels.
+Counterpart of ``repro/kernels/ref.py``: the attention oracle and the
+server-update oracles (eq. 2 as SGD on the stale buffer, Adam, and Adam on
+the stale buffer).  The momentum and SSD oracles arrive with their kernels.
+
+The update oracles are functional and follow the JAX oracles op for op,
+including where they differ from the kernels: ``reference_fused_adam``
+casts the STEP to the param dtype before subtracting, where the kernel
+subtracts in f32 and casts once, so the two agree only to bf16 tolerance
+on bf16 params.
 """
 from __future__ import annotations
 
@@ -43,3 +50,35 @@ def reference_attention(q, k, v, *, causal=True, window=None):
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(F32))
     return o.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def reference_async_update(params, gbuf, grads, *, lr, clip_scale, delay_scale):
+    """Server update (eq. 2), fused semantics:
+        p'    = p − lr·delay_scale·clip_scale·gbuf   (apply the STALE grad)
+        gbuf' = grads                                (buffer the fresh grad)
+    All flat f32/bf16 tensors of identical shape."""
+    eff = lr * delay_scale * clip_scale
+    p_new = (params.to(F32) - eff * gbuf.to(F32)).to(params.dtype)
+    return p_new, grads
+
+
+def reference_fused_adam(p, m, v, g, *, lr, beta1, beta2, eps, bc1, bc2,
+                         clip_scale=1.0, weight_decay=0.0):
+    """One fused Adam step on flat tensors; moments f32."""
+    g32 = clip_scale * g.to(F32)
+    m_new = beta1 * m + (1 - beta1) * g32
+    v_new = beta2 * v + (1 - beta2) * g32 * g32
+    step = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
+    step = step + weight_decay * p.to(F32)
+    p_new = p - (lr * step).to(p.dtype)
+    return p_new, m_new, v_new
+
+
+def reference_fused_adam_delayed(p, m, v, gbuf, g, *, lr, beta1, beta2, eps,
+                                 bc1, bc2, clip_scale=1.0, weight_decay=0.0):
+    """Delayed-buffer Adam: the stale gbuf drives the step, the fresh g is
+    buffered.  Returns (p', m', v', gbuf')."""
+    p_new, m_new, v_new = reference_fused_adam(
+        p, m, v, gbuf, lr=lr, beta1=beta1, beta2=beta2, eps=eps,
+        bc1=bc1, bc2=bc2, clip_scale=clip_scale, weight_decay=weight_decay)
+    return p_new, m_new, v_new, g

@@ -1,0 +1,123 @@
+"""Where the training path's time goes on the card.
+
+    PYTHONPATH=src python -m repro_torch.launch.profile_train \\
+        [--update-impl pallas|reference] [--opt adam|sgd] [--delay-rounds 1]
+        [--rounds 4] [--warmup 2] [--trace-dir DIR]
+
+Runs the training main path's configuration (qwen2-0.5b at full width,
+global batch 8 × 512 tokens, 4 AsGrad workers under the ``pure``
+scheduler, Adam with ``delay_rounds=1``, the fused update kernels) through
+the same trainer, plan and executor as ``run(ExperimentSpec(objective=
+TrainJob(...)))``.  After ``--warmup`` rounds it times ``--rounds`` rounds
+as one scan launch with the host clock (the run ends in its metric read,
+which waits for the device), then records the same rounds under
+``torch.profiler`` and prints, per round:
+
+* wall time, the summed device time of its kernels (device rows only) and
+  the device's idle share (``1 − device / wall``);
+* the update kernels' device time and their share of the device time;
+* the kernels that took most device time.
+
+``--trace-dir`` also writes the profiler's Chrome trace there
+(``train.json``).  Needs a CUDA card.
+"""
+from __future__ import annotations
+
+import argparse
+import os
+import time
+
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+
+from ..api import ExperimentSpec, TrainerBackend, TrainJob
+from ..device import resolve_device
+from ..runtime import PlanExecutor, compile_plan
+
+TOP = 15                        # kernels listed
+#: substrings of the update kernels' names in csrc/async_update.cu
+UPDATE_KERNELS = ("async_update_kernel", "sgd_step_kernel", "adam_kernel")
+
+
+def main_path_spec(update_impl="pallas", opt="adam", delay_rounds=1, T=8):
+    """The training main path of ``chip_smoke.py``."""
+    job = TrainJob(arch="qwen2-0.5b", reduced=False, global_batch=8,
+                   seq_len=512, update_impl=update_impl, opt=opt,
+                   delay_rounds=delay_rounds)
+    return ExperimentSpec(objective=job, scheduler="pure",
+                          timing="fixed:slow=5", n_workers=4, T=T,
+                          stepsize=3e-4, seed=0, runtime="scan",
+                          rounds_per_launch=4)
+
+
+def _executor(tr, spec, n_groups, rounds):
+    masks, schedule = TrainerBackend.masks_for(spec, n_groups)
+    plan = compile_plan(schedule, spec.objective, rounds=rounds,
+                        n_groups=n_groups, seed=spec.seed)
+    return PlanExecutor(tr, plan)
+
+
+def _report(prof, wall_s: float, rounds: int) -> None:
+    rows = sorted((e for e in prof.key_averages()
+                   if e.device_type == DeviceType.CUDA),
+                  key=lambda e: -e.self_device_time_total)
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 / rounds
+    upd_ms = sum(e.self_device_time_total for e in rows
+                 if any(k in e.key for k in UPDATE_KERNELS)) / 1e3 / rounds
+    wall_ms = wall_s * 1e3 / rounds
+    print(f"profiled, per round: wall {wall_ms:.3f} ms, device "
+          f"{dev_ms:.3f} ms, idle share {1 - dev_ms / wall_ms:.3f}; update "
+          f"kernels {upd_ms:.3f} ms = {upd_ms / dev_ms:.3f} of device time")
+    for e in rows[:TOP]:
+        print(f"  {e.self_device_time_total / 1e3 / rounds:9.3f} ms/round "
+              f"{e.count // rounds:5d}x/round  {e.key[:90]}")
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--update-impl", default="pallas")
+    ap.add_argument("--opt", default="adam")
+    ap.add_argument("--delay-rounds", type=int, default=1)
+    ap.add_argument("--rounds", type=int, default=4)
+    ap.add_argument("--warmup", type=int, default=2)
+    ap.add_argument("--trace-dir", default=None)
+    args = ap.parse_args(argv)
+
+    device = resolve_device("cuda")
+    spec = main_path_spec(args.update_impl, args.opt, args.delay_rounds,
+                          T=args.warmup + args.rounds)
+    tr, cfg, n_groups = TrainerBackend(device)._make_trainer(
+        spec, spec.objective, spec.stepsize.gamma, False, device)
+    state = tr.init_state(spec.seed)
+    state = _executor(tr, spec, n_groups, args.warmup).run_scan(
+        state, rounds_per_launch=args.warmup, metrics="none").state
+    ex = _executor(tr, spec, n_groups, args.rounds)
+
+    def timed():
+        nonlocal state
+        t0 = time.perf_counter()
+        res = ex.run_scan(state, rounds_per_launch=args.rounds)
+        state = res.state
+        return time.perf_counter() - t0, res
+
+    wall, res = timed()
+    print(f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} batch "
+          f"{spec.objective.global_batch}x{spec.objective.seq_len} "
+          f"opt={args.opt} delay_rounds={args.delay_rounds} "
+          f"update_impl={tr.update_impl}: {wall * 1e3 / args.rounds:.3f} ms "
+          f"per round (warm, {args.rounds} rounds, one launch); loss "
+          f"{res.metrics['loss'][0]:.5f} -> {res.metrics['loss'][-1]:.5f}; "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with prof:
+        wall, _ = timed()
+    _report(prof, wall, args.rounds)
+    if args.trace_dir:
+        os.makedirs(args.trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.trace_dir, "train.json"))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,4 +1,5 @@
-"""Carry weights between the port and numpy (and so the JAX package).
+"""Carry weights and trainer states between the port and numpy (and so the
+JAX package).
 
 Trees are nested dicts keyed exactly as the JAX param tree.  bf16 leaves
 cross as a ``uint16`` view of their bits, the way the JAX checkpointer
@@ -46,3 +47,27 @@ def params_from_numpy(tree: dict, device="cuda") -> dict:
         return {k: build(v) if isinstance(v, dict) else _from_numpy(v, dev)
                 for k, v in t.items()}
     return build(tree)
+
+
+_STATE_KEYS = {"params", "opt", "step"}
+
+
+def _check_state(tree: dict) -> None:
+    if not _STATE_KEYS <= set(tree) or not {"m", "v", "count"} <= set(tree["opt"]):
+        raise ValueError(f"not a trainer state: keys {sorted(tree)} (want "
+                         "params, opt{m, v, count}, step and, when delayed, "
+                         "gbuf)")
+
+
+def state_to_numpy(state: dict) -> dict:
+    """An ``AsyncTrainer`` state (params, opt.m/v/count, step, gbuf) →
+    numpy, bf16 leaves as uint16 bits, int32 counters as int32."""
+    _check_state(state)
+    return params_to_numpy(state)
+
+
+def state_from_numpy(tree: dict, device="cuda") -> dict:
+    """numpy (for instance a JAX trainer state through ``np.asarray``) → an
+    ``AsyncTrainer`` state on ``device``; round trips are bitwise."""
+    _check_state(tree)
+    return params_from_numpy(tree, device)

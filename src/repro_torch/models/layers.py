@@ -1,7 +1,7 @@
 """Model building blocks of the dense family, plain PyTorch.
 
 Counterpart of ``repro/models/layers.py`` (norm, RoPE, GQA attention,
-one-token decode attention, SwiGLU).  Activations follow the JAX package's
+one-token decode attention, SwiGLU, the token cross entropy).  Activations follow the JAX package's
 dtype rules:
 
 * JAX promotes mixed operands (bf16 params × f32 activations → f32); torch
@@ -148,3 +148,18 @@ def swiglu(x, w_gate, w_up, w_down):
     u = einsum("bsd,df->bsf", x, w_up)
     h = F.silu(g.to(F32)).to(x.dtype) * u
     return einsum("bsf,fd->bsd", h, w_down)
+
+
+# ---------------------------------------------------------------------------
+# losses
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits, labels, mask=None):
+    """Token-level cross entropy, f32 accumulation.  logits (..., V)."""
+    logits = logits.to(F32)
+    logz = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - ll
+    if mask is not None:
+        return torch.sum(nll * mask) / (torch.sum(mask) + 1e-6)
+    return torch.mean(nll)

@@ -10,7 +10,9 @@ tree's paths and its stacked-over-layers layout (``blocks/attn/wq`` is
 With ``cfg.use_flash_attention`` every prefill layer's attention goes
 through ``kernels.ops.flash_attention``: the CUDA kernel on the card, its
 plain version on the CPU.  Decode attention is plain PyTorch, as in the
-JAX package.
+JAX package.  The flash kernel has no backward, so training
+(:func:`loss_fn` under autograd) runs with ``use_flash_attention=False``;
+the kernel's wrapper raises rather than drop the gradient.
 """
 from __future__ import annotations
 
@@ -168,6 +170,30 @@ def forward_logits(cfg: ArchConfig, params, batch, window=None):
     return _unembed(cfg, params, h), 0.0
 
 
+def loss_fn(cfg: ArchConfig, params, batch, example_weights=None,
+            aux_coeff: float = 0.01, window=None):
+    """Next-token CE (the dense family has no aux loss).  ``example_weights``
+    (B,) carries the AsGrad worker-participation mask (see
+    ``distributed.async_trainer``).  Returns (loss, {"ce", "aux"}).
+
+    ``cfg.remat`` other than ``"none"`` raises: activation recomputation
+    (``jax.checkpoint`` in the JAX package) is not ported, and running
+    without it would silently change the memory a config asks for."""
+    if cfg.remat != "none":
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is not ported yet (activation "
+            "recomputation); train with remat='none'")
+    logits, aux = forward_logits(cfg, params, batch, window=window)
+    labels = batch["tokens"][:, 1:]
+    lg = logits[:, :-1]
+    mask = torch.ones(labels.shape, dtype=torch.float32, device=lg.device)
+    if example_weights is not None:
+        mask = mask * example_weights[:, None]
+    ce = L.softmax_xent(lg, labels, mask)
+    aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
+    return ce + aux_coeff * aux, {"ce": ce, "aux": aux}
+
+
 def _ring_from_seq(k_seq, v_seq, W: int):
     """(L,B,S,KV,D) stacked per-layer k/v → ring cache of the last W tokens,
     placed at slot = pos mod W, plus the positions buffer (−1 = empty)."""
@@ -278,3 +304,13 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int,
         h = _apply_mlp(cfg, p["mlp"], h)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h)[:, 0], cache
+
+
+# ============================================================================
+# batch specs
+# ============================================================================
+
+def batch_specs(cfg: ArchConfig, batch: int, seq: int) -> dict:
+    """Train/prefill batch as Specs (the dense case: int32 tokens)."""
+    _require_dense(cfg)
+    return {"tokens": Spec((batch, seq), ("batch", "seq"), "zeros", "int32")}

@@ -1,0 +1,266 @@
+"""Optimizers of the AsGrad server update, with the fused kernels as a route.
+
+Counterpart of ``repro/optim/optimizers.py``:
+
+* SGD and Adam (f32 moments whatever the param dtype) with the paper's
+  Assumption-4 clipping by global norm, as functional updates of trees;
+* the delayed-buffer apply, the AsGrad server update (eq. 2) as one call.
+
+``update_impl`` selects how a step executes.  ``"reference"`` is the tree
+of elementwise torch ops and returns new tensors.  ``"pallas"`` and
+``"pallas_interpret"`` are both accepted, so one spec reads alike in both
+packages, and both route every leaf through the fused update kernels of
+:mod:`repro_torch.kernels.ops`: on a CUDA tensor the CUDA kernel, on a CPU
+tensor its plain version.  The route follows the device only; there is no
+off-device degradation and no switch that runs the plain version on the
+card.  The fused route updates params, moments, count and buffer IN PLACE
+(the JAX step donates them) and returns the same tensors.
+
+Not ported yet, and raising ``NotImplementedError``: the pooled impls
+(``"pallas_pooled*"``, ``optim/pool.py``) and heavy-ball momentum on a
+fused impl (its kernels, ``sgd_momentum_*_pallas``); ROADMAP.md lists both.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from ..kernels import ops
+from ..kernels.async_update import (adam_bias_corrections, adam_scalars,
+                                    sgd_scalars)
+from ..tree import tree_leaves, tree_map
+
+F32 = torch.float32
+
+UPDATE_IMPLS = ("reference", "pallas", "pallas_interpret",
+                "pallas_pooled", "pallas_pooled_interpret")
+_FUSED = ("pallas", "pallas_interpret")
+
+
+def resolve_update_impl(impl: str) -> str:
+    """Validate ``impl``; the port runs what is asked for or raises."""
+    if impl not in UPDATE_IMPLS:
+        raise ValueError(
+            f"unknown update_impl {impl!r}; want one of {UPDATE_IMPLS}")
+    if impl.startswith("pallas_pooled"):
+        raise NotImplementedError(
+            f"update_impl={impl!r} (per-dtype pool buffers, optim/pool.py) "
+            "is not ported yet (ROADMAP.md queue 1, item 4)")
+    return impl
+
+
+@dataclasses.dataclass(frozen=True)
+class OptConfig:
+    name: str = "adam"            # adam | sgd
+    lr: float = 3e-4
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+    momentum: float = 0.0         # sgd only
+    clip_norm: Optional[float] = 1.0   # Assumption 4 enforcement
+    update_impl: str = "reference"     # reference | pallas | pallas_interpret
+
+
+def global_norm(tree) -> torch.Tensor:
+    """√Σ‖leaf‖², accumulated in f32 on the leaves' device."""
+    leaves = tree_leaves(tree)
+    norms = torch.stack([torch.linalg.vector_norm(l, dtype=F32)
+                         for l in leaves])
+    return torch.linalg.vector_norm(norms)
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    norm = global_norm(tree)
+    scale = clip_scale_from_norm(norm, max_norm)
+    return tree_map(lambda g: (g.to(F32) * scale).to(g.dtype), tree), norm
+
+
+def clip_scale_from_norm(norm, max_norm: Optional[float]) -> torch.Tensor:
+    """The global-norm clip factor from an already-computed norm, with the
+    JAX package's epsilon (reference and fused routes must agree on it)."""
+    if not max_norm:
+        return torch.ones((), dtype=F32, device=norm.device)
+    return torch.clamp(max_norm / (norm + 1e-12), max=1.0).to(F32)
+
+
+def clip_scale_by_global_norm(tree, max_norm: Optional[float]):
+    """(scale, norm) without materialising the scaled tree: the fused route
+    folds ``scale`` into the kernels' scalars."""
+    norm = global_norm(tree)
+    return clip_scale_from_norm(norm, max_norm), norm
+
+
+def adam_init(params):
+    device = tree_leaves(params)[0].device
+    zeros = lambda p: torch.zeros(p.shape, dtype=F32, device=p.device)
+    return {
+        "m": tree_map(zeros, params),
+        "v": tree_map(zeros, params),
+        "count": torch.zeros((), dtype=torch.int32, device=device),
+    }
+
+
+def _unzip(out, n: int):
+    """tree-of-n-tuples → n-tuple-of-trees."""
+    return tuple(tree_map(lambda t, i=i: t[i], out) for i in range(n))
+
+
+def adam_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0):
+    if cfg.clip_norm:
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    else:
+        gnorm = global_norm(grads)
+    count = opt_state["count"] + 1
+    b1, b2 = cfg.beta1, cfg.beta2
+    c = count.to(F32)
+    bc1 = 1.0 - torch.pow(b1, c)
+    bc2 = 1.0 - torch.pow(b2, c)
+
+    def upd(p, g, m, v):
+        g32 = g.to(F32)
+        m = b1 * m + (1 - b1) * g32
+        v = b2 * v + (1 - b2) * g32 * g32
+        step = (m / bc1) / (torch.sqrt(v / bc2) + cfg.eps)
+        if cfg.weight_decay:
+            step = step + cfg.weight_decay * p.to(F32)
+        # cast the STEP, not the params, as the JAX reference does
+        newp = p - (cfg.lr * lr_scale * step).to(p.dtype)
+        return newp, m, v
+
+    out = tree_map(upd, params, grads, opt_state["m"], opt_state["v"])
+    newp, m, v = _unzip(out, 3)
+    return newp, {"m": m, "v": v, "count": count}, gnorm
+
+
+def sgd_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0):
+    if cfg.clip_norm:
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    else:
+        gnorm = global_norm(grads)
+    if cfg.momentum:
+        m = tree_map(lambda mo, g: cfg.momentum * mo + g.to(F32),
+                     opt_state["m"], grads)
+        step_tree = m
+    else:
+        m = opt_state["m"]
+        step_tree = grads
+    newp = tree_map(
+        lambda p, s: p - (cfg.lr * lr_scale * s.to(F32)).to(p.dtype),
+        params, step_tree)
+    count = opt_state["count"] + 1
+    return newp, {"m": m, "v": opt_state["v"], "count": count}, gnorm
+
+
+# --------------------------------------------------------------------------
+# fused execution of the same updates (in place)
+# --------------------------------------------------------------------------
+def _tick(opt_state):
+    """count += 1 in place on the device (no host read), as JAX increments
+    it before use on every round, the gated round 0 included."""
+    count = opt_state["count"]
+    count.add_(1)
+    return count
+
+
+def _adam_scal(cfg, clip_scale, count, lr_scale):
+    bc1, bc2 = adam_bias_corrections(cfg.beta1, cfg.beta2, count)
+    return adam_scalars(cfg.lr * lr_scale, bc1, bc2, clip_scale,
+                        cfg.weight_decay, count.device)
+
+
+def _leaf_map(fn, *trees):
+    """``fn`` over matching leaves, for its side effects (in-place kernels)."""
+    for leaves in zip(*(tree_leaves(t) for t in trees)):
+        fn(*leaves)
+
+
+def fused_adam_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0):
+    """``adam_update`` semantics, one ``fused_adam`` launch per leaf: the
+    clip factor, bias corrections and weight decay ride the scalar block."""
+    clip_scale, gnorm = clip_scale_by_global_norm(grads, cfg.clip_norm)
+    scal = _adam_scal(cfg, clip_scale, _tick(opt_state), lr_scale)
+    kw = dict(beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps)
+    _leaf_map(lambda p, g, m, v: ops.fused_adam(p, m, v, g, scal, **kw),
+              params, grads, opt_state["m"], opt_state["v"])
+    return params, opt_state, gnorm
+
+
+def fused_sgd_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0):
+    """SGD through the swap-free ``sgd_step`` kernel, one launch per leaf."""
+    clip_scale, gnorm = clip_scale_by_global_norm(grads, cfg.clip_norm)
+    count = _tick(opt_state)
+    scal = sgd_scalars(cfg.lr, clip_scale, lr_scale, count.device)
+    _leaf_map(lambda p, g: ops.sgd_step(p, g, scal), params, grads)
+    return params, opt_state, gnorm
+
+
+# --------------------------------------------------------------------------
+# delayed-buffer apply: the AsGrad server update (eq. 2) as ONE operation
+# --------------------------------------------------------------------------
+def reference_delayed_apply(grads, gbuf, opt_state, params, cfg: OptConfig,
+                            lr_scale=1.0):
+    """Apply the STALE buffer, store the fresh grads.
+
+    Returns (new_params, new_gbuf, new_opt_state, gnorm) where ``gnorm`` is
+    the pre-clip norm of the APPLIED (stale) gradient."""
+    update = adam_update if cfg.name == "adam" else sgd_update
+    newp, new_opt, gnorm = update(gbuf, opt_state, params, cfg,
+                                  lr_scale=lr_scale)
+    return newp, grads, new_opt, gnorm
+
+
+def fused_delayed_apply(grads, gbuf, opt_state, params, cfg: OptConfig,
+                        lr_scale=1.0):
+    """Per leaf, ONE kernel consumes the stale buffer, steps the params
+    (and moments for Adam) and writes the fresh gradient into the buffer,
+    all in place."""
+    clip_scale, gnorm = clip_scale_by_global_norm(gbuf, cfg.clip_norm)
+    count = _tick(opt_state)
+    if cfg.name == "adam":
+        scal = _adam_scal(cfg, clip_scale, count, lr_scale)
+        kw = dict(beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps)
+        _leaf_map(lambda p, gb, g, m, v: ops.fused_adam_delayed(
+            p, m, v, gb, g, scal, **kw),
+            params, gbuf, grads, opt_state["m"], opt_state["v"])
+    else:
+        scal = sgd_scalars(cfg.lr, clip_scale, lr_scale, count.device)
+        _leaf_map(lambda p, gb, g: ops.async_update(p, gb, g, scal),
+                  params, gbuf, grads)
+    return params, gbuf, opt_state, gnorm
+
+
+def _resolve(cfg: OptConfig) -> str:
+    impl = resolve_update_impl(cfg.update_impl)
+    if cfg.name not in ("adam", "sgd"):
+        raise ValueError(cfg.name)
+    if impl in _FUSED and cfg.momentum:
+        raise NotImplementedError(
+            f"momentum={cfg.momentum} with update_impl={impl!r} needs the "
+            "fused heavy-ball kernels (sgd_momentum_*_pallas), which are not "
+            "ported yet (ROADMAP.md queue 2, items 5-6); use "
+            "update_impl='reference'")
+    return impl
+
+
+def make_optimizer(cfg: OptConfig):
+    """(init_fn, update_fn) for ``cfg``, routed through ``cfg.update_impl``:
+    ``update(grads, opt_state, params, cfg, lr_scale) → (p', state', gnorm)``."""
+    impl = _resolve(cfg)
+    if impl == "reference":
+        return adam_init, adam_update if cfg.name == "adam" else sgd_update
+    return adam_init, (fused_adam_update if cfg.name == "adam"
+                       else fused_sgd_update)
+
+
+def make_delayed_apply(cfg: OptConfig):
+    """The delayed-buffer server update as one callable:
+
+        apply(grads, gbuf, opt_state, params, cfg, lr_scale)
+            → (new_params, new_gbuf, new_opt_state, gnorm)"""
+    impl = _resolve(cfg)
+    if impl == "reference":
+        return reference_delayed_apply
+    return fused_delayed_apply

@@ -1,0 +1,9 @@
+"""Schedule → plan → rounds on the device (see ``plan`` and ``executor``)."""
+from .plan import RunPlan, compile_plan, round_keys
+from .executor import (METRICS, METRIC_MODES, ExecResult, ExecStats,
+                       PlanExecutor, execute, make_batch_fn, run_eager,
+                       run_scan)
+
+__all__ = ["RunPlan", "compile_plan", "round_keys", "METRICS",
+           "METRIC_MODES", "ExecResult", "ExecStats", "PlanExecutor",
+           "execute", "make_batch_fn", "run_eager", "run_scan"]

@@ -1,21 +1,24 @@
-"""The port's CUDA kernel on the card, held to its plain version.
+"""The port's CUDA kernels on the card, held to their plain versions.
 
 Every test here is marked ``cuda`` and skips on a host without a card: the
-kernel is CUDA C++ for ``sm_90a`` and has no CPU mode (the CPU tests hold
-the plain version to the Pallas kernel instead).  The file imports neither
+kernels are CUDA C++ for ``sm_90a`` and have no CPU mode (the CPU tests hold
+the plain versions to the Pallas kernels instead).  The file imports neither
 JAX nor the JAX package, so it runs where only the port is installed:
 
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerances are those of the kernel suite, ``test_kernels.py``: f32 2e-4,
-bf16 3e-2.
+Tolerances are those of the kernel suite, ``test_kernels.py``: flash and
+the SGD updates f32 2e-4, the Adam updates f32 rtol 1e-5 / atol 1e-6, bf16
+3e-2; the update kernels' buffer swap is bitwise.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
+from repro_torch.api import ExperimentSpec, TrainJob, run  # noqa: E402
 from repro_torch.configs import get_arch                   # noqa: E402
+from repro_torch.kernels import async_update as AU         # noqa: E402
 from repro_torch.kernels import flash_attention as FA      # noqa: E402
 from repro_torch.kernels import ops                        # noqa: E402
 from repro_torch.models import init_params, prefill        # noqa: E402
@@ -110,3 +113,114 @@ def test_prefill_launches_once_per_layer_and_matches_plain(cuda_device):
     want, want_cache = prefill(cfg, params, {"tokens": tokens}, ctx_len=100)
     _close(got, want, torch.bfloat16)
     torch.testing.assert_close(cache["positions"], want_cache["positions"])
+
+
+@pytest.mark.cuda
+def test_flash_cuda_route_raises_under_grad(cuda_device):
+    """The kernel has no backward: an input that requires grad raises
+    instead of losing its gradient; under no_grad it launches."""
+    q, k, v = _qkv(cuda_device, 1, 64, 64, 2, 2, 64, torch.bfloat16)
+    q.requires_grad_(True)
+    before = FA.launches
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.flash_attention(q, k, v)
+    assert FA.launches == before
+    with torch.no_grad():
+        ops.flash_attention(q, k, v)
+    assert FA.launches == before + 1
+
+
+def _update_operands(device, n, dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt: torch.from_numpy(a.astype(np.float32)).to(device=device,
+                                                                 dtype=dt)
+    return {"p": t(rng.standard_normal(n), dtype),
+            "m": t(rng.standard_normal(n) * 0.1, torch.float32),
+            "v": t(rng.uniform(size=n) * 0.01, torch.float32),
+            "gb": t(rng.standard_normal(n), dtype),
+            "g": t(rng.standard_normal(n), dtype)}
+
+
+def _operands(name, t):
+    return {"async_update": ("p", "gb", "g"), "sgd_step": ("p", "g"),
+            "fused_adam": ("p", "m", "v", "g"),
+            "fused_adam_delayed": ("p", "m", "v", "gb", "g")}[name]
+
+
+def _scalars(name, device):
+    if "adam" in name:
+        c = torch.tensor(5, dtype=torch.int32, device=device)
+        bc1, bc2 = AU.adam_bias_corrections(0.9, 0.95, c)
+        return AU.adam_scalars(1e-3, bc1, bc2, 0.5, 0.01, device)
+    return AU.sgd_scalars(0.02, 0.5, 0.25, device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", AU.KERNELS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [1, 127, 128 * 256 + 37, 1_000_003])
+def test_update_kernel_matches_plain_in_place(cuda_device, name, dtype, n):
+    base = _update_operands(cuda_device, n, dtype)
+    scal = _scalars(name, cuda_device)
+    keys = _operands(name, base)
+    got = {k: v.clone() for k, v in base.items()}
+    want = {k: v.clone() for k, v in base.items()}
+    ptrs = {k: got[k].data_ptr() for k in keys}
+    before = AU.launches[name]
+    out = getattr(AU, f"{name}_cuda")(*(got[k] for k in keys), scal)
+    torch.cuda.synchronize()
+    assert AU.launches[name] == before + 1
+    getattr(AU, f"{name}_plain")(*(want[k] for k in keys), scal)
+    outs = out if isinstance(out, tuple) else (out,)
+    assert all(o.data_ptr() in ptrs.values() for o in outs)   # in place
+    tol = ({torch.float32: dict(rtol=1e-5, atol=1e-6)} if "adam" in name
+           else {torch.float32: dict(rtol=2e-4, atol=2e-4)})
+    tol[torch.bfloat16] = dict(rtol=3e-2, atol=3e-2)
+    for k in ("p", "m", "v") if "adam" in name else ("p",):
+        np.testing.assert_allclose(got[k].float().cpu().numpy(),
+                                   want[k].float().cpu().numpy(), **tol[dtype])
+    assert got["p"].dtype == dtype
+    if "gb" in keys:
+        assert torch.equal(got["gb"], base["g"])
+
+
+@pytest.mark.cuda
+def test_update_kernels_refuse_what_they_do_not_take(cuda_device):
+    t = _update_operands(cuda_device, 64, torch.bfloat16)
+    scal = _scalars("fused_adam", cuda_device)
+    before = dict(AU.launches)
+    with pytest.raises(TypeError, match="moments"):
+        AU.fused_adam_cuda(t["p"], t["m"].bfloat16(), t["v"], t["g"], scal)
+    with pytest.raises(ValueError, match="size"):
+        AU.fused_adam_cuda(t["p"], t["m"][:10], t["v"], t["g"], scal)
+    with pytest.raises(ValueError, match="contiguous"):
+        AU.sgd_step_cuda(t["p"].view(8, 8).t(), t["g"].view(8, 8),
+                         _scalars("sgd_step", cuda_device))
+    with pytest.raises(ValueError, match="one CUDA device"):
+        AU.sgd_step_cuda(t["p"], t["g"].cpu(), _scalars("sgd_step",
+                                                        cuda_device))
+    with pytest.raises(TypeError, match="scalars"):
+        AU.fused_adam_cuda(t["p"], t["m"], t["v"], t["g"], scal[:1])
+    assert AU.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("opt,delay,name", [
+    ("adam", 1, "fused_adam_delayed"), ("adam", 0, "fused_adam"),
+    ("sgd", 1, "async_update"), ("sgd", 0, "sgd_step")])
+def test_train_run_launches_its_update_kernel(cuda_device, opt, delay, name):
+    """run(TrainJob) at reduced size: rounds × leaves launches of the one
+    kernel its (opt, delay_rounds) reaches, and finite curves."""
+    T = 3
+    spec = ExperimentSpec(
+        objective=TrainJob(global_batch=4, seq_len=32, opt=opt,
+                           delay_rounds=delay, update_impl="pallas"),
+        n_workers=2, T=T, stepsize=1e-3, rounds_per_launch=2)
+    AU.reset_launches()
+    res = run(spec, device="cuda")
+    n_leaves = 14
+    want = dict.fromkeys(AU.KERNELS, 0)
+    want[name] = T * n_leaves
+    assert AU.launches == want
+    assert res.extra["update_launches"] == want
+    assert np.isfinite(res.losses).all() and np.isfinite(res.grad_norms).all()

@@ -40,7 +40,9 @@ def test_port_sources_import_no_jax_or_repro():
 def test_port_imports_with_jax_blocked():
     code = ("import sys; sys.modules['jax'] = None; sys.modules['repro'] = None\n"
             "import repro_torch.api, repro_torch.models, repro_torch.kernels.ops\n"
-            "import repro_torch.distributed\n"
+            "import repro_torch.distributed, repro_torch.distributed.async_trainer\n"
+            "import repro_torch.core, repro_torch.data, repro_torch.optim\n"
+            "import repro_torch.runtime, repro_torch.launch.profile_train\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m] is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

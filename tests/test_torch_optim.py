@@ -1,0 +1,152 @@
+"""`repro_torch.optim` against `repro.optim`, step by step.
+
+Each port impl is paired with its JAX twin on the same numpy trees
+(odd flat sizes, a 2-D leaf and a scalar leaf, as in
+``tests/test_optim_fused.py``): ``"reference"`` with ``"reference"`` and the
+port's fused route (the plain versions of the update kernels on the CPU)
+with JAX's ``"pallas_interpret"``.  Tolerances are those of
+``tests/test_optim_fused.py:69-83``: f32 params rtol 1e-5 / atol 5e-7,
+f32 moments rtol 1e-5 / atol 1e-8; bf16 params 3e-2, bf16-driven moments
+rtol 5e-2 / atol 5e-5; step counts bitwise.  The global norm is a
+reduction in another order than XLA's, so it is held to rtol 1e-6.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax                                                     # noqa: E402
+import jax.numpy as jnp                                        # noqa: E402
+
+from repro import optim as JO                                  # noqa: E402
+from repro_torch import optim as TO                            # noqa: E402
+from torch_parity import f32, pair                             # noqa: E402
+
+DTYPES = ["float32", "bfloat16"]
+PAIR_IMPL = {"reference": "reference", "pallas": "pallas_interpret"}
+
+
+def _tree(dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    shapes = {"w": (33, 7), "b": (5,), "scalar": (), "big": (1000,)}
+    out = {k: pair(np.asarray(rng.standard_normal(s), np.float32), dtype)
+           for k, s in shapes.items()}
+    return ({k: v[0] for k, v in out.items()},
+            {k: v[1] for k, v in out.items()})
+
+
+def _assert_params(tp, jp, dtype):
+    tol = dict(rtol=1e-5, atol=5e-7) if dtype == "float32" else \
+        dict(rtol=3e-2, atol=3e-2)
+    for k in jp:
+        np.testing.assert_allclose(f32(tp[k]), f32(jp[k]), err_msg=k, **tol)
+
+
+def _assert_opt(ts, js, dtype):
+    np.testing.assert_array_equal(ts["count"].numpy(), np.asarray(js["count"]))
+    tol = dict(rtol=1e-5, atol=1e-8) if dtype == "float32" else \
+        dict(rtol=5e-2, atol=5e-5)
+    for key in ("m", "v"):
+        for k in js[key]:
+            np.testing.assert_allclose(f32(ts[key][k]), f32(js[key][k]),
+                                       err_msg=f"{key}/{k}", **tol)
+
+
+def _cfgs(name, impl, **kw):
+    return (TO.OptConfig(name=name, lr=1e-2, update_impl=impl, **kw),
+            JO.OptConfig(name=name, lr=1e-2, update_impl=PAIR_IMPL[impl],
+                         **kw))
+
+
+@pytest.mark.parametrize("impl", ["reference", "pallas"])
+@pytest.mark.parametrize("name", ["adam", "sgd"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_update_matches_jax_multistep(impl, name, dtype):
+    tcfg, jcfg = _cfgs(name, impl, clip_norm=1.0, weight_decay=0.01)
+    t_init, t_upd = TO.make_optimizer(tcfg)
+    j_init, j_upd = JO.make_optimizer(jcfg)
+    j_upd = jax.jit(j_upd, static_argnums=3)
+    jp, tp = _tree(dtype)
+    js, ts = j_init(jp), t_init(tp)
+    for step in range(4):
+        jg, tg = _tree(dtype, seed=10 + step)
+        scale = 0.5 if step % 2 else 1.0
+        jp, js, jn = j_upd(jg, js, jp, jcfg, lr_scale=scale)
+        tp, ts, tn = t_upd(tg, ts, tp, tcfg,
+                           lr_scale=torch.tensor(scale) if step == 3 else scale)
+        np.testing.assert_allclose(tn.item(), float(jn), rtol=1e-6)
+    _assert_params(tp, jp, dtype)
+    _assert_opt(ts, js, dtype)
+
+
+@pytest.mark.parametrize("impl", ["reference", "pallas"])
+@pytest.mark.parametrize("name", ["adam", "sgd"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_delayed_apply_matches_jax(impl, name, dtype):
+    """Gated first round (lr_scale 0), then delay scales 1 and 1/2: the
+    stale buffer drives the step, the fresh grads land in the buffer."""
+    tcfg, jcfg = _cfgs(name, impl, clip_norm=1.0)
+    t_apply = TO.make_delayed_apply(tcfg)
+    j_apply = jax.jit(JO.make_delayed_apply(jcfg), static_argnums=4)
+    jp, tp = _tree(dtype)
+    js, ts = JO.adam_init(jp), TO.adam_init(tp)
+    jb = jax.tree_util.tree_map(jnp.zeros_like, jp)
+    tb = {k: torch.zeros_like(v) for k, v in tp.items()}
+    for step, scale in enumerate((0.0, 1.0, 0.5, 1.0)):
+        jg, tg = _tree(dtype, seed=20 + step)
+        jp, jb, js, jn = j_apply(jg, jb, js, jp, jcfg, lr_scale=scale)
+        tp, tb, ts, tn = t_apply(tg, tb, ts, tp, tcfg, lr_scale=scale)
+        np.testing.assert_allclose(tn.item(), float(jn), rtol=1e-6)
+        for k in jb:
+            np.testing.assert_array_equal(f32(tb[k]), f32(jb[k]))
+    _assert_params(tp, jp, dtype)
+    _assert_opt(ts, js, dtype)
+
+
+def test_fused_route_updates_in_place():
+    tcfg, _ = _cfgs("adam", "pallas")
+    _, tp = _tree("bfloat16")
+    ts = TO.adam_init(tp)
+    tb = {k: torch.zeros_like(v) for k, v in tp.items()}
+    _, tg = _tree("bfloat16", seed=1)
+    ptrs = [t.data_ptr() for t in (*tp.values(), *tb.values(),
+                                   *ts["m"].values(), ts["count"])]
+    p2, b2, s2, _ = TO.fused_delayed_apply(tg, tb, ts, tp, tcfg, lr_scale=1.0)
+    assert p2 is tp and b2 is tb and s2 is ts
+    assert ptrs == [t.data_ptr() for t in (*p2.values(), *b2.values(),
+                                           *s2["m"].values(), s2["count"])]
+    assert int(s2["count"]) == 1
+
+
+def test_sgd_momentum_reference_matches_jax():
+    tcfg, jcfg = _cfgs("sgd", "reference", momentum=0.9, clip_norm=None)
+    jp, tp = _tree("float32")
+    js, ts = JO.adam_init(jp), TO.adam_init(tp)
+    for step in range(3):
+        jg, tg = _tree("float32", seed=30 + step)
+        jp, js, _ = JO.sgd_update(jg, js, jp, jcfg)
+        tp, ts, _ = TO.sgd_update(tg, ts, tp, tcfg)
+    _assert_params(tp, jp, "float32")
+    _assert_opt(ts, js, "float32")
+
+
+def test_clip_scale_epsilon_matches_jax():
+    for norm in (0.0, 1e-13, 0.5, 3.0):
+        got = TO.clip_scale_from_norm(torch.tensor(norm), 1.0)
+        want = JO.clip_scale_from_norm(jnp.float32(norm), 1.0)
+        assert got.dtype == torch.float32
+        np.testing.assert_allclose(got.item(), float(want), rtol=1e-7)
+    assert TO.clip_scale_from_norm(torch.tensor(5.0), None).item() == 1.0
+
+
+def test_update_impl_resolution():
+    assert TO.resolve_update_impl("pallas") == "pallas"
+    assert TO.resolve_update_impl("pallas_interpret") == "pallas_interpret"
+    with pytest.raises(ValueError, match="update_impl"):
+        TO.resolve_update_impl("cuda")
+    for impl in ("pallas_pooled", "pallas_pooled_interpret"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TO.make_optimizer(TO.OptConfig(update_impl=impl))
+    for make in (TO.make_optimizer, TO.make_delayed_apply):
+        with pytest.raises(NotImplementedError, match="momentum"):
+            make(TO.OptConfig(name="sgd", momentum=0.9, update_impl="pallas"))
