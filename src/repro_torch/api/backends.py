@@ -27,6 +27,7 @@ from ..core.trace import summarize
 from ..device import resolve_device, synchronize
 from ..kernels import async_update as update_kernels
 from ..kernels import flash_attention as flash_kernel
+from ..kernels import ssd_chunk as ssd_kernel
 from .result import RunResult
 from .spec import ExperimentSpec, ServeJob, StepsizePolicy, TrainJob
 
@@ -193,8 +194,9 @@ class ServeBackend:
 
     ``RunResult.x`` is the (batch, T) int32 token matrix; ``extra`` holds
     ``prompts``, ``arch``, ``prefill_seconds``, ``decode_seconds``,
-    ``tok_per_s``, ``logits_finite`` and ``flash_launches`` (the flash
-    kernel's launch counter read before and after the run)."""
+    ``tok_per_s``, ``logits_finite``, ``flash_launches`` and
+    ``ssd_launches`` (the flash and SSD kernels' launch counters read
+    before and after the run)."""
 
     name = "serve"
 
@@ -210,7 +212,7 @@ class ServeBackend:
             raise TypeError("ServeBackend needs a ServeJob objective")
         device = resolve_device(self.device)
         t0 = time.time()
-        launches0 = flash_kernel.launches
+        launches0 = flash_kernel.launches, ssd_kernel.launches
         cfg = job.make_arch()
         params = init_params(cfg, spec.seed, device)
         ctx = job.prompt_len + spec.T
@@ -242,7 +244,8 @@ class ServeBackend:
                    "decode_seconds": dt,
                    "tok_per_s": job.batch * (spec.T - 1) / max(dt, 1e-9),
                    "logits_finite": finite,
-                   "flash_launches": flash_kernel.launches - launches0})
+                   "flash_launches": flash_kernel.launches - launches0[0],
+                   "ssd_launches": ssd_kernel.launches - launches0[1]})
 
 
 def run(spec: ExperimentSpec, backend: Optional[Backend] = None,

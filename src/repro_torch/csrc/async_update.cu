@@ -1,28 +1,34 @@
 // Fused AsGrad server-update kernels for Hopper (sm_90a): the paper's eq. 2
 // x_{t+1} = x_t - gamma * g(x_{pi_t}) as one elementwise pass per leaf.
 //
-// Replaces four TPU kernels of src/repro/kernels/async_update.py:
-//   async_update_kernel       <- async_update_pallas       (_async_update_kernel)
-//   sgd_step_kernel           <- sgd_step_pallas           (_sgd_step_kernel)
-//   adam_kernel<DELAYED = 0>  <- fused_adam_pallas         (_fused_adam_kernel)
-//   adam_kernel<DELAYED = 1>  <- fused_adam_delayed_pallas (_fused_adam_delayed_kernel)
+// Replaces the six TPU kernels of src/repro/kernels/async_update.py:
+//   async_update_kernel           <- async_update_pallas         (_async_update_kernel)
+//   sgd_step_kernel               <- sgd_step_pallas             (_sgd_step_kernel)
+//   momentum_kernel<DELAYED = 0>  <- sgd_momentum_step_pallas    (_sgd_momentum_kernel)
+//   momentum_kernel<DELAYED = 1>  <- sgd_momentum_delayed_pallas (_sgd_momentum_delayed_kernel)
+//   adam_kernel<DELAYED = 0>      <- fused_adam_pallas           (_fused_adam_kernel)
+//   adam_kernel<DELAYED = 1>      <- fused_adam_delayed_pallas   (_fused_adam_delayed_kernel)
 // Each computes what the Pallas body computes, element by element, in f32,
 // and writes back in the operand's dtype:
-//   async_update:       p' = p - eff * gbuf;                 gbuf' = g
-//   sgd_step:           p' = p - eff * g
-//   fused_adam:         s = clip * g;    m' = b1 m + (1 - b1) s;
-//                       v' = b2 v + (1 - b2) s s;
-//                       p' = p - lr ((m'/bc1) / (sqrt(v'/bc2) + eps) + wd p)
-//   fused_adam_delayed: fused_adam on s = clip * gbuf;        gbuf' = g
+//   async_update:         p' = p - eff * gbuf;                 gbuf' = g
+//   sgd_step:             p' = p - eff * g
+//   sgd_momentum_step:    m' = mu m + clip * g;   p' = p - lr_eff * m'
+//   sgd_momentum_delayed: sgd_momentum_step on gbuf;           gbuf' = g
+//   fused_adam:           s = clip * g;    m' = b1 m + (1 - b1) s;
+//                         v' = b2 v + (1 - b2) s s;
+//                         p' = p - lr ((m'/bc1) / (sqrt(v'/bc2) + eps) + wd p)
+//   fused_adam_delayed:   fused_adam on s = clip * gbuf;        gbuf' = g
 //
 // Bound on an H100 SXM (3.35 TB/s): about 20 f32 operations per element
 // against 6 to 26 bytes moved, so memory bounds every kernel.  Per element
 // read + written (bf16 p / gbuf / g, f32 m / v), and for one round over the
 // 494,032,768 elements of qwen2-0.5b's 14 leaves:
-//   fused_adam_delayed  14 + 12 = 26 B   12.85 GB   3.83 ms
-//   fused_adam          12 + 10 = 22 B   10.87 GB   3.24 ms
-//   async_update         6 +  4 = 10 B    4.94 GB   1.47 ms
-//   sgd_step             4 +  2 =  6 B    2.96 GB   0.88 ms
+//   fused_adam_delayed    14 + 12 = 26 B   12.85 GB   3.83 ms
+//   fused_adam            12 + 10 = 22 B   10.87 GB   3.24 ms
+//   sgd_momentum_delayed  10 +  8 = 18 B    8.89 GB   2.65 ms
+//   sgd_momentum_step      8 +  6 = 14 B    6.92 GB   2.06 ms
+//   async_update           6 +  4 = 10 B    4.94 GB   1.47 ms
+//   sgd_step               4 +  2 =  6 B    2.96 GB   0.88 ms
 //
 // Design, for that bound:
 // * one pass over the flat leaf, a grid-stride loop of 256-thread blocks;
@@ -33,7 +39,8 @@
 // * in place: p, m, v and gbuf are updated where they lie (the JAX step
 //   donates them).  A thread reads its stale gbuf values into registers
 //   before it writes g over them; gbuf' = g is a copy of the bits;
-// * the scalars [lr, bc1, bc2, clip, wd] (Adam) or [eff] (SGD) are read by
+// * the scalars [lr, bc1, bc2, clip, wd] (Adam), [lr_eff, clip] (heavy
+//   ball) or [eff] (SGD) are read by
 //   pointer from a small f32 device tensor, as the TPU kernels read them
 //   from an SMEM block: the clip scale, the bias corrections and the gate
 //   are device values, and nothing here makes the host wait for them;
@@ -167,6 +174,49 @@ sgd_step_kernel(P* __restrict__ p, const G* __restrict__ g,
 }
 
 // DELAYED: the step consumes the stale gbuf and g is written over it;
+// otherwise the step consumes g and gbuf is unused (may be null).
+// scal = [lr_eff, clip] with lr_eff = lr * delay_scale; mu is the momentum.
+template <typename P, typename G, bool ALIGNED, bool DELAYED>
+__global__ void __launch_bounds__(THREADS)
+momentum_kernel(P* __restrict__ p, float* __restrict__ m, G* __restrict__ gbuf,
+                const G* __restrict__ g, const float* __restrict__ scal, long long n,
+                float mu) {
+  const float lr_eff = scal[0], clip = scal[1];
+  const long long nvec = ALIGNED ? n / VEC : 0;
+  for (long long j = thread_id(); j < nvec; j += n_threads()) {
+    const long long i = j * VEC;
+    float pv[VEC], mv[VEC], gv[VEC];
+    load_vec(p + i, pv);
+    load_vec(m + i, mv);
+    if constexpr (DELAYED) {
+      load_vec(gbuf + i, gv);
+      copy_vec(gbuf + i, g + i);
+    } else {
+      load_vec(g + i, gv);
+    }
+#pragma unroll
+    for (int k = 0; k < VEC; ++k) {
+      mv[k] = mu * mv[k] + clip * gv[k];
+      pv[k] = pv[k] - lr_eff * mv[k];
+    }
+    store_vec(p + i, pv);
+    store_vec(m + i, mv);
+  }
+  for (long long i = nvec * VEC + thread_id(); i < n; i += n_threads()) {
+    float graw;
+    if constexpr (DELAYED) {
+      graw = to_f32(gbuf[i]);
+      gbuf[i] = g[i];
+    } else {
+      graw = to_f32(g[i]);
+    }
+    const float mi = mu * m[i] + clip * graw;
+    m[i] = mi;
+    p[i] = from_f32<P>(to_f32(p[i]) - lr_eff * mi);
+  }
+}
+
+// DELAYED: the step consumes the stale gbuf and g is written over it;
 // otherwise the step consumes g and gbuf is unused (may be null)
 template <typename P, typename G, bool ALIGNED, bool DELAYED>
 __global__ void __launch_bounds__(THREADS)
@@ -255,13 +305,34 @@ int adam_launch(void* p, float* m, float* v, void* gbuf, const void* g,
   });
 }
 
+template <bool DELAYED>
+int momentum_launch(void* p, float* m, void* gbuf, const void* g, const float* scal,
+                    long long n, int p_dtype, int g_dtype, float mu, void* stream) {
+  if (n <= 0) return (int)cudaErrorInvalidValue;
+  const bool al = aligned16({p, m, gbuf, g});
+  const int blocks = n_blocks(n, al);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return (int)by_dtype(p_dtype, g_dtype, [&](auto P0, auto G0) {
+    using P = decltype(P0);
+    using G = decltype(G0);
+    if (al)
+      momentum_kernel<P, G, true, DELAYED><<<blocks, THREADS, 0, st>>>(
+          (P*)p, m, (G*)gbuf, (const G*)g, scal, n, mu);
+    else
+      momentum_kernel<P, G, false, DELAYED><<<blocks, THREADS, 0, st>>>(
+          (P*)p, m, (G*)gbuf, (const G*)g, scal, n, mu);
+    return cudaGetLastError();
+  });
+}
+
 }  // namespace
 
 // Every entry point updates its operands in place over n > 0 contiguous
 // elements and returns the launch's cudaError_t (0 = launched).
 // p_dtype / g_dtype: 0 = float32, 1 = bfloat16 (gbuf has g's dtype; m, v
-// are float32).  scal: device float32, [eff] for the SGD kernels and
-// [lr, bc1, bc2, clip, wd] for the Adam kernels.  stream: a cudaStream_t.
+// are float32).  scal: device float32, [eff] for the SGD kernels,
+// [lr_eff, clip] for the heavy-ball kernels and [lr, bc1, bc2, clip, wd]
+// for the Adam kernels.  stream: a cudaStream_t.
 
 extern "C" int async_update(void* p, void* gbuf, const void* g, const float* scal,
                             long long n, int p_dtype, int g_dtype, void* stream) {
@@ -297,6 +368,18 @@ extern "C" int sgd_step(void* p, const void* g, const float* scal, long long n,
       sgd_step_kernel<P, G, false><<<blocks, THREADS, 0, st>>>((P*)p, (const G*)g, scal, n);
     return cudaGetLastError();
   });
+}
+
+extern "C" int sgd_momentum_step(void* p, float* m, const void* g, const float* scal,
+                                 long long n, int p_dtype, int g_dtype, float mu,
+                                 void* stream) {
+  return momentum_launch<false>(p, m, nullptr, g, scal, n, p_dtype, g_dtype, mu, stream);
+}
+
+extern "C" int sgd_momentum_delayed(void* p, float* m, void* gbuf, const void* g,
+                                    const float* scal, long long n, int p_dtype,
+                                    int g_dtype, float mu, void* stream) {
+  return momentum_launch<true>(p, m, gbuf, g, scal, n, p_dtype, g_dtype, mu, stream);
 }
 
 extern "C" int fused_adam(void* p, float* m, float* v, const void* g, const float* scal,

@@ -1,8 +1,11 @@
-"""Batched lock-step serving: a decode loop over a ring KV cache.
+"""Batched lock-step serving: a decode loop over the model's cache.
 
 Counterpart of ``repro/distributed/serve.py`` on one device.  PyTorch runs
 eagerly, so there is no compiled step to cache and no mesh; the cache the
-JAX package donates to each step is updated in place here.
+JAX package donates to each step is updated in place here.  The cache is
+whatever ``models.init_cache`` / ``prefill`` make for the family: ring k/v
+caches with a positions buffer (dense) or conv and SSD states with none
+(ssm); the server reads neither.
 """
 from __future__ import annotations
 

@@ -1,27 +1,31 @@
 """Fused server-update kernels: the CUDA wrappers and their plain versions.
 
-Counterpart of ``repro/kernels/async_update.py`` for the four kernels that
-``run(TrainJob)`` reaches.  The kernels themselves are
+Counterpart of ``repro/kernels/async_update.py``: all six of its kernels.
+The kernels themselves are
 ``csrc/async_update.cu`` (CUDA C++ for ``sm_90a``), built at first use by
 ``kernels/_build.py`` and called through ``ctypes``.
 
-=====================  ==========================  =======================
-kernel                 computes                    replaces (TPU)
-=====================  ==========================  =======================
-``async_update``       p −= eff·gbuf; gbuf ← g     ``async_update_pallas``
-``sgd_step``           p −= eff·g                  ``sgd_step_pallas``
-``fused_adam``         Adam on clip·g              ``fused_adam_pallas``
-``fused_adam_delayed`` Adam on clip·gbuf; gbuf ← g ``fused_adam_delayed_pallas``
-=====================  ==========================  =======================
+========================  =============================  ===============================
+kernel                    computes                       replaces (TPU)
+========================  =============================  ===============================
+``async_update``          p −= eff·gbuf; gbuf ← g        ``async_update_pallas``
+``sgd_step``              p −= eff·g                     ``sgd_step_pallas``
+``sgd_momentum_step``     m′ = μm + clip·g; p −= lr·m′   ``sgd_momentum_step_pallas``
+``sgd_momentum_delayed``  the same on gbuf; gbuf ← g     ``sgd_momentum_delayed_pallas``
+``fused_adam``            Adam on clip·g                 ``fused_adam_pallas``
+``fused_adam_delayed``    Adam on clip·gbuf; gbuf ← g    ``fused_adam_delayed_pallas``
+========================  =============================  ===============================
 
 Every function here updates its operands IN PLACE (the JAX step donates
 them) and returns the same tensors: p keeps its dtype, gbuf′ takes g's
 dtype (so gbuf and g share one), m and v are f32.  The scalars arrive as a
-small f32 tensor on the operands' device, ``[eff]`` for the SGD kernels and
+small f32 tensor on the operands' device, ``[eff]`` for the SGD kernels,
+``[lr·delay_scale, clip]`` for the heavy-ball kernels and
 ``[lr, bc1, bc2, clip, wd]`` for the Adam kernels (:func:`sgd_scalars`,
-:func:`adam_scalars`), as the TPU kernels take them from an SMEM block;
-they may be device values (clip scale, bias corrections, gate), and
-nothing here reads them back to the host.
+:func:`momentum_scalars`, :func:`adam_scalars`), as the TPU kernels take
+them from an SMEM block.  They may be device values (clip scale, bias
+corrections, gate), and nothing here reads them back to the host.  The
+momentum μ, like β1, is a launch argument.
 
 * ``<name>_cuda`` launches the kernel on a CUDA tensor and adds one to
   ``launches[name]`` per launch; it raises on what the kernel does not take
@@ -40,7 +44,8 @@ import torch
 from . import _build
 
 F32 = torch.float32
-KERNELS = ("async_update", "sgd_step", "fused_adam", "fused_adam_delayed")
+KERNELS = ("async_update", "sgd_step", "sgd_momentum_step",
+           "sgd_momentum_delayed", "fused_adam", "fused_adam_delayed")
 
 #: kernel launches since the counters were last set, by kernel name; the
 #: main path's proof that the update went through the kernels
@@ -66,6 +71,12 @@ def sgd_scalars(lr, clip_scale, delay_scale, device):
     """``[eff]`` with eff = (lr·clip_scale)·delay_scale, the JAX order."""
     eff = (lr * _f32(clip_scale, device)) * _f32(delay_scale, device)
     return eff.reshape(1)
+
+
+def momentum_scalars(lr, clip_scale, delay_scale, device):
+    """``[lr·delay_scale, clip]``, as the JAX heavy-ball wrappers stack them."""
+    return torch.stack([lr * _f32(delay_scale, device),
+                        _f32(clip_scale, device)])
 
 
 def adam_bias_corrections(beta1, beta2, count):
@@ -104,6 +115,19 @@ def async_update_plain(p, gbuf, g, scal):
 def sgd_step_plain(p, g, scal):
     p.copy_(p.to(F32) - scal[0] * g.to(F32))
     return p
+
+
+def sgd_momentum_step_plain(p, m, g, scal, *, momentum):
+    lr_eff, clip = scal.unbind()
+    m.copy_(momentum * m + clip * g.to(F32))
+    p.copy_(p.to(F32) - lr_eff * m)
+    return p, m
+
+
+def sgd_momentum_delayed_plain(p, m, gbuf, g, scal, *, momentum):
+    sgd_momentum_step_plain(p, m, gbuf, scal, momentum=momentum)  # gbuf first
+    gbuf.copy_(g)
+    return p, m, gbuf
 
 
 def _adam_plain(p, m, v, graw, scal, beta1, beta2, eps):
@@ -166,12 +190,14 @@ def _check(name, *, params, moments=(), grads, scal, n_scal):
 
 @functools.cache
 def _lib():
-    """The four C entry points, built and bound on first use."""
+    """The six C entry points, built and bound on first use."""
     lib = _build.load("async_update")
     P, I, L, Fl = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     sig = {
         "async_update": [P, P, P, P, L, I, I, P],
         "sgd_step": [P, P, P, L, I, I, P],
+        "sgd_momentum_step": [P, P, P, P, L, I, I, Fl, P],
+        "sgd_momentum_delayed": [P, P, P, P, P, L, I, I, Fl, P],
         "fused_adam": [P, P, P, P, P, L, I, I] + [Fl] * 5 + [P],
         "fused_adam_delayed": [P, P, P, P, P, P, L, I, I] + [Fl] * 5 + [P],
     }
@@ -207,6 +233,23 @@ def sgd_step_cuda(p, g, scal):
     _check("sgd_step", params=p, grads=(g,), scal=scal, n_scal=1)
     _launch("sgd_step", p, g, p.data_ptr(), g.data_ptr(), scal.data_ptr())
     return p
+
+
+def sgd_momentum_step_cuda(p, m, g, scal, *, momentum):
+    _check("sgd_momentum_step", params=p, moments=(m,), grads=(g,), scal=scal,
+           n_scal=2)
+    _launch("sgd_momentum_step", p, g, p.data_ptr(), m.data_ptr(),
+            g.data_ptr(), scal.data_ptr(), coefs=(ctypes.c_float(momentum),))
+    return p, m
+
+
+def sgd_momentum_delayed_cuda(p, m, gbuf, g, scal, *, momentum):
+    _check("sgd_momentum_delayed", params=p, moments=(m,), grads=(gbuf, g),
+           scal=scal, n_scal=2)
+    _launch("sgd_momentum_delayed", p, g, p.data_ptr(), m.data_ptr(),
+            gbuf.data_ptr(), g.data_ptr(), scal.data_ptr(),
+            coefs=(ctypes.c_float(momentum),))
+    return p, m, gbuf
 
 
 def fused_adam_cuda(p, m, v, g, scal, *, beta1=0.9, beta2=0.95, eps=1e-8):

@@ -1,8 +1,9 @@
 """Plain PyTorch oracles for the port's kernels.
 
-Counterpart of ``repro/kernels/ref.py``: the attention oracle and the
-server-update oracles (eq. 2 as SGD on the stale buffer, Adam, and Adam on
-the stale buffer).  The momentum and SSD oracles arrive with their kernels.
+Counterpart of ``repro/kernels/ref.py``: the attention oracle, the
+server-update oracles (eq. 2 as SGD on the stale buffer, Adam and
+heavy-ball SGD, each also on the stale buffer) and the sequential SSD
+recurrence that the chunked SSD kernel is held to.
 
 The update oracles are functional and follow the JAX oracles op for op,
 including where they differ from the kernels: ``reference_fused_adam``
@@ -82,3 +83,40 @@ def reference_fused_adam_delayed(p, m, v, gbuf, g, *, lr, beta1, beta2, eps,
         p, m, v, gbuf, lr=lr, beta1=beta1, beta2=beta2, eps=eps,
         bc1=bc1, bc2=bc2, clip_scale=clip_scale, weight_decay=weight_decay)
     return p_new, m_new, v_new, g
+
+
+def reference_sgd_momentum(p, m, g, *, lr, momentum, clip_scale=1.0,
+                           delay_scale=1.0):
+    """Fused heavy-ball step on flat tensors; m f32.  Returns (p', m')."""
+    m_new = momentum * m + clip_scale * g.to(F32)
+    p_new = (p.to(F32) - (lr * delay_scale) * m_new).to(p.dtype)
+    return p_new, m_new
+
+
+def reference_sgd_momentum_delayed(p, m, gbuf, g, *, lr, momentum,
+                                   clip_scale=1.0, delay_scale=1.0):
+    """Delayed-buffer heavy-ball: the stale gbuf drives the step, the fresh
+    g is buffered.  Returns (p', m', gbuf')."""
+    p_new, m_new = reference_sgd_momentum(
+        p, m, gbuf, lr=lr, momentum=momentum, clip_scale=clip_scale,
+        delay_scale=delay_scale)
+    return p_new, m_new, g
+
+
+def reference_ssd_chunk(x, dt, A, B_, C_):
+    """Single-chunk SSD (sequential recurrence oracle).
+
+    x: (c, H, P); dt: (c, H); A: (H,); B_/C_: (c, N).
+    Returns (y (c,H,P) in x's dtype, h_final (H,P,N) f32) with h0 = 0.
+    """
+    c, H, P = x.shape
+    N = B_.shape[-1]
+    h = torch.zeros((H, P, N), dtype=F32, device=x.device)
+    ys = []
+    for t in range(c):
+        a = torch.exp(dt[t].to(F32) * A.to(F32))                    # (H,)
+        upd = torch.einsum("hp,n->hpn", (x[t] * dt[t][:, None]).to(F32),
+                           B_[t].to(F32))
+        h = h * a[:, None, None] + upd
+        ys.append(torch.einsum("hpn,n->hp", h, C_[t].to(F32)))
+    return torch.stack(ys).to(x.dtype), h

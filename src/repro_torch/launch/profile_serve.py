@@ -1,12 +1,15 @@
 """Where the serving path's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--no-flash] [--trace-dir DIR]
+        [--arch qwen2-0.5b|mamba2-370m] [--no-flash] [--no-ssd] \
+        [--trace-dir DIR]
 
-Runs the serving main path's configuration (qwen2-0.5b at full width, a
-batch of 4 prompts of 1024 tokens, greedy decode) with the flash kernel on,
-or with plain attention under ``--no-flash``.  It warms the lock-step path
-up (one prefill and ``STEPS`` decode steps), times
+Runs a serving main path's configuration at full width (a batch of 4
+prompts of 1024 tokens, greedy decode): qwen2-0.5b (the default) with the
+flash kernel on, or with plain attention under ``--no-flash``; or
+mamba2-370m with the SSD chunk kernel on, or with the einsum branch under
+``--no-ssd``.  It warms the lock-step path up (one prefill and ``STEPS``
+decode steps), times
 a second prefill and decode with the host clock around
 ``torch.cuda.synchronize()``, then records the same work under
 ``torch.profiler`` and prints, for prefill and for decode apart:
@@ -35,7 +38,8 @@ from ..device import resolve_device
 from ..distributed import Server, ServeConfig
 from ..models import init_params, prefill
 
-ARCH, BATCH, PROMPT_LEN, STEPS, SEED = "qwen2-0.5b", 4, 1024, 8, 0
+ARCHS = ("qwen2-0.5b", "mamba2-370m")
+BATCH, PROMPT_LEN, STEPS, SEED = 4, 1024, 8, 0
 TOP = 12                        # kernels listed per phase
 
 
@@ -55,12 +59,17 @@ def _report(name: str, prof, wall_s: float) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--no-flash", action="store_true")
+    ap.add_argument("--arch", choices=ARCHS, default=ARCHS[0])
+    ap.add_argument("--no-flash", action="store_true",
+                    help="plain attention (dense family)")
+    ap.add_argument("--no-ssd", action="store_true",
+                    help="the einsum SSD branch (ssm family)")
     ap.add_argument("--trace-dir", default=None)
     args = ap.parse_args(argv)
 
     device = resolve_device("cuda")
-    cfg = get_arch(ARCH).with_(use_flash_attention=not args.no_flash)
+    cfg = get_arch(args.arch).with_(use_flash_attention=not args.no_flash,
+                                    use_ssd_kernel=not args.no_ssd)
     params = init_params(cfg, SEED, device)
     ctx = PROMPT_LEN + STEPS + 1
     prompts = np.random.default_rng(SEED).integers(
@@ -89,8 +98,10 @@ def main(argv=None) -> None:
 
     serve()                                                 # warm-up
     pre_s, dec_s = serve()
+    kernel = (f"ssd_kernel={cfg.use_ssd_kernel}" if cfg.family == "ssm"
+              else f"flash={cfg.use_flash_attention}")
     print(f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} batch={BATCH} "
-          f"prompt={PROMPT_LEN} flash={cfg.use_flash_attention}: "
+          f"prompt={PROMPT_LEN} {kernel}: "
           f"prefill {pre_s * 1e3:.3f} ms, decode {dec_s / STEPS * 1e3:.3f}"
           f" ms/step = {BATCH * STEPS / dec_s:.1f} tok/s")
 

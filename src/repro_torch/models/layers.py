@@ -1,8 +1,9 @@
-"""Model building blocks of the dense family, plain PyTorch.
+"""Model building blocks of the dense and SSM families, plain PyTorch.
 
 Counterpart of ``repro/models/layers.py`` (norm, RoPE, GQA attention,
-one-token decode attention, SwiGLU, the token cross entropy).  Activations follow the JAX package's
-dtype rules:
+one-token decode attention, SwiGLU, Mamba2's chunked SSD scan and its
+one-token step, the depthwise causal conv, the token cross entropy).
+Activations follow the JAX package's dtype rules:
 
 * JAX promotes mixed operands (bf16 params × f32 activations → f32); torch
   refuses mixed-dtype products, so :func:`einsum` casts every operand to
@@ -19,6 +20,8 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+
+from ..kernels import ops
 
 F32 = torch.float32
 NEG_INF = -1e30
@@ -148,6 +151,124 @@ def swiglu(x, w_gate, w_up, w_down):
     u = einsum("bsd,df->bsf", x, w_up)
     h = F.silu(g.to(F32)).to(x.dtype) * u
     return einsum("bsf,fd->bsd", h, w_down)
+
+
+# ---------------------------------------------------------------------------
+# Mamba2 (state-space duality, chunked)
+# ---------------------------------------------------------------------------
+
+def _segsum(a):
+    """a: (..., C).  Returns (..., C, C) with out[i,j] = Σ_{k=j+1..i} a_k for
+    j < i, 0 on the diagonal, −inf above (the 1-semiseparable log-decay
+    matrix)."""
+    C = a.shape[-1]
+    cs = torch.cumsum(a, dim=-1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((C, C), dtype=torch.bool, device=a.device).tril()
+    return diff.masked_fill(~mask, float("-inf"))
+
+
+def ssd_chunked(x, dt, A, B_, C_, chunk: int = 128, h0=None,
+                use_kernel: bool = False):
+    """Chunked SSD scan (Mamba2, alg. of Dao & Gu 2024 §6).
+
+    x:  (B, S, H, P)  — per-head inputs
+    dt: (B, S, H)     — post-softplus step sizes
+    A:  (H,)          — negative decay rates (A = −exp(A_log))
+    B_: (B, S, N), C_: (B, S, N)  — shared across heads (n_groups=1)
+    h0: optional initial state (B, H, P, N)
+    Returns (y (B,S,H,P) in x's dtype, h_final (B,H,P,N) f32).
+
+    ``use_kernel`` takes the intra-chunk part through ``ops.ssd_chunk`` (the
+    CUDA kernel on the card, its plain version on the CPU), whose y lands in
+    x's dtype before the inter-chunk term is added, as in the JAX package;
+    otherwise it is the einsum branch, f32 throughout.  The inter-chunk
+    recurrence is a loop over the chunks.
+    """
+    Bb, S, H, P = x.shape
+    nc = S // chunk
+    if nc * chunk != S:
+        raise ValueError(f"sequence length {S} must be a multiple of the "
+                         f"chunk {chunk}")
+    la = dt.to(F32) * A[None, None, :].to(F32)                 # (B,S,H)
+
+    def r(t):  # split the sequence axis into (nc, chunk)
+        return t.reshape(t.shape[0], nc, chunk, *t.shape[2:])
+
+    xc, dtc, lac = r(x), r(dt), r(la)                          # lac: (B,k,c,H)
+    Bc, Cc = r(B_).to(F32), r(C_).to(F32)                      # (B,k,c,N)
+    xdt = (xc * dtc[..., None]).to(F32)                        # (B,k,c,H,P)
+    cums = torch.cumsum(lac, dim=2)                            # (B,k,c,H)
+
+    if use_kernel:
+        y_diag, st = ops.ssd_chunk(xc, dtc, A, r(B_), r(C_))
+        y_diag = y_diag.to(F32)
+        states = st.transpose(-1, -2)                          # (B,k,H,P,N)
+    else:
+        # letters: b batch, k chunk, i/j pos-in-chunk, h head, p P, n N
+        Lh = torch.exp(_segsum(lac.movedim(-1, 2)))            # (B,k,H,i,j)
+        scores = torch.einsum("bkin,bkjn->bkij", Cc, Bc)       # CBᵀ, head-shared
+        y_diag = torch.einsum("bkij,bkhij,bkjhp->bkihp", scores, Lh, xdt)
+        decay_to_end = torch.exp(cums[:, :, -1:, :] - cums)    # (B,k,c,H)
+        states = torch.einsum("bkjn,bkjhp->bkhpn", Bc,
+                              xdt * decay_to_end[..., None])   # (B,k,H,P,N)
+
+    # inter-chunk recurrence over k: h_prev[k] is the state entering chunk k
+    chunk_decay = torch.exp(cums[:, :, -1, :])                 # (B,k,H)
+    h = (torch.zeros((Bb, H, P, B_.shape[-1]), dtype=F32, device=x.device)
+         if h0 is None else h0.to(F32))
+    h_prev = []
+    for k in range(nc):
+        h_prev.append(h)
+        h = h * chunk_decay[:, k, :, None, None] + states[:, k]
+    h_prev = torch.stack(h_prev, dim=1)                        # (B,k,H,P,N)
+
+    decay_from_start = torch.exp(cums)                         # (B,k,c,H)
+    y_off = torch.einsum("bkin,bkhpn,bkih->bkihp", Cc, h_prev,
+                         decay_from_start)
+    y = (y_diag + y_off).reshape(Bb, S, H, P)
+    return y.to(x.dtype), h
+
+
+def ssd_decode_step(h, x_t, dt_t, A, B_t, C_t):
+    """One-token SSD update.  h: (B,H,P,N); x_t: (B,H,P); dt_t: (B,H);
+    B_t/C_t: (B,N).  Returns (y (B,H,P), h_new)."""
+    a = torch.exp((dt_t * A[None, :]).to(F32))                 # (B,H)
+    upd = torch.einsum("bhp,bn->bhpn", (x_t * dt_t[..., None]).to(F32),
+                       B_t.to(F32))
+    h_new = h * a[..., None, None] + upd
+    y = torch.einsum("bhpn,bn->bhp", h_new, C_t.to(F32))
+    return y.to(x_t.dtype), h_new
+
+
+# ---------------------------------------------------------------------------
+# depthwise causal conv1d (mamba front conv)
+# ---------------------------------------------------------------------------
+
+def causal_conv1d(x, w, b=None):
+    """x: (B,S,D); w: (K,D) depthwise kernel; left-padded causal.
+
+    The K shifted products are summed in x's dtype, as the JAX package
+    sums them (not ``F.conv1d``, which runs float32 through cuDNN's TF32
+    by default and accumulates bf16 otherwise)."""
+    K = w.shape[0]
+    S = x.shape[1]
+    xp = F.pad(x, (0, 0, K - 1, 0))
+    out = sum(xp[:, i:i + S, :] * w[i][None, None, :] for i in range(K))
+    if b is not None:
+        out = out + b[None, None, :]
+    return F.silu(out.to(F32)).to(x.dtype)
+
+
+def conv1d_decode(conv_state, x_t, w, b=None):
+    """conv_state: (B,K−1,D) past inputs; x_t: (B,D).  Returns (y,
+    new_state)."""
+    full = torch.cat([conv_state, x_t[:, None, :]], dim=1)     # (B,K,D)
+    y = einsum("bkd,kd->bd", full, w)
+    if b is not None:
+        y = y + b[None, :]
+    new_state = full[:, 1:, :]
+    return F.silu(y.to(F32)).to(x_t.dtype), new_state
 
 
 # ---------------------------------------------------------------------------

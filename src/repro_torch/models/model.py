@@ -1,11 +1,19 @@
-"""Dense-family model: param specs, forward, prefill, lock-step decode.
+"""Model: param specs, forward, prefill, lock-step decode.
 
-Counterpart of ``repro/models/model.py`` for the ``dense`` family (GQA
+Counterpart of ``repro/models/model.py`` for two families: ``dense`` (GQA
 attention with optional QKV bias / QK-norm, RoPE, RMSNorm, SwiGLU, tied or
-separate unembedding).  Params are a nested dict of tensors with the JAX
-tree's paths and its stacked-over-layers layout (``blocks/attn/wq`` is
-``(L, d, H, Dh)``); a Python loop over layers takes the place of
-``jax.lax.scan``.  One device, no mesh: ``_shard_act`` has no counterpart.
+separate unembedding) and ``ssm`` (Mamba2 blocks: projections, depthwise
+causal conv, the chunked SSD scan, gated RMSNorm).  Params are a nested
+dict of tensors with the JAX tree's paths and its stacked-over-layers
+layout (``blocks/attn/wq`` is ``(L, d, H, Dh)``); a Python loop over layers
+takes the place of ``jax.lax.scan``.  One device, no mesh: ``_shard_act``
+has no counterpart.
+
+The SSM decode cache holds per-layer conv and SSD states
+(``{"ssm": {"conv", "ssd"}}``, the JAX layout) and no positions buffer.
+With ``cfg.use_ssd_kernel`` every SSD layer's intra-chunk part goes
+through ``kernels.ops.ssd_chunk`` (the CUDA kernel on the card, its plain
+version on the CPU); the kernel has no backward either.
 
 With ``cfg.use_flash_attention`` every prefill layer's attention goes
 through ``kernels.ops.flash_attention``: the CUDA kernel on the card, its
@@ -19,6 +27,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -26,12 +35,14 @@ from ..kernels import ops
 from . import layers as L
 from .specs import Spec, count_params, init_tree, torch_dtype
 
+F32 = torch.float32
 _LATER = ("is not ported yet; the other model families are a later slice "
           "(ROADMAP.md queue 1, 'The other model families')")
+FAMILIES = ("dense", "ssm")
 
 
-def _require_dense(cfg: ArchConfig):
-    if cfg.family != "dense":
+def _require_family(cfg: ArchConfig):
+    if cfg.family not in FAMILIES:
         raise NotImplementedError(f"family {cfg.family!r} {_LATER}")
 
 
@@ -72,8 +83,31 @@ def _mlp_specs(cfg: ArchConfig, stacked: Optional[int], ff: int):
     }
 
 
+def _mamba_specs(cfg: ArchConfig, stacked: Optional[int]):
+    pre = (stacked,) if stacked else ()
+    ax = ("layers",) if stacked else ()
+    d, di, N, Hs, K = (cfg.d_model, cfg.d_inner, cfg.ssm_state,
+                       cfg.ssm_heads, cfg.ssm_conv)
+    conv_dim = di + 2 * N
+    return {
+        "norm": Spec(pre + (d,), ax + ("embed",), "ones"),
+        "in_z": Spec(pre + (d, di), ax + ("embed", "d_inner"), "fan_in"),
+        "in_x": Spec(pre + (d, di), ax + ("embed", "d_inner"), "fan_in"),
+        "in_B": Spec(pre + (d, N), ax + ("embed", "state"), "fan_in"),
+        "in_C": Spec(pre + (d, N), ax + ("embed", "state"), "fan_in"),
+        "in_dt": Spec(pre + (d, Hs), ax + ("embed", "ssm_heads"), "fan_in"),
+        "conv_w": Spec(pre + (K, conv_dim), ax + ("conv", "d_inner"), "fan_in"),
+        "conv_b": Spec(pre + (conv_dim,), ax + ("d_inner",), "zeros"),
+        "A_log": Spec(pre + (Hs,), ax + ("ssm_heads",), "mamba_A", dtype="float32"),
+        "D": Spec(pre + (Hs,), ax + ("ssm_heads",), "ones", dtype="float32"),
+        "dt_bias": Spec(pre + (Hs,), ax + ("ssm_heads",), "mamba_dt", dtype="float32"),
+        "gate_norm": Spec(pre + (di,), ax + ("d_inner",), "ones"),
+        "out_proj": Spec(pre + (di, d), ax + ("d_inner", "embed"), "fan_in"),
+    }
+
+
 def param_specs(cfg: ArchConfig) -> dict:
-    _require_dense(cfg)
+    _require_family(cfg)
     d, V = cfg.d_model, cfg.vocab
     specs: dict = {
         "embed": Spec((V, d), ("vocab", "embed"), "normal"),
@@ -82,8 +116,11 @@ def param_specs(cfg: ArchConfig) -> dict:
     if not cfg.tie_embeddings:
         specs["lm_head"] = Spec((d, V), ("embed", "vocab"), "fan_in")
     nl = cfg.n_layers
-    specs["blocks"] = {"attn": _attn_specs(cfg, nl),
-                       "mlp": _mlp_specs(cfg, nl, cfg.d_ff)}
+    if cfg.family == "ssm":
+        specs["blocks"] = {"mamba": _mamba_specs(cfg, nl)}
+    else:
+        specs["blocks"] = {"attn": _attn_specs(cfg, nl),
+                           "mlp": _mlp_specs(cfg, nl, cfg.d_ff)}
     return specs
 
 
@@ -140,6 +177,47 @@ def _apply_mlp(cfg, p, h):
     return h + L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
 
 
+def _mamba_inner(p, x_n):
+    """Projections of a normalised input (B,S,d) → (z, x, B, C, dt)."""
+    z = L.einsum("bsd,de->bse", x_n, p["in_z"])
+    xi = L.einsum("bsd,de->bse", x_n, p["in_x"])
+    Bp = L.einsum("bsd,dn->bsn", x_n, p["in_B"])
+    Cp = L.einsum("bsd,dn->bsn", x_n, p["in_C"])
+    dt = L.einsum("bsd,dh->bsh", x_n, p["in_dt"])
+    return z, xi, Bp, Cp, dt
+
+
+def _gated_out(cfg, p, h, y, z):
+    """y (B,S,d_inner) gated by silu(z), normalised, projected, added to h;
+    silu in f32 with one cast, as in the JAX package."""
+    y = L.rms_norm(y * F.silu(z.to(F32)).to(h.dtype), p["gate_norm"],
+                   cfg.norm_eps)
+    return h + L.einsum("bse,ed->bsd", y, p["out_proj"])
+
+
+def _apply_mamba(cfg, p, h, return_state=False):
+    """Mamba2 block over a sequence.  With ``return_state`` also returns
+    (conv state: the last K−1 pre-conv inputs, final SSD state)."""
+    B, S, _ = h.shape
+    di, N, Hs, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    x_n = L.rms_norm(h, p["norm"], cfg.norm_eps)
+    z, xi, Bp, Cp, dt = _mamba_inner(p, x_n)
+    conv_in = torch.cat([xi, Bp, Cp], dim=-1)
+    conv_out = L.causal_conv1d(conv_in, p["conv_w"], p["conv_b"])
+    xi, Bp, Cp = torch.split(conv_out, [di, N, N], dim=-1)
+    dt = F.softplus(dt.to(F32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    xh = xi.reshape(B, S, Hs, P)
+    y, hT = L.ssd_chunked(xh, dt, A, Bp, Cp, chunk=min(cfg.ssm_chunk, S),
+                          use_kernel=cfg.use_ssd_kernel)
+    y = y + xh.to(F32) * p["D"][None, None, :, None]
+    out = _gated_out(cfg, p, h, y.reshape(B, S, di).to(h.dtype), z)
+    if return_state:
+        K = cfg.ssm_conv
+        return out, (conv_in[:, S - (K - 1):, :], hT)
+    return out
+
+
 # ============================================================================
 # forward / prefill
 # ============================================================================
@@ -156,7 +234,7 @@ def _unembed(cfg, params, h):
 
 def forward_logits(cfg: ArchConfig, params, batch, window=None):
     """Full-sequence forward → (logits (B,S,V), aux_loss = 0.0)."""
-    _require_dense(cfg)
+    _require_family(cfg)
     if window is None:
         window = cfg.sliding_window
     tokens = batch["tokens"]
@@ -164,6 +242,9 @@ def forward_logits(cfg: ArchConfig, params, batch, window=None):
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)
+        if cfg.family == "ssm":
+            h = _apply_mamba(cfg, p["mamba"], h)
+            continue
         h = _apply_attn(cfg, p["attn"], h, positions=positions, window=window)
         h = _apply_mlp(cfg, p["mlp"], h)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
@@ -172,7 +253,7 @@ def forward_logits(cfg: ArchConfig, params, batch, window=None):
 
 def loss_fn(cfg: ArchConfig, params, batch, example_weights=None,
             aux_coeff: float = 0.01, window=None):
-    """Next-token CE (the dense family has no aux loss).  ``example_weights``
+    """Next-token CE (neither ported family has an aux loss).  ``example_weights``
     (B,) carries the AsGrad worker-participation mask (see
     ``distributed.async_trainer``).  Returns (loss, {"ce", "aux"}).
 
@@ -214,14 +295,30 @@ def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None):
     """Process the prompt, return (last-token logits (B,V), decode cache).
 
     The cache matches ``cache_specs(cfg, B, ctx_len)``; ctx_len defaults to
-    the prompt length.  Only the last position is unembedded."""
-    _require_dense(cfg)
+    the prompt length.  Only the last position is unembedded.  An SSM
+    prompt must hold at least ``ssm_conv − 1`` tokens (the conv state is
+    the last K−1 pre-conv inputs), and the SSD chunk, ``min(ssm_chunk, S)``,
+    must divide its length."""
+    _require_family(cfg)
     window = cfg.sliding_window
     tokens = batch["tokens"]
     S = tokens.shape[1]
     ctx = ctx_len or S
     W = min(cfg.sliding_window or ctx, ctx)
     h = _embed(cfg, params, tokens)
+    if cfg.family == "ssm":
+        if S < cfg.ssm_conv - 1:
+            raise ValueError(f"an SSM prompt needs at least ssm_conv - 1 = "
+                             f"{cfg.ssm_conv - 1} tokens, got {S}")
+        convs, ssds = [], []
+        for i in range(cfg.n_layers):
+            p = _layer(params["blocks"], i)
+            h, (cs, ss) = _apply_mamba(cfg, p["mamba"], h, return_state=True)
+            convs.append(cs)
+            ssds.append(ss)
+        cache = {"ssm": {"conv": torch.stack(convs), "ssd": torch.stack(ssds)}}
+        h = L.rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
+        return _unembed(cfg, params, h)[:, 0], cache
     positions = torch.arange(S, device=tokens.device)
     ks, vs = [], []
     for i in range(cfg.n_layers):
@@ -242,8 +339,21 @@ def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None):
 # ============================================================================
 
 def cache_specs(cfg: ArchConfig, batch: int, ctx_len: int) -> dict:
-    """Lock-step cache tree as Specs: one shared (W,) positions buffer."""
-    _require_dense(cfg)
+    """Lock-step cache tree as Specs: ring k/v caches and one shared (W,)
+    positions buffer (dense), or per-layer conv states in the param dtype
+    and f32 SSD states (ssm, no positions)."""
+    _require_family(cfg)
+    if cfg.family == "ssm":
+        nl, conv_dim = cfg.n_layers, cfg.d_inner + 2 * cfg.ssm_state
+        return {"ssm": {
+            "conv": Spec((nl, batch, cfg.ssm_conv - 1, conv_dim),
+                         ("layers", "batch", None, "d_inner"), "zeros",
+                         cfg.dtype),
+            "ssd": Spec((nl, batch, cfg.ssm_heads, cfg.ssm_head_dim,
+                         cfg.ssm_state),
+                        ("layers", "batch", "ssm_heads", None, None),
+                        "zeros", "float32"),
+        }}
     W = min(cfg.sliding_window or ctx_len, ctx_len)
     KV, Dh, nl = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
     axes = ("layers", "batch", "ctx", "kv_heads", "head")
@@ -258,7 +368,8 @@ def init_cache(cfg: ArchConfig, batch: int, ctx_len: int,
                device="cuda") -> dict:
     tree = init_tree(cache_specs(cfg, batch, ctx_len), 0,
                      resolve_device(device))
-    tree["positions"] -= 1                 # −1 = empty slot
+    if "positions" in tree:
+        tree["positions"] -= 1             # −1 = empty slot
     return tree
 
 
@@ -276,24 +387,53 @@ def _decode_attn(cfg, p, h, kc, vc, cache_positions, pos, window, slot):
     return h + L.einsum("bshk,hkd->bsd", o, p["wo"])
 
 
+def _decode_mamba(cfg, p, h, conv_state, ssd_state):
+    """One-token Mamba2 block → (h', conv state', SSD state')."""
+    B = h.shape[0]
+    di, N, Hs, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    x_n = L.rms_norm(h, p["norm"], cfg.norm_eps)
+    z, xi, Bp, Cp, dt = _mamba_inner(p, x_n)
+    conv_in = torch.cat([xi, Bp, Cp], dim=-1)[:, 0]           # (B, conv_dim)
+    y_conv, conv_state = L.conv1d_decode(conv_state, conv_in, p["conv_w"],
+                                         p["conv_b"])
+    xi, Bp, Cp = torch.split(y_conv, [di, N, N], dim=-1)
+    dt = F.softplus(dt[:, 0].to(F32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    xh = xi.reshape(B, Hs, P)
+    y, ssd_state = L.ssd_decode_step(ssd_state, xh, dt, A, Bp, Cp)
+    y = y + xh.to(F32) * p["D"][None, :, None]
+    out = _gated_out(cfg, p, h, y.reshape(B, 1, di).to(h.dtype), z)
+    return out, conv_state, ssd_state
+
+
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int,
                 ctx_len: int):
     """serve_step: ONE new token per sequence against the cache.
 
     tokens: (B,) integer tensor; pos: the current absolute position, shared
-    by every row (lock-step).  Where the JAX package donates the cache, the
-    port updates it in place: the positions buffer and each layer's ring
-    slot ``pos mod W`` are written, and the same dict is returned.
-    Returns (logits (B, V), cache)."""
-    _require_dense(cfg)
+    by every row (lock-step; the SSM family does not read it).  Where the
+    JAX package donates the cache, the port updates it in place: the
+    positions buffer and each layer's ring slot ``pos mod W`` (dense), or
+    each layer's conv and SSD states (ssm), are written, and the same dict
+    is returned.  Returns (logits (B, V), cache)."""
+    _require_family(cfg)
     if isinstance(pos, torch.Tensor) and pos.dim() > 0:
         raise NotImplementedError(
             "ragged (per-row) decode positions belong to the slot server, "
             "a later slice (ROADMAP.md queue 1, 'The rest of serving')")
     pos = int(pos)
+    h = _embed(cfg, params, tokens[:, None])            # (B,1,d)
+    if cfg.family == "ssm":
+        conv, ssd = cache["ssm"]["conv"], cache["ssm"]["ssd"]
+        for i in range(cfg.n_layers):
+            p = _layer(params["blocks"], i)
+            h, cs, ss = _decode_mamba(cfg, p["mamba"], h, conv[i], ssd[i])
+            conv[i] = cs
+            ssd[i] = ss
+        h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
+        return _unembed(cfg, params, h)[:, 0], cache
     W = min(cfg.sliding_window or ctx_len, ctx_len)
     slot = pos % W
-    h = _embed(cfg, params, tokens[:, None])            # (B,1,d)
     cache["positions"][slot] = pos
     cpos = cache["positions"]
     for i in range(cfg.n_layers):
@@ -311,6 +451,6 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int,
 # ============================================================================
 
 def batch_specs(cfg: ArchConfig, batch: int, seq: int) -> dict:
-    """Train/prefill batch as Specs (the dense case: int32 tokens)."""
-    _require_dense(cfg)
+    """Train/prefill batch as Specs (dense and ssm: int32 tokens)."""
+    _require_family(cfg)
     return {"tokens": Spec((batch, seq), ("batch", "seq"), "zeros", "int32")}

@@ -16,9 +16,12 @@ off-device degradation and no switch that runs the plain version on the
 card.  The fused route updates params, moments, count and buffer IN PLACE
 (the JAX step donates them) and returns the same tensors.
 
+SGD with ``momentum > 0`` on a fused impl runs the heavy-ball kernels
+(``sgd_momentum_step``, and ``sgd_momentum_delayed`` for the delayed
+apply), the f32 momentum buffer riding the same pass.
+
 Not ported yet, and raising ``NotImplementedError``: the pooled impls
-(``"pallas_pooled*"``, ``optim/pool.py``) and heavy-ball momentum on a
-fused impl (its kernels, ``sgd_momentum_*_pallas``); ROADMAP.md lists both.
+(``"pallas_pooled*"``, ``optim/pool.py``; ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -29,14 +32,13 @@ import torch
 
 from ..kernels import ops
 from ..kernels.async_update import (adam_bias_corrections, adam_scalars,
-                                    sgd_scalars)
+                                    momentum_scalars, sgd_scalars)
 from ..tree import tree_leaves, tree_map
 
 F32 = torch.float32
 
 UPDATE_IMPLS = ("reference", "pallas", "pallas_interpret",
                 "pallas_pooled", "pallas_pooled_interpret")
-_FUSED = ("pallas", "pallas_interpret")
 
 
 def resolve_update_impl(impl: str) -> str:
@@ -189,11 +191,19 @@ def fused_adam_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0):
 
 
 def fused_sgd_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0):
-    """SGD through the swap-free ``sgd_step`` kernel, one launch per leaf."""
+    """SGD through the swap-free ``sgd_step`` kernel, one launch per leaf;
+    with ``cfg.momentum`` the f32 momentum buffer rides the same pass
+    (``sgd_momentum_step``)."""
     clip_scale, gnorm = clip_scale_by_global_norm(grads, cfg.clip_norm)
     count = _tick(opt_state)
-    scal = sgd_scalars(cfg.lr, clip_scale, lr_scale, count.device)
-    _leaf_map(lambda p, g: ops.sgd_step(p, g, scal), params, grads)
+    if cfg.momentum:
+        scal = momentum_scalars(cfg.lr, clip_scale, lr_scale, count.device)
+        _leaf_map(lambda p, m, g: ops.sgd_momentum_step(
+            p, m, g, scal, momentum=cfg.momentum),
+            params, opt_state["m"], grads)
+    else:
+        scal = sgd_scalars(cfg.lr, clip_scale, lr_scale, count.device)
+        _leaf_map(lambda p, g: ops.sgd_step(p, g, scal), params, grads)
     return params, opt_state, gnorm
 
 
@@ -215,8 +225,8 @@ def reference_delayed_apply(grads, gbuf, opt_state, params, cfg: OptConfig,
 def fused_delayed_apply(grads, gbuf, opt_state, params, cfg: OptConfig,
                         lr_scale=1.0):
     """Per leaf, ONE kernel consumes the stale buffer, steps the params
-    (and moments for Adam) and writes the fresh gradient into the buffer,
-    all in place."""
+    (and the moments for Adam, the momentum for heavy-ball SGD) and writes
+    the fresh gradient into the buffer, all in place."""
     clip_scale, gnorm = clip_scale_by_global_norm(gbuf, cfg.clip_norm)
     count = _tick(opt_state)
     if cfg.name == "adam":
@@ -225,6 +235,11 @@ def fused_delayed_apply(grads, gbuf, opt_state, params, cfg: OptConfig,
         _leaf_map(lambda p, gb, g, m, v: ops.fused_adam_delayed(
             p, m, v, gb, g, scal, **kw),
             params, gbuf, grads, opt_state["m"], opt_state["v"])
+    elif cfg.momentum:
+        scal = momentum_scalars(cfg.lr, clip_scale, lr_scale, count.device)
+        _leaf_map(lambda p, m, gb, g: ops.sgd_momentum_delayed(
+            p, m, gb, g, scal, momentum=cfg.momentum),
+            params, opt_state["m"], gbuf, grads)
     else:
         scal = sgd_scalars(cfg.lr, clip_scale, lr_scale, count.device)
         _leaf_map(lambda p, gb, g: ops.async_update(p, gb, g, scal),
@@ -236,12 +251,6 @@ def _resolve(cfg: OptConfig) -> str:
     impl = resolve_update_impl(cfg.update_impl)
     if cfg.name not in ("adam", "sgd"):
         raise ValueError(cfg.name)
-    if impl in _FUSED and cfg.momentum:
-        raise NotImplementedError(
-            f"momentum={cfg.momentum} with update_impl={impl!r} needs the "
-            "fused heavy-ball kernels (sgd_momentum_*_pallas), which are not "
-            "ported yet (ROADMAP.md queue 2, items 5-6); use "
-            "update_impl='reference'")
     return impl
 
 

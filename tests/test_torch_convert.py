@@ -87,3 +87,28 @@ def test_config_copies_equal_jax_archs():
         assert dataclasses.asdict(T_ARCHS[name]) == dataclasses.asdict(cfg)
         assert dataclasses.asdict(T_ARCHS[name].reduced()) == \
             dataclasses.asdict(cfg.reduced())
+
+
+def test_mamba_params_and_cache_cross_bitwise():
+    """The SSM family's f32 leaves (A_log, D, dt_bias) and f32 SSD cache
+    cross as f32, its bf16 leaves and conv cache as uint16 bits; both ways
+    bitwise."""
+    jcfg = ARCHS["mamba2-370m"].reduced().with_(remat="none")
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    tokens = np.random.default_rng(0).integers(0, jcfg.vocab, (2, 16))
+    _, jc = JM.prefill(jcfg, jp, {"tokens": jax.numpy.asarray(tokens)})
+    for jtree in (jp, jc):
+        ttree = port_params(jtree)
+        back = params_to_numpy(ttree)
+        for (path, a), (_, b) in zip(
+                _flat(jax.tree_util.tree_map(np.asarray, jtree)), _flat(back)):
+            bf16 = a.dtype.name == "bfloat16"
+            assert b.dtype == (np.uint16 if bf16 else a.dtype), path
+            assert np.array_equal(a.view(np.uint16) if bf16 else a, b), path
+    tp = port_params(jp)
+    for leaf in ("A_log", "D", "dt_bias"):
+        assert tp["blocks"]["mamba"][leaf].dtype == torch.float32
+    assert tp["blocks"]["mamba"]["in_x"].dtype == torch.bfloat16
+    tc = port_params(jc)
+    assert tc["ssm"]["ssd"].dtype == torch.float32
+    assert tc["ssm"]["conv"].dtype == torch.bfloat16

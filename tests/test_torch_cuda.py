@@ -8,20 +8,25 @@ JAX nor the JAX package, so it runs where only the port is installed:
     PYTHONPATH=src python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerances are those of the kernel suite, ``test_kernels.py``: flash and
-the SGD updates f32 2e-4, the Adam updates f32 rtol 1e-5 / atol 1e-6, bf16
-3e-2; the update kernels' buffer swap is bitwise.
+the SGD and heavy-ball updates f32 2e-4, the Adam updates f32 rtol 1e-5 /
+atol 1e-6, bf16 3e-2; the update kernels' buffer swap is bitwise; the SSD
+kernel f32 1e-3, bf16 4e-2, and a prefill through it within bf16 3e-2 of
+the einsum branch (``test_kernels.py:169-267``).
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.api import ExperimentSpec, TrainJob, run  # noqa: E402
+from repro_torch.api import (ExperimentSpec, TrainerBackend,  # noqa: E402
+                             TrainJob, run)
 from repro_torch.configs import get_arch                   # noqa: E402
 from repro_torch.kernels import async_update as AU         # noqa: E402
 from repro_torch.kernels import flash_attention as FA      # noqa: E402
 from repro_torch.kernels import ops                        # noqa: E402
+from repro_torch.kernels import ssd_chunk as SSD           # noqa: E402
 from repro_torch.models import init_params, prefill        # noqa: E402
+from repro_torch.tree import tree_map                      # noqa: E402
 
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
        torch.bfloat16: dict(rtol=3e-2, atol=3e-2)}
@@ -143,6 +148,8 @@ def _update_operands(device, n, dtype, seed=0):
 
 def _operands(name, t):
     return {"async_update": ("p", "gb", "g"), "sgd_step": ("p", "g"),
+            "sgd_momentum_step": ("p", "m", "g"),
+            "sgd_momentum_delayed": ("p", "m", "gb", "g"),
             "fused_adam": ("p", "m", "v", "g"),
             "fused_adam_delayed": ("p", "m", "v", "gb", "g")}[name]
 
@@ -152,7 +159,20 @@ def _scalars(name, device):
         c = torch.tensor(5, dtype=torch.int32, device=device)
         bc1, bc2 = AU.adam_bias_corrections(0.9, 0.95, c)
         return AU.adam_scalars(1e-3, bc1, bc2, 0.5, 0.01, device)
+    if "momentum" in name:
+        return AU.momentum_scalars(0.02, 0.5, 0.25, device)
     return AU.sgd_scalars(0.02, 0.5, 0.25, device)
+
+
+def _kw(name):
+    return {"momentum": 0.9} if "momentum" in name else {}
+
+
+def _compared(name):
+    """The float state each kernel writes besides the buffer."""
+    if "adam" in name:
+        return ("p", "m", "v")
+    return ("p", "m") if "momentum" in name else ("p",)
 
 
 @pytest.mark.cuda
@@ -167,16 +187,17 @@ def test_update_kernel_matches_plain_in_place(cuda_device, name, dtype, n):
     want = {k: v.clone() for k, v in base.items()}
     ptrs = {k: got[k].data_ptr() for k in keys}
     before = AU.launches[name]
-    out = getattr(AU, f"{name}_cuda")(*(got[k] for k in keys), scal)
+    out = getattr(AU, f"{name}_cuda")(*(got[k] for k in keys), scal,
+                                      **_kw(name))
     torch.cuda.synchronize()
     assert AU.launches[name] == before + 1
-    getattr(AU, f"{name}_plain")(*(want[k] for k in keys), scal)
+    getattr(AU, f"{name}_plain")(*(want[k] for k in keys), scal, **_kw(name))
     outs = out if isinstance(out, tuple) else (out,)
     assert all(o.data_ptr() in ptrs.values() for o in outs)   # in place
     tol = ({torch.float32: dict(rtol=1e-5, atol=1e-6)} if "adam" in name
            else {torch.float32: dict(rtol=2e-4, atol=2e-4)})
     tol[torch.bfloat16] = dict(rtol=3e-2, atol=3e-2)
-    for k in ("p", "m", "v") if "adam" in name else ("p",):
+    for k in _compared(name):
         np.testing.assert_allclose(got[k].float().cpu().numpy(),
                                    want[k].float().cpu().numpy(), **tol[dtype])
     assert got["p"].dtype == dtype
@@ -224,3 +245,139 @@ def test_train_run_launches_its_update_kernel(cuda_device, opt, delay, name):
     assert AU.launches == want
     assert res.extra["update_launches"] == want
     assert np.isfinite(res.losses).all() and np.isfinite(res.grad_norms).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("delay", [1, 0])
+def test_momentum_trainer_launches_its_kernel(cuda_device, delay):
+    """AsyncTrainer with heavy-ball SGD (TrainJob has no momentum field)
+    driven by the plan executor: rounds × leaves launches of the kernel its
+    delay reaches, and a loss curve within 5e-3 of the reference update."""
+    from repro_torch.distributed import AsyncConfig, AsyncTrainer
+    from repro_torch.optim import OptConfig
+    from repro_torch.runtime import compile_plan, execute
+
+    T, groups = 3, 2
+    job = TrainJob(global_batch=4, seq_len=32, delay_rounds=delay)
+    spec = ExperimentSpec(objective=job, n_workers=groups, T=T)
+    cfg = job.make_arch()
+    _, schedule = TrainerBackend.masks_for(spec, groups)
+    plan = compile_plan(schedule, job, rounds=T, n_groups=groups)
+    base = init_params(cfg, 0, cuda_device)
+    curves, launched = {}, {}
+    for impl in ("pallas", "reference"):
+        tr = AsyncTrainer(cfg, opt=OptConfig(name="sgd", lr=1e-2,
+                                             momentum=0.9, update_impl=impl),
+                          async_cfg=AsyncConfig(delay_rounds=delay),
+                          device=cuda_device)
+        tr.n_groups = groups
+        state = tr.init_state(params=tree_map(torch.clone, base))
+        AU.reset_launches()
+        res = execute(tr, plan, state, runtime="scan", rounds_per_launch=2)
+        curves[impl], launched[impl] = res.metrics["loss"], dict(AU.launches)
+    name = "sgd_momentum_delayed" if delay else "sgd_momentum_step"
+    want = dict.fromkeys(AU.KERNELS, 0)
+    want[name] = T * 14
+    assert launched["pallas"] == want
+    assert launched["reference"] == dict.fromkeys(AU.KERNELS, 0)
+    assert np.isfinite(curves["pallas"]).all()
+    np.testing.assert_allclose(curves["pallas"], curves["reference"],
+                               rtol=5e-3)
+
+
+#: (B, nc, c, H, P, N): the kernel test matrix of test_kernels.py, ragged
+#: sizes (no multiple of 4 or of 32), and the serving path's prefill shape
+SSD_CASES = [(1, 1, 16, 2, 32, 16), (1, 1, 64, 4, 64, 32),
+             (2, 3, 13, 3, 20, 10), (4, 8, 128, 32, 64, 128)]
+SSD_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-3),
+           torch.bfloat16: dict(rtol=4e-2, atol=4e-2)}
+
+
+def _ssd_inputs(device, B, nc, c, H, P, N, dtype, bc_dtype, seed=3):
+    """x · 0.5, dt ∈ [0.01, 0.2], A ∈ −[0.5, 2], B/C · 0.3, as in
+    test_kernels.py."""
+    rng = np.random.default_rng(seed)
+    t = lambda a, dt: torch.from_numpy(np.asarray(a, np.float32)).to(
+        device=device, dtype=dt)
+    return (t(rng.standard_normal((B, nc, c, H, P)) * 0.5, dtype),
+            t(rng.uniform(0.01, 0.2, (B, nc, c, H)), torch.float32),
+            t(-rng.uniform(0.5, 2.0, (H,)), torch.float32),
+            t(rng.standard_normal((B, nc, c, N)) * 0.3, bc_dtype),
+            t(rng.standard_normal((B, nc, c, N)) * 0.3, bc_dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,bc_dtype", [
+    (torch.float32, torch.float32), (torch.bfloat16, torch.bfloat16),
+    (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("B,nc,c,H,P,N", SSD_CASES)
+def test_ssd_kernel_matches_plain(cuda_device, dtype, bc_dtype, B, nc, c, H,
+                                  P, N):
+    args = _ssd_inputs(cuda_device, B, nc, c, H, P, N, dtype, bc_dtype)
+    before = SSD.launches
+    y, st = SSD.ssd_chunk_cuda(*args)
+    torch.cuda.synchronize()
+    assert SSD.launches == before + 1
+    wy, wst = SSD.ssd_chunk_plain(*args)
+    assert y.dtype == dtype and y.shape == args[0].shape
+    assert st.dtype == torch.float32 and st.shape == (B, nc, H, N, P)
+    _close_ssd(y, wy, dtype)
+    _close_ssd(st, wst, dtype)
+
+
+def _close_ssd(got, want, dtype):
+    np.testing.assert_allclose(got.float().cpu().numpy(),
+                               want.float().cpu().numpy(), **SSD_TOL[dtype])
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_reads_column_slices(cuda_device):
+    """x, B and C as column slices of one wider tensor, the way the model
+    splits the conv output: read in place, same result as contiguous."""
+    B, nc, c, H, P, N = 2, 2, 32, 4, 16, 8
+    x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, B, nc, c, H, P, N,
+                                   torch.bfloat16, torch.bfloat16)
+    wide = torch.cat([x.reshape(B, nc, c, H * P), Bm, Cm], dim=-1)
+    xs = wide[..., :H * P].reshape(B, nc, c, H, P)
+    bs, cs = wide[..., H * P:H * P + N], wide[..., H * P + N:]
+    assert not (xs.is_contiguous() or bs.is_contiguous())
+    got = SSD.ssd_chunk_cuda(xs, dt, A, bs, cs)
+    want = SSD.ssd_chunk_cuda(x, dt, A, Bm, Cm)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ssd_cuda_route_raises_under_grad(cuda_device):
+    args = _ssd_inputs(cuda_device, 1, 1, 16, 2, 32, 16, torch.float32,
+                       torch.float32)
+    args[0].requires_grad_(True)
+    before = SSD.launches
+    with pytest.raises(NotImplementedError, match="no backward"):
+        ops.ssd_chunk(*args)
+    assert SSD.launches == before
+    with torch.no_grad():
+        ops.ssd_chunk(*args)
+    assert SSD.launches == before + 1
+    with pytest.raises(ValueError, match="chunks up to"):
+        with torch.no_grad():
+            SSD.ssd_chunk_cuda(*_ssd_inputs(cuda_device, 1, 1, 160, 2, 32, 16,
+                                            torch.float32, torch.float32))
+
+
+@pytest.mark.cuda
+def test_ssm_prefill_launches_once_per_layer_and_matches_plain(cuda_device):
+    cfg = get_arch("mamba2-370m").reduced()
+    params = init_params(cfg, 0, cuda_device)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab, (2, 64))).to(cuda_device)
+    before = SSD.launches
+    got, cache = prefill(cfg.with_(use_ssd_kernel=True), params,
+                         {"tokens": tokens})
+    assert SSD.launches == before + cfg.n_layers
+    want, want_cache = prefill(cfg, params, {"tokens": tokens})
+    _close(got, want, torch.bfloat16)
+    for name in ("conv", "ssd"):
+        _close(cache["ssm"][name], want_cache["ssm"][name], torch.bfloat16)
+    # layer 0's conv state is its pre-conv input, before any SSD
+    assert torch.equal(cache["ssm"]["conv"][0], want_cache["ssm"]["conv"][0])

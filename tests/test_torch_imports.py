@@ -43,6 +43,12 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.distributed, repro_torch.distributed.async_trainer\n"
             "import repro_torch.core, repro_torch.data, repro_torch.optim\n"
             "import repro_torch.runtime, repro_torch.launch.profile_train\n"
+            "import repro_torch.launch.profile_serve\n"
+            "import repro_torch.kernels.ssd_chunk, repro_torch.models.layers\n"
+            "from repro_torch.kernels.ops import ssd_chunk, sgd_momentum_step\n"
+            "from repro_torch.kernels.ops import sgd_momentum_delayed\n"
+            "from repro_torch.models.model import FAMILIES\n"
+            "assert FAMILIES == ('dense', 'ssm')\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m] is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

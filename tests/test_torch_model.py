@@ -89,9 +89,13 @@ def test_init_cache_and_specs_match_jax():
 
 
 def test_other_families_raise():
-    cfg = t_get_arch("mamba2-370m").reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.param_specs(cfg)
+    """dense and ssm are ported; moe and hybrid (as audio and vlm) raise."""
+    for arch in ("deepseek-moe-16b", "zamba2-7b"):
+        cfg = t_get_arch(arch).reduced()
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TM.param_specs(cfg)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            TM.cache_specs(cfg, 1, 8)
 
 
 @pytest.mark.parametrize("flash", [False, True])

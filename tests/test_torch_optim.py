@@ -80,6 +80,86 @@ def test_update_matches_jax_multistep(impl, name, dtype):
 
 
 @pytest.mark.parametrize("impl", ["reference", "pallas"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sgd_momentum_update_matches_jax_multistep(impl, dtype):
+    """Heavy-ball SGD, clipped, over 4 steps with lr scales: the fused
+    route runs ``sgd_momentum_step`` (its plain version here) against JAX's
+    ``sgd_momentum_step_pallas`` in interpret mode."""
+    tcfg, jcfg = _cfgs("sgd", impl, momentum=0.9, clip_norm=1.0)
+    t_init, t_upd = TO.make_optimizer(tcfg)
+    j_init, j_upd = JO.make_optimizer(jcfg)
+    j_upd = jax.jit(j_upd, static_argnums=3)
+    jp, tp = _tree(dtype)
+    js, ts = j_init(jp), t_init(tp)
+    for step in range(4):
+        jg, tg = _tree(dtype, seed=40 + step)
+        scale = 0.5 if step % 2 else 1.0
+        jp, js, jn = j_upd(jg, js, jp, jcfg, lr_scale=scale)
+        tp, ts, tn = t_upd(tg, ts, tp, tcfg, lr_scale=scale)
+        np.testing.assert_allclose(tn.item(), float(jn), rtol=1e-6)
+    _assert_params(tp, jp, dtype)
+    _assert_opt(ts, js, dtype)
+
+
+@pytest.mark.parametrize("impl", ["reference", "pallas"])
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_sgd_momentum_delayed_apply_matches_jax(impl, dtype):
+    """The delayed apply with heavy ball: gated first round, then delay
+    scales 1, 1/2, 1; the buffer swap bitwise."""
+    tcfg, jcfg = _cfgs("sgd", impl, momentum=0.9, clip_norm=1.0)
+    t_apply = TO.make_delayed_apply(tcfg)
+    j_apply = jax.jit(JO.make_delayed_apply(jcfg), static_argnums=4)
+    jp, tp = _tree(dtype)
+    js, ts = JO.adam_init(jp), TO.adam_init(tp)
+    jb = jax.tree_util.tree_map(jnp.zeros_like, jp)
+    tb = {k: torch.zeros_like(v) for k, v in tp.items()}
+    for step, scale in enumerate((0.0, 1.0, 0.5, 1.0)):
+        jg, tg = _tree(dtype, seed=50 + step)
+        jp, jb, js, jn = j_apply(jg, jb, js, jp, jcfg, lr_scale=scale)
+        tp, tb, ts, tn = t_apply(tg, tb, ts, tp, tcfg, lr_scale=scale)
+        np.testing.assert_allclose(tn.item(), float(jn), rtol=1e-6)
+        for k in jb:
+            np.testing.assert_array_equal(f32(tb[k]), f32(jb[k]))
+    _assert_params(tp, jp, dtype)
+    _assert_opt(ts, js, dtype)
+
+
+def test_fused_momentum_tracks_reference_route():
+    """Inside the port, as ``tests/test_optim_fused.py:136-175`` holds the
+    JAX package: the fused heavy-ball route against the reference route on
+    the same f32 trees, sync and delayed, m buffers included."""
+    for delayed in (False, True):
+        fcfg, _ = _cfgs("sgd", "pallas", momentum=0.9, clip_norm=1.0)
+        rcfg, _ = _cfgs("sgd", "reference", momentum=0.9, clip_norm=1.0)
+        _, pr = _tree("float32")
+        _, pf = _tree("float32")
+        sr, sf = TO.adam_init(pr), TO.adam_init(pf)
+        br = {k: torch.zeros_like(v) for k, v in pr.items()}
+        bf = {k: torch.zeros_like(v) for k, v in pf.items()}
+        for step in range(4):
+            _, g = _tree("float32", seed=60 + step)
+            if delayed:
+                pr, br, sr, nr = TO.make_delayed_apply(rcfg)(
+                    g, br, sr, pr, rcfg, lr_scale=0.25)
+                pf, bf, sf, nf = TO.make_delayed_apply(fcfg)(
+                    {k: v.clone() for k, v in g.items()}, bf, sf, pf, fcfg,
+                    lr_scale=0.25)
+                for k in g:
+                    assert torch.equal(bf[k], g[k])
+            else:
+                pr, sr, nr = TO.make_optimizer(rcfg)[1](g, sr, pr, rcfg,
+                                                        lr_scale=0.5)
+                pf, sf, nf = TO.make_optimizer(fcfg)[1](g, sf, pf, fcfg,
+                                                        lr_scale=0.5)
+            assert torch.equal(nr, nf)
+        for k in pr:
+            np.testing.assert_allclose(f32(pf[k]), f32(pr[k]), rtol=1e-5,
+                                       atol=5e-7)
+            np.testing.assert_allclose(f32(sf["m"][k]), f32(sr["m"][k]),
+                                       rtol=1e-5, atol=1e-8)
+
+
+@pytest.mark.parametrize("impl", ["reference", "pallas"])
 @pytest.mark.parametrize("name", ["adam", "sgd"])
 @pytest.mark.parametrize("dtype", DTYPES)
 def test_delayed_apply_matches_jax(impl, name, dtype):
@@ -147,6 +227,7 @@ def test_update_impl_resolution():
     for impl in ("pallas_pooled", "pallas_pooled_interpret"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TO.make_optimizer(TO.OptConfig(update_impl=impl))
-    for make in (TO.make_optimizer, TO.make_delayed_apply):
-        with pytest.raises(NotImplementedError, match="momentum"):
-            make(TO.OptConfig(name="sgd", momentum=0.9, update_impl="pallas"))
+    # heavy-ball SGD on a fused impl runs its kernels
+    cfg = TO.OptConfig(name="sgd", momentum=0.9, update_impl="pallas")
+    assert TO.make_optimizer(cfg)[1] is TO.fused_sgd_update
+    assert TO.make_delayed_apply(cfg) is TO.fused_delayed_apply

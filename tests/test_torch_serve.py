@@ -8,38 +8,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax                                                   # noqa: E402
-import jax.numpy as jnp                                      # noqa: E402
-
-from repro.distributed import Server, ServeConfig            # noqa: E402
-from repro.launch.mesh import make_host_mesh                 # noqa: E402
-from repro.models import prefill                             # noqa: E402
 from repro_torch.api import ExperimentSpec, ServeJob, run    # noqa: E402
 from repro_torch.distributed import Server as TServer        # noqa: E402
 from repro_torch.distributed import ServeConfig as TServeConfig  # noqa: E402
 from repro_torch.models import init_params, params_to_numpy  # noqa: E402
-
-
-def _to_jax(tree):
-    return jax.tree_util.tree_map(
-        lambda a: jnp.asarray(a.view(jnp.bfloat16) if a.dtype == np.uint16
-                              else a), tree)
-
-
-def _jax_serve(job, T, seed, params):
-    """The JAX ServeBackend's lock-step lane on given params."""
-    cfg = job.make_arch()
-    ctx = job.prompt_len + T
-    server = Server(cfg, make_host_mesh(),
-                    ServeConfig(batch=job.batch, ctx_len=ctx, seed=seed))
-    prompts = np.random.default_rng(seed).integers(
-        0, cfg.vocab, (job.batch, job.prompt_len)).astype(np.int32)
-    last, cache = prefill(cfg, params, {"tokens": jnp.asarray(prompts)},
-                          ctx_len=ctx)
-    toks = np.asarray(jnp.argmax(last, axis=-1).astype(jnp.int32))
-    gen = server.generate(params, toks, T - 1, start_pos=job.prompt_len,
-                          cache=cache)
-    return prompts, np.concatenate([toks[:, None], gen], axis=1)
+from torch_parity import jax_serve, to_jax                   # noqa: E402
 
 
 @pytest.mark.parametrize("flash", [False, True])
@@ -54,7 +27,7 @@ def test_greedy_tokens_identical_to_jax(flash):
     assert res.extra["logits_finite"]
 
     params = init_params(job.make_arch(), seed, device="cpu")
-    prompts, want = _jax_serve(job, T, seed, _to_jax(params_to_numpy(params)))
+    prompts, want = jax_serve(job, T, seed, to_jax(params_to_numpy(params)))
     np.testing.assert_array_equal(res.extra["prompts"], prompts)
     np.testing.assert_array_equal(res.x, want)
 

@@ -108,12 +108,13 @@ def test_loss_refuses_remat():
         TM.loss_fn(tcfg.with_(remat="full"), {}, {"tokens": None})
 
 
-def _pair(dtype, *, opt="adam", impl="reference", **acfg):
+def _pair(dtype, *, opt="adam", impl="reference", momentum=0.0, **acfg):
     """(jax trainer, jitted step, state), (port trainer, step, state) from
     one JAX init state."""
     jcfg, tcfg = _cfgs(dtype)
     mesh = Mesh(np.array(jax.devices()[:1]).reshape(1, 1), ("data", "model"))
     jt = JTrainer(jcfg, mesh, opt=JOptConfig(name=opt, lr=1e-2,
+                                             momentum=momentum,
                                              update_impl="reference"),
                   async_cfg=JAsyncConfig(**acfg))
     jt.n_groups = GROUPS
@@ -123,6 +124,7 @@ def _pair(dtype, *, opt="adam", impl="reference", **acfg):
         if "gbuf" in js:
             js["gbuf"] = tree_f32(js["gbuf"])
     tt = AsyncTrainer(tcfg, opt=OptConfig(name=opt, lr=1e-2,
+                                          momentum=momentum,
                                           update_impl=impl),
                       async_cfg=AsyncConfig(**acfg), device="cpu")
     tt.n_groups = GROUPS
@@ -174,6 +176,28 @@ def test_train_step_matches_jax_f32(opt, impl, acfg, scales):
             for k, v in ts["params"]["blocks"]["mlp"].items():
                 assert torch.equal(v, p0[k]), k
     _assert_state(ts, js, opt)
+
+
+@pytest.mark.parametrize("delay", [1, 0])
+def test_momentum_train_step_matches_jax_f32(delay):
+    """AsyncTrainer with heavy-ball SGD (momentum 0.9, clip 1.0) on the
+    fused route (``sgd_momentum_delayed`` / ``sgd_momentum_step``, their
+    plain versions here) against the JAX trainer's reference update on
+    injected state, batches and masks: in f32 the two arithmetics agree to
+    rounding (clipping the gradient or scaling it in the kernel is the same
+    product)."""
+    (jstep, js), (tstep, ts) = _pair("float32", opt="sgd", impl="pallas",
+                                     momentum=0.9, delay_rounds=delay)
+    for q, mask in enumerate(MASKS):
+        tok = _tokens(512, 30 + q)
+        js, jm = jstep(js, {"tokens": jnp.asarray(tok)}, jnp.asarray(mask))
+        ts, tm = tstep(ts, {"tokens": torch.from_numpy(tok)},
+                       torch.from_numpy(mask))
+        for k in ("loss", "ce", "grad_norm", "participation"):
+            np.testing.assert_allclose(tm[k].item(), float(jm[k]),
+                                       err_msg=f"round {q} {k}", **F32_TOL)
+    assert ts["opt"]["m"]["embed"].abs().sum() > 0     # the buffer moved
+    _assert_state(ts, js, "sgd")
 
 
 def test_state_crosses_bitwise_both_ways():

@@ -5,7 +5,8 @@ route, and what the CUDA kernel is held to on the card) is compared with
 its Pallas kernel in interpret mode, and each port oracle
 (``repro_torch.kernels.ref``) with its JAX oracle, on the same numpy
 inputs, over the case matrices of ``tests/test_kernels.py`` and at its
-tolerances (f32 2e-4 for the SGD kernels, rtol 1e-5 for Adam, bf16 3e-2).
+tolerances (f32 2e-4 for the SGD and heavy-ball kernels, rtol 1e-5 for
+Adam, bf16 3e-2).
 The buffer swap is bitwise.  Kernels and oracles are not paired with each
 other: the oracles cast Adam's step to the param dtype before subtracting,
 the kernels subtract in f32.
@@ -20,7 +21,7 @@ import jax.numpy as jnp                                        # noqa: E402
 from repro.kernels import ref as jref                          # noqa: E402
 from repro.kernels.async_update import (                       # noqa: E402
     async_update_pallas, fused_adam_delayed_pallas, fused_adam_pallas,
-    sgd_step_pallas)
+    sgd_momentum_delayed_pallas, sgd_momentum_step_pallas, sgd_step_pallas)
 from repro_torch.kernels import async_update as AU             # noqa: E402
 from repro_torch.kernels import ops                            # noqa: E402
 from repro_torch.kernels import ref as tref                    # noqa: E402
@@ -111,6 +112,56 @@ def test_fused_adam_delayed_plain_matches_pallas(dtype, n):
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [128 * 256 + 37, 100])
+def test_sgd_momentum_step_plain_matches_pallas(dtype, n):
+    x = _inputs(n, dtype, seed=13)
+    j, t = _j(x), _t(x)
+    want = sgd_momentum_step_pallas(j["p"], j["m"], j["g"], lr=0.02,
+                                    momentum=0.9, clip_scale=0.5,
+                                    delay_scale=0.25, interpret=True)
+    got = ops.sgd_momentum_step(t["p"], t["m"], t["g"],
+                                AU.momentum_scalars(0.02, 0.5, 0.25, "cpu"),
+                                momentum=0.9)
+    assert got[0] is t["p"] and got[1] is t["m"]          # in place
+    for a, b in zip(got, want):
+        np.testing.assert_allclose(f32(a), f32(b), **SGD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("n", [128 * 256 + 37, 333])
+def test_sgd_momentum_delayed_plain_matches_pallas(dtype, n):
+    x = _inputs(n, dtype, seed=17)
+    j, t = _j(x), _t(x)
+    want = sgd_momentum_delayed_pallas(j["p"], j["m"], j["gb"], j["g"],
+                                       lr=0.02, momentum=0.9, clip_scale=0.5,
+                                       delay_scale=0.25, interpret=True)
+    got = ops.sgd_momentum_delayed(
+        t["p"], t["m"], t["gb"], t["g"],
+        AU.momentum_scalars(0.02, 0.5, 0.25, "cpu"), momentum=0.9)
+    assert got[2] is t["gb"]
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(f32(a), f32(b), **SGD_TOL[dtype])
+    np.testing.assert_array_equal(f32(got[2]), f32(want[2]))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_momentum_oracles_match_jax(dtype):
+    x = _inputs(1000, dtype, seed=19)
+    j, t = _j(x), _t(x)
+    kw = dict(lr=0.02, momentum=0.9, clip_scale=0.5, delay_scale=0.25)
+    for a, b in zip(tref.reference_sgd_momentum(t["p"], t["m"], t["g"], **kw),
+                    jref.reference_sgd_momentum(j["p"], j["m"], j["g"], **kw)):
+        np.testing.assert_allclose(f32(a), f32(b), **SGD_TOL[dtype])
+    got = tref.reference_sgd_momentum_delayed(t["p"], t["m"], t["gb"],
+                                              t["g"], **kw)
+    want = jref.reference_sgd_momentum_delayed(j["p"], j["m"], j["gb"],
+                                               j["g"], **kw)
+    for a, b in zip(got[:2], want[:2]):
+        np.testing.assert_allclose(f32(a), f32(b), **SGD_TOL[dtype])
+    np.testing.assert_array_equal(f32(got[2]), f32(want[2]))
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
 def test_update_oracles_match_jax(dtype):
     x = _inputs(1000, dtype, seed=3)
     j, t = _j(x), _t(x)
@@ -145,6 +196,9 @@ def test_bias_corrections_and_scalars_match_the_jax_wrapper():
     eff = AU.sgd_scalars(0.01, torch.tensor(0.5), 0.25, "cpu")
     assert eff.shape == (1,) and eff.dtype == torch.float32
     np.testing.assert_allclose(eff.item(), 0.01 * 0.5 * 0.25, rtol=1e-7)
+    mom = AU.momentum_scalars(0.01, torch.tensor(0.5), 0.25, "cpu")
+    assert mom.shape == (2,) and mom.dtype == torch.float32
+    np.testing.assert_allclose(mom.numpy(), [0.01 * 0.25, 0.5], rtol=1e-7)
 
 
 def test_cpu_route_counts_no_launch_and_unknown_devices_raise():
@@ -158,3 +212,7 @@ def test_cpu_route_counts_no_launch_and_unknown_devices_raise():
         ops.sgd_step(meta, meta, meta)
     with pytest.raises(ValueError, match="CUDA"):
         AU.sgd_step_cuda(x["p"], x["g"], AU.sgd_scalars(0.1, 1.0, 1.0, "cpu"))
+    with pytest.raises(ValueError, match="CUDA"):
+        AU.sgd_momentum_delayed_cuda(
+            x["p"], x["m"], x["gb"], x["g"],
+            AU.momentum_scalars(0.1, 1.0, 1.0, "cpu"), momentum=0.9)

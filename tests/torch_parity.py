@@ -42,6 +42,35 @@ def port_params(jax_tree, device="cpu"):
                              device=device)
 
 
+def to_jax(tree):
+    """A numpy tree from the port (bf16 as uint16 bits) as JAX arrays."""
+    return jax.tree_util.tree_map(
+        lambda a: jnp.asarray(a.view(jnp.bfloat16) if a.dtype == np.uint16
+                              else a), tree)
+
+
+def jax_serve(job, T, seed, params):
+    """The JAX ServeBackend's lock-step lane on given params: the same
+    ``default_rng(seed)`` prompts, prefill, first token by argmax, then
+    ``T − 1`` decode steps.  Returns (prompts, (batch, T) tokens)."""
+    from repro.distributed import Server, ServeConfig
+    from repro.launch.mesh import make_host_mesh
+    from repro.models import prefill
+
+    cfg = job.make_arch()
+    ctx = job.prompt_len + T
+    server = Server(cfg, make_host_mesh(),
+                    ServeConfig(batch=job.batch, ctx_len=ctx, seed=seed))
+    prompts = np.random.default_rng(seed).integers(
+        0, cfg.vocab, (job.batch, job.prompt_len)).astype(np.int32)
+    last, cache = prefill(cfg, params, {"tokens": jnp.asarray(prompts)},
+                          ctx_len=ctx)
+    toks = np.asarray(jnp.argmax(last, axis=-1).astype(jnp.int32))
+    gen = server.generate(params, toks, T - 1, start_pos=job.prompt_len,
+                          cache=cache)
+    return prompts, np.concatenate([toks[:, None], gen], axis=1)
+
+
 def tree_f32(jax_tree):
     """Cast every floating leaf of a JAX tree to float32."""
     return jax.tree_util.tree_map(
