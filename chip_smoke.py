@@ -11,15 +11,19 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together;
 3. the flash kernel against its plain version, on the card: the serving
    path's prefill shape and the kernel test matrix (MHA, GQA 4:1, ragged
-   MQA, D = 128, windows, non-causal, an empty-row case), in f32 and bf16
-   at the kernel suite's tolerances; at the main-path shape the kernel, its
-   plain version and ``scaled_dot_product_attention`` (a yardstick only:
-   the port never calls it) are timed with CUDA events;
+   MQA, D = 128, windows, non-causal, an empty-row case) plus the edges of
+   the bf16 route's 64-row tiles (Sq 1000, H/KV 7, window 100, ragged
+   non-causal Sk > Sq, q tiles that visit no key tile), in f32 (CUDA-core
+   route) and bf16 (tensor-core route) at the kernel suite's tolerances; at the main-path shape the
+   kernel, its plain version and ``scaled_dot_product_attention`` (a
+   yardstick only: the port never calls it) are timed on the device (CUDA
+   graph replay, :func:`device_ms`), and the kernel's eager calls too;
 4. the serving main path at full width: ``run(ExperimentSpec(objective=
    ServeJob(arch="qwen2-0.5b", reduced=False, batch=4, prompt_len=1024,
-   ...)))`` with the flash kernel on, which must launch it once per layer;
-   then prefill again on the same params with and without the kernel,
-   whose last-token logits must agree to bf16 tolerance;
+   ...)))`` with the flash kernel on, which must launch it once per layer
+   and hand it bf16 q/k/v (its tensor-core route); then prefill again on the
+   same params with and without the kernel, whose last-token logits must
+   agree to bf16 tolerance;
 5. the six update kernels against their plain versions, on the card:
    sizes 1, 127, 128·256, 128·256 + 1, 1,000,003 and the 14 leaf sizes of
    qwen2-0.5b, f32 and bf16 params, count 1 and 7, weight decay 0 and 0.1,
@@ -45,18 +49,21 @@ Phases, each of which fails the run (non-zero exit, no result line):
    launching its kernel rounds × 14 times, with a loss curve within 5e-3 of
    ``update_impl="reference"`` (``TrainJob`` has no momentum field);
 9. the SSD chunk kernel against its plain version, on the card: the case
-   matrix of ``tests/test_kernels.py`` and the serving shape of mamba2-370m
-   (x (4, 8, 128, 32, 64), B/C (4, 8, 128, 128)), f32 and bf16, at that
-   file's tolerances (1e-3, 4e-2); at the serving shape the kernel and its
-   plain version are timed with CUDA events (no single PyTorch call computes
-   this function);
+   matrix of ``tests/test_kernels.py``, the serving shape of mamba2-370m
+   (x (4, 8, 128, 32, 64), B/C (4, 8, 128, 128)) and the edges of the bf16
+   route's head groups and tiles (one cell, H = 6, c 32 and 128 with
+   N = 64, c 16 with N = 128), f32 (CUDA-core route) and bf16 (tensor-core
+   route), at that file's tolerances (1e-3, 4e-2); at the serving shape
+   the kernel and its plain version are timed on the device as in phase 3
+   (no single PyTorch call computes this function);
 10. the SSM serving main path at full width: ``run(ExperimentSpec(
     objective=ServeJob(arch="mamba2-370m", reduced=False, batch=4,
     prompt_len=1024, arch_overrides=(("use_ssd_kernel", True),)),
-    T=32))``, which must launch the SSD kernel once per layer (48); then
-    prefill again on the same params: through the kernel and through its
-    plain version in the same branch, whose last-token logits must agree to
-    bf16 tolerance; the gap to the einsum branch (``use_ssd_kernel=False``),
+    T=32))``, which must launch the SSD kernel once per layer (48) and
+    hand it bf16 x, B and C (its tensor-core route); then prefill again on
+    the same params: through the kernel and through its plain version in
+    the same branch, whose last-token logits must agree to bf16 tolerance;
+    the gap to the einsum branch (``use_ssd_kernel=False``),
     gated at 2 layers as the JAX suite gates it and reported at 48; warm
     prefill and decode times;
 11. the guards: the flash and SSD kernels' CUDA routes raise for an input
@@ -66,8 +73,11 @@ Phases, each of which fails the run (non-zero exit, no result line):
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import functools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -115,6 +125,12 @@ CASES = [
     ("window1000", 1, 256, 256, 4, 4, 64, True, 1000),
     ("noncausal", 2, 128, 192, 4, 4, 64, False, None),
     ("empty_rows", 1, 128, 32, 2, 2, 32, False, 16),
+    ("sq1000", 1, 1000, 1000, 2, 2, 64, True, None),
+    ("gqa7", 2, 192, 192, 7, 1, 64, True, None),
+    ("window100", 1, 512, 512, 4, 4, 64, True, 100),
+    ("noncausal_ragged", 2, 200, 300, 4, 2, 64, False, None),
+    ("empty_tiles", 1, 256, 32, 2, 2, 64, False, 16),
+    ("empty_tiles_causal", 1, 512, 64, 2, 2, 64, True, 100),
 ]
 SERVE = dict(arch="qwen2-0.5b", reduced=False, batch=4, prompt_len=1024,
              T=32, seed=0)
@@ -156,7 +172,11 @@ MOMENTUM_PATHS = (("sgd_momentum_delayed", 1), ("sgd_momentum_step", 0))
 #: mamba2-370m first (timed too), then the kernel test matrix; tolerances
 #: of tests/test_kernels.py
 SSD_CASES = [("main_path", 4, 8, 128, 32, 64, 128),
-             ("c16", 1, 1, 16, 2, 32, 16), ("c64", 1, 1, 64, 4, 64, 32)]
+             ("c16", 1, 1, 16, 2, 32, 16), ("c64", 1, 1, 64, 4, 64, 32),
+             ("g1", 1, 1, 128, 8, 64, 128), ("h6", 1, 2, 64, 6, 64, 64),
+             ("c32_n64", 2, 2, 32, 8, 64, 64),
+             ("c128_n64", 2, 2, 128, 8, 64, 64),
+             ("c16_n128", 1, 2, 16, 4, 64, 128)]
 SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 4e-2}
 SSM_SERVE = dict(arch="mamba2-370m", reduced=False, batch=4, prompt_len=1024,
                  T=32, seed=0)
@@ -179,6 +199,47 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+@contextlib.contextmanager
+def _dtypes_seen(module, name):
+    """Collects, while it is open, the dtypes of the tensors each call of
+    ``module.<name>`` receives (as a set of tuples)."""
+    fn, seen = getattr(module, name), set()
+
+    @functools.wraps(fn)
+    def recording(*args, **kw):
+        seen.add(tuple(str(a.dtype)[6:] for a in args
+                       if isinstance(a, torch.Tensor)))
+        return fn(*args, **kw)
+
+    setattr(module, name, recording)
+    try:
+        yield seen
+    finally:
+        setattr(module, name, fn)
+
+
+def device_ms(fn, iters: int = 20) -> float:
+    """Device time of one ``fn()``: ``iters`` calls captured in one CUDA
+    graph, replayed back to back and timed with CUDA events, so what the
+    host spends issuing a call (a wrapper's checks, ``ctypes``) drops out.
+    Kernels of tens of microseconds sit below their wrappers' host cost, so
+    :func:`time_ms` over eager calls would time the host."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    ms = time_ms(graph.replay, iters=5, warmup=1) / iters
+    del graph
+    torch.cuda.empty_cache()
+    return ms
 
 
 def flash_bound(q, k, causal, window):
@@ -225,9 +286,21 @@ def phase_build() -> None:
     log(f"build: {len(SOURCES)} sources in {time.perf_counter() - t0:.2f} s")
     for name, (lib, secs) in built.items():
         log(f"  {name}.cu in {secs:.2f} s")
-        for line in lib.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                log(f"  ptxas: {line.strip()}")
+        for kernel, regs, spill in _ptxas_report(lib.with_suffix(".log")):
+            log(f"  ptxas: {kernel}: {regs} registers; {spill}")
+
+
+def _ptxas_report(path):
+    """[(kernel, registers, spill line)] from ptxas's ``-v`` report."""
+    rows, kernel, spill = [], "", ""
+    for line in path.read_text().splitlines():
+        if m := re.search(r"Compiling entry function '(\S+)'", line):
+            kernel = m.group(1)
+        elif "spill" in line:
+            spill = line.split(":")[-1].strip()
+        elif m := re.search(r"Used (\d+) registers", line):
+            rows.append((kernel, int(m.group(1)), spill))
+    return rows
 
 
 def _compare(got, want, tol):
@@ -273,15 +346,21 @@ def phase_kernels(device) -> dict:
     _, B, Sq, Sk, H, KV, D, causal, window = CASES[0]
     q, k, v = _qkv(B, Sq, Sk, H, KV, D, torch.bfloat16, device)
     kw = dict(causal=causal, window=window)
-    entry["ms"] = time_ms(lambda: FA.flash_attention_cuda(q, k, v, **kw))
-    entry["plain_ms"] = time_ms(lambda: FA.flash_attention_plain(q, k, v, **kw))
+    kernel = lambda: FA.flash_attention_cuda(q, k, v, **kw)
+    entry["ms"] = device_ms(kernel)
+    eager = time_ms(kernel)
+    entry["plain_ms"] = device_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
+                                  iters=5)
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    entry["library_ms"] = time_ms(lambda: F.scaled_dot_product_attention(
+    entry["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, is_causal=causal, enable_gqa=True))
     entry["bound_ms"], entry["bound_by"] = flash_bound(q, k, **kw)
-    log(f"flash main-path shape bf16: kernel {entry['ms']:.4f} ms, plain "
-        f"{entry['plain_ms']:.4f} ms, sdpa {entry['library_ms']:.4f} ms, "
-        f"bound {entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+    log(f"flash main-path shape bf16 ({FA.route(q.dtype)} route): device "
+        f"time per call: kernel "
+        f"{entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, sdpa "
+        f"{entry['library_ms']:.4f} ms ({entry['ms'] / entry['library_ms']:.2f}x "
+        f"sdpa), bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}); eager "
+        f"calls back to back {eager:.4f} ms each")
     return entry
 
 
@@ -295,8 +374,15 @@ def phase_main_path(device, entry: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
 
     FA.launches = 0
-    res = run(spec, device=device)
+    with _dtypes_seen(FA, "flash_attention_cuda") as seen:
+        res = run(spec, device=device)
     entry["launches"] = FA.launches
+    routes = sorted({FA.route(getattr(torch, d[0])) for d in seen})
+    log(f"main path hands the flash kernel q/k/v of dtypes {sorted(seen)}: "
+        f"route {routes}")
+    if routes != ["tensor_cores"]:
+        raise AssertionError(f"main path took the flash routes {routes}, "
+                             f"want the tensor cores'")
 
     log(f"main path: {cfg.name} L={cfg.n_layers} d={cfg.d_model} "
         f"vocab={cfg.vocab} batch={s['batch']} prompt={s['prompt_len']} "
@@ -745,13 +831,16 @@ def phase_ssd_kernel(device) -> dict:
                 entry["max_abs_err"] = max(err_y, err_s)
             del args, y, st, wy, wst
     args = _ssd_inputs(*SSD_CASES[0][1:], torch.bfloat16, device)
-    entry["ms"] = time_ms(lambda: SSD.ssd_chunk_cuda(*args))
-    entry["plain_ms"] = time_ms(lambda: SSD.ssd_chunk_plain(*args), iters=5)
+    kernel = lambda: SSD.ssd_chunk_cuda(*args)
+    entry["ms"] = device_ms(kernel)
+    eager = time_ms(kernel)
+    entry["plain_ms"] = device_ms(lambda: SSD.ssd_chunk_plain(*args), iters=5)
     entry["library_ms"] = None
     entry["bound_ms"], entry["bound_by"] = ssd_bound(args[0], args[3])
-    log(f"ssd main-path shape bf16: kernel {entry['ms']:.4f} ms, plain "
-        f"{entry['plain_ms']:.4f} ms, no library call, bound "
-        f"{entry['bound_ms']:.4f} ms ({entry['bound_by']})")
+    log(f"ssd main-path shape bf16 ({SSD.route(args[0].dtype, args[3].dtype)} "
+        f"route): device time per call: kernel {entry['ms']:.4f} ms, plain "
+        f"{entry['plain_ms']:.4f} ms, no library call, bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}); eager "
+        f"calls back to back {eager:.4f} ms each")
     del args
     torch.cuda.empty_cache()
     return entry
@@ -781,8 +870,16 @@ def phase_ssm_main_path(device, entry: dict) -> None:
     torch.cuda.reset_peak_memory_stats()
 
     SSD.launches = 0
-    res = run(spec, device=device)
+    with _dtypes_seen(SSD, "ssd_chunk_cuda") as seen:
+        res = run(spec, device=device)
     entry["launches"] = SSD.launches
+    routes = sorted({SSD.route(getattr(torch, d[0]), getattr(torch, d[3]))
+                     for d in seen})
+    log(f"ssm main path hands the ssd kernel x/dt/A/B/C of dtypes "
+        f"{sorted(seen)}: route {routes}")
+    if routes != ["tensor_cores"]:
+        raise AssertionError(f"ssm main path took the ssd routes {routes}, "
+                             f"want the tensor cores'")
 
     log(f"ssm main path: {cfg.name} L={cfg.n_layers} d={cfg.d_model} "
         f"d_inner={cfg.d_inner} heads={cfg.ssm_heads}x{cfg.ssm_head_dim} "

@@ -2,10 +2,10 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled with
 ``nvcc`` for ``sm_90a`` into ``build/kernels/<name>-<hash>.so`` under the
-repository root, keyed by a hash of the source and the flags, and loaded
-with ``ctypes``.  A missing ``nvcc`` raises.  The compiler's ``-Xptxas -v``
-report (registers, shared memory, spills) is kept beside the library as
-``.log``.
+repository root, keyed by a hash of the source, every shared header
+``csrc/*.cuh`` it may include, and the flags, and loaded with ``ctypes``.
+A missing ``nvcc`` raises.  The compiler's ``-Xptxas -v`` report
+(registers, shared memory, spills) is kept beside the library as ``.log``.
 """
 from __future__ import annotations
 
@@ -34,9 +34,13 @@ def find_nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"{name}-{key}.so"
+    """Where the library of ``csrc/<name>.cu`` lives: a name that changes
+    with the source, any shared header and any flag (an ``-I`` included)."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

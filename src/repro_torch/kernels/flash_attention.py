@@ -5,7 +5,9 @@ Counterpart of ``repro/kernels/flash_attention.py``.  The kernel itself is
 ``kernels/_build.py`` and called through ``ctypes``.
 
 * :func:`flash_attention_cuda` launches the kernel on a CUDA tensor and adds
-  one to the module counter :data:`launches` per launch.
+  one to the module counter :data:`launches` per launch.  The dtype picks
+  the kernel's route (:func:`route`): bf16 on the tensor cores, f32 on the
+  CUDA cores.
 * :func:`flash_attention_plain` is the same function in plain PyTorch: the
   CPU path, and the yardstick the kernel is held to on the card.
 
@@ -30,6 +32,18 @@ launches = 0
 
 HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+#: the kernel's route for each dtype it takes (csrc/flash_attention.cu)
+ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "tensor_cores"}
+
+
+def route(dtype) -> str:
+    """Which of the kernel's two routes q/k/v of ``dtype`` take: bf16 runs
+    its products on the tensor cores (P rounded to bf16 before P·V), f32
+    keeps the f32 FMAs of the first version, which hold the f32
+    tolerance."""
+    if dtype not in ROUTES:
+        raise TypeError(f"flash attention takes float32 or bfloat16, got {dtype}")
+    return ROUTES[dtype]
 
 
 def flash_attention_plain(q, k, v, *, causal=True, window=None):
@@ -59,6 +73,20 @@ def _check(q, k, v):
         raise ValueError(f"head dim {D} not built; the kernel takes {HEAD_DIMS}")
 
 
+def _tile_ready(t):
+    """``t`` as the tensor-core route reads it: d contiguous, rows 16-byte
+    aligned (pointer at 16 bytes, every other stride a multiple of 8
+    elements).  Any BSHD view that is not is copied first."""
+    ok = t.data_ptr() % 16 == 0 and t.stride(-1) == 1 and all(
+        st % 8 == 0 for n, st in zip(t.shape[:-1], t.stride()[:-1]) if n > 1)
+    return t if ok else t.clone(memory_format=torch.contiguous_format)
+
+
+def _strides(t):
+    """(b, s, h, d) strides, 0 for a dim of size 1 (read at index 0 only)."""
+    return tuple(0 if n == 1 else st for n, st in zip(t.shape, t.stride()))
+
+
 @functools.cache
 def _kernel():
     """The C entry point, built and bound on first use."""
@@ -72,7 +100,8 @@ def _kernel():
 def flash_attention_cuda(q, k, v, *, causal=True, window=None):
     """Launch the CUDA kernel on ``torch.cuda.current_stream()``.
 
-    Reads q/k/v through their strides (any BSHD view); allocates only the
+    Reads q/k/v through their strides (any BSHD view; for bf16 a view
+    whose rows are not 16-byte aligned is copied first); allocates only the
     output.  Raises on what the kernel does not take and when the launch
     is refused.
 
@@ -97,9 +126,11 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None):
     if window is not None:
         # any window ≥ Sq already sees every key from 0: clamp to C int range
         window = min(int(window), Sq)
+    if route(q.dtype) == "tensor_cores":
+        q, k, v = _tile_ready(q), _tile_ready(k), _tile_ready(v)
     fn = _kernel()
     strides = (ctypes.c_longlong * 16)(
-        *q.stride(), *k.stride(), *v.stride(), *out.stride())
+        *_strides(q), *_strides(k), *_strides(v), *_strides(out))
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

@@ -15,7 +15,9 @@ Shapes are the JAX kernel's: x (B,nc,c,H,P), dt (B,nc,c,H), A (H,),
 B_/C_ (B,nc,c,N) → y (B,nc,c,H,P), states (B,nc,H,N,P).
 
 * :func:`ssd_chunk_cuda` launches the kernel on CUDA tensors and adds one
-  to :data:`launches` per launch.  The kernel is forward only, as the TPU
+  to :data:`launches` per launch.  The dtypes pick the kernel's route
+  (:func:`route`): bf16 x, B and C on the tensor cores, every other mix on
+  the CUDA cores.  The kernel is forward only, as the TPU
   kernel is: with grad mode on and an input that requires grad it raises
   rather than return a tensor without the gradient.
 * :func:`ssd_chunk_plain` is the same function in plain PyTorch: the CPU
@@ -39,18 +41,46 @@ launches = 0
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel's limits (csrc/ssd_chunk.cu): chunk length, padded products
+#: of the CUDA-core route, state size and head dim of the tensor-core route
 MAX_CHUNK, MAX_TILE_ELEMS, MAX_SMEM = 128, 16384, 232448
+TC_MAX_N = TC_MAX_P = 128
+#: heads per block of the tensor-core route, which shares C·Bᵀ among them
+HEADS_PER_BLOCK = 4
 
 
-def _round4(n):
-    return -(-n // 4) * 4
+def route(x_dtype, bc_dtype) -> str:
+    """Which of the kernel's two routes operands of these dtypes take: bf16
+    x, B and C (the model's path) run on the tensor cores, C·Bᵀ shared by a
+    block's heads and the f32 factors rounded to bf16 hi + lo; any other
+    mix keeps the f32 arithmetic of the first version."""
+    for dt in (x_dtype, bc_dtype):
+        if dt not in _DTYPE_CODES:
+            raise TypeError(f"ssd_chunk takes float32 or bfloat16, got {dt}")
+    if x_dtype == bc_dtype == torch.bfloat16:
+        return "tensor_cores"
+    return "cuda_cores"
 
 
-def smem_bytes(c, P, N):
-    """Shared memory one block takes for (c, P, N), as the kernel lays it
-    out: cum and the end decays (c each), x·dt (c × P+1), the scores
-    (c × c+1) and the staging buffer, all float32, padded to whole tiles."""
-    cp, pp, np_ = _round4(c), _round4(P), _round4(N)
+def _round(n, m):
+    return -(-n // m) * m
+
+
+def smem_bytes(c, P, N, tensor_cores=False):
+    """Shared memory one block takes for (c, P, N), as the route lays it
+    out.  CUDA cores: cum and the end decays (c each), x·dt (c × P+1), the
+    scores (c × c+1) and the staging buffer, all float32, padded to whole
+    4 × 4 tiles.  Tensor cores, sizes padded to 16 and bf16 rows padded by
+    8: the B tile, two x stages, the f32 C·Bᵀ triangle (1 KB per 16 × 16
+    block; it first holds the staged C tile, so it is at least that size)
+    and 12 bytes per row for each of the block's heads."""
+    if tensor_cores:
+        cp, np_, pp = _round(c, 16), _round(N, 16), _round(P, 16)
+        nrt = cp // 16
+        tile = 2 * cp * (np_ + 8)
+        return (tile + 4 * cp * (pp + 8)
+                + max(nrt * (nrt + 1) // 2 * 1024, tile)
+                + HEADS_PER_BLOCK * cp * 12)
+    cp, pp, np_ = _round(c, 4), _round(P, 4), _round(N, 4)
     return 4 * (2 * cp + cp * (pp + 1) + cp * (cp + 1)
                 + max(2 * cp * 33, 32 * (np_ + 1)))
 
@@ -118,7 +148,14 @@ def _check(x, dt, A, B_, C_):
         raise ValueError(f"ssd_chunk shapes do not match: x {tuple(x.shape)}, "
                          f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, B "
                          f"{tuple(B_.shape)}, C {tuple(C_.shape)}")
-    cp, pp, np_ = _round4(c), _round4(P), _round4(N)
+    if route(x.dtype, B_.dtype) == "tensor_cores":
+        if c > MAX_CHUNK or N > TC_MAX_N or P > TC_MAX_P \
+                or smem_bytes(c, P, N, True) > MAX_SMEM:
+            raise ValueError(f"ssd_chunk kernel takes chunks up to {MAX_CHUNK} "
+                             f"rows with N and P up to {TC_MAX_N} in bf16; got "
+                             f"c={c}, P={P}, N={N}")
+        return
+    cp, pp, np_ = _round(c, 4), _round(P, 4), _round(N, 4)
     if c > MAX_CHUNK or cp * pp > MAX_TILE_ELEMS or np_ * pp > MAX_TILE_ELEMS \
             or smem_bytes(c, P, N) > MAX_SMEM:
         raise ValueError(f"ssd_chunk kernel takes chunks up to {MAX_CHUNK} "

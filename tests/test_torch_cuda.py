@@ -66,6 +66,12 @@ def _close(got, want, dtype):
     (1, 256, 256, 4, 4, 64, True, 1000),
     (2, 128, 192, 4, 4, 64, False, None),     # non-causal
     (1, 128, 32, 2, 2, 32, False, 16),        # rows that see no key → 0
+    (1, 1000, 1000, 2, 2, 64, True, None),    # Sq not a multiple of 64
+    (2, 192, 192, 7, 1, 64, True, None),      # H/KV = 7
+    (1, 512, 512, 4, 4, 64, True, 100),       # a window off the 64-key tile
+    (2, 200, 300, 4, 2, 64, False, None),     # non-causal, ragged Sk > Sq
+    (1, 256, 32, 2, 2, 64, False, 16),        # q tiles that visit no key tile
+    (1, 512, 64, 2, 2, 64, True, 100),
 ])
 def test_flash_kernel_matches_plain(cuda_device, dtype, B, Sq, Sk, H, KV, D,
                                     causal, window):
@@ -89,6 +95,19 @@ def test_flash_kernel_reads_strided_views(cuda_device):
     got = FA.flash_attention_cuda(qt, kt, vt, causal=True, window=24)
     _close(got, FA.flash_attention_plain(q, k, v, causal=True, window=24),
            torch.float32)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_copies_unaligned_bf16_views(cuda_device):
+    """The tensor-core route stages 16-byte rows: a bf16 view whose rows
+    are not 16-byte aligned (here an odd column offset into wider rows) is
+    copied first and gives the plain version's result."""
+    q, k, v = _qkv(cuda_device, 1, 96, 96, 3, 1, 70, torch.bfloat16)
+    qs, ks, vs = (t[..., 3:67] for t in (q, k, v))
+    assert qs.data_ptr() % 16 and qs.stride(1) % 8
+    got = FA.flash_attention_cuda(qs, ks, vs, causal=True)
+    _close(got, FA.flash_attention_plain(qs, ks, vs, causal=True),
+           torch.bfloat16)
 
 
 @pytest.mark.cuda
@@ -286,9 +305,14 @@ def test_momentum_trainer_launches_its_kernel(cuda_device, delay):
 
 
 #: (B, nc, c, H, P, N): the kernel test matrix of test_kernels.py, ragged
-#: sizes (no multiple of 4 or of 32), and the serving path's prefill shape
+#: sizes (no multiple of 4 or of 32), the serving path's prefill shape, and
+#: the edges of the tensor-core route's tiling: one cell, H not a multiple
+#: of the 4 heads a block takes, c = 32 and c = 128 with N = 64
 SSD_CASES = [(1, 1, 16, 2, 32, 16), (1, 1, 64, 4, 64, 32),
-             (2, 3, 13, 3, 20, 10), (4, 8, 128, 32, 64, 128)]
+             (2, 3, 13, 3, 20, 10), (4, 8, 128, 32, 64, 128),
+             (1, 1, 128, 8, 64, 128), (1, 2, 64, 6, 64, 64),
+             (2, 2, 32, 8, 64, 64), (2, 2, 128, 8, 64, 64),
+             (1, 2, 16, 4, 64, 128)]
 SSD_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-3),
            torch.bfloat16: dict(rtol=4e-2, atol=4e-2)}
 
@@ -363,6 +387,11 @@ def test_ssd_cuda_route_raises_under_grad(cuda_device):
         with torch.no_grad():
             SSD.ssd_chunk_cuda(*_ssd_inputs(cuda_device, 1, 1, 160, 2, 32, 16,
                                             torch.float32, torch.float32))
+    # the tensor-core route: N and P at most 128
+    with pytest.raises(ValueError, match="N and P up to 128"):
+        SSD.ssd_chunk_cuda(*_ssd_inputs(cuda_device, 1, 1, 64, 2, 32, 160,
+                                        torch.bfloat16, torch.bfloat16))
+    assert SSD.launches == before + 1
 
 
 @pytest.mark.cuda

@@ -5,7 +5,16 @@ D = 128, windows 16/64/1000, non-causal) with sequences cut to ≤ 128, at its
 tolerances: f32 2e-4, bf16 3e-2.  On the CPU the port runs the kernel's
 plain version; the CUDA kernel itself is held to it on the card by the
 ``cuda``-marked tests of ``test_torch_cuda.py``.
+
+The kernel's bf16 route rounds in one place the plain version does not:
+P, the probabilities of a 64-key tile under the running max, goes into
+P·V as bf16 (l sums them in f32), and 1/√D scales the f32 scores.
+:func:`tensor_core_model` writes those rounding points in plain torch, tile
+by tile, and is held to the Pallas kernel at the main path's widths before
+any card sees the kernel.
 """
+import math
+
 import numpy as np
 import pytest
 
@@ -14,6 +23,7 @@ torch = pytest.importorskip("torch")
 from repro.kernels.flash_attention import flash_attention_pallas  # noqa: E402
 from repro_torch.kernels import flash_attention as FA             # noqa: E402
 from repro_torch.kernels import ops                               # noqa: E402
+from repro_torch.kernels.ref import attention_mask                # noqa: E402
 from torch_parity import f32, pair, randn                         # noqa: E402
 
 TOL = {"float32": dict(rtol=2e-4, atol=2e-4),
@@ -97,3 +107,65 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run(ExperimentSpec(objective=ServeJob(), T=2))
     assert resolve_device("cpu").type == "cpu"
+
+
+def tensor_core_model(q, k, v, *, causal=True, window=None, tile=64):
+    """The bf16 route of ``csrc/flash_attention.cu`` in plain torch: f32
+    scores of the bf16 inputs, masks as -inf, the online softmax over
+    64-key tiles in base 2 with the scale on the f32 scores, P rounded to
+    bf16 before P·V, l summed from the f32 P, an empty row 0."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    kf = k.float().repeat_interleave(H // KV, dim=2)
+    vf = v.float().repeat_interleave(H // KV, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf)
+    s = s.masked_fill(~attention_mask(Sq, Sk, causal, window), -math.inf)
+    sl = math.log2(math.e) / math.sqrt(D)
+    m = torch.full((B, H, Sq), -math.inf)
+    l = torch.zeros((B, H, Sq))
+    acc = torch.zeros((B, H, Sq, D))
+    for k0 in range(0, Sk, tile):
+        st = s[..., k0:k0 + tile]
+        mx = torch.maximum(m, st.amax(-1))
+        off = torch.where(mx == -math.inf, 0.0, mx * sl)
+        alpha = torch.exp2(m * sl - off)
+        p = torch.exp2(st * sl - off[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum(
+            "bhqk,bkhd->bhqd", p.bfloat16().float(), vf[:, k0:k0 + tile])
+        m = mx
+    out = torch.where(l[..., None] == 0, 0.0, acc / l[..., None])
+    return out.transpose(1, 2).to(q.dtype)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,causal,window", [
+    (1, 192, 192, 14, 2, True, None),     # H/KV = 7, three tiles
+    (1, 200, 200, 7, 1, True, 100),       # ragged S, a window off the tile
+    (1, 128, 200, 14, 2, False, None),    # non-causal, Sk > Sq
+])
+def test_flash_tensor_core_rounding_matches_pallas(B, Sq, Sk, H, KV, causal,
+                                                   window):
+    """The bf16 route's rounding points, at the main path's D = 64 and
+    H/KV = 7, against the Pallas kernel in interpret mode at the bf16
+    tolerance."""
+    (qj, qt), (kj, kt), (vj, vt) = _inputs(B, Sq, Sk, H, KV, 64, "bfloat16")
+    want = flash_attention_pallas(qj, kj, vj, causal=causal, window=window,
+                                  block_q=64, block_k=64, interpret=True)
+    got = tensor_core_model(qt, kt, vt, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(f32(got), f32(want), **TOL["bfloat16"])
+    # the same model holds the plain version the kernel is gated against
+    np.testing.assert_allclose(
+        f32(got), f32(FA.flash_attention_plain(qt, kt, vt, causal=causal,
+                                               window=window)),
+        **TOL["bfloat16"])
+
+
+def test_flash_kernel_route_follows_dtype():
+    """bf16 takes the tensor-core route, f32 keeps the CUDA-core kernel
+    (its tolerance of 2e-4 rules out bf16 or TF32 operands); nothing else
+    has a route."""
+    assert FA.route(torch.bfloat16) == "tensor_cores"
+    assert FA.route(torch.float32) == "cuda_cores"
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        FA.route(torch.float16)

@@ -10,6 +10,11 @@
   term is added, so pairing across the branches holds only to bf16
   tolerance (``test_kernels.py:255-267``).
 * The one-token SSD step, the depthwise causal conv and its decode step.
+* The rounding points of the kernel's bf16 route (:func:`tensor_core_model`):
+  dt folded into the f32 score and decay factors, which alone are rounded to
+  bf16, as hi + lo (the kernel's default) or once, while x enters exact;
+  held to the Pallas kernel at the serving path's widths before any card
+  sees the kernel.
 
 Inputs are drawn with numpy and handed to both.  Tolerances: against the
 sequential oracle those of ``test_kernels.py`` (f32 1e-3, bf16 4e-2: the
@@ -188,3 +193,74 @@ def test_causal_conv_and_its_decode_step_match_jax(dtype):
         np.testing.assert_allclose(f32(to), f32(jo), **tol)
         np.testing.assert_allclose(f32(to), f32(ty[:, t]), **tol)
     np.testing.assert_array_equal(f32(tst), f32(jst))
+
+
+def _hi_lo(t):
+    """``t`` (f32) as the kernel feeds it to the tensor cores: bf16 hi plus
+    bf16 lo = bf16(t − hi)."""
+    hi = t.bfloat16().float()
+    return hi + (t - hi).bfloat16().float()
+
+
+def tensor_core_model(x, dt, A, B_, C_):
+    """The bf16 route of ``csrc/ssd_chunk.cu`` in plain torch: C·Bᵀ in f32
+    from the bf16 inputs; the score factor C·Bᵀ ∘ L ∘ dt_j (L formed only
+    where j ≤ i) and the decay factor B ∘ exp(cum₋₁ − cum) ∘ dt rounded to
+    bf16 hi + lo; x, exact in bf16, times the rounded factor summed in f32;
+    y cast once to x's dtype."""
+    c = x.shape[2]
+    xf, Bf, Cf = x.float(), B_.float(), C_.float()
+    cum = torch.cumsum(dt * A, dim=2)                           # (B,k,c,H)
+    diff = cum[:, :, :, None, :] - cum[:, :, None, :, :]        # (B,k,i,j,H)
+    tril = torch.ones((c, c), dtype=torch.bool).tril()
+    L = torch.exp(diff.masked_fill(~tril[:, :, None], float("-inf")))
+    cb = torch.einsum("bkin,bkjn->bkij", Cf, Bf)
+    score = cb[..., None] * L * dt[:, :, None, :, :]
+    y = torch.einsum("bkijh,bkjhp->bkihp", _hi_lo(score), xf)
+    wd = torch.exp(cum[:, :, -1:, :] - cum) * dt                # (B,k,j,H)
+    decay = Bf[..., None] * wd[:, :, :, None, :]                # (B,k,j,N,H)
+    st = torch.einsum("bkjnh,bkjhp->bkhnp", _hi_lo(decay), xf)
+    return y.to(x.dtype), st
+
+
+@pytest.mark.parametrize("c,H,P,N", [
+    (128, 2, 64, 128),   # the serving path's chunk, head dim and state
+    (32, 3, 64, 64),     # the edge cases' short chunk and narrow state
+])
+def test_ssd_tensor_core_rounding_matches_pallas(c, H, P, N):
+    """bf16 x, B and C: with hi + lo factors y stays within one bf16 ulp of
+    the Pallas kernel and the f32 state within 1e-3."""
+    (jx, tx), (jdt, tdt), (jA, tA), (jB, tB), (jC, tC) = _chunk_inputs(
+        c, H, P, N, "bfloat16", lead=(1, 1))
+    jB, jC = jB.astype(jnp.bfloat16), jC.astype(jnp.bfloat16)
+    tB, tC = tB.bfloat16(), tC.bfloat16()
+    jy, jst = ssd_chunk_pallas(jx, jdt, jA, jB, jC, interpret=True)
+    ty, tst = tensor_core_model(tx, tdt, tA, tB, tC)
+    assert ty.dtype == torch.bfloat16 and tst.dtype == torch.float32
+    np.testing.assert_allclose(f32(ty), f32(jy), **ULP["bfloat16"])
+    np.testing.assert_allclose(f32(tst), f32(jst), **ORACLE_TOL["float32"])
+
+
+def test_ssd_kernel_route_follows_dtype():
+    """bf16 x with bf16 B/C takes the tensor-core route; every other mix
+    keeps the CUDA-core kernel."""
+    bf, f = torch.bfloat16, torch.float32
+    assert SSD.route(bf, bf) == "tensor_cores"
+    for x_dt, bc_dt in ((f, f), (bf, f), (f, bf)):
+        assert SSD.route(x_dt, bc_dt) == "cuda_cores"
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        SSD.route(torch.float16, bf)
+
+
+def test_ssd_tensor_core_route_fits_two_blocks_per_sm():
+    """At the serving shape (c 128, P 64, N 128) a block of the tensor-core
+    route takes 112 KB, so two fit in an H100 SM's 228 KB with 1 KB reserved
+    per block; the widest shape the route takes still fits one."""
+    assert SSD.smem_bytes(128, 64, 128, tensor_cores=True) == 114688
+    assert 2 * (114688 + 1024) <= 228 * 1024
+    assert SSD.smem_bytes(128, SSD.TC_MAX_P, SSD.TC_MAX_N,
+                          tensor_cores=True) <= SSD.MAX_SMEM
+    # a short chunk with a wide state: the staged C tile (16 × 136 bf16)
+    # outgrows the one-slot triangle, and sizes the space they share
+    assert SSD.smem_bytes(16, 64, 128, tensor_cores=True) == \
+        2 * 16 * 136 + 4 * 16 * 72 + 2 * 16 * 136 + 4 * 16 * 12
