@@ -68,7 +68,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
     prefill and decode times;
 11. the guards: the flash and SSD kernels' CUDA routes raise for an input
     that requires grad, where they would otherwise drop the gradient;
-12. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+12. the theory tier (no kernel of its own: its steps are torch ops replayed
+    as CUDA graph chunks): the paper's Fig. 1 cell — the w7a stand-in
+    (n = 10, m = 2505, d = 300), ``LogRegProblem(lam=0.1)``, the paper's
+    7-γ grid, T = 3000 — through ``run(ExperimentSpec(...))`` for
+    ``pure``, ``random`` and ``shuffled`` under ``fixed:slow=8`` and
+    ``poisson:slow=8``, each with one host sync and finite grad norms; the
+    chosen γ's trajectory bit-identical to a solo ``replay``, and the graph
+    route bit-identical to the eager loop (``capture=False``) at T = 3000;
+    the card against ``device="cpu"`` at T = 300 for the full-gradient and
+    the stochastic lane (shared mini-batch table), x and grad norms within
+    rtol 1e-4 / atol 1e-6; the Fig. 2 stochastic cell (Syn(1, 1), m = 200,
+    batch 20, ``poisson:slow=8``, T = 3000) for the three schedulers; one
+    scenario world (``straggler:k=2,factor=8,every=16,span=4``), whose
+    schedule equals a separate host realisation bit for bit; it prints a
+    ``{"theory_tier": [...]}`` line and the paper's ordering (shuffled ≤
+    1.5 × random, random ≤ pure; reported, not gated);
+13. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
     line.
 """
 from __future__ import annotations
@@ -92,7 +108,8 @@ import torch                                                  # noqa: E402
 import torch.nn.functional as F                               # noqa: E402
 
 from repro_torch.api import (ExperimentSpec, ServeJob,        # noqa: E402
-                             TrainerBackend, TrainJob, run)
+                             SimulatorBackend, TrainerBackend, TrainJob,
+                             run)
 from repro_torch.configs import get_arch                      # noqa: E402
 from repro_torch.distributed import (AsyncConfig,             # noqa: E402
                                      AsyncTrainer, Server, ServeConfig)
@@ -101,9 +118,13 @@ from repro_torch.kernels import async_update as AU            # noqa: E402
 from repro_torch.kernels import flash_attention as FA         # noqa: E402
 from repro_torch.kernels import ssd_chunk as SSD              # noqa: E402
 from repro_torch.kernels.ref import attention_mask            # noqa: E402
+from repro_torch.core import replay                            # noqa: E402
 from repro_torch.models import init_params, param_specs, prefill  # noqa: E402
+from repro_torch.objectives import (LogRegProblem,            # noqa: E402
+                                    make_libsvm_like, make_synthetic)
 from repro_torch.optim import OptConfig                       # noqa: E402
 from repro_torch.runtime import compile_plan, execute         # noqa: E402
+from repro_torch.scenarios import parse_scenario, realise_world  # noqa: E402
 from repro_torch.tree import tree_leaves, tree_map            # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -180,6 +201,15 @@ SSD_CASES = [("main_path", 4, 8, 128, 32, 64, 128),
 SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 4e-2}
 SSM_SERVE = dict(arch="mamba2-370m", reduced=False, batch=4, prompt_len=1024,
                  T=32, seed=0)
+
+#: the theory tier: the paper's stepsize grid (App. A.1), the Fig. 1 and
+#: Fig. 2 cells, and the card-against-CPU tolerance on x and grad norms
+PAPER_GRID = (0.005, 0.004, 0.003, 0.002, 0.001, 0.0005, 0.0001)
+THEORY_SCHEDULERS = ("pure", "random", "shuffled")
+THEORY_TIMINGS = ("fixed:slow=8", "poisson:slow=8")
+THEORY_T, THEORY_CPU_T = 3000, 300
+THEORY_TOL = dict(rtol=1e-4, atol=1e-6)
+THEORY_SCENARIO = "straggler:k=2,factor=8,every=16,span=4"
 
 
 def log(msg: str) -> None:
@@ -1010,6 +1040,160 @@ def phase_guards(device) -> None:
         "requires grad and launches under torch.no_grad()")
 
 
+def _fig1_problem(device):
+    A, b = make_libsvm_like("w7a", n=10, seed=0)
+    return LogRegProblem(A, b, lam=0.1, device=device)
+
+
+def _fig2_problem(device):
+    A, b = make_synthetic(1.0, 1.0, n=10, m=200, d=300, seed=0)
+    return LogRegProblem(A, b, lam=0.1, batch_size=20, device=device)
+
+
+def _theory_spec(prob, scheduler, timing, T, **kw):
+    return ExperimentSpec(scheduler=scheduler, timing=timing, objective=prob,
+                          T=T, stepsize=PAPER_GRID, log_every=100, seed=0,
+                          **kw)
+
+
+def _theory_run(label, spec, device, rows, data, backend=None):
+    """One grid run through ``run``: timed, checked (finite grad norms, one
+    host sync) and recorded in ``rows`` with ``data`` (the dataset's name
+    and ζ(0))."""
+    t0 = time.perf_counter()
+    res = run(spec, backend=backend, device=device)
+    wall = time.perf_counter() - t0
+    e = res.extra
+    finite = all(np.isfinite(g["grad_norms"]).all()
+                 for g in res.grid.values())
+    if not finite or not np.isfinite(res.x).all():
+        raise AssertionError(f"{label}: non-finite iterate or grad norm")
+    if e["host_syncs"] != 1:
+        raise AssertionError(f"{label}: {e['host_syncs']} host syncs, not 1")
+    row = {"cell": label, **data, "scheduler": spec.scheduler,
+           "timing": spec.timing,
+           "scenario": spec.scenario, "T": spec.T,
+           "stochastic": spec.stochastic, "wall_s": wall,
+           "loop_ms": e.get("loop_ms"), "runtime": e["runtime"],
+           "graph_replays": e["graph_replays"], "host_syncs": e["host_syncs"],
+           "gamma": res.gamma, "final_grad_norm": res.final_grad_norm,
+           "tau_max": res.trace["tau_max"], "tau_c": res.trace["tau_c"]}
+    rows.append(row)
+    log(f"{label} {spec.scheduler} / {spec.timing}"
+        f"{' / ' + spec.scenario if spec.scenario else ''}: wall "
+        f"{wall:.3f} s, loop {row['loop_ms']} ms, {e['runtime']} route, "
+        f"{e['graph_replays']} replays, γ = {res.gamma}, final grad norm "
+        f"{res.final_grad_norm:.6g}")
+    return res
+
+
+def _same(label, got, want, fields=("x", "xs", "grad_norms")):
+    for f in fields:
+        if not np.array_equal(getattr(got, f), getattr(want, f)):
+            raise AssertionError(f"{label}: {f} not bit-identical")
+
+
+def _close(label, got, want):
+    for f in ("x", "grad_norms"):
+        a, b = getattr(got, f), getattr(want, f)
+        if not np.allclose(a, b, **THEORY_TOL):
+            raise AssertionError(
+                f"{label}: {f} card against CPU off by "
+                f"{np.max(np.abs(a - b)):.3g} (rtol 1e-4, atol 1e-6)")
+        log(f"{label}: {f} card against CPU max abs err "
+            f"{np.max(np.abs(a - b)):.3g}")
+
+
+def _paper_ordering(label, results) -> None:
+    """Logs the survey's ordering of the final grad norms (reported, not
+    gated: the stand-in data decides it); ``results`` in the order of
+    ``THEORY_SCHEDULERS``."""
+    pure, rand, shuf = (r.final_grad_norm for r in results)
+    log(f"paper ordering ({label}): shuffled {shuf:.6g} ≤ 1.5 × random "
+        f"{rand:.6g}: {shuf <= 1.5 * rand}; random ≤ pure {pure:.6g}: "
+        f"{rand <= pure}")
+
+
+def phase_theory_tier(device) -> list:
+    """The theory tier on the card (phase 12 of the module docstring)."""
+    t0 = time.perf_counter()
+    rows = []
+    fig1 = _fig1_problem(device)
+    w7a = {"dataset": "w7a stand-in", "zeta0": fig1.zeta(np.zeros(fig1.d))}
+    log(f"w7a stand-in: zeta(0) = {w7a['zeta0']:.6g}")
+    runs = {}
+    for timing in THEORY_TIMINGS:
+        for sched in THEORY_SCHEDULERS:
+            res = runs[sched, timing] = _theory_run(
+                "fig1", _theory_spec(fig1, sched, timing, THEORY_T), device,
+                rows, w7a)
+            # (b) the chosen γ's trajectory ≡ a solo replay of the schedule
+            solo = replay(res.schedule, fig1.grad_fn(), np.zeros(fig1.d),
+                          res.gamma, log_every=100,
+                          full_grad_fn=fig1.full_grad, device=device)
+            _same(f"fig1 {sched} / {timing}: grid ≡ solo", res, solo)
+    log("fig1: the chosen γ's trajectory is bit-identical to a solo replay "
+        "in all six runs")
+    for timing in THEORY_TIMINGS:
+        _paper_ordering(f"fig1 {timing}", [runs[s, timing]
+                                           for s in THEORY_SCHEDULERS])
+
+    # (b) graph route ≡ eager loop on the card, T = 3000
+    graph = runs["shuffled", "poisson:slow=8"]
+    eager = _theory_run("fig1_eager", graph.spec, device, rows, w7a,
+                        backend=SimulatorBackend(device, capture=False))
+    for g in PAPER_GRID:
+        for f in ("grad_norms", "losses"):
+            if not np.array_equal(graph.grid[g][f], eager.grid[g][f]):
+                raise AssertionError(f"graph ≢ eager: γ {g} {f}")
+    _same("graph ≡ eager", graph, eager, ("x", "xs", "grad_norms", "losses"))
+    log("fig1: the graph route is bit-identical to capture=False at T = "
+        f"{THEORY_T} (every γ's grad norms and losses)")
+
+    # (c) the card against the CPU, full-gradient and stochastic lanes
+    fig2 = _fig2_problem(device)
+    syn = {"dataset": "Syn(1, 1)", "zeta0": fig2.zeta(np.zeros(fig2.d))}
+    lanes = (("cpu_full", fig1, _fig1_problem, False, w7a),
+             ("cpu_stochastic", fig2, _fig2_problem, True, syn))
+    for label, prob, make, stochastic, data in lanes:
+        spec = _theory_spec(prob, "shuffled", "poisson:slow=8", THEORY_CPU_T,
+                            stochastic=stochastic)
+        card = _theory_run(label, spec, device, rows, data)
+        cpu = run(dataclasses.replace(spec, objective=make("cpu")),
+                  device="cpu")
+        if cpu.gamma != card.gamma:
+            raise AssertionError(f"{label}: γ {card.gamma} on the card, "
+                                 f"{cpu.gamma} on the CPU")
+        _close(label, card, cpu)
+
+    # (d) the Fig. 2 stochastic cell
+    log(f"Syn(1, 1): zeta(0) = {syn['zeta0']:.6g}")
+    _paper_ordering("fig2 poisson:slow=8", [
+        _theory_run("fig2", _theory_spec(fig2, sched, "poisson:slow=8",
+                                         THEORY_T, stochastic=True),
+                    device, rows, syn)
+        for sched in THEORY_SCHEDULERS])
+
+    # (e) one scenario world through SimulatorBackend
+    spec = _theory_spec(fig1, "pure", "poisson:slow=8", THEORY_T,
+                        scenario=THEORY_SCENARIO)
+    res = _theory_run("scenario", spec, device, rows, w7a,
+                      backend=SimulatorBackend(device))
+    world = realise_world(parse_scenario(THEORY_SCENARIO),
+                          spec.make_scheduler(), spec.make_timing(),
+                          THEORY_T, seed=spec.seed).schedule
+    for f in ("workers", "assign_iters", "unfinished_assign_iters"):
+        if not np.array_equal(getattr(res.schedule, f), getattr(world, f)):
+            raise AssertionError(f"scenario schedule: {f} differs from "
+                                 "the host realisation")
+    log(f"scenario: the schedule equals the host realisation bit for bit "
+        f"(tau_max {world.tau_max()}, tau_c {world.tau_c()})")
+    del fig1, fig2
+    torch.cuda.empty_cache()
+    log(f"theory tier: {len(rows)} runs in {time.perf_counter() - t0:.1f} s")
+    return rows
+
+
 def main() -> None:
     t0 = time.perf_counter()
     kind = phase_device()
@@ -1024,10 +1208,12 @@ def main() -> None:
     ssd = phase_ssd_kernel(device)
     phase_ssm_main_path(device, ssd)
     phase_guards(device)
+    theory = phase_theory_tier(device)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [flash] + [updates[k] for k in AU.KERNELS] + [ssd]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"theory_tier": theory}))
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

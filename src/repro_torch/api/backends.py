@@ -2,6 +2,10 @@
 
 Counterpart of ``repro/api/backends.py``:
 
+* :class:`SimulatorBackend` — schedule + exact replay (theory tier) on the
+  card: a grid stepsize policy replays every γ against ONE shared schedule
+  in one loop of captured CUDA graph chunks
+  (:func:`repro_torch.core.simulator.replay_grid`).
 * :class:`TrainerBackend` — schedule → :class:`repro_torch.runtime.RunPlan`
   → ``AsyncTrainer`` rounds through the whole-run executor
   (``runtime="scan"``: K rounds per launch, or ``"eager"``: the per-round
@@ -12,7 +16,10 @@ Counterpart of ``repro/api/backends.py``:
   JAX package), prefill, take the first token by argmax, then decode
   ``T − 1`` steps through :class:`repro_torch.distributed.Server`.
 
-The simulator backend is a later slice.
+The trainer and serve backends refuse a ``scenario``: its schedule side is
+ported, but the per-round channels it lowers into a ``RunPlan`` (and the
+serve faults) are not yet, and a run without them would not be the world
+the spec asks for.
 """
 from __future__ import annotations
 
@@ -22,7 +29,8 @@ from typing import Callable, Optional, Protocol, runtime_checkable
 import numpy as np
 import torch
 
-from ..core import round_masks
+from ..core import (delay_adaptive_stepsizes, replay, replay_grid,
+                    round_masks)
 from ..core.trace import summarize
 from ..device import resolve_device, synchronize
 from ..kernels import async_update as update_kernels
@@ -37,6 +45,113 @@ class Backend(Protocol):
     name: str
 
     def run(self, spec: ExperimentSpec) -> RunResult: ...
+
+
+def _refuse_scenario(spec: ExperimentSpec, backend: str) -> None:
+    if spec.scenario is not None:
+        raise NotImplementedError(
+            f"the {backend} backend does not run scenario worlds yet: their "
+            "RunPlan channels (availability, data drift, sparsity, faults) "
+            "are not ported (ROADMAP.md queue 1, 'Copy scenarios/, faults/ "
+            "and obs/'); the simulator backend runs their schedules")
+
+
+def _canonical(device) -> torch.device:
+    """``device`` with a CUDA device's index made explicit."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return device
+
+
+def _grid_score(grad_norms: np.ndarray) -> float:
+    """The paper's selection protocol (App. A.1): best final grad norm with
+    small fluctuations — tail mean plus half the tail standard deviation."""
+    tail = float(np.mean(grad_norms[-3:]))
+    fluct = float(np.std(grad_norms[-5:]))
+    return tail + 0.5 * fluct
+
+
+class SimulatorBackend:
+    """Exact replay of Algorithm 1: x_{t+1} = x_t − γ̃ g_{i_t}(x_{π_t}), on
+    ``device`` (default CUDA).
+
+    The objective's tensors must live on that device (nothing is moved:
+    a mismatch raises).  x0 is zeros (f32); a stochastic spec draws its
+    (T, bs) mini-batch table from a CPU ``torch.Generator`` seeded with
+    ``spec.seed`` (the port's own stream) and copies it to the device once,
+    so the CPU and the card replay the same noise.  ``capture=False`` runs
+    the eager loop on the card (the graph route's parity oracle).
+
+    ``RunResult.extra`` carries ``device``, ``runtime`` (``"graph"`` or
+    ``"eager"``), ``graph_replays``, ``chunk_steps``, ``host_syncs`` (1 per
+    run) and ``scenario``."""
+
+    name = "simulator"
+
+    def __init__(self, device="cuda", capture: bool = True):
+        self.device = device
+        self.capture = capture
+
+    def run(self, spec: ExperimentSpec) -> RunResult:
+        prob = spec.objective
+        if prob is None or not hasattr(prob, "grad_fn"):
+            raise TypeError(
+                "SimulatorBackend needs an objective exposing grad_fn "
+                f"(got {type(prob).__name__})")
+        device = resolve_device(self.device)
+        have = getattr(prob, "device", None)
+        if have is None or _canonical(have) != _canonical(device):
+            raise ValueError(
+                f"the objective's tensors live on {have}, but the simulator "
+                f"backend was asked to run on {device}; build the objective "
+                f"with device={str(device)!r}")
+        t0 = time.time()
+        schedule = spec.build_schedule()
+        grad_fn = prob.grad_fn(stochastic=spec.stochastic)
+        full_grad = getattr(prob, "full_grad", None)
+        loss = getattr(prob, "loss", None)
+        x0 = np.zeros(prob.d, dtype=np.float32)
+        batch_idx = None
+        if spec.stochastic and hasattr(prob, "batch_table"):
+            gen = torch.Generator().manual_seed(spec.seed)
+            batch_idx = prob.batch_table(schedule.T, gen)
+        policy: StepsizePolicy = spec.stepsize
+        kw = dict(batch_idx=batch_idx, clip=spec.clip,
+                  log_every=spec.log_every, full_grad_fn=full_grad,
+                  loss_fn=loss, device=device, capture=self.capture)
+
+        if policy.kind == "grid":
+            if full_grad is None:
+                raise ValueError(
+                    "grid stepsize selection scores grad norms; the "
+                    "objective must expose full_grad")
+            results = replay_grid(schedule, grad_fn, x0, policy.gammas, **kw)
+            best_i, best_score = 0, None
+            grid_info = {}
+            for i, (g, res) in enumerate(zip(policy.gammas, results)):
+                score = _grid_score(res.grad_norms)
+                grid_info[g] = {"grad_norms": res.grad_norms,
+                                "losses": res.losses, "score": score}
+                if best_score is None or score < best_score:
+                    best_i, best_score = i, score
+            gamma, res = policy.gammas[best_i], results[best_i]
+        else:
+            gamma = policy.gamma
+            if policy.kind == "delay_adaptive":
+                steps = delay_adaptive_stepsizes(gamma, schedule.delays,
+                                                 schedule.tau_c())
+            else:
+                steps = gamma
+            res = replay(schedule, grad_fn, x0, steps, **kw)
+            grid_info = None
+
+        return RunResult(
+            spec=spec, backend=self.name, x=res.x, xs=res.xs,
+            log_ts=res.log_ts, grad_norms=res.grad_norms, losses=res.losses,
+            gamma=gamma, grid=grid_info, schedule=schedule,
+            trace=summarize(schedule), seconds=time.time() - t0,
+            extra={**res.stats, "scenario": spec.scenario})
 
 
 class TrainerBackend:
@@ -96,6 +211,7 @@ class TrainerBackend:
         job = spec.objective
         if not isinstance(job, TrainJob):
             raise TypeError("TrainerBackend needs a TrainJob objective")
+        _refuse_scenario(spec, "trainer")
         policy: StepsizePolicy = spec.stepsize
         if policy.kind == "grid":
             best = None
@@ -210,6 +326,7 @@ class ServeBackend:
         job = spec.objective
         if not isinstance(job, ServeJob):
             raise TypeError("ServeBackend needs a ServeJob objective")
+        _refuse_scenario(spec, "serve")
         device = resolve_device(self.device)
         t0 = time.time()
         launches0 = flash_kernel.launches, ssd_kernel.launches
@@ -258,8 +375,5 @@ def run(spec: ExperimentSpec, backend: Optional[Backend] = None,
         elif isinstance(spec.objective, ServeJob):
             backend = ServeBackend(device=device)
         else:
-            raise NotImplementedError(
-                f"objective {type(spec.objective).__name__} is not ported "
-                "yet; the simulator backend is a later slice (ROADMAP.md "
-                "queue 1)")
+            backend = SimulatorBackend(device=device)
     return backend.run(spec)

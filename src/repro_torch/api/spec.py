@@ -2,12 +2,14 @@
 
 Counterpart of ``repro/api/spec.py``: :class:`TrainJob`, :class:`ServeJob`,
 :class:`ExperimentSpec` and :class:`StepsizePolicy` with the same fields and
-defaults, and the same compact spec strings (scheduler ``"name[:k=v,...]"``
-over :data:`repro_torch.core.REGISTRY`, timing ``"pattern[:k=v,...]"``).
+defaults, the ``constant`` / ``grid`` / ``delay_adaptive`` helpers, and the
+same compact spec strings (scheduler ``"name[:k=v,...]"`` over
+:data:`repro_torch.core.REGISTRY`, timing ``"pattern[:k=v,...]"``, scenario
+in the :mod:`repro_torch.scenarios` grammar).
 
 Not ported yet: a :class:`ServeJob` that sets ``n_slots`` or any other
 slot-lane knob raises ``NotImplementedError`` (the slot server is a later
-slice), and so does realising a schedule under a ``scenario``.
+slice).
 """
 from __future__ import annotations
 
@@ -82,6 +84,18 @@ class StepsizePolicy:
         if isinstance(value, (tuple, list, np.ndarray)):
             return cls("grid", tuple(float(g) for g in value))
         raise TypeError(f"cannot coerce {value!r} to a StepsizePolicy")
+
+
+def constant(gamma: float) -> StepsizePolicy:
+    return StepsizePolicy("constant", (gamma,))
+
+
+def grid(*gammas: float) -> StepsizePolicy:
+    return StepsizePolicy("grid", tuple(gammas))
+
+
+def delay_adaptive(gamma: float) -> StepsizePolicy:
+    return StepsizePolicy("delay_adaptive", (gamma,))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,9 +192,13 @@ class ServeJob:
 @dataclasses.dataclass(frozen=True)
 class ExperimentSpec:
     """One experiment, declaratively (fields and defaults as in the JAX
-    package).  ``T`` counts server rounds on the trainer backend and decode
-    steps on the serve backend; ``seed`` seeds the schedule, the params and
-    the data (or prompts and sampling)."""
+    package).  ``T`` counts received gradients on the simulator backend,
+    server rounds on the trainer backend and decode steps on the serve
+    backend; ``seed`` seeds the schedule, the mini-batch table, the params
+    and the data (or prompts and sampling).  ``scenario`` wraps the
+    scheduler and timing model in the world's transforms before the
+    schedule is realised (``None``: the stationary world; ``""``: the
+    identity scenario, the same schedule bit for bit)."""
 
     RUNTIMES = (None, "scan", "eager")
     METRIC_MODES = (None, "chunk", "tap", "none")
@@ -221,6 +239,9 @@ class ExperimentSpec:
         if name not in REGISTRY:
             raise ValueError(
                 f"unknown scheduler {name!r}; want one of {sorted(REGISTRY)}")
+        if self.scenario is not None:
+            from ..scenarios import parse_scenario
+            parse_scenario(self.scenario)   # fail fast on grammar errors
 
     # ---- resolved pieces ---------------------------------------------------
     @property
@@ -253,12 +274,29 @@ class ExperimentSpec:
             speeds = heterogeneous_speeds(n, slow_factor=slow, base=base)
         return TimingModel(speeds, pattern, seed=self.seed)
 
+    def make_scenario(self):
+        """The parsed :class:`repro_torch.scenarios.Scenario` (empty when
+        the spec has none — the identity scenario)."""
+        from ..scenarios import parse_scenario
+        return parse_scenario(self.scenario or "")
+
+    def build_world(self, T: Optional[int] = None,
+                    n: Optional[int] = None):
+        """Realise the (possibly non-stationary) world for this spec: the
+        scenario-wrapped schedule plus the per-round channels.  With no
+        scenario this is the identity wrap — the same schedule bit for bit
+        as :meth:`build_schedule`."""
+        from ..scenarios import realise_world
+        sched = self.make_scheduler(n)
+        return realise_world(self.make_scenario(), sched,
+                             self.make_timing(n), T or self.T,
+                             seed=self.seed)
+
     def build_schedule(self, T: Optional[int] = None,
                        n: Optional[int] = None) -> Schedule:
-        """Realise the ordering (i_t, π_t) for this spec."""
+        """Realise the ordering (i_t, π_t) for this spec (through the
+        scenario wrap when one is set)."""
         if self.scenario is not None:
-            raise NotImplementedError(
-                "scenario worlds are not ported yet (ROADMAP.md queue 1, "
-                "'Copy scenarios/, faults/ and obs/')")
+            return self.build_world(T, n).schedule
         sched = self.make_scheduler(n)
         return build_schedule(sched, self.make_timing(n), T or self.T)

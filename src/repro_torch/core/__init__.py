@@ -1,10 +1,10 @@
-"""AsGrad core, framework-free: the schedule engine and its registries.
+"""AsGrad core: the schedule engine, its registries and the exact replay.
 
-Counterpart of ``repro/core``.  ``types``, ``delays``, ``schedulers`` and
-``engine`` are verbatim numpy copies of the JAX package's modules, so the
-port realises the same orderings (i_t, π_t) bit for bit; ``trace`` carries
-only ``summarize``.  The simulator and the theory estimators import jax
-there and are a later slice of the port.
+Counterpart of ``repro/core``.  ``types``, ``delays``, ``schedulers``,
+``engine`` and ``theory`` are verbatim copies of the JAX package's modules
+(numpy and ``math``), so the port realises the same orderings (i_t, π_t)
+bit for bit; ``simulator`` is the exact replay on a torch device (CUDA
+graph chunks on the card) and ``trace`` the theory estimators over it.
 """
 from .delays import TimingModel, PATTERNS, heterogeneous_speeds
 from .schedulers import (
@@ -21,7 +21,9 @@ from .schedulers import (
 )
 from .engine import (Schedule, build_schedule, lower_rounds, round_masks,
                      round_delay_scales)
-from . import trace
+from .simulator import (replay, replay_grid, run_async_sgd,
+                        delay_adaptive_stepsizes, ReplayResult)
+from . import theory, trace
 
 __all__ = [
     "TimingModel", "PATTERNS", "heterogeneous_speeds",
@@ -30,5 +32,7 @@ __all__ = [
     "make_scheduler", "REGISTRY",
     "Schedule", "build_schedule", "lower_rounds", "round_masks",
     "round_delay_scales",
-    "trace",
+    "replay", "replay_grid", "run_async_sgd", "delay_adaptive_stepsizes",
+    "ReplayResult",
+    "theory", "trace",
 ]

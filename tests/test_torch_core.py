@@ -132,5 +132,12 @@ def test_spec_validates_scheduler_as_jax_does():
         JSpec(scheduler="nope")
     spec = ExperimentSpec(scheduler="fedbuff:b=3", n_workers=5, T=4)
     assert spec.make_scheduler().wait_b == 3
-    with pytest.raises(NotImplementedError, match="scenario"):
-        ExperimentSpec(scenario="straggler:k=1", n_workers=2).build_schedule()
+    # a scenario realises its schedule through the world's wrap, as JAX's
+    # spec does (it raised before the scenario worlds were ported)
+    kw = dict(scenario="straggler:k=1,factor=8,every=2,span=1", n_workers=2,
+              T=16)
+    got, want = ExperimentSpec(**kw).build_schedule(), JSpec(**kw).build_schedule()
+    np.testing.assert_array_equal(got.workers, want.workers)
+    np.testing.assert_array_equal(got.assign_iters, want.assign_iters)
+    with pytest.raises(ValueError, match="unknown transform"):
+        ExperimentSpec(scenario="warp:x=1", n_workers=2)

@@ -12,20 +12,28 @@ the SGD and heavy-ball updates f32 2e-4, the Adam updates f32 rtol 1e-5 /
 atol 1e-6, bf16 3e-2; the update kernels' buffer swap is bitwise; the SSD
 kernel f32 1e-3, bf16 4e-2, and a prefill through it within bf16 3e-2 of
 the einsum branch (``test_kernels.py:169-267``).
+
+The theory tier has no kernel of its own: its replay runs torch ops as
+CUDA graph chunks.  Its card tests hold the graph route to the eager loop
+and a grid to solo replays bit for bit, and the card to the CPU within
+``chip_smoke.py``'s rtol 1e-4 / atol 1e-6.
 """
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.api import (ExperimentSpec, TrainerBackend,  # noqa: E402
-                             TrainJob, run)
+from repro_torch.api import (ExperimentSpec, SimulatorBackend,  # noqa: E402
+                             TrainerBackend, TrainJob, run)
 from repro_torch.configs import get_arch                   # noqa: E402
+from repro_torch.core import replay, replay_grid           # noqa: E402
 from repro_torch.kernels import async_update as AU         # noqa: E402
 from repro_torch.kernels import flash_attention as FA      # noqa: E402
 from repro_torch.kernels import ops                        # noqa: E402
 from repro_torch.kernels import ssd_chunk as SSD           # noqa: E402
 from repro_torch.models import init_params, prefill        # noqa: E402
+from repro_torch.objectives import (LogRegProblem,         # noqa: E402
+                                    make_synthetic)
 from repro_torch.tree import tree_map                      # noqa: E402
 
 TOL = {torch.float32: dict(rtol=2e-4, atol=2e-4),
@@ -410,3 +418,95 @@ def test_ssm_prefill_launches_once_per_layer_and_matches_plain(cuda_device):
         _close(cache["ssm"][name], want_cache["ssm"][name], torch.bfloat16)
     # layer 0's conv state is its pre-conv input, before any SSD
     assert torch.equal(cache["ssm"]["conv"][0], want_cache["ssm"]["conv"][0])
+
+
+# ---- the theory tier: CUDA graph chunks of the exact replay ----------------
+SIM_GRID = (0.005, 0.002, 0.0005)
+
+
+def _sim_problem(device, **kw):
+    A, b = make_synthetic(1.0, 1.0, n=8, m=40, d=30, seed=0)
+    return LogRegProblem(A, b, lam=0.1, device=device, **kw)
+
+
+def _sim_spec(prob, **kw):
+    base = dict(scheduler="shuffled", timing="poisson:slow=8", objective=prob,
+                T=250, stepsize=SIM_GRID, log_every=10, seed=0)
+    return ExperimentSpec(**{**base, **kw})
+
+
+def _same_run(a, b):
+    for f in ("x", "xs", "grad_norms", "losses"):
+        np.testing.assert_array_equal(getattr(a, f), getattr(b, f))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stochastic,clip", [(False, None), (True, None),
+                                             (False, 0.05)])
+def test_replay_graph_route_matches_eager_bitwise(cuda_device, stochastic,
+                                                  clip):
+    """T = 250 at 100 steps per graph: two full chunks and a tail."""
+    prob = _sim_problem(cuda_device, batch_size=10)
+    spec = _sim_spec(prob, stochastic=stochastic, clip=clip)
+    graph = SimulatorBackend(cuda_device).run(spec)
+    eager = SimulatorBackend(cuda_device, capture=False).run(spec)
+    assert graph.extra["runtime"] == "graph"
+    assert graph.extra["graph_replays"] == 3
+    assert graph.extra["chunk_steps"] == 100
+    assert graph.extra["host_syncs"] == 1
+    assert eager.extra["runtime"] == "eager"
+    _same_run(graph, eager)
+    for g in SIM_GRID:
+        np.testing.assert_array_equal(graph.grid[g]["grad_norms"],
+                                      eager.grid[g]["grad_norms"])
+
+
+@pytest.mark.cuda
+def test_replay_grid_matches_solo_replays_bitwise(cuda_device):
+    prob = _sim_problem(cuda_device)
+    s = _sim_spec(prob).build_schedule()
+    x0 = np.zeros(prob.d, np.float32)
+    kw = dict(log_every=10, full_grad_fn=prob.full_grad, loss_fn=prob.loss,
+              device=cuda_device)
+    batched = replay_grid(s, prob.grad_fn(), x0, SIM_GRID, **kw)
+    for g, res in zip(SIM_GRID, batched):
+        _same_run(res, replay(s, prob.grad_fn(), x0, g, **kw))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("stochastic", [False, True])
+def test_replay_card_matches_cpu(cuda_device, stochastic):
+    spec = _sim_spec(_sim_problem(cuda_device, batch_size=10),
+                     stochastic=stochastic)
+    card = run(spec, device=cuda_device)
+    cpu = run(_sim_spec(_sim_problem("cpu", batch_size=10),
+                        stochastic=stochastic), device="cpu")
+    assert card.gamma == cpu.gamma
+    for f in ("x", "xs", "grad_norms", "losses"):
+        np.testing.assert_allclose(getattr(card, f), getattr(cpu, f),
+                                   rtol=1e-4, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_simulator_refuses_an_objective_on_another_device(cuda_device):
+    with pytest.raises(ValueError, match="live on cpu"):
+        SimulatorBackend(cuda_device).run(_sim_spec(_sim_problem("cpu")))
+
+
+@pytest.mark.cuda
+def test_replay_capture_failure_raises_without_fallback(cuda_device):
+    """A gradient that reads the device inside the captured chunk makes the
+    capture fail; the replay raises instead of running the eager loop.
+    (Last in the file: a failed capture is left behind.)"""
+    prob = _sim_problem(cuda_device)
+    s = _sim_spec(prob).build_schedule()
+    calls = []
+
+    def syncing_grad(x, w, idx):
+        calls.append(float(x.sum()))            # a host read
+        return prob.grad_fn()(x, w, idx)
+
+    with pytest.raises(RuntimeError):
+        replay(s, syncing_grad, np.zeros(prob.d, np.float32), 0.005,
+               device=cuda_device)
+    assert len(calls) <= 2      # the warm-up step and the failed capture

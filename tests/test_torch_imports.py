@@ -45,6 +45,12 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.runtime, repro_torch.launch.profile_train\n"
             "import repro_torch.launch.profile_serve\n"
             "import repro_torch.kernels.ssd_chunk, repro_torch.models.layers\n"
+            "import repro_torch.objectives, repro_torch.scenarios\n"
+            "import repro_torch.faults, repro_torch.core.simulator\n"
+            "import repro_torch.launch.profile_sim\n"
+            "from repro_torch.api import SimulatorBackend, grid\n"
+            "from repro_torch.scenarios import TRANSFORMS\n"
+            "assert 'nan_grad' in TRANSFORMS   # faults registered\n"
             "from repro_torch.kernels.ops import ssd_chunk, sgd_momentum_step\n"
             "from repro_torch.kernels.ops import sgd_momentum_delayed\n"
             "from repro_torch.models.model import FAMILIES\n"
