@@ -13,11 +13,14 @@ Phases, each of which fails the run (non-zero exit, no result line):
    path's prefill shape and the kernel test matrix (MHA, GQA 4:1, ragged
    MQA, D = 128, windows, non-causal, an empty-row case) plus the edges of
    the bf16 route's 64-row tiles (Sq 1000, H/KV 7, window 100, ragged
-   non-causal Sk > Sq, q tiles that visit no key tile), in f32 (CUDA-core
-   route) and bf16 (tensor-core route) at the kernel suite's tolerances; at the main-path shape the
-   kernel, its plain version and ``scaled_dot_product_attention`` (a
-   yardstick only: the port never calls it) are timed on the device (CUDA
-   graph replay, :func:`device_ms`), and the kernel's eager calls too;
+   non-causal Sk > Sq, q tiles that visit no key tile) and the head dims
+   16, 48, 80, 96 and 112 (zamba2-7b's), in f32 (CUDA-core route) and bf16
+   (tensor-core route) at the kernel suite's tolerances; at the main-path
+   shape the kernel, its plain version and ``scaled_dot_product_attention``
+   (a yardstick only: the port never calls it) are timed on the device
+   (CUDA graph replay, :func:`device_ms`), and the kernel's eager calls
+   too; so are the three at D = 112 on zamba2-7b's attention (4 × 1024,
+   32 heads);
 4. the serving main path at full width: ``run(ExperimentSpec(objective=
    ServeJob(arch="qwen2-0.5b", reduced=False, batch=4, prompt_len=1024,
    ...)))`` with the flash kernel on, which must launch it once per layer
@@ -68,7 +71,26 @@ Phases, each of which fails the run (non-zero exit, no result line):
     prefill and decode times;
 11. the guards: the flash and SSD kernels' CUDA routes raise for an input
     that requires grad, where they would otherwise drop the gradient;
-12. the theory tier (no kernel of its own: its steps are torch ops replayed
+12. the slot lane (continuous batching), at full width in bf16:
+    ``run(ExperimentSpec(objective=ServeJob(n_slots=8, ...)))`` on
+    qwen2-0.5b (32 requests, prompts of 512, T = 64, ``poisson:gap=2``
+    arrivals, ``pure`` admission, 8 decode steps per captured chunk; flash
+    on) and mamba2-370m (16 requests, T = 32; the SSD kernel on): every
+    request served once with T tokens in the vocabulary, the prefill kernel
+    launched requests × layers times on its tensor-core route, one tap row
+    per decode step; then the same serve on one ``SlotServer`` (its tokens
+    equal ``run``'s), timed warm (wall, tokens/s, the chunk replays' device
+    time per decode step from CUDA events, host waits per chunk, occupancy,
+    mean TTFT, peak memory), once under ``torch.profiler`` (the device
+    idle share over the serve), qwen2-0.5b again with ``fedbuff:b=2``
+    admission on the same server (one chunk capture after every serve),
+    and with ``capture=False``, whose tokens must equal the graph route's
+    bit for bit; then the slot lane against the lock-step lane through
+    ``run`` at full width and 2 layers in f32 with TF32 off, 4 requests in
+    4 slots: equal token matrices (a difference fails, naming the first
+    diverging (request, step)); prints a ``{"slot_lane": [...], ...}``
+    line;
+13. the theory tier (no kernel of its own: its steps are torch ops replayed
     as CUDA graph chunks): the paper's Fig. 1 cell — the w7a stand-in
     (n = 10, m = 2505, d = 300), ``LogRegProblem(lam=0.1)``, the paper's
     7-γ grid, T = 3000 — through ``run(ExperimentSpec(...))`` for
@@ -84,7 +106,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     schedule equals a separate host realisation bit for bit; it prints a
     ``{"theory_tier": [...]}`` line and the paper's ordering (shuffled ≤
     1.5 × random, random ≤ pure; reported, not gated);
-13. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+14. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
     line.
 """
 from __future__ import annotations
@@ -112,12 +134,15 @@ from repro_torch.api import (ExperimentSpec, ServeJob,        # noqa: E402
                              run)
 from repro_torch.configs import get_arch                      # noqa: E402
 from repro_torch.distributed import (AsyncConfig,             # noqa: E402
-                                     AsyncTrainer, Server, ServeConfig)
+                                     AsyncTrainer, Server, ServeConfig,
+                                     SlotConfig, SlotServer)
 from repro_torch.kernels import _build, ops                   # noqa: E402
 from repro_torch.kernels import async_update as AU            # noqa: E402
 from repro_torch.kernels import flash_attention as FA         # noqa: E402
 from repro_torch.kernels import ssd_chunk as SSD              # noqa: E402
 from repro_torch.kernels.ref import attention_mask            # noqa: E402
+from repro_torch.launch.profile_serve import (idle_share,  # noqa: E402
+                                           profiled)
 from repro_torch.core import replay                            # noqa: E402
 from repro_torch.models import init_params, param_specs, prefill  # noqa: E402
 from repro_torch.objectives import (LogRegProblem,            # noqa: E402
@@ -152,7 +177,20 @@ CASES = [
     ("noncausal_ragged", 2, 200, 300, 4, 2, 64, False, None),
     ("empty_tiles", 1, 256, 32, 2, 2, 64, False, 16),
     ("empty_tiles_causal", 1, 512, 64, 2, 2, 64, True, 100),
+    # every head dim beyond 32/64/128 that the kernel is built for
+    ("d16", 1, 256, 256, 4, 2, 16, True, None),
+    ("d48", 1, 256, 256, 4, 2, 48, True, 64),
+    ("d80", 2, 200, 200, 4, 2, 80, True, None),
+    ("d80_noncausal", 1, 130, 190, 2, 1, 80, False, None),
+    ("d96", 1, 256, 256, 4, 4, 96, True, None),
+    ("d112", 2, 200, 200, 4, 2, 112, True, None),
+    ("d112_window", 1, 512, 512, 4, 4, 112, True, 100),
+    # the slot lane's batch-1 prefill on qwen2-0.5b (one admission)
+    ("slot_prefill", 1, 512, 512, 14, 2, 64, True, None),
 ]
+#: the shared attention block of zamba2-7b (32 heads of 112) at the serving
+#: path's prefill size: flash at D = 112, timed
+D112_SHAPE = ("d112_zamba2", 4, 1024, 1024, 32, 32, 112, True, None)
 SERVE = dict(arch="qwen2-0.5b", reduced=False, batch=4, prompt_len=1024,
              T=32, seed=0)
 
@@ -197,7 +235,9 @@ SSD_CASES = [("main_path", 4, 8, 128, 32, 64, 128),
              ("g1", 1, 1, 128, 8, 64, 128), ("h6", 1, 2, 64, 6, 64, 64),
              ("c32_n64", 2, 2, 32, 8, 64, 64),
              ("c128_n64", 2, 2, 128, 8, 64, 64),
-             ("c16_n128", 1, 2, 16, 4, 64, 128)]
+             ("c16_n128", 1, 2, 16, 4, 64, 128),
+             # the slot lane's batch-1 prefill on mamba2-370m (one admission)
+             ("slot_prefill", 1, 4, 128, 32, 64, 128)]
 SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 4e-2}
 SSM_SERVE = dict(arch="mamba2-370m", reduced=False, batch=4, prompt_len=1024,
                  T=32, seed=0)
@@ -391,6 +431,21 @@ def phase_kernels(device) -> dict:
         f"{entry['library_ms']:.4f} ms ({entry['ms'] / entry['library_ms']:.2f}x "
         f"sdpa), bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}); eager "
         f"calls back to back {eager:.4f} ms each")
+
+    label, B, Sq, Sk, H, KV, D, causal, window = D112_SHAPE
+    q, k, v = _qkv(B, Sq, Sk, H, KV, D, torch.bfloat16, device)
+    kw = dict(causal=causal, window=window)
+    ms = device_ms(lambda: FA.flash_attention_cuda(q, k, v, **kw))
+    plain = device_ms(lambda: FA.flash_attention_plain(q, k, v, **kw), iters=2)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    sdpa = device_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=causal, enable_gqa=True))
+    bound, by = flash_bound(q, k, **kw)
+    log(f"flash {label} q {tuple(q.shape)} k/v {tuple(k.shape)} bf16: device "
+        f"time per call: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
+        f"{sdpa:.4f} ms ({ms / sdpa:.2f}x sdpa), bound {bound:.4f} ms ({by})")
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
     return entry
 
 
@@ -1040,6 +1095,190 @@ def phase_guards(device) -> None:
         "requires grad and launches under torch.no_grad()")
 
 
+#: the slot lane's cells (phase 13): full width, bf16, the prefill kernel
+#: on; each serves ``n_requests`` through ``n_slots`` lanes, K = 8 decode
+#: steps per captured chunk, with ``admissions[0]`` through ``run`` and on
+#: one server instance, then the other admissions on that instance
+SLOT_CELLS = (
+    dict(arch="qwen2-0.5b", kernel="flash", n_slots=8, n_requests=32,
+         prompt_len=512, T=64, arrival="poisson:gap=2",
+         admissions=("pure", "fedbuff:b=2")),
+    dict(arch="mamba2-370m", kernel="ssd", n_slots=8, n_requests=16,
+         prompt_len=512, T=32, arrival="poisson:gap=2", admissions=("pure",)),
+)
+SLOT_K, SLOT_SEED = 8, 0
+#: slot lane ≡ lock-step on the card: full width, 2 layers, f32, TF32 off
+SLOT_PARITY = dict(arch="qwen2-0.5b", n_layers=2, batch=4, prompt_len=512,
+                   T=32)
+_SLOT_KERNELS = {"flash": (FA, "flash_attention_cuda", "use_flash_attention"),
+                 "ssd": (SSD, "ssd_chunk_cuda", "use_ssd_kernel")}
+
+
+def _check_served(label, tokens, res, cfg, n_req, T):
+    """Every request served once, T tokens in the vocabulary each, and
+    one tap row per decode step."""
+    if tokens.shape != (n_req, T) or tokens.dtype != np.int32 or \
+            tokens.min() < 0 or tokens.max() >= cfg.vocab:
+        raise AssertionError(f"{label}: bad token matrix {tokens.dtype} "
+                             f"{tokens.shape} [{tokens.min()}, {tokens.max()}]")
+    workers = sorted(np.asarray(res.schedule.workers).tolist())
+    if workers != list(range(n_req)):
+        raise AssertionError(f"{label}: schedule rows {workers}")
+    if res.tap_rows != res.decode_steps or res.evictions or res.timeouts:
+        raise AssertionError(f"{label}: tap rows {res.tap_rows} for "
+                             f"{res.decode_steps} steps, evictions "
+                             f"{res.evictions}, timeouts {res.timeouts}")
+
+
+def phase_slot_cell(device, cell) -> dict:
+    """One slot-lane cell: ``run`` with ``n_slots`` (the entry point), the
+    same serve on one ``SlotServer`` (graph route), timed warm, profiled,
+    the other admissions, and the eager route; returns the cell's row."""
+    mod, cuda_fn, switch = _SLOT_KERNELS[cell["kernel"]]
+    n_req, T, plen = cell["n_requests"], cell["T"], cell["prompt_len"]
+    job = ServeJob(arch=cell["arch"], reduced=False, batch=cell["n_slots"],
+                   prompt_len=plen, arch_overrides=((switch, True),),
+                   n_slots=cell["n_slots"], n_requests=n_req,
+                   admission=cell["admissions"][0], arrival=cell["arrival"],
+                   steps_per_launch=SLOT_K)
+    spec = ExperimentSpec(objective=job, T=T, seed=SLOT_SEED)
+    cfg = job.make_arch()
+    want_launches = n_req * cfg.n_layers
+    torch.cuda.reset_peak_memory_stats()
+    mod.launches = 0
+    with _dtypes_seen(mod, cuda_fn) as seen:
+        t0 = time.perf_counter()
+        res = run(spec, device=device)
+        cold = time.perf_counter() - t0
+    launches = mod.launches
+    e = res.extra
+    routes = sorted({FA.route(getattr(torch, d[0])) if mod is FA else
+                     SSD.route(getattr(torch, d[0]), getattr(torch, d[3]))
+                     for d in seen})
+    if routes != ["tensor_cores"]:
+        raise AssertionError(f"slot lane {cfg.name}: kernel routes {routes}")
+    if launches != want_launches or e[f"{cell['kernel']}_launches"] != \
+            want_launches:
+        raise AssertionError(f"slot lane {cfg.name}: {cell['kernel']} "
+                             f"launched {launches} times, want {n_req} "
+                             f"requests x {cfg.n_layers} layers")
+    if e["compile_counts"]["chunk"] != 1 or e["graph_replays"] != e["chunks"]:
+        raise AssertionError(f"slot lane {cfg.name}: {e['compile_counts']}, "
+                             f"{e['graph_replays']} replays")
+    if e["tap_rows"] != e["decode_steps"]:
+        raise AssertionError(f"slot lane {cfg.name}: tap rows")
+    log(f"slot lane {cfg.name} L={cfg.n_layers} d={cfg.d_model} through run"
+        f"(ServeJob(n_slots={cell['n_slots']})): {n_req} requests, prompt "
+        f"{plen}, T={T}, {cell['arrival']}, {job.admission}: {cell['kernel']} "
+        f"launches {launches} on the {routes[0]} route, {e['chunks']} graph "
+        f"replays of {SLOT_K} steps, cold {cold:.2f} s (params, capture)")
+
+    params = init_params(cfg, SLOT_SEED, device)
+    prompts, arrivals = e["prompts"], e["arrivals"]
+    slots = SlotConfig(n_slots=cell["n_slots"], ctx_len=plen + T,
+                       seed=SLOT_SEED, steps_per_launch=SLOT_K)
+    server = SlotServer(cfg, slots, device=device)
+
+    def serve(srv, admission, label):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mod.launches = 0
+        r = srv.serve(params, prompts, T, admission=admission,
+                      arrivals=arrivals)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        _check_served(f"{cfg.name} {label}", r.tokens, r, cfg, n_req, T)
+        if mod.launches != want_launches:
+            raise AssertionError(f"{cfg.name} {label}: {mod.launches} "
+                                 f"{cell['kernel']} launches")
+        return r, wall
+
+    first, _ = serve(server, "pure", "graph")
+    if not np.array_equal(first.tokens, res.x):
+        raise AssertionError(f"{cfg.name}: SlotServer and run() disagree")
+    warm, wall = serve(server, "pure", "graph, warm")
+    if not np.array_equal(warm.tokens, first.tokens):
+        raise AssertionError(f"{cfg.name}: a second serve changed tokens")
+    _, prof_wall, kernels, _ = profiled(
+        lambda: serve(server, "pure", "graph, profiled"))
+    busy = sum(ms for ms, _ in kernels.values())
+    idle = idle_share(kernels, prof_wall)
+    for admission in cell["admissions"][1:]:
+        other, _ = serve(server, admission, admission)
+        log(f"slot lane {cfg.name} {admission}: {other.decode_steps} decode "
+            f"steps, occupancy {other.occupancy:.3f}, mean ttft "
+            f"{other.ttft_steps.mean():.2f} steps, {cell['kernel']} launches "
+            f"{want_launches}, every request served once")
+    counts = server.compile_counts()
+    if counts != {"chunk": 1}:
+        raise AssertionError(f"{cfg.name}: compile counts {counts}")
+    eager, eager_wall = serve(SlotServer(cfg, slots, device=device,
+                                         capture=False), "pure", "eager")
+    if not np.array_equal(eager.tokens, first.tokens):
+        bad = np.argwhere(eager.tokens != first.tokens)
+        raise AssertionError(f"{cfg.name}: graph route and eager route "
+                             f"disagree at (request, token) {bad[:5].tolist()}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    row = {"arch": cfg.name, "n_slots": cell["n_slots"], "n_requests": n_req,
+           "prompt_len": plen, "T": T, "arrival": cell["arrival"],
+           "admission": "pure", "steps_per_launch": SLOT_K,
+           "kernel_launches": want_launches, "wall_s": wall,
+           "tok_per_s": n_req * T / wall, "decode_steps": warm.decode_steps,
+           "chunks": warm.chunks,
+           "chunk_ms_per_step": warm.chunk_device_ms / warm.decode_steps,
+           "profiled_wall_s": prof_wall, "profiled_device_ms": busy,
+           "idle_share": idle,
+           "host_waits": warm.host_waits,
+           "host_waits_per_chunk": warm.host_waits / warm.chunks,
+           "occupancy": warm.occupancy,
+           "mean_ttft_steps": float(warm.ttft_steps.mean()),
+           "eager_wall_s": eager_wall, "peak_gib": peak,
+           "compile_counts": counts}
+    log(f"slot lane {cfg.name} (warm, graph route): serve {wall * 1e3:.1f} ms"
+        f", {row['tok_per_s']:.1f} tok/s ({n_req} x {T} tokens), "
+        f"{warm.decode_steps} decode steps in {warm.chunks} replays, chunk "
+        f"device time {row['chunk_ms_per_step']:.4f} ms per decode step, "
+        f"host waits {warm.host_waits} ({row['host_waits_per_chunk']:.3f} per "
+        f"chunk), occupancy {warm.occupancy:.3f}, mean ttft "
+        f"{row['mean_ttft_steps']:.2f} steps, peak memory {peak:.2f} GiB; "
+        f"profiled: {busy:.1f} ms of device work in {prof_wall * 1e3:.1f} ms, "
+        f"idle share {idle:.3f}; eager route {eager_wall * 1e3:.1f} ms, tokens "
+        f"bit-identical to the graph route")
+    del params, server
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_slot_parity(device) -> dict:
+    """The slot lane against the lock-step lane through ``run``: full width,
+    2 layers, f32 (TF32 off), n_slots = n_requests = batch, no arrivals,
+    greedy.  The token matrices must be equal; a difference fails, naming
+    the first diverging (request, step)."""
+    p = SLOT_PARITY
+    over = (("n_layers", p["n_layers"]), ("dtype", "float32"),
+            ("use_flash_attention", True))
+    base = dict(arch=p["arch"], reduced=False, batch=p["batch"],
+                prompt_len=p["prompt_len"], arch_overrides=over)
+    lock = run(ExperimentSpec(objective=ServeJob(**base), T=p["T"],
+                              seed=SLOT_SEED), device=device)
+    slot = run(ExperimentSpec(objective=ServeJob(
+        **base, n_slots=p["batch"], steps_per_launch=SLOT_K), T=p["T"],
+        seed=SLOT_SEED), device=device)
+    if not np.array_equal(lock.extra["prompts"], slot.extra["prompts"]):
+        raise AssertionError("slot and lock-step lanes drew other prompts")
+    if not np.array_equal(lock.x, slot.x):
+        diff = np.argwhere(lock.x != slot.x)
+        step = int(diff[:, 1].min())
+        rid = int(diff[diff[:, 1] == step][0, 0])
+        raise AssertionError(f"slot lane diverged from the lock-step lane at "
+                             f"request {rid}, step {step}")
+    log(f"slot lane ≡ lock-step lane ({p['arch']} full width, "
+        f"{p['n_layers']} layers, f32, TF32 off, batch {p['batch']}, "
+        f"prompt {p['prompt_len']}, T={p['T']}): token matrices "
+        "bit-identical")
+    return {"equal": True}
+
+
 def _fig1_problem(device):
     A, b = make_libsvm_like("w7a", n=10, seed=0)
     return LogRegProblem(A, b, lam=0.1, device=device)
@@ -1115,7 +1354,7 @@ def _paper_ordering(label, results) -> None:
 
 
 def phase_theory_tier(device) -> list:
-    """The theory tier on the card (phase 12 of the module docstring)."""
+    """The theory tier on the card (phase 13 of the module docstring)."""
     t0 = time.perf_counter()
     rows = []
     fig1 = _fig1_problem(device)
@@ -1208,11 +1447,14 @@ def main() -> None:
     ssd = phase_ssd_kernel(device)
     phase_ssm_main_path(device, ssd)
     phase_guards(device)
+    slot_rows = [phase_slot_cell(device, cell) for cell in SLOT_CELLS]
+    slot_parity = phase_slot_parity(device)
     theory = phase_theory_tier(device)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [flash] + [updates[k] for k in AU.KERNELS] + [ssd]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
+    print(json.dumps({"slot_lane": slot_rows, "slot_parity": slot_parity}))
     print(json.dumps({"theory_tier": theory}))
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {

@@ -14,7 +14,9 @@ Counterpart of ``repro/api/backends.py``:
 * :class:`ServeBackend` — the lock-step lane: init params from the seed,
   draw the prompts with numpy (the same ``default_rng(seed)`` stream as the
   JAX package), prefill, take the first token by argmax, then decode
-  ``T − 1`` steps through :class:`repro_torch.distributed.Server`.
+  ``T − 1`` steps through :class:`repro_torch.distributed.Server`; or, with
+  ``ServeJob.n_slots`` set, the continuous-batching slot lane through
+  :class:`repro_torch.distributed.SlotServer` on the same prompt stream.
 
 The trainer and serve backends refuse a ``scenario``: its schedule side is
 ported, but the per-round channels it lowers into a ``RunPlan`` (and the
@@ -306,13 +308,15 @@ class TrainerBackend:
 
 
 class ServeBackend:
-    """Prefill + lock-step batched decode on ``device`` (default CUDA).
+    """Prefill + lock-step batched decode on ``device`` (default CUDA), or
+    the slot lane when ``ServeJob.n_slots`` is set.
 
-    ``RunResult.x`` is the (batch, T) int32 token matrix; ``extra`` holds
-    ``prompts``, ``arch``, ``prefill_seconds``, ``decode_seconds``,
-    ``tok_per_s``, ``logits_finite``, ``flash_launches`` and
-    ``ssd_launches`` (the flash and SSD kernels' launch counters read
-    before and after the run)."""
+    Lock-step: ``RunResult.x`` is the (batch, T) int32 token matrix;
+    ``extra`` holds ``prompts``, ``arch``, ``prefill_seconds``,
+    ``decode_seconds``, ``tok_per_s``, ``logits_finite``,
+    ``flash_launches`` and ``ssd_launches`` (the flash and SSD kernels'
+    launch counters read before and after the run).  The slot lane: see
+    :meth:`_run_slots`."""
 
     name = "serve"
 
@@ -327,6 +331,8 @@ class ServeBackend:
         if not isinstance(job, ServeJob):
             raise TypeError("ServeBackend needs a ServeJob objective")
         _refuse_scenario(spec, "serve")
+        if job.n_slots:
+            return self._run_slots(spec)
         device = resolve_device(self.device)
         t0 = time.time()
         launches0 = flash_kernel.launches, ssd_kernel.launches
@@ -363,6 +369,69 @@ class ServeBackend:
                    "logits_finite": finite,
                    "flash_launches": flash_kernel.launches - launches0[0],
                    "ssd_launches": ssd_kernel.launches - launches0[1]})
+
+    def _run_slots(self, spec: ExperimentSpec) -> RunResult:
+        """Continuous batching: ``n_requests`` requests through ``n_slots``
+        ragged decode lanes; admissions follow the job's scheduler-registry
+        policy, arrivals its timing-registry pattern.  ``RunResult.x`` is
+        the (n_requests, T) token matrix (−1 where a request degraded);
+        ``extra`` carries the JAX package's keys that the slot lane fills
+        (``tau_report`` among them) plus ``device``, ``flash_launches``,
+        ``ssd_launches``, ``graph_replays`` (chunk graph replays),
+        ``host_waits``, ``chunk_device_ms`` and ``compile_counts``."""
+        from ..distributed import (SlotServer, SlotConfig, draw_arrivals,
+                                   parse_admission)
+        from ..models import init_params
+        from ..scenarios import tau_report
+
+        job = spec.objective
+        device = resolve_device(self.device)
+        t0 = time.time()
+        launches0 = flash_kernel.launches, ssd_kernel.launches
+        cfg = job.make_arch()
+        params = init_params(cfg, spec.seed, device)
+        n_req = job.n_requests or job.batch
+        ctx = job.prompt_len + spec.T
+        server = SlotServer(
+            cfg, SlotConfig(n_slots=job.n_slots, ctx_len=ctx,
+                            temperature=job.temperature, seed=spec.seed,
+                            steps_per_launch=job.steps_per_launch),
+            device=device)
+        # the lock-step lane's prompt stream: with n_requests == batch the
+        # two lanes serve the same prompts
+        prompts = np.random.default_rng(spec.seed).integers(
+            0, cfg.vocab, (n_req, job.prompt_len)).astype(np.int32)
+        arrivals = draw_arrivals(n_req, job.arrival, seed=spec.seed)
+        synchronize(device)
+        t_dec = time.time()
+        res = server.serve(params, prompts, spec.T,
+                           admission=job.admission, arrivals=arrivals,
+                           deadline=job.deadline)
+        dt = time.time() - t_dec
+        return RunResult(
+            spec=spec, backend=self.name, x=res.tokens,
+            schedule=res.schedule, seconds=time.time() - t0,
+            extra={"prompts": prompts, "arch": cfg.name,
+                   "device": str(device),
+                   "decode_seconds": dt,
+                   "tok_per_s": n_req * (spec.T - 1) / max(dt, 1e-9),
+                   "n_slots": job.n_slots, "admission": job.admission,
+                   "arrivals": arrivals, "ttft_steps": res.ttft_steps,
+                   "occupancy": res.occupancy,
+                   "decode_steps": res.decode_steps, "chunks": res.chunks,
+                   "tap_rows": res.tap_rows,
+                   "evictions": res.evictions, "timeouts": res.timeouts,
+                   "flash_launches": flash_kernel.launches - launches0[0],
+                   "ssd_launches": ssd_kernel.launches - launches0[1],
+                   "graph_replays": res.chunks if server.capture else 0,
+                   "host_waits": res.host_waits,
+                   "chunk_device_ms": res.chunk_device_ms,
+                   "compile_counts": server.compile_counts(),
+                   "tau_report": tau_report(
+                       res.schedule, parse_admission(job.admission)[0],
+                       concurrency=job.n_slots,
+                       scenario_spec=job.arrival or "",
+                       evictions=res.evictions, timeouts=res.timeouts)})
 
 
 def run(spec: ExperimentSpec, backend: Optional[Backend] = None,

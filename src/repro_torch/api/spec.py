@@ -7,9 +7,9 @@ same compact spec strings (scheduler ``"name[:k=v,...]"`` over
 :data:`repro_torch.core.REGISTRY`, timing ``"pattern[:k=v,...]"``, scenario
 in the :mod:`repro_torch.scenarios` grammar).
 
-Not ported yet: a :class:`ServeJob` that sets ``n_slots`` or any other
-slot-lane knob raises ``NotImplementedError`` (the slot server is a later
-slice).
+Not ported yet: a :class:`ServeJob` that asks for serving resilience
+(``max_retries > 1``, ``queue_cap``, ``drain_after``) raises
+``NotImplementedError`` (ROADMAP.md queue 1, item 11c).
 """
 from __future__ import annotations
 
@@ -136,20 +136,28 @@ class TrainJob:
         return cfg
 
 
-#: ServeJob fields that only the continuous-batching slot lane reads
-SLOT_LANE_FIELDS = ("n_slots", "n_requests", "admission", "arrival",
-                    "steps_per_launch", "deadline", "max_retries",
-                    "retry_backoff", "queue_cap", "shed_policy",
-                    "drain_after")
-
-
 @dataclasses.dataclass(frozen=True)
 class ServeJob:
     """Objective for the serve backend: batched greedy/temperature decoding.
 
     ``ExperimentSpec.T`` counts decode steps (per-request token budget).
-    Only the lock-step lane (``n_slots=None``) is ported: a fixed batch
-    decodes in unison through :class:`repro_torch.distributed.Server`.
+
+    Two serving modes share this job:
+
+    * lock-step (default, ``n_slots=None``) — a fixed batch decodes in
+      unison through :class:`repro_torch.distributed.Server`;
+    * continuous batching (``n_slots`` set) — ``n_requests`` requests flow
+      through ``n_slots`` persistent decode lanes
+      (:class:`repro_torch.distributed.SlotServer`); ``admission`` picks
+      which queued request fills a freed slot (scheduler-registry compact
+      spec, e.g. ``"pure"`` / ``"fedbuff:b=2"``) and ``arrival`` draws
+      inter-arrival gaps from the timing registry (``"pattern[:gap=G]"``;
+      ``None`` = every request queued at step 0); ``deadline`` is a
+      queue-wait budget in decode steps.
+
+    The fields are validated as in the JAX package; the resilience knobs
+    ``max_retries > 1``, ``queue_cap`` and ``drain_after`` then raise
+    ``NotImplementedError`` (ROADMAP.md queue 1, item 11c).
     """
 
     arch: str = "qwen2-0.5b"
@@ -171,13 +179,45 @@ class ServeJob:
     drain_after: Optional[int] = None
 
     def __post_init__(self):
-        for f in dataclasses.fields(self):
-            if f.name in SLOT_LANE_FIELDS and getattr(self, f.name) != f.default:
+        if self.n_slots is not None and self.n_slots < 1:
+            raise ValueError("n_slots must be >= 1")
+        if self.steps_per_launch < 1:
+            raise ValueError("steps_per_launch must be >= 1")
+        for knob, val in (("deadline", self.deadline),
+                          ("queue_cap", self.queue_cap),
+                          ("drain_after", self.drain_after)):
+            if val is not None and self.n_slots is None:
+                raise ValueError(
+                    f"{knob} is a slot-lane knob; set n_slots as well")
+        if self.deadline is not None and self.deadline < 0:
+            raise ValueError("deadline must be >= 0")
+        if self.drain_after is not None and self.drain_after < 0:
+            raise ValueError("drain_after must be >= 0")
+        if self.max_retries < 1:
+            raise ValueError("max_retries must be >= 1 (1 = no retry)")
+        if self.max_retries > 1 and self.n_slots is None:
+            raise ValueError(
+                "max_retries is a slot-lane knob; set n_slots as well")
+        if self.retry_backoff < 0:
+            raise ValueError("retry_backoff must be >= 0")
+        from ..distributed.slot_serve import OverloadPolicy, SHED_POLICIES
+        if self.queue_cap is not None:
+            OverloadPolicy(self.queue_cap, self.shed_policy)
+        elif self.shed_policy not in SHED_POLICIES:
+            raise ValueError(
+                f"unknown shed policy {self.shed_policy!r}")
+        from ..distributed.admission import draw_arrivals, parse_admission
+        parse_admission(self.admission)     # fail fast on grammar errors
+        if self.arrival:
+            draw_arrivals(1, self.arrival)
+        for knob, asked in (("max_retries", self.max_retries > 1),
+                            ("queue_cap", self.queue_cap is not None),
+                            ("drain_after", self.drain_after is not None)):
+            if asked:
                 raise NotImplementedError(
-                    f"ServeJob.{f.name} is a knob of the continuous-batching "
-                    "slot lane, which is a later slice of the port "
-                    "(ROADMAP.md queue 1, 'The rest of serving'); only the "
-                    "lock-step lane runs here")
+                    f"ServeJob.{knob} is serving resilience, not ported yet "
+                    "(ROADMAP.md queue 1, item 11c); the slot lane runs "
+                    "without it")
 
     def make_arch(self):
         from ..configs import get_arch

@@ -436,10 +436,14 @@ cudaError_t launch_bf16(const Params& p, cudaStream_t stream) {
 
 template <bool BF16>
 cudaError_t dispatch_d(const Params& p, int D, cudaStream_t stream) {
+  // every multiple of 16 up to 128: the bf16 route's mma.sync k-steps are
+  // 16 wide (KD = D / 16) and its n-tiles are read in pairs (D / 16 pairs)
   switch (D) {
-    case 32: return BF16 ? launch_bf16<32>(p, stream) : launch_f32<32>(p, stream);
-    case 64: return BF16 ? launch_bf16<64>(p, stream) : launch_f32<64>(p, stream);
-    case 128: return BF16 ? launch_bf16<128>(p, stream) : launch_f32<128>(p, stream);
+#define FLASH_D(d) \
+  case d: return BF16 ? launch_bf16<d>(p, stream) : launch_f32<d>(p, stream);
+    FLASH_D(16) FLASH_D(32) FLASH_D(48) FLASH_D(64)
+    FLASH_D(80) FLASH_D(96) FLASH_D(112) FLASH_D(128)
+#undef FLASH_D
     default: return cudaErrorInvalidValue;
   }
 }

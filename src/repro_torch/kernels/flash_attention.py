@@ -30,7 +30,9 @@ from .ref import attention_mask, reference_attention
 #: that prefill went through the kernel (set it to 0, run, read it)
 launches = 0
 
-HEAD_DIMS = (32, 64, 128)
+#: the head dims the kernel is built for: every multiple of 16 up to 128
+#: (csrc/flash_attention.cu ``dispatch_d``)
+HEAD_DIMS = tuple(range(16, 129, 16))
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernel's route for each dtype it takes (csrc/flash_attention.cu)
 ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "tensor_cores"}
@@ -70,7 +72,10 @@ def _check(q, k, v):
     if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
         raise ValueError(f"q {tuple(q.shape)} does not match k {tuple(k.shape)}")
     if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not built; the kernel takes {HEAD_DIMS}")
+        raise ValueError(
+            f"head dim {D} not built; the kernel takes {HEAD_DIMS}: the bf16 "
+            "route's mma.sync k-steps are 16 wide, and no config's head dim "
+            "is above 128")
 
 
 def _tile_ready(t):

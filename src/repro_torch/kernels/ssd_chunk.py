@@ -148,7 +148,14 @@ def _check(x, dt, A, B_, C_):
         raise ValueError(f"ssd_chunk shapes do not match: x {tuple(x.shape)}, "
                          f"dt {tuple(dt.shape)}, A {tuple(A.shape)}, B "
                          f"{tuple(B_.shape)}, C {tuple(C_.shape)}")
-    if route(x.dtype, B_.dtype) == "tensor_cores":
+    check_shape(c, P, N, route(x.dtype, B_.dtype) == "tensor_cores")
+
+
+def check_shape(c: int, P: int, N: int, tensor_cores: bool) -> None:
+    """Raise ``ValueError`` unless a route takes chunk length ``c``, head
+    dim ``P`` and state size ``N`` (the kernel's shape arithmetic alone,
+    so it can be asked without a CUDA tensor)."""
+    if tensor_cores:
         if c > MAX_CHUNK or N > TC_MAX_N or P > TC_MAX_P \
                 or smem_bytes(c, P, N, True) > MAX_SMEM:
             raise ValueError(f"ssd_chunk kernel takes chunks up to {MAX_CHUNK} "

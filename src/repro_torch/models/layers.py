@@ -114,18 +114,30 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     return torch.cat(outs, dim=1)
 
 
-def decode_attention(q, k_cache, v_cache, cache_positions, pos: int,
+def decode_attention(q, k_cache, v_cache, cache_positions, pos,
                      window: Optional[int] = None):
-    """One-token attention against a ring-buffer cache (lock-step).
+    """One-token attention against a ring-buffer cache.
 
     q: (B,1,H,D); caches: (B,W,KV,D); cache_positions: (W,) int32 holding the
     absolute position stored in each slot (−1 = empty); pos: the current
     token's position.  The current token's own k/v must already be written.
+
+    Ragged (slot-server) variant: ``pos`` is a (B,) tensor and
+    ``cache_positions`` is (B, W): each row decodes at its own position, so
+    the validity mask is per row.  The lock-step op sequence is unchanged.
     """
-    valid = (cache_positions >= 0) & (cache_positions <= pos)
-    if window is not None:
-        valid &= cache_positions > pos - window
-    bias = torch.where(valid, 0.0, NEG_INF).to(F32)        # (W,)
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        p = pos[:, None]
+        valid = (cache_positions >= 0) & (cache_positions <= p)
+        if window is not None:
+            valid &= cache_positions > p - window
+        # (B,1,1,1,W): broadcasts over the (B,KV,G,Sq,W) scores
+        bias = torch.where(valid, 0.0, NEG_INF).to(F32)[:, None, None, None]
+    else:
+        valid = (cache_positions >= 0) & (cache_positions <= pos)
+        if window is not None:
+            valid &= cache_positions > pos - window
+        bias = torch.where(valid, 0.0, NEG_INF).to(F32)    # (W,)
 
     B, Sq, H, D = q.shape
     KV = k_cache.shape[2]

@@ -1,4 +1,4 @@
-"""Model: param specs, forward, prefill, lock-step decode.
+"""Model: param specs, forward, prefill, lock-step and ragged decode.
 
 Counterpart of ``repro/models/model.py`` for two families: ``dense`` (GQA
 attention with optional QKV bias / QK-norm, RoPE, RMSNorm, SwiGLU, tied or
@@ -335,13 +335,18 @@ def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None):
 
 
 # ============================================================================
-# decode (serve_step), lock-step
+# decode (serve_step): lock-step and ragged
 # ============================================================================
 
-def cache_specs(cfg: ArchConfig, batch: int, ctx_len: int) -> dict:
-    """Lock-step cache tree as Specs: ring k/v caches and one shared (W,)
-    positions buffer (dense), or per-layer conv states in the param dtype
-    and f32 SSD states (ssm, no positions)."""
+def cache_specs(cfg: ArchConfig, batch: int, ctx_len: int, *,
+                ragged: bool = False) -> dict:
+    """Cache tree as Specs: ring k/v caches and one shared (W,) positions
+    buffer (dense), or per-layer conv states in the param dtype and f32 SSD
+    states (ssm, no positions).
+
+    ``ragged=True`` declares the slot server's cache: the positions buffer
+    grows a batch axis, (batch, W), so each row tracks its own positions.
+    Every other leaf already carries a batch axis and is unchanged."""
     _require_family(cfg)
     if cfg.family == "ssm":
         nl, conv_dim = cfg.n_layers, cfg.d_inner + 2 * cfg.ssm_state
@@ -360,29 +365,38 @@ def cache_specs(cfg: ArchConfig, batch: int, ctx_len: int) -> dict:
     return {
         "self": {"k": Spec((nl, batch, W, KV, Dh), axes, "zeros", cfg.dtype),
                  "v": Spec((nl, batch, W, KV, Dh), axes, "zeros", cfg.dtype)},
-        "positions": Spec((W,), ("ctx",), "zeros", "int32"),
+        "positions": (Spec((batch, W), ("batch", "ctx"), "zeros", "int32")
+                      if ragged else Spec((W,), ("ctx",), "zeros", "int32")),
     }
 
 
-def init_cache(cfg: ArchConfig, batch: int, ctx_len: int,
-               device="cuda") -> dict:
-    tree = init_tree(cache_specs(cfg, batch, ctx_len), 0,
+def init_cache(cfg: ArchConfig, batch: int, ctx_len: int, device="cuda", *,
+               ragged: bool = False) -> dict:
+    tree = init_tree(cache_specs(cfg, batch, ctx_len, ragged=ragged), 0,
                      resolve_device(device))
     if "positions" in tree:
         tree["positions"] -= 1             # −1 = empty slot
     return tree
 
 
-def _decode_attn(cfg, p, h, kc, vc, cache_positions, pos, window, slot):
+def _decode_attn(cfg, p, h, kc, vc, cache_positions, pos, window, slot,
+                 rows=None):
     """One-token attention; writes this token's k/v into ring slot ``slot``
-    of ``kc`` / ``vc`` in place, then attends."""
+    of ``kc`` / ``vc`` in place, then attends.  Lock-step: ``pos`` and
+    ``slot`` are ints.  Ragged: ``pos`` and ``slot`` are (B,) tensors and
+    ``rows`` is ``arange(B)``, so each row writes its own slot."""
     x = L.rms_norm(h, p["norm"], cfg.norm_eps)
     q, k, v = _qkv(cfg, p, x)
-    posv = torch.full((1,), pos, device=h.device)
+    posv = pos[:, None] if rows is not None else torch.full(
+        (1,), pos, device=h.device)
     q = L.rope(q, posv, cfg.rope_theta)
     k = L.rope(k, posv, cfg.rope_theta)
-    kc[:, slot] = k[:, 0]
-    vc[:, slot] = v[:, 0]
+    if rows is not None:
+        kc[rows, slot] = k[:, 0]
+        vc[rows, slot] = v[:, 0]
+    else:
+        kc[:, slot] = k[:, 0]
+        vc[:, slot] = v[:, 0]
     o = L.decode_attention(q, kc, vc, cache_positions, pos, window=window)
     return h + L.einsum("bshk,hkd->bsd", o, p["wo"])
 
@@ -406,22 +420,22 @@ def _decode_mamba(cfg, p, h, conv_state, ssd_state):
     return out, conv_state, ssd_state
 
 
-def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int,
-                ctx_len: int):
+def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int):
     """serve_step: ONE new token per sequence against the cache.
 
     tokens: (B,) integer tensor; pos: the current absolute position, shared
-    by every row (lock-step; the SSM family does not read it).  Where the
-    JAX package donates the cache, the port updates it in place: the
-    positions buffer and each layer's ring slot ``pos mod W`` (dense), or
-    each layer's conv and SSD states (ssm), are written, and the same dict
-    is returned.  Returns (logits (B, V), cache)."""
+    by every row (lock-step: an int), or a (B,) integer tensor of per-row
+    positions (ragged: the slot server, against a cache made with
+    ``ragged=True``).  The SSM family does not read it.  Where the JAX
+    package donates the cache, the port updates it in place: the positions
+    buffer and each layer's ring slot ``pos mod W`` (dense), or each
+    layer's conv and SSD states (ssm), are written, and the same dict is
+    returned.  The ragged path reads no tensor value on the host, so a CUDA
+    graph can capture it.  Returns (logits (B, V), cache)."""
     _require_family(cfg)
-    if isinstance(pos, torch.Tensor) and pos.dim() > 0:
-        raise NotImplementedError(
-            "ragged (per-row) decode positions belong to the slot server, "
-            "a later slice (ROADMAP.md queue 1, 'The rest of serving')")
-    pos = int(pos)
+    ragged = isinstance(pos, torch.Tensor) and pos.dim() == 1
+    if not ragged:
+        pos = int(pos)
     h = _embed(cfg, params, tokens[:, None])            # (B,1,d)
     if cfg.family == "ssm":
         conv, ssd = cache["ssm"]["conv"], cache["ssm"]["ssd"]
@@ -433,14 +447,20 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos: int,
         h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
         return _unembed(cfg, params, h)[:, 0], cache
     W = min(cfg.sliding_window or ctx_len, ctx_len)
-    slot = pos % W
-    cache["positions"][slot] = pos
     cpos = cache["positions"]
+    rows = None
+    if ragged:
+        rows = torch.arange(tokens.shape[0], device=tokens.device)
+        slot = (pos % W).long()
+        cpos[rows, slot] = pos.to(cpos.dtype)
+    else:
+        slot = pos % W
+        cpos[slot] = pos
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)
         h = _decode_attn(cfg, p["attn"], h, cache["self"]["k"][i],
                          cache["self"]["v"][i], cpos, pos,
-                         cfg.sliding_window, slot)
+                         cfg.sliding_window, slot, rows)
         h = _apply_mlp(cfg, p["mlp"], h)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h)[:, 0], cache

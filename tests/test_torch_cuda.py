@@ -13,6 +13,10 @@ atol 1e-6, bf16 3e-2; the update kernels' buffer swap is bitwise; the SSD
 kernel f32 1e-3, bf16 4e-2, and a prefill through it within bf16 3e-2 of
 the einsum branch (``test_kernels.py:169-267``).
 
+The slot server's tests hold its captured decode chunk to the same steps
+run eagerly (tokens bit for bit) and each request of a rotation through
+every slot to the same request served alone.
+
 The theory tier has no kernel of its own: its replay runs torch ops as
 CUDA graph chunks.  Its card tests hold the graph route to the eager loop
 and a grid to solo replays bit for bit, and the card to the CPU within
@@ -27,6 +31,7 @@ from repro_torch.api import (ExperimentSpec, SimulatorBackend,  # noqa: E402
                              TrainerBackend, TrainJob, run)
 from repro_torch.configs import get_arch                   # noqa: E402
 from repro_torch.core import replay, replay_grid           # noqa: E402
+from repro_torch.distributed import SlotConfig, SlotServer  # noqa: E402
 from repro_torch.kernels import async_update as AU         # noqa: E402
 from repro_torch.kernels import flash_attention as FA      # noqa: E402
 from repro_torch.kernels import ops                        # noqa: E402
@@ -80,6 +85,7 @@ def _close(got, want, dtype):
     (2, 200, 300, 4, 2, 64, False, None),     # non-causal, ragged Sk > Sq
     (1, 256, 32, 2, 2, 64, False, 16),        # q tiles that visit no key tile
     (1, 512, 64, 2, 2, 64, True, 100),
+    (1, 512, 512, 14, 2, 64, True, None),     # the slot lane's admission
 ])
 def test_flash_kernel_matches_plain(cuda_device, dtype, B, Sq, Sk, H, KV, D,
                                     causal, window):
@@ -91,6 +97,20 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, B, Sq, Sk, H, KV, D,
     assert got.dtype == dtype and got.shape == q.shape
     _close(got, FA.flash_attention_plain(q, k, v, causal=causal,
                                          window=window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("D", [16, 48, 80, 96, 112])
+def test_flash_kernel_every_head_dim(cuda_device, dtype, D):
+    """The head dims beyond 32/64/128, zamba2-7b's 112 among them (7 k16
+    steps on the tensor-core route), causal, windowed and not, with a q
+    tile that ends inside the sequence."""
+    q, k, v = _qkv(cuda_device, 2, 200, 200, 4, 2, D, dtype)
+    for causal, window in ((True, None), (True, 64), (False, None)):
+        got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
+        _close(got, FA.flash_attention_plain(q, k, v, causal=causal,
+                                             window=window), dtype)
 
 
 @pytest.mark.cuda
@@ -124,9 +144,11 @@ def test_ops_route_cuda_tensors_to_kernel_or_raise(cuda_device):
     before = FA.launches
     ops.flash_attention(q, k, v, causal=True)
     assert FA.launches == before + 1
-    q48, k48, v48 = _qkv(cuda_device, 1, 64, 64, 2, 2, 48, torch.bfloat16)
+    # a head dim off the multiples of 16 is refused (48 is built since D
+    # became any multiple of 16 up to 128)
+    q40, k40, v40 = _qkv(cuda_device, 1, 64, 64, 2, 2, 40, torch.bfloat16)
     with pytest.raises(ValueError, match="head dim"):
-        ops.flash_attention(q48, k48, v48)
+        ops.flash_attention(q40, k40, v40)
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         ops.flash_attention(q.half(), k.half(), v.half())
     assert FA.launches == before + 1
@@ -320,7 +342,8 @@ SSD_CASES = [(1, 1, 16, 2, 32, 16), (1, 1, 64, 4, 64, 32),
              (2, 3, 13, 3, 20, 10), (4, 8, 128, 32, 64, 128),
              (1, 1, 128, 8, 64, 128), (1, 2, 64, 6, 64, 64),
              (2, 2, 32, 8, 64, 64), (2, 2, 128, 8, 64, 64),
-             (1, 2, 16, 4, 64, 128)]
+             (1, 2, 16, 4, 64, 128),
+             (1, 4, 128, 32, 64, 128)]          # the slot lane's admission
 SSD_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-3),
            torch.bfloat16: dict(rtol=4e-2, atol=4e-2)}
 
@@ -418,6 +441,65 @@ def test_ssm_prefill_launches_once_per_layer_and_matches_plain(cuda_device):
         _close(cache["ssm"][name], want_cache["ssm"][name], torch.bfloat16)
     # layer 0's conv state is its pre-conv input, before any SSD
     assert torch.equal(cache["ssm"]["conv"][0], want_cache["ssm"]["conv"][0])
+
+
+# ---- the slot server: one captured chunk of ragged decode steps ------------
+SLOT_ARRIVALS = np.array([0, 0, 1, 3, 6, 9, 9])
+
+
+def _slot_world(device, arch, **over):
+    cfg = get_arch(arch).reduced().with_(**over)
+    params = init_params(cfg, 0, device)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (7, 32))
+    return cfg, params, prompts
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over,kernel", [
+    ("qwen2-0.5b", dict(use_flash_attention=True), FA),
+    ("mamba2-370m", dict(use_ssd_kernel=True), SSD)])
+def test_slot_graph_route_matches_eager_bitwise(cuda_device, arch, over,
+                                                kernel):
+    """The captured chunk against the same steps run eagerly on the card:
+    tokens, schedule and TTFT equal; one capture across two serves; every
+    admission's prefill through the kernel."""
+    cfg, params, prompts = _slot_world(cuda_device, arch, **over)
+    slots = SlotConfig(n_slots=3, ctx_len=40, steps_per_launch=4)
+    graph = SlotServer(cfg, slots, device=cuda_device)
+    eager = SlotServer(cfg, slots, device=cuda_device, capture=False)
+    for admission in ("pure", "fedbuff:b=2"):
+        before = kernel.launches
+        got = graph.serve(params, prompts, 8, admission=admission,
+                          arrivals=SLOT_ARRIVALS)
+        assert kernel.launches == before + 7 * cfg.n_layers
+        want = eager.serve(params, prompts, 8, admission=admission,
+                           arrivals=SLOT_ARRIVALS)
+        np.testing.assert_array_equal(got.tokens, want.tokens)
+        np.testing.assert_array_equal(got.ttft_steps, want.ttft_steps)
+        np.testing.assert_array_equal(got.schedule.workers,
+                                      want.schedule.workers)
+        assert got.tap_rows == got.decode_steps == want.decode_steps
+        assert got.chunk_device_ms > 0 and np.all(got.tokens >= 0)
+    assert graph.compile_counts() == {"chunk": 1}
+    assert eager.compile_counts() == {"chunk": 0}
+
+
+@pytest.mark.cuda
+def test_slot_admission_rotation_isolates_slots(cuda_device):
+    """Seven requests rotate through three slots; each must decode exactly
+    as it does alone in the same three-slot pool (the same decode shapes),
+    so no admission leaks into a neighbour's cache row.  f32, TF32 off."""
+    cfg, params, prompts = _slot_world(cuda_device, "qwen2-0.5b",
+                                       dtype="float32",
+                                       use_flash_attention=True)
+    srv = SlotServer(cfg, SlotConfig(n_slots=3, ctx_len=40,
+                                     steps_per_launch=4), device=cuda_device)
+    res = srv.serve(params, prompts, 8, arrivals=SLOT_ARRIVALS)
+    for rid in range(7):
+        alone = srv.serve(params, prompts[rid:rid + 1], 8)
+        np.testing.assert_array_equal(res.tokens[rid:rid + 1], alone.tokens,
+                                      err_msg=f"request {rid}")
+    assert srv.compile_counts() == {"chunk": 1}
 
 
 # ---- the theory tier: CUDA graph chunks of the exact replay ----------------

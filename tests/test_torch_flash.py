@@ -169,3 +169,23 @@ def test_flash_kernel_route_follows_dtype():
     assert FA.route(torch.float32) == "cuda_cores"
     with pytest.raises(TypeError, match="float32 or bfloat16"):
         FA.route(torch.float16)
+
+
+def _attention_configs():
+    from repro_torch.configs import ARCHS
+    for name, cfg in sorted(ARCHS.items()):
+        if cfg.family != "ssm":              # the ssm family has no attention
+            yield f"{name}-full", cfg
+            yield f"{name}-reduced", cfg.reduced()
+
+
+@pytest.mark.parametrize("label,cfg", list(_attention_configs()),
+                         ids=lambda v: v if isinstance(v, str) else "")
+def test_every_config_head_dim_is_built(label, cfg):
+    """The CUDA kernel is built for every head dim a config reaches (full
+    width and reduced): zamba2-7b's 112 as much as qwen2-0.5b's 64."""
+    assert cfg.d_head in FA.HEAD_DIMS, (label, cfg.d_head)
+
+
+def test_head_dims_are_the_multiples_of_16_up_to_128():
+    assert FA.HEAD_DIMS == (16, 32, 48, 64, 80, 96, 112, 128)

@@ -153,3 +153,30 @@ def test_serve_greedy_tokens_identical_to_jax(kernel):
     prompts, want = jax_serve(job, T, seed, to_jax(params_to_numpy(params)))
     np.testing.assert_array_equal(res.extra["prompts"], prompts)
     np.testing.assert_array_equal(res.x, want)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ragged_decode_matches_jax(dtype):
+    """The slot server's ragged decode on the ssm family: a (B,) position
+    vector (which the SSM path does not read) against a ragged cache, on
+    the same states, tokens and positions in both packages.  Tolerances:
+    f32 1e-5, bf16 3e-2."""
+    jcfg, tcfg = _cfgs(dtype)
+    jp, tp = _params(jcfg, dtype)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32" else BF16_TOL)
+    rows, ctx = 3, 16
+    jc = JM.init_cache(jcfg, rows, ctx, ragged=True)
+    tc = TM.init_cache(tcfg, rows, ctx, device="cpu", ragged=True)
+    assert "positions" not in tc
+    rng = np.random.default_rng(5)
+    pos = np.array([0, 5, 9], np.int32)
+    for i in range(4):
+        toks = rng.integers(0, jcfg.vocab, rows).astype(np.int32)
+        jl, jc = JM.decode_step(jcfg, jp, jc, jnp.asarray(toks),
+                                jnp.asarray(pos), ctx)
+        tl, _ = TM.decode_step(tcfg, tp, tc, torch.from_numpy(toks).long(),
+                               torch.from_numpy(pos), ctx)
+        np.testing.assert_allclose(f32(tl), f32(jl), err_msg=f"step {i}",
+                                   **tol)
+        pos = pos + 1
+    _assert_cache(tc, jc, tol)

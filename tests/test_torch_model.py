@@ -125,3 +125,60 @@ def test_bf16_prefill_then_decode_matches_jax(flash):
         tl, tc = TM.decode_step(tcfg, tp, tc, torch.from_numpy(steps[i]).long(),
                                 S + i, ctx)
         np.testing.assert_allclose(f32(tl), f32(jl), **bf16)
+
+
+@pytest.mark.parametrize("dtype,window", [("float32", None), ("float32", 6),
+                                          ("bfloat16", None)])
+def test_ragged_decode_matches_jax(dtype, window):
+    """Ragged decode (the slot server's): per-row positions against the
+    (B, W) positions buffer, rows advancing at their own pace (row 2 holds
+    still, as an inactive slot does), on the same cache, tokens and
+    positions in both packages.  window=6 < ctx: each row's ring wraps at
+    its own step.  Tolerances: f32 1e-5, bf16 3e-2."""
+    over = dict(dtype=dtype, sliding_window=window)
+    jcfg = get_arch("qwen2-0.5b").reduced().with_(**over)
+    tcfg = t_get_arch("qwen2-0.5b").reduced().with_(**over)
+    jp = JM.init_params(jcfg, jax.random.PRNGKey(0))
+    if dtype == "float32":
+        jp = tree_f32(jp)
+    tp = port_params(jp)
+    tol = (dict(rtol=1e-5, atol=1e-5) if dtype == "float32"
+           else dict(rtol=3e-2, atol=3e-2))
+    rows, ctx = 3, 16
+    jc = JM.init_cache(jcfg, rows, ctx, ragged=True)
+    tc = TM.init_cache(tcfg, rows, ctx, device="cpu", ragged=True)
+    W = window or ctx
+    assert tuple(tc["positions"].shape) == jc["positions"].shape == (rows, W)
+    rng = np.random.default_rng(4)
+    pos = np.array([0, 5, 9], np.int32)
+    for i in range(8):
+        toks = rng.integers(0, jcfg.vocab, rows).astype(np.int32)
+        jl, jc = JM.decode_step(jcfg, jp, jc, jnp.asarray(toks),
+                                jnp.asarray(pos), ctx)
+        tl, tc2 = TM.decode_step(tcfg, tp, tc, torch.from_numpy(toks).long(),
+                                 torch.from_numpy(pos), ctx)
+        assert tc2 is tc                      # updated in place
+        np.testing.assert_allclose(f32(tl), f32(jl), err_msg=f"step {i}",
+                                   **tol)
+        np.testing.assert_array_equal(tc["positions"].numpy(),
+                                      np.asarray(jc["positions"]))
+        for name in ("k", "v"):
+            np.testing.assert_allclose(f32(tc["self"][name]),
+                                       f32(jc["self"][name]), **tol)
+        pos = pos + np.array([1, 1, 0], np.int32)
+
+
+def test_ragged_decode_of_one_row_equals_lockstep():
+    """A ragged batch whose rows share one position is the lock-step
+    decode, bit for bit, in the port."""
+    _, tcfg = _cfgs()
+    tp = TM.init_params(tcfg, 0, device="cpu")
+    lock = TM.init_cache(tcfg, 2, 8, device="cpu")
+    rag = TM.init_cache(tcfg, 2, 8, device="cpu", ragged=True)
+    toks = torch.tensor([3, 7])
+    for pos in range(4):
+        a, _ = TM.decode_step(tcfg, tp, lock, toks, pos, 8)
+        b, _ = TM.decode_step(tcfg, tp, rag, toks,
+                              torch.full((2,), pos, dtype=torch.int32), 8)
+        assert torch.equal(a, b), pos
+        toks = torch.argmax(a, dim=-1)

@@ -49,7 +49,15 @@ def test_sampling_generator_is_threaded_across_calls():
 
 
 def test_slot_lane_knobs_raise():
-    with pytest.raises(NotImplementedError, match="slot lane"):
-        ServeJob(n_slots=2)
-    with pytest.raises(NotImplementedError, match="slot lane"):
-        ServeJob(admission="fedbuff:b=2")
+    """The slot lane's knobs construct; only the resilience knobs, which
+    are not ported, raise (after the JAX package's validation)."""
+    job = ServeJob(n_slots=2, n_requests=5, admission="fedbuff:b=2",
+                   arrival="poisson:gap=2", steps_per_launch=4, deadline=3)
+    assert job.n_slots == 2
+    for kw in (dict(max_retries=2), dict(queue_cap=4), dict(drain_after=8)):
+        with pytest.raises(NotImplementedError, match="item 11c"):
+            ServeJob(n_slots=2, **kw)
+    with pytest.raises(ValueError, match="n_slots"):
+        ServeJob(queue_cap=4)
+    with pytest.raises(ValueError, match="admission"):
+        ServeJob(admission="nope")

@@ -264,3 +264,30 @@ def test_ssd_tensor_core_route_fits_two_blocks_per_sm():
     # outgrows the one-slot triangle, and sizes the space they share
     assert SSD.smem_bytes(16, 64, 128, tensor_cores=True) == \
         2 * 16 * 136 + 4 * 16 * 72 + 2 * 16 * 136 + 4 * 16 * 12
+
+
+def _ssd_configs():
+    from repro_torch.configs import ARCHS
+    for name, cfg in sorted(ARCHS.items()):
+        if cfg.family in ("ssm", "hybrid"):
+            yield f"{name}-full", cfg
+            yield f"{name}-reduced", cfg.reduced()
+
+
+@pytest.mark.parametrize("tensor_cores", [False, True])
+@pytest.mark.parametrize("label,cfg", list(_ssd_configs()),
+                         ids=lambda v: v if isinstance(v, str) else "")
+def test_every_config_ssd_shape_fits_the_kernel(label, cfg, tensor_cores):
+    """Every config's (chunk, head dim, state) passes the kernel's shape
+    arithmetic on both routes, full width and reduced."""
+    from repro_torch.kernels import ssd_chunk as SSD
+    SSD.check_shape(cfg.ssm_chunk, cfg.ssm_head_dim, cfg.ssm_state,
+                    tensor_cores)
+
+
+def test_ssd_shape_check_refuses_what_no_route_takes():
+    from repro_torch.kernels import ssd_chunk as SSD
+    with pytest.raises(ValueError, match="in bf16"):
+        SSD.check_shape(128, 64, 256, True)
+    with pytest.raises(ValueError, match="chunks up to"):
+        SSD.check_shape(256, 64, 64, False)
