@@ -15,7 +15,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    the bf16 route's 64-row tiles (Sq 1000, H/KV 7, window 100, ragged
    non-causal Sk > Sq, q tiles that visit no key tile) and the head dims
    16, 48, 80, 96 and 112 (zamba2-7b's), in f32 (CUDA-core route) and bf16
-   (tensor-core route) at the kernel suite's tolerances; at the main-path
+   (tensor-core route) at the kernel suite's tolerances, and the slot
+   lane's admission (q 1 × 512) and prefix-replay prefills (1 × 512 + e,
+   e = 1, 17, 63); at the main-path
    shape the kernel, its plain version and ``scaled_dot_product_attention``
    (a yardstick only: the port never calls it) are timed on the device
    (CUDA graph replay, :func:`device_ms`), and the kernel's eager calls
@@ -106,7 +108,28 @@ Phases, each of which fails the run (non-zero exit, no result line):
     schedule equals a separate host realisation bit for bit; it prints a
     ``{"theory_tier": [...]}`` line and the paper's ordering (shuffled ≤
     1.5 × random, random ≤ pure; reported, not gated);
-14. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+14. durability, at full width on the slot lane's cells and the training
+    main path, every kernel count set to 0 before each path and read after
+    it (each must have launched), snapshots under ``build/`` removed
+    however the phase ends: on qwen2-0.5b, retry armed on a clean world
+    (tokens bit-identical to the unarmed serve); a chaos run (``CHAOS``:
+    rid 1 poisoned every step from 3, rid 5 at step 40, a driver
+    preemption at 96; two attempts, a drop-oldest queue of 16, snapshots
+    every 16 steps) resumed once from the newest snapshot, every request in
+    exactly one bucket and rid 5 completing its row through prefix replay;
+    crash-resume: preempted at 96, resumed on a fresh ``SlotServer`` (a new
+    capture), tokens and TTFT bit-identical to the uninterrupted serve;
+    ``drain_after=64``: the queued requests drained, the rest finished; on
+    mamba2-370m, crash-resume at 32 likewise, shedding, a poison without
+    retry (a terminal eviction) and the prefix replay refused (its length
+    is not a multiple of the SSD chunk); the training main path through
+    the plan executor with ``AsyncSnapshotter(every=4, keep=2)``: the
+    snapshotted run bit-identical to a plain one, then restored at round 4
+    and resumed, bit-identical again (a difference names the first leaf);
+    prints a ``{"durability": ...}`` line with the card, snapshot bytes,
+    host ms per offer, finalise seconds and ms per round with and without
+    snapshots;
+15. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
     line.
 """
 from __future__ import annotations
@@ -116,6 +139,7 @@ import dataclasses
 import functools
 import json
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -132,10 +156,15 @@ import torch.nn.functional as F                               # noqa: E402
 from repro_torch.api import (ExperimentSpec, ServeJob,        # noqa: E402
                              SimulatorBackend, TrainerBackend, TrainJob,
                              run)
+from repro_torch.checkpoint import (AsyncSnapshotter,         # noqa: E402
+                                    load_meta, restore)
 from repro_torch.configs import get_arch                      # noqa: E402
 from repro_torch.distributed import (AsyncConfig,             # noqa: E402
-                                     AsyncTrainer, Server, ServeConfig,
-                                     SlotConfig, SlotServer)
+                                     AsyncTrainer, OverloadPolicy,
+                                     RetryPolicy, Server, ServeConfig,
+                                     ServePreempted, SlotConfig, SlotServer,
+                                     draw_arrivals)
+from repro_torch.faults import ServeFaults, realise_serve_faults  # noqa: E402
 from repro_torch.kernels import _build, ops                   # noqa: E402
 from repro_torch.kernels import async_update as AU            # noqa: E402
 from repro_torch.kernels import flash_attention as FA         # noqa: E402
@@ -148,9 +177,11 @@ from repro_torch.models import init_params, param_specs, prefill  # noqa: E402
 from repro_torch.objectives import (LogRegProblem,            # noqa: E402
                                     make_libsvm_like, make_synthetic)
 from repro_torch.optim import OptConfig                       # noqa: E402
-from repro_torch.runtime import compile_plan, execute         # noqa: E402
+from repro_torch.runtime import (PlanExecutor,                # noqa: E402
+                                 compile_plan, execute)
 from repro_torch.scenarios import parse_scenario, realise_world  # noqa: E402
-from repro_torch.tree import tree_leaves, tree_map            # noqa: E402
+from repro_torch.tree import (tree_leaves,                     # noqa: E402
+                              tree_leaves_with_path, tree_map)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
@@ -187,6 +218,10 @@ CASES = [
     ("d112_window", 1, 512, 512, 4, 4, 112, True, 100),
     # the slot lane's batch-1 prefill on qwen2-0.5b (one admission)
     ("slot_prefill", 1, 512, 512, 14, 2, 64, True, None),
+    # a retried request's prefix replay: prompt 512 + e emitted tokens
+    ("replay_e1", 1, 513, 513, 14, 2, 64, True, None),
+    ("replay_e17", 1, 529, 529, 14, 2, 64, True, None),
+    ("replay_e63", 1, 575, 575, 14, 2, 64, True, None),
 ]
 #: the shared attention block of zamba2-7b (32 heads of 112) at the serving
 #: path's prefill size: flash at D = 112, timed
@@ -327,7 +362,7 @@ def flash_bound(q, k, causal, window):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def phase_device() -> str:
+def phase_device() -> tuple:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script drives the "
               "port on a card", file=sys.stderr)
@@ -335,13 +370,14 @@ def phase_device() -> str:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader", "-i", "0"],
                          capture_output=True, text=True, check=True)
-    log(smi.stdout.strip())
+    card = smi.stdout.strip()
+    log(card)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32}")
-    return torch.cuda.get_device_name(0)
+    return torch.cuda.get_device_name(0), card
 
 
 def phase_build() -> None:
@@ -1279,6 +1315,395 @@ def phase_slot_parity(device) -> dict:
     return {"equal": True}
 
 
+#: the durability phase (14): serving resilience on the slot lane's cells
+#: (SLOT_CELLS, the same prompts, arrivals and K) and the training main
+#: path snapshotted and resumed.  Snapshots go under the checkout's
+#: ignored build directory and are removed when the phase ends.
+SNAP_ROOT = ROOT / "build" / "chip_smoke_snapshots"
+CHAOS = ("slot_poison:rid=1,step=3,every=1;slot_poison:rid=5,step=40,"
+         "every=0;serve_preempt:at=96,every=0")
+CHAOS_RETRY = dict(max_attempts=2, backoff_base=2)
+#: a queue of 16, not 8: with this cell's arrivals a queue of 8 sheds rid
+#: 5's retry (eligible at 42, still queued at 56) under drop-oldest, in
+#: the JAX package's bookkeeping as in the port's
+#: (tests/test_torch_resilience.py::test_chaos_cell_bookkeeping_matches_jax)
+CHAOS_OVERLOAD = (16, "drop-oldest")
+SERVE_SNAP_EVERY, SERVE_SNAP_KEEP = 16, 3
+#: the serve preemption of each cell's crash-resume gate (decode step)
+PREEMPT_AT = {"qwen2-0.5b": 96, "mamba2-370m": 32}
+DRAIN_AFTER = 64
+#: mamba2-370m's shedding gate (the admission queue bound) and its poisoned
+#: (rid, step) cell: rid 1 is admitted at step 8 and decodes to step 39
+SSM_QUEUE_CAP, SSM_POISON = 2, (1, 10)
+TRAIN_SNAP_EVERY, TRAIN_SNAP_KEEP = 4, 2
+
+
+class _TimedSnapshotter(AsyncSnapshotter):
+    """The snapshotter with the host time of each offer and of each
+    finalise (the wait for the fetch plus the atomic save) recorded."""
+
+    def __init__(self, *args, **kw):
+        super().__init__(*args, **kw)
+        self.offer_ms, self.finalise_s = [], []
+
+    def offer(self, *args, **kw):
+        t0 = time.perf_counter()
+        n = len(self.finalise_s)
+        super().offer(*args, **kw)
+        # an offer finalises the one before: count only its own part
+        self.offer_ms.append((time.perf_counter() - t0
+                              - sum(self.finalise_s[n:])) * 1e3)
+
+    def _write_oldest(self):
+        t0 = time.perf_counter()
+        super()._write_oldest()
+        self.finalise_s.append(time.perf_counter() - t0)
+
+
+def _slot_setup(device, cell):
+    """A slot cell's config, params, prompts, arrivals and SlotConfig: the
+    ones ``run(ServeJob(n_slots=...))`` builds for it."""
+    mod, _, switch = _SLOT_KERNELS[cell["kernel"]]
+    job = ServeJob(arch=cell["arch"], reduced=False, batch=cell["n_slots"],
+                   prompt_len=cell["prompt_len"],
+                   arch_overrides=((switch, True),), n_slots=cell["n_slots"],
+                   n_requests=cell["n_requests"], arrival=cell["arrival"],
+                   steps_per_launch=SLOT_K)
+    cfg = job.make_arch()
+    n_req = cell["n_requests"]
+    prompts = np.random.default_rng(SLOT_SEED).integers(
+        0, cfg.vocab, (n_req, cell["prompt_len"])).astype(np.int32)
+    arrivals = draw_arrivals(n_req, cell["arrival"], seed=SLOT_SEED)
+    slots = SlotConfig(n_slots=cell["n_slots"],
+                       ctx_len=cell["prompt_len"] + cell["T"],
+                       seed=SLOT_SEED, steps_per_launch=SLOT_K)
+    return mod, cfg, init_params(cfg, SLOT_SEED, device), prompts, arrivals, \
+        slots
+
+
+def _buckets(label, res, n_req, T):
+    """Every request in exactly one bucket: a full row (completed),
+    evicted, timed out, shed or drained."""
+    out = {}
+    for rid in range(n_req):
+        hits = [name for name, m in (("evicted", res.evictions),
+                                     ("timed_out", res.timeouts),
+                                     ("shed", res.shed),
+                                     ("drained", res.drained)) if rid in m]
+        if len(hits) > 1:
+            raise AssertionError(f"{label}: request {rid} in {hits}")
+        if not hits and not (res.tokens[rid] >= 0).all():
+            raise AssertionError(f"{label}: request {rid} in no bucket "
+                                 f"and not a full row of {T}")
+        out[rid] = hits[0] if hits else "completed"
+    return out
+
+
+def _fault_horizon(arrivals, n_req, T, attempts):
+    """``ServeBackend``'s horizon for realising serve faults."""
+    return 2 * (int(arrivals.max(initial=0)) + n_req * T * attempts
+                + SLOT_K) + 4 * SLOT_K
+
+
+def _serve_until_done(srv, params, prompts, T, snapdir, **kw):
+    """Serve; on a ServePreempted resume from the newest snapshot on the
+    same server.  Returns (result, hops)."""
+    resume, hops = None, 0
+    while True:
+        try:
+            return srv.serve(params, prompts, T, resume_from=resume,
+                             snapshot=_TimedSnapshotter(
+                                 snapdir, SERVE_SNAP_EVERY,
+                                 keep=SERVE_SNAP_KEEP), **kw), hops
+        except ServePreempted:
+            hops += 1
+            if hops > 1:
+                raise AssertionError("a second preemption")
+            resume = AsyncSnapshotter.latest(snapdir)[1]
+
+
+def _crash_resume(label, device, cfg, slots, params, prompts, arrivals, T,
+                  clean, at, snapdir):
+    """Preempt a snapshotted serve at ``at``, resume on a fresh server (a
+    new capture); tokens and TTFT must equal ``clean``'s bit for bit."""
+    faults = ServeFaults(preempt_steps=(at,))
+    snap = _TimedSnapshotter(snapdir, SERVE_SNAP_EVERY, keep=SERVE_SNAP_KEEP)
+    try:
+        SlotServer(cfg, slots, device=device).serve(
+            params, prompts, T, arrivals=arrivals, faults=faults,
+            snapshot=snap)
+    except ServePreempted as e:
+        step = e.step
+    else:
+        raise AssertionError(f"{label}: no preemption at {at}")
+    r, latest = AsyncSnapshotter.latest(snapdir)
+    fresh = SlotServer(cfg, slots, device=device)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = fresh.serve(params, prompts, T, arrivals=arrivals, faults=faults,
+                      resume_from=latest)
+    torch.cuda.synchronize()
+    resume_s = time.perf_counter() - t0
+    if (r != step or res.resumed_from != r
+            or fresh.compile_counts() != {"chunk": 1}):
+        raise AssertionError(f"{label}: snapshot {r}, preempted at {step}, "
+                             f"resumed from {res.resumed_from}, "
+                             f"{fresh.compile_counts()}")
+    if not (np.array_equal(res.tokens, clean.tokens)
+            and np.array_equal(res.ttft_steps, clean.ttft_steps)):
+        bad = np.argwhere(res.tokens != clean.tokens)
+        raise AssertionError(f"{label}: the resumed serve differs from the "
+                             f"uninterrupted one at {bad[:5].tolist()}")
+    log(f"durability {label}: preempted at step {step} (scheduled {at}), "
+        f"resumed on a fresh server (one new capture) from snapshot {r}: "
+        f"tokens and ttft bit-identical to the uninterrupted serve; "
+        f"{len(snap.offer_ms)} offers, host ms per offer "
+        f"{np.mean(snap.offer_ms):.3f}, finalise s "
+        f"{np.mean(snap.finalise_s):.4f}; resumed serve {resume_s:.2f} s")
+    return {"preempted_at": step, "resumed_from": r,
+            "offers": len(snap.offer_ms),
+            "offer_host_ms": snap.offer_ms, "finalise_s": snap.finalise_s,
+            "snapshot_bytes": load_meta(latest)["state_nbytes"],
+            "resumed_serve_s": resume_s}
+
+
+def _durability_dense(device) -> dict:
+    """qwen2-0.5b: the clean-world no-op, the chaos run, crash-resume on a
+    fresh server, drain."""
+    cell = SLOT_CELLS[0]
+    mod, cfg, params, prompts, arrivals, slots = _slot_setup(device, cell)
+    n_req, T, plen = cell["n_requests"], cell["T"], cell["prompt_len"]
+    label = cfg.name
+    srv = SlotServer(cfg, slots, device=device)
+    lengths = []
+    prefill_fn = srv.prefill_fn
+    srv.prefill_fn = lambda n: (lengths.append(n), prefill_fn(n))[1]
+    mod.launches = 0
+    clean = srv.serve(params, prompts, T, arrivals=arrivals)
+    armed = srv.serve(params, prompts, T, arrivals=arrivals,
+                      retry=RetryPolicy(max_attempts=3))
+    if not np.array_equal(armed.tokens, clean.tokens) or armed.attempts:
+        raise AssertionError(f"{label}: retry on a clean world changed the "
+                             f"serve (attempts {armed.attempts})")
+    log(f"durability {label}: retry armed on a clean world: tokens "
+        f"bit-identical to the unarmed serve")
+
+    faults = realise_serve_faults(CHAOS, n_req, _fault_horizon(
+        arrivals, n_req, T, CHAOS_RETRY["max_attempts"]), seed=SLOT_SEED)
+    del lengths[:]
+    chaos, hops = _serve_until_done(
+        srv, params, prompts, T, str(SNAP_ROOT / "chaos"),
+        arrivals=arrivals, faults=faults, retry=RetryPolicy(**CHAOS_RETRY),
+        overload=OverloadPolicy(*CHAOS_OVERLOAD))
+    buckets = _buckets(f"{label} chaos", chaos, n_req, T)
+    replays = sorted(n - plen for n in lengths if n != plen)
+    counts = {b: sum(1 for v in buckets.values() if v == b)
+              for b in ("completed", "evicted", "timed_out", "shed",
+                        "drained")}
+    if (hops != 1 or buckets[5] != "completed" or chaos.attempts.get(5) != 1
+            or buckets[1] == "completed" or not replays):
+        raise AssertionError(f"{label} chaos: {hops} hops, rid 5 "
+                             f"{buckets[5]} after {chaos.attempts.get(5)} "
+                             f"failed attempts, rid 1 {buckets[1]}, replay "
+                             f"prefixes {replays}")
+    log(f"durability {label} chaos ({CHAOS}; RetryPolicy{CHAOS_RETRY}, "
+        f"OverloadPolicy{CHAOS_OVERLOAD}): one preemption hop resumed from "
+        f"step {chaos.resumed_from}; buckets {counts}; attempts "
+        f"{chaos.attempts}; rid 5 completed its row through prefix replay; "
+        f"replayed prefixes e = {replays}")
+
+    crash = _crash_resume(label, device, cfg, slots, params, prompts,
+                          arrivals, T, clean, PREEMPT_AT[cfg.name],
+                          str(SNAP_ROOT / "crash"))
+    drain = srv.serve(params, prompts, T, arrivals=arrivals,
+                      drain_after=DRAIN_AFTER)
+    buckets = _buckets(f"{label} drain", drain, n_req, T)
+    queued = {r for r in range(n_req) if clean.ttft_steps[r] + arrivals[r]
+              >= DRAIN_AFTER}
+    if (set(drain.drained) != queued
+            or set(drain.drained.values()) - {DRAIN_AFTER}
+            or {r for r, b in buckets.items() if b != "completed"} != queued):
+        raise AssertionError(f"{label} drain: drained {drain.drained}, "
+                             f"queued at {DRAIN_AFTER}: {sorted(queued)}")
+    launches = mod.launches
+    if launches == 0 or launches % cfg.n_layers:
+        raise AssertionError(f"{label}: {launches} flash launches")
+    log(f"durability {label} drain_after={DRAIN_AFTER}: {len(queued)} queued "
+        f"requests drained, {n_req - len(queued)} in flight finished; flash "
+        f"launches over the resilient serves {launches} "
+        f"({launches // cfg.n_layers} prefills incl. {len(replays)} replays "
+        f"x {cfg.n_layers} layers)")
+    del params, srv
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "flash_launches": launches,
+            "chaos": {"hops": hops, "resumed_from": chaos.resumed_from,
+                      "buckets": counts, "attempts": chaos.attempts,
+                      "replay_prefixes": replays},
+            "crash_resume": crash, "drained": len(queued)}
+
+
+def _durability_ssm(device) -> dict:
+    """mamba2-370m: crash-resume on a fresh server, shedding, a poison
+    without retry (terminal), and the refused prefix replay."""
+    cell = SLOT_CELLS[1]
+    mod, cfg, params, prompts, arrivals, slots = _slot_setup(device, cell)
+    n_req, T = cell["n_requests"], cell["T"]
+    label = cfg.name
+    srv = SlotServer(cfg, slots, device=device)
+    mod.launches = 0
+    clean = srv.serve(params, prompts, T, arrivals=arrivals)
+    crash = _crash_resume(label, device, cfg, slots, params, prompts,
+                          arrivals, T, clean, PREEMPT_AT[cfg.name],
+                          str(SNAP_ROOT / "crash_ssm"))
+    shed = srv.serve(params, prompts, T, arrivals=arrivals,
+                     overload=OverloadPolicy(SSM_QUEUE_CAP, "reject-new"))
+    b = _buckets(f"{label} shedding", shed, n_req, T)
+    if not shed.shed or set(b.values()) != {"completed", "shed"}:
+        raise AssertionError(f"{label} shedding: {shed.shed}")
+    poison = ServeFaults(poisons=(SSM_POISON,))
+    evicted = srv.serve(params, prompts, T, arrivals=arrivals, faults=poison)
+    if evicted.evictions != {SSM_POISON[0]: SSM_POISON[1]} or \
+            _buckets(f"{label} poison", evicted, n_req, T)[1] != "evicted":
+        raise AssertionError(f"{label} poison: {evicted.evictions}")
+    try:
+        srv.serve(params, prompts, T, arrivals=arrivals, faults=poison,
+                  retry=RetryPolicy(max_attempts=2))
+    except ValueError as e:
+        refusal = str(e)
+    else:
+        raise AssertionError(f"{label}: prefix replay was not refused")
+    if "multiple of the chunk" not in refusal:
+        raise AssertionError(f"{label}: refused with {refusal!r}")
+    launches = mod.launches
+    if launches == 0 or launches % cfg.n_layers:
+        raise AssertionError(f"{label}: {launches} SSD launches")
+    log(f"durability {label}: OverloadPolicy({SSM_QUEUE_CAP}, reject-new) "
+        f"shed {sorted(shed.shed)}; slot_poison (rid, step) {SSM_POISON} "
+        f"without retry: "
+        f"terminal eviction {evicted.evictions}; with retry the prefix "
+        f"replay is refused ({refusal}); SSD launches {launches}")
+    del params, srv
+    torch.cuda.empty_cache()
+    return {"arch": cfg.name, "ssd_launches": launches,
+            "crash_resume": crash, "shed": len(shed.shed),
+            "replay_refused": refusal}
+
+
+def _first_difference(a, b):
+    """The path of the first leaf where two states differ bitwise."""
+    for (path, x), (_, y) in zip(tree_leaves_with_path(a),
+                                 tree_leaves_with_path(b)):
+        if x.dtype != y.dtype or not torch.equal(
+                x.reshape(-1).view(torch.uint8), y.reshape(-1).view(
+                    torch.uint8)):
+            return path
+    return None
+
+
+def _durability_training(device) -> dict:
+    """The training main path through the plan executor: without
+    snapshots, with snapshots (the two uninterrupted runs must match bit
+    for bit), then restored from round 4 and resumed (bit for bit)."""
+    spec = _train_spec()
+    job = spec.objective
+    cfg = job.make_arch()
+    groups, K = spec.n_workers, spec.rounds_per_launch
+    tr = AsyncTrainer(cfg, opt=OptConfig(name=job.opt,
+                                         lr=spec.stepsize.gamma,
+                                         clip_norm=job.clip_norm,
+                                         update_impl=job.update_impl),
+                      async_cfg=AsyncConfig(delay_rounds=job.delay_rounds,
+                                            microbatches=job.microbatches),
+                      device=device)
+    tr.n_groups = groups
+    _, schedule = TrainerBackend.masks_for(spec, groups)
+    plan = compile_plan(schedule, job, rounds=spec.T, n_groups=groups,
+                        seed=spec.seed)
+    ex = PlanExecutor(tr, plan)
+    base = init_params(cfg, spec.seed, device)
+    fresh = lambda: tr.init_state(params=tree_map(torch.clone, base))
+
+    def timed(state, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        res = ex.run_scan(state, rounds_per_launch=K, **kw)
+        torch.cuda.synchronize()
+        return res, time.perf_counter() - t0
+
+    AU.reset_launches()
+    plain, plain_s = timed(fresh())
+    launches = AU.launches["fused_adam_delayed"]
+    n_leaves = len(tree_leaves(base))
+    if launches != spec.T * n_leaves:
+        raise AssertionError(f"training: {launches} fused_adam_delayed "
+                             f"launches, want {spec.T} x {n_leaves}")
+    snapdir = str(SNAP_ROOT / "train")
+    snap = _TimedSnapshotter(snapdir, TRAIN_SNAP_EVERY, keep=TRAIN_SNAP_KEEP)
+    snapped, snap_s = timed(fresh(), snapshot=snap)
+    diff = _first_difference(plain.state, snapped.state)
+    if diff is not None or snapped.stats.snapshots != 2:
+        raise AssertionError(f"training: two uninterrupted runs differ "
+                             f"first at {diff} ({snapped.stats.snapshots} "
+                             "snapshots)")
+    snapped = None
+    mid = snap.round_dir(TRAIN_SNAP_EVERY)
+    t0 = time.perf_counter()
+    restored = restore(mid, plain.state)
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    if int(restored["step"]) != TRAIN_SNAP_EVERY:
+        raise AssertionError(f"training: restored step {restored['step']}")
+    tail, _ = timed(restored, start_round=TRAIN_SNAP_EVERY)
+    diff = _first_difference(plain.state, tail.state)
+    if diff is not None:
+        raise AssertionError(f"training: the resumed run differs from the "
+                             f"uninterrupted one first at {diff}")
+    nbytes = [load_meta(snap.round_dir(r))["state_nbytes"]
+              for r in (TRAIN_SNAP_EVERY, spec.T)]
+    finalise = sum(snap.finalise_s)
+    row = {"arch": cfg.name, "rounds": spec.T, "snapshot_every": TRAIN_SNAP_EVERY,
+           "fused_adam_delayed_launches": launches,
+           "snapshot_bytes": nbytes, "offer_host_ms": snap.offer_ms,
+           "finalise_s": snap.finalise_s, "restore_s": restore_s,
+           "round_ms_plain": plain_s / spec.T * 1e3,
+           "round_ms_snapshotted": snap_s / spec.T * 1e3,
+           "round_ms_snapshotted_excl_finalise":
+               (snap_s - finalise) / spec.T * 1e3}
+    log(f"durability training ({cfg.name} L={cfg.n_layers} d={cfg.d_model}"
+        f", {spec.T} rounds, "
+        f"{K} per launch, AsyncSnapshotter every {TRAIN_SNAP_EVERY}, keep "
+        f"{TRAIN_SNAP_KEEP}): fused_adam_delayed launches {launches}; the "
+        f"snapshotted and the plain run bit-identical; restored round "
+        f"{TRAIN_SNAP_EVERY} ({restore_s:.2f} s) and resumed: final state "
+        f"bit-identical; snapshots {nbytes} bytes; host ms per offer "
+        f"{[round(x, 3) for x in snap.offer_ms]}; finalise s "
+        f"{[round(x, 3) for x in snap.finalise_s]}; per round: plain "
+        f"{row['round_ms_plain']:.1f} ms, snapshotted "
+        f"{row['round_ms_snapshotted']:.1f} ms "
+        f"({row['round_ms_snapshotted_excl_finalise']:.1f} ms without the "
+        "finalises)")
+    del plain, tail, restored, base, ex, tr
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_durability(device, card: str) -> dict:
+    """Serving resilience on both slot cells and the training main path
+    snapshotted and resumed, at full width; the snapshot directory is
+    removed however the phase ends."""
+    shutil.rmtree(SNAP_ROOT, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        out = {"card": card, "serve": [_durability_dense(device),
+                                       _durability_ssm(device)],
+               "training": _durability_training(device)}
+        log(f"durability: every gate passed in "
+            f"{time.perf_counter() - t0:.1f} s")
+        return out
+    finally:
+        shutil.rmtree(SNAP_ROOT, ignore_errors=True)
+
+
 def _fig1_problem(device):
     A, b = make_libsvm_like("w7a", n=10, seed=0)
     return LogRegProblem(A, b, lam=0.1, device=device)
@@ -1435,7 +1860,7 @@ def phase_theory_tier(device) -> list:
 
 def main() -> None:
     t0 = time.perf_counter()
-    kind = phase_device()
+    kind, card = phase_device()
     device = torch.device("cuda")
     phase_build()
     flash = phase_kernels(device)
@@ -1450,12 +1875,14 @@ def main() -> None:
     slot_rows = [phase_slot_cell(device, cell) for cell in SLOT_CELLS]
     slot_parity = phase_slot_parity(device)
     theory = phase_theory_tier(device)
+    durability = phase_durability(device, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [flash] + [updates[k] for k in AU.KERNELS] + [ssd]
     log(f"chip_smoke: every phase passed in {time.perf_counter() - t0:.1f} s")
     print(json.dumps({"slot_lane": slot_rows, "slot_parity": slot_parity}))
     print(json.dumps({"theory_tier": theory}))
+    print(json.dumps({"durability": durability}))
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

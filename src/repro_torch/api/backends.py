@@ -18,10 +18,11 @@ Counterpart of ``repro/api/backends.py``:
   ``ServeJob.n_slots`` set, the continuous-batching slot lane through
   :class:`repro_torch.distributed.SlotServer` on the same prompt stream.
 
-The trainer and serve backends refuse a ``scenario``: its schedule side is
-ported, but the per-round channels it lowers into a ``RunPlan`` (and the
-serve faults) are not yet, and a run without them would not be the world
-the spec asks for.
+The trainer backend and the lock-step serve lane refuse a ``scenario``:
+its schedule side is ported, but the per-round channels it lowers into a
+``RunPlan`` are not yet, and a run without them would not be the world the
+spec asks for.  The slot lane lowers a scenario to its serve faults, as the
+JAX package does.
 """
 from __future__ import annotations
 
@@ -52,10 +53,10 @@ class Backend(Protocol):
 def _refuse_scenario(spec: ExperimentSpec, backend: str) -> None:
     if spec.scenario is not None:
         raise NotImplementedError(
-            f"the {backend} backend does not run scenario worlds yet: their "
-            "RunPlan channels (availability, data drift, sparsity, faults) "
-            "are not ported (ROADMAP.md queue 1, 'Copy scenarios/, faults/ "
-            "and obs/'); the simulator backend runs their schedules")
+            f"the {backend} does not run scenario worlds yet: their RunPlan "
+            "channels (availability, data drift, sparsity, faults) are not "
+            "ported (ROADMAP.md queue 1, item 12); the simulator backend "
+            "runs their schedules and the slot lane their serve faults")
 
 
 def _canonical(device) -> torch.device:
@@ -170,9 +171,15 @@ class TrainerBackend:
     can hold a run to the JAX package's: ``params_fn(cfg, device)`` returns
     the initial params tree, and ``batch_fn(q)`` round q's batch dict.
 
+    ``snapshot`` (a :class:`repro_torch.checkpoint.AsyncSnapshotter`) gives
+    scan runs periodic asynchronous snapshots, as in the JAX package; the
+    eager runtime takes none.  ``breaker`` (the divergence breaker) is not
+    ported and raises.
+
     ``RunResult.x`` is the final state; ``extra`` carries the JAX keys the
-    port can fill plus ``update_launches``, the launches of each update
-    kernel during the run, and ``device``."""
+    port can fill (``snapshots``, the offers, among them) plus
+    ``update_launches``, the launches of each update kernel during the run,
+    and ``device``."""
 
     name = "trainer"
     default_runtime = "scan"
@@ -183,7 +190,13 @@ class TrainerBackend:
                  rounds_per_launch: Optional[int] = None,
                  metrics: Optional[str] = None,
                  params_fn: Optional[Callable] = None,
-                 batch_fn: Optional[Callable] = None):
+                 batch_fn: Optional[Callable] = None,
+                 snapshot=None, breaker=None):
+        if breaker is not None:
+            raise NotImplementedError(
+                "the divergence breaker streams losses through the tap lane "
+                "and trips the guards, neither ported yet (ROADMAP.md queue "
+                "1, item 12)")
         self.device = device
         self.on_step = on_step
         self.runtime = runtime
@@ -191,6 +204,7 @@ class TrainerBackend:
         self.metrics = metrics
         self.params_fn = params_fn
         self.batch_fn = batch_fn
+        self.snapshot = snapshot
 
     @staticmethod
     def masks_for(spec: ExperimentSpec, n_groups: Optional[int] = None):
@@ -213,7 +227,7 @@ class TrainerBackend:
         job = spec.objective
         if not isinstance(job, TrainJob):
             raise TypeError("TrainerBackend needs a TrainJob objective")
-        _refuse_scenario(spec, "trainer")
+        _refuse_scenario(spec, "trainer backend")
         policy: StepsizePolicy = spec.stepsize
         if policy.kind == "grid":
             best = None
@@ -273,11 +287,12 @@ class TrainerBackend:
         runtime, rounds_per_launch, metrics = self.resolve_runtime(spec)
         if metrics == "none" and metrics_floor is not None:
             metrics = metrics_floor
+        kw = {"snapshot": self.snapshot} if runtime == "scan" else {}
         before = dict(update_kernels.launches)
         exec_res = execute(tr, plan, state, runtime=runtime,
                            rounds_per_launch=rounds_per_launch,
                            metrics=metrics, on_step=self.on_step,
-                           batch_fn=self.batch_fn)
+                           batch_fn=self.batch_fn, **kw)
         update_launches = {k: update_kernels.launches[k] - before[k]
                            for k in update_kernels.KERNELS}
 
@@ -303,6 +318,7 @@ class TrainerBackend:
                    "launches": exec_res.launches,
                    "host_syncs": exec_res.host_syncs,
                    "tap_events": exec_res.tap_events,
+                   "snapshots": exec_res.stats.snapshots,
                    "update_launches": update_launches,
                    "device": str(device)})
 
@@ -330,9 +346,9 @@ class ServeBackend:
         job = spec.objective
         if not isinstance(job, ServeJob):
             raise TypeError("ServeBackend needs a ServeJob objective")
-        _refuse_scenario(spec, "serve")
         if job.n_slots:
             return self._run_slots(spec)
+        _refuse_scenario(spec, "lock-step serve lane")
         device = resolve_device(self.device)
         t0 = time.time()
         launches0 = flash_kernel.launches, ssd_kernel.launches
@@ -376,10 +392,15 @@ class ServeBackend:
         policy, arrivals its timing-registry pattern.  ``RunResult.x`` is
         the (n_requests, T) token matrix (−1 where a request degraded);
         ``extra`` carries the JAX package's keys that the slot lane fills
-        (``tau_report`` among them) plus ``device``, ``flash_launches``,
-        ``ssd_launches``, ``graph_replays`` (chunk graph replays),
-        ``host_waits``, ``chunk_device_ms`` and ``compile_counts``."""
-        from ..distributed import (SlotServer, SlotConfig, draw_arrivals,
+        (``tau_report`` with its degraded buckets among them) plus
+        ``device``, ``flash_launches``, ``ssd_launches``, ``graph_replays``
+        (chunk graph replays), ``host_waits``, ``chunk_device_ms`` and
+        ``compile_counts``.  The job's resilience knobs build the
+        :class:`RetryPolicy` and :class:`OverloadPolicy`, and the spec's
+        scenario lowers to serve faults on the decode-step clock, as in
+        the JAX package."""
+        from ..distributed import (SlotServer, SlotConfig, OverloadPolicy,
+                                   RetryPolicy, draw_arrivals,
                                    parse_admission)
         from ..models import init_params
         from ..scenarios import tau_report
@@ -402,11 +423,30 @@ class ServeBackend:
         prompts = np.random.default_rng(spec.seed).integers(
             0, cfg.vocab, (n_req, job.prompt_len)).astype(np.int32)
         arrivals = draw_arrivals(n_req, job.arrival, seed=spec.seed)
+        retry = (RetryPolicy(max_attempts=job.max_retries,
+                             backoff_base=job.retry_backoff)
+                 if job.max_retries > 1 else None)
+        overload = (OverloadPolicy(job.queue_cap, job.shed_policy)
+                    if job.queue_cap is not None else None)
+        faults = None
+        if spec.scenario:
+            # slot_poison / serve_preempt cells realise on the decode-step
+            # clock; training transforms contribute nothing
+            from ..faults import realise_serve_faults
+
+            fault_horizon = (2 * (int(arrivals.max(initial=0))
+                                  + n_req * spec.T * job.max_retries
+                                  + job.steps_per_launch)
+                             + 4 * job.steps_per_launch)
+            faults = realise_serve_faults(spec.scenario, n_req,
+                                          fault_horizon, seed=spec.seed)
         synchronize(device)
         t_dec = time.time()
         res = server.serve(params, prompts, spec.T,
                            admission=job.admission, arrivals=arrivals,
-                           deadline=job.deadline)
+                           deadline=job.deadline, retry=retry,
+                           overload=overload, drain_after=job.drain_after,
+                           faults=faults)
         dt = time.time() - t_dec
         return RunResult(
             spec=spec, backend=self.name, x=res.tokens,
@@ -421,6 +461,9 @@ class ServeBackend:
                    "decode_steps": res.decode_steps, "chunks": res.chunks,
                    "tap_rows": res.tap_rows,
                    "evictions": res.evictions, "timeouts": res.timeouts,
+                   "shed": res.shed, "drained": res.drained,
+                   "attempts": res.attempts,
+                   "resumed_from": res.resumed_from,
                    "flash_launches": flash_kernel.launches - launches0[0],
                    "ssd_launches": ssd_kernel.launches - launches0[1],
                    "graph_replays": res.chunks if server.capture else 0,
@@ -431,7 +474,9 @@ class ServeBackend:
                        res.schedule, parse_admission(job.admission)[0],
                        concurrency=job.n_slots,
                        scenario_spec=job.arrival or "",
-                       evictions=res.evictions, timeouts=res.timeouts)})
+                       evictions=res.evictions, timeouts=res.timeouts,
+                       shed=res.shed, drained=res.drained,
+                       attempts=res.attempts)})
 
 
 def run(spec: ExperimentSpec, backend: Optional[Backend] = None,

@@ -153,11 +153,13 @@ class ServeJob:
       spec, e.g. ``"pure"`` / ``"fedbuff:b=2"``) and ``arrival`` draws
       inter-arrival gaps from the timing registry (``"pattern[:gap=G]"``;
       ``None`` = every request queued at step 0); ``deadline`` is a
-      queue-wait budget in decode steps.
+      queue-wait budget in decode steps.  The resilience knobs: retries
+      (``max_retries`` attempts, backoff base ``retry_backoff`` steps), a
+      bounded queue (``queue_cap`` under ``shed_policy``) and a graceful
+      drain (``drain_after``); ``ExperimentSpec.scenario`` lowers to serve
+      faults (``slot_poison``, ``serve_preempt``) on this lane.
 
-    The fields are validated as in the JAX package; the resilience knobs
-    ``max_retries > 1``, ``queue_cap`` and ``drain_after`` then raise
-    ``NotImplementedError`` (ROADMAP.md queue 1, item 11c).
+    The fields are validated as in the JAX package.
     """
 
     arch: str = "qwen2-0.5b"
@@ -210,14 +212,6 @@ class ServeJob:
         parse_admission(self.admission)     # fail fast on grammar errors
         if self.arrival:
             draw_arrivals(1, self.arrival)
-        for knob, asked in (("max_retries", self.max_retries > 1),
-                            ("queue_cap", self.queue_cap is not None),
-                            ("drain_after", self.drain_after is not None)):
-            if asked:
-                raise NotImplementedError(
-                    f"ServeJob.{knob} is serving resilience, not ported yet "
-                    "(ROADMAP.md queue 1, item 11c); the slot lane runs "
-                    "without it")
 
     def make_arch(self):
         from ..configs import get_arch

@@ -1,17 +1,17 @@
 """Slot-based continuous-batching serving: one captured ragged decode chunk.
 
-Counterpart of ``repro/distributed/slot_serve.py`` (PR 7/8 semantics) on
-one device.  ``n_slots`` persistent decode lanes, each with its own
-position, activity and budget, are stepped by ONE program:
+Counterpart of ``repro/distributed/slot_serve.py`` on one device.
+``n_slots`` persistent decode lanes, each with its own position, activity
+and budget, are stepped by ONE program:
 
 * **Device.**  The decode state (the ragged cache of
   ``models.init_cache(..., ragged=True)``, and per slot the last token,
-  position, activity, remaining budget, request id and sampling counter) is
-  a set of tensors allocated once per server and updated in place.  A
-  chunk of ``steps_per_launch`` (K) ragged ``models.decode_step`` calls
-  runs over it: inactive slots freeze (token, position and budget held by
-  the activity mask) and their ring re-writes are idempotent, so masking
-  replaces control flow.  On CUDA the chunk is captured once as a
+  position, activity, remaining budget, request id, sampling counter and
+  attempt) is a set of tensors allocated once per server and updated in
+  place.  A chunk of ``steps_per_launch`` (K) ragged ``models.decode_step``
+  calls runs over it: inactive slots freeze (token, position and budget
+  held by the activity mask) and their ring re-writes are idempotent, so
+  masking replaces control flow.  On CUDA the chunk is captured once as a
   ``torch.cuda.CUDAGraph`` (the counterpart of JAX's one ``jit`` of a
   ``lax.scan``) and replayed for every chunk of every serve; the graph
   reads the server's own copy of the params, refreshed at each serve.
@@ -19,11 +19,11 @@ position, activity and budget, are stepped by ONE program:
   card's yardstick for graph ≡ eager.
 * **Tap.**  Each step writes its (tokens, active, quarantined) row into a
   (K, 3, n_slots) device buffer.  After each chunk a non-blocking copy
-  into pinned host memory is queued with an event; the host folds chunk
-  c's rows into the ledger after it has queued chunk c + 1, so a clean
-  serve keeps one chunk of run-ahead.  The host counts how often it had to
-  wait for a row (``ServeResult.host_waits``).  This is the port's form of
-  the JAX package's ordered ``io_callback``.
+  into pinned host memory is queued with an event; on a clean serve the
+  host folds chunk c's rows into the ledger after it has queued chunk
+  c + 1, so the device keeps one chunk of run-ahead.  The host counts how
+  often it had to wait for a row (``ServeResult.host_waits``).  This is
+  the port's form of the JAX package's ordered ``io_callback``.
 * **Host.**  With a fixed per-request token budget there is no
   content-dependent exit: admissions, completions, occupancy and TTFT are
   bookkeeping, and no device value steers the loop.  Admission (which
@@ -35,21 +35,36 @@ position, activity and budget, are stepped by ONE program:
   the SSD kernel on the ssm family) gives the first token and a cache row,
   which in-place index copies write into the request's slot.
 * **Sampling** (``temperature > 0``) is Gumbel-max over a counter-based
-  integer hash of (seed, request id, decode step within the request,
-  vocabulary index), computed with torch ops inside the chunk.  A
-  request's stream is a pure function of those, whatever its slot or the
-  pool width.  The streams are the port's own: JAX's threefry keys cannot
-  be reproduced, and one ``torch.Generator`` cannot give per-slot streams
+  integer hash of (seed, request id, attempt, decode step within the
+  attempt, vocabulary index), computed with torch ops inside the chunk;
+  the attempt is folded in only from the first retry on.  A request's
+  stream is a pure function of those, whatever its slot or the pool width.
+  The streams are the port's own: JAX's threefry keys cannot be
+  reproduced, and one ``torch.Generator`` cannot give per-slot streams
   inside one graph.
 * **Degradation is masked, not crashed**: an active lane whose logits go
   non-finite is quarantined on the device (budget zeroed, no token) and
   the host learns of it from the tap; queued requests whose wait exceeds
   a ``deadline`` time out at admission sweeps.
+* **Resilience**, as in the JAX package: a :class:`RetryPolicy` re-queues
+  evicted and timed-out requests after a deterministic backoff and
+  re-prefills ``prompt + tokens emitted so far``; an
+  :class:`OverloadPolicy` bounds the admission queue and sheds;
+  ``drain_after`` stops admitting and finishes the lanes in flight; serve
+  faults poison (request, step) cells through the chunk's (K, n_slots)
+  mask (an all-false mask is identity, bit for bit) and schedule
+  :class:`ServePreempted` at chunk boundaries; an
+  :class:`~repro_torch.checkpoint.AsyncSnapshotter` is offered the decode
+  state plus the host ledger at due boundaries, and ``resume_from``
+  restores both and continues.  Any of retry, faults, a snapshotter or a
+  resume folds each chunk's tap rows before the next sweep, so the ledger
+  is whole at every sweep; a clean serve keeps the run-ahead.
 
-The resilience layer of the JAX server (retry, overload shedding, drain,
-serve faults, snapshots and resume) and its recorder are not ported: their
-arguments raise ``NotImplementedError``.  :class:`OverloadPolicy` is
-copied so that ``ServeJob`` validates its fields as the JAX package does.
+The serve snapshot is the port's own structure (the cache leaves and the
+per-slot tensors; JAX's holds PRNG keys), so serve snapshots do not cross
+packages; their ``meta.json`` ledger, ``admission_policy`` and
+``admission_trace`` have the JAX package's schema.  A recorder
+(observability) is not ported and raises.
 """
 from __future__ import annotations
 
@@ -64,9 +79,6 @@ from ..device import resolve_device
 from ..models import model as M
 from ..tree import tree_leaves, tree_map
 from .admission import AdmissionPolicy, AdmissionTrace, parse_admission
-
-_RESILIENCE = ("is serving resilience, not ported yet (ROADMAP.md queue 1, "
-               "item 11c)")
 
 
 @dataclasses.dataclass
@@ -91,13 +103,51 @@ class SlotConfig:
             raise ValueError("steps_per_launch must be >= 1")
 
 
+@dataclasses.dataclass(frozen=True)
+class RetryPolicy:
+    """Bounded re-admission of degraded requests.
+
+    A quarantine eviction or deadline timeout consumes one *attempt*;
+    while ``attempts consumed < max_attempts`` the request re-enters the
+    admission queue after ``backoff_steps(failures)`` decode steps
+    (``backoff_base · backoff_factor^(failures−1)``), replaying its
+    already-emitted token prefix through prefill.  At the cap the last
+    failure is terminal and lands in ``ServeResult.evictions`` /
+    ``.timeouts`` with the attempt count in ``.attempts``.
+    ``max_attempts=1`` is the no-retry semantics exactly.
+    """
+
+    max_attempts: int = 2
+    backoff_base: int = 4
+    backoff_factor: float = 2.0
+
+    def __post_init__(self):
+        if self.max_attempts < 1:
+            raise ValueError(
+                f"max_attempts must be >= 1 (got {self.max_attempts})")
+        if self.backoff_base < 0:
+            raise ValueError(
+                f"backoff_base must be >= 0 (got {self.backoff_base})")
+        if self.backoff_factor < 1.0:
+            raise ValueError(
+                f"backoff_factor must be >= 1 (got {self.backoff_factor})")
+
+    def backoff_steps(self, failures: int) -> int:
+        """Decode steps to wait after the ``failures``-th failure."""
+        return int(round(self.backoff_base
+                         * self.backoff_factor ** (max(failures, 1) - 1)))
+
+
 SHED_POLICIES = ("reject-new", "drop-oldest")
 
 
 @dataclasses.dataclass(frozen=True)
 class OverloadPolicy:
-    """Bounded admission queue (the JAX package's fields and validation;
-    shedding itself is not ported)."""
+    """Bounded admission queue: at every sweep, eligible-but-waiting
+    requests beyond ``queue_cap`` are shed (terminal, accounted in
+    ``ServeResult.shed``) — ``reject-new`` drops the newest entrants,
+    ``drop-oldest`` drops the head of the queue to make room for them.
+    """
 
     queue_cap: int
     shed: str = "reject-new"
@@ -112,52 +162,98 @@ class OverloadPolicy:
                 f"{SHED_POLICIES}")
 
 
+class ServePreempted(RuntimeError):
+    """Raised by ``serve`` at a scheduled ``serve_preempt`` boundary
+    (after forcing a snapshot offer and draining it, when a snapshotter is
+    attached).  Carries the decode step the driver stopped at; callers
+    catch it and resume through ``serve(resume_from=...)``."""
+
+    def __init__(self, step: int, at: int):
+        super().__init__(
+            f"serve driver preempted at decode-step boundary {step} "
+            f"(scheduled at step {at})")
+        self.step = int(step)
+        self.at = int(at)
+
+
 @dataclasses.dataclass
 class ServeResult:
     """Per-request token matrix + the realised admission world.
 
-    An evicted request's ``tokens`` row holds −1 from its quarantine point
-    on; a timed-out request was never admitted and has an all −1 row and a
-    −1 ``ttft_steps`` entry.
+    Degraded requests pad: an evicted request's ``tokens`` row holds −1
+    from its (last attempt's) quarantine point on, keeping any prefix
+    earlier attempts recovered; a timed-out, shed or drained request that
+    was never admitted has an all −1 row and a −1 ``ttft_steps`` entry.
+    Every request lands in exactly one of: a full token row,
+    ``evictions``, ``timeouts``, ``shed`` or ``drained``.
     """
 
     tokens: np.ndarray           # (n_requests, max_new) int32, −1 padded
     schedule: object             # repro_torch.core.engine.Schedule
     ttft_steps: np.ndarray       # (n_requests,) admission − arrival (steps)
     occupancy: float             # mean fraction of busy slot-steps
-    decode_steps: int            # launched decode steps
-    chunks: int                  # chunk launches (graph replays on CUDA)
-    tap_rows: int                # tap rows folded into the ledger
+    decode_steps: int            # launched decode steps (across resumes)
+    chunks: int                  # chunk launches (across resumes)
+    tap_rows: int                # tap rows this serve folded
     evictions: dict = dataclasses.field(default_factory=dict)
+    #: rid -> decode step its lane was quarantined; with retries, only the
+    #: terminal (attempt-exhausted) evictions
     timeouts: dict = dataclasses.field(default_factory=dict)
+    #: rid -> decode step its queue wait exceeded the deadline (terminal)
+    shed: dict = dataclasses.field(default_factory=dict)
+    #: rid -> decode step overload control shed it (terminal)
+    drained: dict = dataclasses.field(default_factory=dict)
+    #: rid -> decode step a graceful drain cancelled it (terminal)
+    attempts: dict = dataclasses.field(default_factory=dict)
+    #: rid -> failed attempts consumed (retried requests only)
+    resumed_from: Optional[int] = None
+    #: decode step this serve resumed a snapshot at (None = fresh run)
+    host_waits: int = 0
     #: times the host found a chunk's tap rows not yet on the host and
     #: waited for them (0 when the device never fell behind the host)
-    host_waits: int = 0
-    #: device time of the chunks, CUDA events around each launch (ms;
-    #: None off CUDA)
     chunk_device_ms: Optional[float] = None
+    #: device time of this serve's chunks, CUDA events around each launch
+    #: (ms; None off CUDA)
+
+
+def _tok_int(x) -> int:
+    """Host int from a deferred device first token (or an int)."""
+    return x if isinstance(x, int) else int(x.reshape(-1)[0])
 
 
 class _Ledger:
-    """Host-side bookkeeping of one serve run.  Request lifecycle:
-    ``queued`` (``eligible[rid]`` = step it may be admitted from) →
-    ``inflight`` (occupies a slot, ``fin[rid]`` = its completion step) →
-    ``done`` (completed or terminally failed)."""
+    """Host-side bookkeeping of one serve run.
+
+    Everything the sweep loop needs to steer admission, retries, shedding
+    and accounting lives here, and it is JSON-serialisable
+    (:meth:`to_json` / :meth:`from_json`, the JAX package's schema), so a
+    snapshot restores the driver's world, not just the device state.
+    Request lifecycle: ``queued`` (waiting or backing off,
+    ``eligible[rid]`` = step it may be admitted from) → ``inflight``
+    (occupies a slot, ``fin[rid]`` = completion step of this attempt) →
+    ``done`` (completed or terminally failed).
+    """
 
     def __init__(self, n_req: int, n_slots: int, arrivals):
-        self.chunks = 0
+        self.t = 0                   # decode-step clock (chunk boundaries)
+        self.chunks = 0              # lifetime chunk count (across resumes)
         self.busy_steps = 0
         self.slot_rid = [-1] * n_slots
         self.state_of = {r: "queued" for r in range(n_req)}
         self.eligible = {r: int(arrivals[r]) for r in range(n_req)}
-        self.fin = {}          # rid -> completion step
-        self.admit_t = {}      # rid -> admission step (ttft)
-        self.outputs = {}      # rid -> [tok0 (device), ints...]
+        self.fin = {}          # rid -> completion step of this attempt
+        self.admit_t = {}      # rid -> first admission step (ttft)
+        self.tries = {}        # rid -> failed attempts consumed
+        self.emitted = {}      # rid -> ints recovered by failed attempts
+        self.outputs = {}      # rid -> [tok0 (device|int), ints...]
         self.cur_evict = {}    # rid -> quarantine step (tap-written)
         self.evict_events = []  # [rid, step] in tap order
         self.evt_cursor = 0    # events before it are host-processed
         self.evictions = {}    # terminal accounting maps (rid -> step)
         self.timeouts = {}
+        self.shed = {}
+        self.drained = {}
+        self.drain_t = None    # step the drain began (None = not draining)
 
     @property
     def in_flight(self) -> int:
@@ -166,6 +262,49 @@ class _Ledger:
     @property
     def done(self) -> int:
         return sum(1 for v in self.state_of.values() if v == "done")
+
+    _INT_MAPS = ("eligible", "fin", "admit_t", "tries", "cur_evict",
+                 "evictions", "timeouts", "shed", "drained")
+
+    def to_json(self) -> dict:
+        out_rows = {}
+        for rid, row in self.outputs.items():
+            row[0] = _tok_int(row[0])         # the deferred read, once
+            out_rows[str(rid)] = [int(x) for x in row]
+        d = {"t": self.t, "chunks": self.chunks,
+             "busy_steps": self.busy_steps,
+             "slot_rid": [int(s) for s in self.slot_rid],
+             "state_of": {str(k): v for k, v in self.state_of.items()},
+             "emitted": {str(k): [int(x) for x in v]
+                         for k, v in self.emitted.items()},
+             "outputs": out_rows,
+             "evict_events": [[int(a), int(b)] for a, b in
+                              self.evict_events],
+             "evt_cursor": int(self.evt_cursor),
+             "drain_t": self.drain_t}
+        for name in self._INT_MAPS:
+            d[name] = {str(k): int(v)
+                       for k, v in getattr(self, name).items()}
+        return d
+
+    @classmethod
+    def from_json(cls, d: dict) -> "_Ledger":
+        L = cls(0, len(d["slot_rid"]), [])
+        L.t = int(d["t"])
+        L.chunks = int(d["chunks"])
+        L.busy_steps = int(d["busy_steps"])
+        L.slot_rid = [int(s) for s in d["slot_rid"]]
+        L.state_of = {int(k): str(v) for k, v in d["state_of"].items()}
+        L.emitted = {int(k): [int(x) for x in v]
+                     for k, v in d["emitted"].items()}
+        L.outputs = {int(k): [int(x) for x in v]
+                     for k, v in d["outputs"].items()}
+        L.evict_events = [[int(a), int(b)] for a, b in d["evict_events"]]
+        L.evt_cursor = int(d["evt_cursor"])
+        L.drain_t = None if d["drain_t"] is None else int(d["drain_t"])
+        for name in cls._INT_MAPS:
+            setattr(L, name, {int(k): int(v) for k, v in d[name].items()})
+        return L
 
 
 _M32 = 0xFFFFFFFF
@@ -196,13 +335,21 @@ class _Lanes:
         self.active = torch.zeros(S, dtype=torch.bool, device=device)
         self.remaining = torch.zeros(S, **i64)
         self.rid = torch.zeros(S, **i64)             # sampling stream id
-        self.ctr = torch.zeros(S, **i64)             # decode step in request
-        #: (K, S) fault mask, all false: kept for the serve faults (item 11c)
+        self.ctr = torch.zeros(S, **i64)             # decode step in attempt
+        self.attempt = torch.zeros(S, **i64)         # failed attempts before
+        #: (K, S) fault mask: all false but in a chunk with a poisoned cell
         self.poison = torch.zeros((K, S), dtype=torch.bool, device=device)
         #: (K, 3, S) tap rows: tokens, active, quarantined
         self.tap = torch.zeros((K, 3, S), **i64)
         self.vocab_idx = torch.arange(cfg.vocab, **i64)
         self.seed_h = _mix32(int(slots.seed) & _M32)
+
+    def state(self) -> dict:
+        """The decode state a snapshot holds (the tap and the poison mask
+        are zero or consumed at every chunk boundary)."""
+        return {"cache": self.cache, "toks": self.toks, "pos": self.pos,
+                "active": self.active, "remaining": self.remaining,
+                "rid": self.rid, "ctr": self.ctr, "attempt": self.attempt}
 
     def reset(self) -> None:
         """Every slot empty: inactive lanes decode and discard until a
@@ -212,13 +359,14 @@ class _Lanes:
         if "positions" in self.cache:
             self.cache["positions"].fill_(-1)
         for t in (self.toks, self.pos, self.active, self.remaining,
-                  self.rid, self.ctr, self.tap):
+                  self.rid, self.ctr, self.attempt, self.poison, self.tap):
             t.zero_()
 
     def admit(self, slot: int, pcache: dict, tok0, pos0: int, rem0: int,
-              rid: int) -> None:
+              rid: int, attempt: int = 0) -> None:
         """Write a batch-1 prefill's cache row and first token into
-        ``slot``, in place."""
+        ``slot``, in place; the sampling stream restarts at step 0 of
+        (rid, attempt)."""
         def write(c, p):
             if c.dim() == p.dim() + 1:            # the (S, W) positions row
                 c[slot].copy_(p)
@@ -232,10 +380,14 @@ class _Lanes:
         self.remaining[slot] = rem0
         self.rid[slot] = rid
         self.ctr[slot] = 0
+        self.attempt[slot] = attempt
 
     def _sample(self, logits):
-        """Gumbel-max over the (seed, rid, step, vocab index) hash."""
-        h = _mix32(_mix32(self.seed_h ^ self.rid) ^ self.ctr)       # (S,)
+        """Gumbel-max over the (seed, rid, attempt, step, vocab index)
+        hash; attempt 0 hashes as (seed, rid, step, vocab index)."""
+        h = _mix32(self.seed_h ^ self.rid)                           # (S,)
+        h = torch.where(self.attempt > 0, _mix32(h ^ self.attempt), h)
+        h = _mix32(h ^ self.ctr)
         bits = _mix32(h[:, None] ^ self.vocab_idx[None, :])          # (S, V)
         u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
         gumbel = -torch.log(-torch.log(u))
@@ -244,7 +396,8 @@ class _Lanes:
 
     def step(self, params, j: int) -> None:
         """Decode step ``j`` of a chunk: every lane decodes, active lanes
-        with finite logits emit, non-finite ones are quarantined."""
+        with finite logits emit, non-finite ones (a poisoned cell's logits
+        are NaN) are quarantined."""
         logits, _ = M.decode_step(self.cfg, params, self.cache, self.toks,
                                   self.pos, self.slots.ctx_len)
         logits = logits.masked_fill(self.poison[j][:, None], float("nan"))
@@ -330,7 +483,8 @@ class SlotServer:
     def chunk_fn(self) -> Callable:
         """``chunk(params)``: K ragged decode steps with their tap rows —
         the captured graph's replay on CUDA (captured on first use, with
-        every slot empty), the eager steps otherwise."""
+        every slot empty), the eager steps otherwise.  Both read the
+        lanes' (K, S) ``poison`` mask in place."""
         if self.capture:
             if self._graph is None:
                 self._graph = self._capture()
@@ -343,8 +497,9 @@ class SlotServer:
         return chunk
 
     def admit_fn(self) -> Callable:
-        """``admit(slot, pcache, tok0, pos0, rem0, rid)``: in-place index
-        copies into any slot (one program for every admission)."""
+        """``admit(slot, pcache, tok0, pos0, rem0, rid, attempt)``:
+        in-place index copies into any slot (one program for every
+        admission)."""
         return self._lanes.admit
 
     def prefill_fn(self, prompt_len: int) -> Callable:
@@ -361,6 +516,15 @@ class SlotServer:
 
             self._prefill_fns[prompt_len] = fn
         return fn
+
+    def _restore(self, path: str) -> None:
+        """Write a serve snapshot into the lanes' tensors in place (the
+        captured graph holds their addresses)."""
+        from ..checkpoint import checkpointer
+
+        state = self._lanes.state()
+        tree_map(lambda dst, src: dst.copy_(src), state,
+                 checkpointer.restore(path, state))
 
     # ---- tap ---------------------------------------------------------------
     def _queue_tap(self, chunk: int):
@@ -384,7 +548,9 @@ class SlotServer:
               arrivals: Optional[np.ndarray] = None,
               deadline: Optional[int] = None,
               on_token: Optional[Callable] = None,
-              retry=None, overload=None, drain_after: Optional[int] = None,
+              retry: Optional[RetryPolicy] = None,
+              overload: Optional[OverloadPolicy] = None,
+              drain_after: Optional[int] = None,
               faults=None, snapshot=None,
               resume_from: Optional[str] = None) -> ServeResult:
         """Serve every prompt to its ``max_new``-token budget.
@@ -399,15 +565,28 @@ class SlotServer:
         slot); ``on_token(rid, token, step)`` fires per decoded token, in
         decode order, when the host folds the token's chunk.
 
-        ``retry``, ``overload``, ``drain_after``, ``faults``, ``snapshot``
-        and ``resume_from`` raise ``NotImplementedError``.
+        Resilience (each ``None`` leaves a clean serve as it was):
+
+        * ``retry`` (:class:`RetryPolicy`) — evictions and timeouts consume
+          attempts and re-queue with deterministic backoff; the emitted
+          prefix replays through prefill (``prompt_len + e`` tokens) at
+          re-admission.  On the ssm family a replay length that the SSD
+          chunk does not divide is refused (``ValueError``), as in the JAX
+          package.
+        * ``overload`` (:class:`OverloadPolicy`) — bounded admission queue;
+          eligible waiters beyond ``queue_cap`` are shed.
+        * ``drain_after=k`` — at the first sweep with ``t >= k`` every
+          queued request is cancelled (``drained``) and only the lanes in
+          flight run to completion.
+        * ``faults`` (``repro_torch.faults.ServeFaults``-shaped) — poison
+          (rid, decode-step) cells to NaN inside the chunk and schedule
+          :class:`ServePreempted` at chunk boundaries.
+        * ``snapshot`` (:class:`~repro_torch.checkpoint.AsyncSnapshotter`)
+          — offer the decode state and the host ledger at every due chunk
+          boundary; ``resume_from=dir`` restores such a snapshot and
+          continues (``prompts``, ``max_new`` and the knobs must match the
+          original call).
         """
-        for name, val in (("retry", retry), ("overload", overload),
-                          ("drain_after", drain_after), ("faults", faults),
-                          ("snapshot", snapshot),
-                          ("resume_from", resume_from)):
-            if val is not None:
-                raise NotImplementedError(f"serve({name}=...) {_RESILIENCE}")
         S, K = self.slots.n_slots, self.slots.steps_per_launch
         prompts = np.asarray(prompts)
         n_req, plen = prompts.shape
@@ -428,12 +607,38 @@ class SlotServer:
             raise ValueError(f"arrivals must be ({n_req},); got {arr.shape}")
         if deadline is not None and deadline < 0:
             raise ValueError(f"deadline must be >= 0 (got {deadline})")
+        if drain_after is not None and drain_after < 0:
+            raise ValueError(
+                f"drain_after must be >= 0 (got {drain_after})")
+        for name, val, want in (
+                ("retry", retry, RetryPolicy),
+                ("overload", overload, OverloadPolicy)):
+            if val is not None and not isinstance(val, want):
+                raise TypeError(f"{name} must be a {want.__name__}")
+        for name, val, attrs in (
+                ("faults", faults, ("poisons", "preempt_steps")),
+                ("snapshot", snapshot, ("due", "offer", "drain"))):
+            if val is not None and not all(hasattr(val, a) for a in attrs):
+                raise TypeError(f"{name} must have {', '.join(attrs)}")
+
+        poisons: dict = {}            # decode step -> set of poisoned rids
+        preempts: tuple = ()
+        if faults is not None:
+            for rid_c, st_c in faults.poisons:
+                poisons.setdefault(int(st_c), set()).add(int(rid_c))
+            preempts = tuple(sorted(int(p) for p in faults.preempt_steps))
+        # device-initiated events must be in the ledger at the next sweep
+        # for retries and snapshots to be deterministic: fold each chunk
+        # before the next sweep; clean serves keep the run-ahead
+        sync = (retry is not None or snapshot is not None
+                or resume_from is not None or bool(poisons)
+                or bool(preempts))
 
         lanes = self._lanes
         lanes.reset()
         if self.capture:
             self._load_params(params)
-        chunk = self.chunk_fn()
+        chunk = self.chunk_fn()       # a first capture resets the lanes
         admit = self.admit_fn()
         pf = self.prefill_fn(plen)
         prompts_dev = torch.as_tensor(prompts, dtype=torch.int64,
@@ -441,7 +646,26 @@ class SlotServer:
         cuda = self.device.type == "cuda"
 
         trace = AdmissionTrace(n_req, wait_b=policy.wait_b)
-        L = _Ledger(n_req, S, arr)
+        resumed_from = None
+        if resume_from is not None:
+            from ..checkpoint import checkpointer
+
+            meta = checkpointer.load_meta(resume_from)
+            if "serve_ledger" not in meta:
+                raise ValueError(
+                    f"{resume_from} is not a serve snapshot (no ledger)")
+            L = _Ledger.from_json(meta["serve_ledger"])
+            if len(L.slot_rid) != S or len(L.state_of) != n_req:
+                raise ValueError(
+                    "snapshot geometry mismatch: ledger has "
+                    f"{len(L.slot_rid)} slots / {len(L.state_of)} requests, "
+                    f"server has {S} / {n_req}")
+            policy.load_state(meta["admission_policy"])
+            trace.load_state(meta["admission_trace"])
+            self._restore(resume_from)
+            resumed_from = L.t
+        else:
+            L = _Ledger(n_req, S, arr)
         step_maps: dict = {}          # chunk start -> [(rid, fin)] per slot
         tap_rows = [0]
         mismatches: list = []
@@ -485,21 +709,58 @@ class SlotServer:
             for j in range(K):
                 sink(t0 + j, rows[j, 0], rows[j, 1] != 0, rows[j, 2] != 0)
 
+        def ledger_meta():
+            return {"serve_ledger": L.to_json(),
+                    "admission_policy": policy.state_dict(),
+                    "admission_trace": trace.state_dict()}
+
         def drain_events():
-            """Fold tap-recorded quarantine evictions into the ledger: the
-            lane stays booked until its scheduled completion, the eviction
-            is terminal metadata."""
+            """Fold tap-recorded quarantine evictions into the ledger."""
             while L.evt_cursor < len(L.evict_events):
                 rid, step = L.evict_events[L.evt_cursor]
                 L.evt_cursor += 1
-                if rid not in L.evictions:
+                if retry is None:
+                    # the lane stays booked until its scheduled completion;
+                    # the eviction is terminal metadata
+                    if rid not in L.evictions:
+                        L.evictions[rid] = step
+                        trace.evicted(rid, step)
+                    continue
+                # retry: the attempt failed — free the frozen lane now
+                for s in range(S):
+                    if L.slot_rid[s] == rid:
+                        L.slot_rid[s] = -1
+                row = L.outputs.pop(rid, None)
+                if row is not None:
+                    L.emitted[rid] = (L.emitted.get(rid, [])
+                                      + [_tok_int(x) for x in row])
+                L.cur_evict.pop(rid, None)
+                tries = L.tries[rid] = L.tries.get(rid, 0) + 1
+                trace.retried(rid, tries)
+                if (tries < retry.max_attempts
+                        and len(L.emitted.get(rid, [])) < max_new):
+                    L.state_of[rid] = "queued"
+                    L.eligible[rid] = step + retry.backoff_steps(tries)
+                    policy.requeue(rid)
+                else:
+                    L.state_of[rid] = "done"
                     L.evictions[rid] = step
                     trace.evicted(rid, step)
+                    policy.cancel(rid)
 
-        t = 0
+        t = L.t
+        start_t0 = L.t                # resumed: earlier preemptions spent
+        chunks_run = 0                # this serve's launches
+        last_offered = None
         pending = None                # the chunk whose tap rows are in flight
         events = []                   # (start, end) CUDA events per chunk
-        horizon = 2 * (int(arr.max(initial=0)) + n_req * max_new + K) + 4 * K
+        attempts_bound = retry.max_attempts if retry is not None else 1
+        backoff_total = (sum(retry.backoff_steps(f)
+                             for f in range(1, attempts_bound))
+                         if retry is not None else 0)
+        horizon = 2 * (int(arr.max(initial=0))
+                       + n_req * (max_new * attempts_bound + backoff_total)
+                       + K) + 4 * K
         while L.done < n_req:
             if t > horizon:
                 raise RuntimeError(
@@ -507,6 +768,16 @@ class SlotServer:
                     f"{n_req - L.done} requests unfinished — admission "
                     "bookkeeping is stuck")
             drain_events()
+            # -- scheduled driver preemption -------------------------------
+            if preempts:
+                due_p = next((p for p in preempts if start_t0 < p <= t), None)
+                if due_p is not None:
+                    if snapshot is not None:
+                        if last_offered != t:
+                            snapshot.offer(t, lanes.state(),
+                                           meta=ledger_meta())
+                        snapshot.drain()
+                    raise ServePreempted(t, due_p)
             # -- completions (deterministic, no readback) ------------------
             freed = sorted(
                 (s for s in range(S)
@@ -517,6 +788,16 @@ class SlotServer:
                 L.state_of[rid] = "done"
                 trace.completed(rid, s, L.fin[rid], L.in_flight + 1)
                 policy.notify_completion(rid)
+            # -- graceful drain (stop admitting, finish in-flight) ---------
+            if (drain_after is not None and t >= drain_after
+                    and L.drain_t is None):
+                L.drain_t = t
+                for r in sorted(L.state_of):
+                    if L.state_of[r] == "queued":
+                        L.state_of[r] = "done"
+                        L.drained[r] = t
+                        trace.drained(r, t)
+                        policy.cancel(r)
             # -- deadline timeouts (queue-wait budget) ---------------------
             if deadline is not None:
                 for r in range(n_req):
@@ -524,6 +805,12 @@ class SlotServer:
                         continue
                     el = L.eligible[r]
                     if el <= t and t - el > deadline:
+                        if retry is not None:
+                            tries = L.tries[r] = L.tries.get(r, 0) + 1
+                            trace.retried(r, tries)
+                            if tries < retry.max_attempts:
+                                L.eligible[r] = t + retry.backoff_steps(tries)
+                                continue
                         L.timeouts[r] = t
                         L.state_of[r] = "done"
                         policy.cancel(r)
@@ -537,11 +824,23 @@ class SlotServer:
                 if rid is None:
                     break
                 s = free[0]
-                rem0 = max_new - 1
-                tok0, pcache = pf(params, prompts_dev[rid:rid + 1])
-                admit(s, pcache, tok0, plen, rem0, rid)
+                pre = L.emitted.get(rid, [])
+                e = len(pre)
+                if e:
+                    # replay the recovered prefix: re-prefill
+                    # prompt + tokens emitted so far
+                    pf_e = self.prefill_fn(plen + e)
+                    ptoks = torch.as_tensor(
+                        np.concatenate([prompts[rid], pre])[None],
+                        dtype=torch.int64, device=self.device)
+                else:
+                    pf_e, ptoks = pf, prompts_dev[rid:rid + 1]
+                rem0 = max_new - 1 - e
+                tok0, pcache = pf_e(params, ptoks)
+                admit(s, pcache, tok0, plen + e, rem0, rid,
+                      L.tries.get(rid, 0))
                 L.outputs[rid] = [tok0]
-                L.admit_t[rid] = t
+                L.admit_t.setdefault(rid, t)
                 L.fin[rid] = t + rem0
                 trace.admitted(rid, t)
                 arrived.discard(rid)
@@ -553,14 +852,32 @@ class SlotServer:
                     L.slot_rid[s] = rid
                     L.state_of[rid] = "inflight"
                     free.pop(0)
+            # -- overload shedding (bounded admission queue) ---------------
+            if overload is not None:
+                waiting = sorted(
+                    (r for r, st_r in L.state_of.items()
+                     if st_r == "queued" and L.eligible[r] <= t),
+                    key=lambda r: (L.eligible[r], r))
+                excess = len(waiting) - overload.queue_cap
+                if excess > 0:
+                    victims = (waiting[-excess:]
+                               if overload.shed == "reject-new"
+                               else waiting[:excess])
+                    for r in victims:
+                        L.state_of[r] = "done"
+                        L.shed[r] = t
+                        trace.shed(r, t)
+                        policy.cancel(r)
             if L.done >= n_req:
                 break
             if L.in_flight == 0:
-                # idle pool, pending arrivals: fast-forward the clock to the
-                # next chunk boundary at/after the earliest eligibility
+                # idle pool, pending arrivals or backoffs: fast-forward the
+                # clock to the next chunk boundary at/after the earliest
+                # eligibility
                 nxt = min(L.eligible[r] for r, st_r in L.state_of.items()
                           if st_r == "queued")
                 t = max(t + K, -(-int(nxt) // K) * K)
+                L.t = t
                 continue
             # -- one chunk launch ------------------------------------------
             step_maps[t] = [(rid, L.fin.get(rid, -1)) for rid in L.slot_rid]
@@ -568,6 +885,14 @@ class SlotServer:
                 rid = L.slot_rid[s]
                 if rid >= 0:
                     L.busy_steps += max(0, min(t + K, L.fin[rid]) - t)
+            mask = np.zeros((K, S), bool)
+            for j in range(K):
+                cells = poisons.get(t + j)
+                if cells:
+                    mask[j] = [L.slot_rid[s] in cells for s in range(S)]
+            poisoned = bool(mask.any())
+            if poisoned:
+                lanes.poison.copy_(torch.from_numpy(mask))
             if cuda:
                 ev = (torch.cuda.Event(enable_timing=True),
                       torch.cuda.Event(enable_timing=True))
@@ -576,12 +901,23 @@ class SlotServer:
             if cuda:
                 ev[1].record()
                 events.append(ev)
+            if poisoned:
+                lanes.poison.zero_()
             rows = self._queue_tap(L.chunks)
             L.chunks += 1
+            chunks_run += 1
             if pending is not None:
                 fold(pending)         # the previous chunk, one behind
             pending = (t, *rows)
             t += K
+            L.t = t
+            if sync:
+                fold(pending)
+                pending = None
+            if snapshot is not None and snapshot.due(t, 1 << 62):
+                drain_events()        # the ledger holds the folded rows
+                snapshot.offer(t, lanes.state(), meta=ledger_meta())
+                last_offered = t
         if pending is not None:
             fold(pending)
         drain_events()
@@ -590,19 +926,21 @@ class SlotServer:
             raise RuntimeError(
                 "device masks diverged from host bookkeeping:\n  "
                 + "\n  ".join(mismatches[:10]))
-        if tap_rows[0] != L.chunks * K:
+        if tap_rows[0] != chunks_run * K:
             raise RuntimeError(f"serve tap delivered {tap_rows[0]}/"
-                               f"{L.chunks * K} rows")
-        firsts = {}
-        rids = sorted(L.outputs)
-        if rids:                      # the deferred first tokens, one read
-            vals = torch.cat([L.outputs[r][0] for r in rids]).cpu().tolist()
-            firsts = dict(zip(rids, vals))
+                               f"{chunks_run * K} rows")
+        deferred = sorted(r for r, row in L.outputs.items()
+                          if isinstance(row[0], torch.Tensor))
+        if deferred:                  # the deferred first tokens, one read
+            vals = torch.cat([L.outputs[r][0] for r in deferred]).tolist()
+            for r, v in zip(deferred, vals):
+                L.outputs[r][0] = int(v)
         toks = np.full((n_req, max_new), -1, np.int32)
         for rid in range(n_req):
-            row = L.outputs.get(rid)
-            parts = [] if row is None else [firsts[rid]] + row[1:]
-            if rid in L.evictions or rid in L.timeouts:
+            parts = L.emitted.get(rid, []) + L.outputs.get(rid, [])
+            failed = (rid in L.evictions or rid in L.timeouts
+                      or rid in L.shed or rid in L.drained)
+            if failed:
                 if len(parts) > max_new:
                     raise RuntimeError(
                         f"request {rid} streamed {len(parts)} tokens past "
@@ -625,5 +963,8 @@ class SlotServer:
                            tap_rows=tap_rows[0],
                            evictions=dict(L.evictions),
                            timeouts=dict(L.timeouts),
+                           shed=dict(L.shed), drained=dict(L.drained),
+                           attempts=trace.attempts,
+                           resumed_from=resumed_from,
                            host_waits=host_waits[0],
                            chunk_device_ms=chunk_ms)

@@ -17,8 +17,11 @@ the plan's tables, so no round ships data from the host.
 
 ``launches`` and ``host_syncs`` count as in the JAX package: a launch per
 chunk (scan) or per round (eager); a host sync per blocking metric read.
-Not ported yet: the ``"tap"`` transport, the vmapped γ-grid lane,
-snapshots and the divergence breaker (ROADMAP.md queue 1).
+``run_scan(snapshot=...)`` offers the end-of-chunk state to a
+:class:`repro_torch.checkpoint.AsyncSnapshotter` at its due boundaries and
+drains it at the end of the run; a restored state resumes through
+``start_round``.  Not ported yet: the ``"tap"`` transport, the vmapped
+γ-grid lane and the divergence breaker (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
@@ -43,13 +46,14 @@ METRIC_MODES = ("chunk", "none")
 @dataclasses.dataclass
 class ExecStats:
     """Dispatch accounting: ``launches`` (chunks on the scan runtime,
-    rounds on the eager one) and ``host_syncs`` (times the host blocked on
-    a metric read mid-run or at its end); ``tap_events`` stays 0 until the
-    tap lane is ported."""
+    rounds on the eager one), ``host_syncs`` (times the host blocked on
+    a metric read mid-run or at its end) and ``snapshots`` (offers to the
+    snapshotter); ``tap_events`` stays 0 until the tap lane is ported."""
 
     launches: int = 0
     host_syncs: int = 0
     tap_events: int = 0
+    snapshots: int = 0
 
 
 @dataclasses.dataclass
@@ -160,12 +164,25 @@ class PlanExecutor:
         state, m = self._step(state, self._batch_of(q), self._masks[q], **kw)
         return state, torch.stack([m[k].to(torch.float32) for k in METRICS])
 
+    def _maybe_snapshot(self, snapshot, hi: int, state, stats) -> None:
+        """Offer the end-of-chunk state when ``hi`` is a due boundary: the
+        offer queues a device copy and its host fetch and returns, so the
+        next chunk launches at once."""
+        if snapshot is not None and snapshot.due(hi, self.plan.rounds):
+            snapshot.offer(hi, state)
+            stats.snapshots += 1
+
     def run_scan(self, state, *, rounds_per_launch: int = 8,
                  metrics: str = "chunk", on_step: Optional[Callable] = None,
-                 start_round: int = 0) -> ExecResult:
+                 start_round: int = 0, snapshot=None) -> ExecResult:
         """Rounds ``[start_round, rounds)``, K = ``rounds_per_launch`` per
         launch.  ``on_step(i, state, metrics_i)`` fires for every round at
-        chunk boundaries with the end-of-chunk state (``"chunk"`` only)."""
+        chunk boundaries with the end-of-chunk state (``"chunk"`` only).
+        ``snapshot`` (an :class:`~repro_torch.checkpoint.AsyncSnapshotter`)
+        is offered the state at every due chunk boundary and drained at the
+        end; the batches are a pure function of (seed, round), so a state
+        restored from round r and run from ``start_round=r`` ends as the
+        uninterrupted run does."""
         if metrics == "tap":
             raise NotImplementedError(
                 'metrics="tap" (per-round streaming) is not ported yet '
@@ -185,6 +202,7 @@ class PlanExecutor:
                 state, row = self._round(state, q)
                 rows.append(row)
             stats.launches += 1
+            self._maybe_snapshot(snapshot, hi, state, stats)
             if metrics == "none":
                 continue
             ms = torch.stack(rows)                   # (K, n_metrics), device
@@ -194,6 +212,8 @@ class PlanExecutor:
                 for i in range(lo, hi):
                     on_step(i, state, _row_dict(ms[i - lo]))
             chunks.append(ms)
+        if snapshot is not None:
+            snapshot.drain()
         if metrics == "none":
             synchronize(self.device)                 # completion barrier
             return ExecResult(state=state, metrics={}, stats=stats)
@@ -225,10 +245,11 @@ class PlanExecutor:
 
 def run_scan(trainer, plan: RunPlan, state, *, rounds_per_launch: int = 8,
              metrics: str = "chunk", on_step: Optional[Callable] = None,
-             start_round: int = 0, batch_fn=None) -> ExecResult:
+             start_round: int = 0, batch_fn=None,
+             snapshot=None) -> ExecResult:
     return PlanExecutor(trainer, plan, batch_fn=batch_fn).run_scan(
         state, rounds_per_launch=rounds_per_launch, metrics=metrics,
-        on_step=on_step, start_round=start_round)
+        on_step=on_step, start_round=start_round, snapshot=snapshot)
 
 
 def run_eager(trainer, plan: RunPlan, state, *,

@@ -14,8 +14,10 @@ kernel f32 1e-3, bf16 4e-2, and a prefill through it within bf16 3e-2 of
 the einsum branch (``test_kernels.py:169-267``).
 
 The slot server's tests hold its captured decode chunk to the same steps
-run eagerly (tokens bit for bit) and each request of a rotation through
-every slot to the same request served alone.
+run eagerly (tokens bit for bit), each request of a rotation through
+every slot to the same request served alone, and a serve resumed from a
+snapshot into a fresh capture to the uninterrupted serve; the snapshotter's
+test holds an offered state against the in-place updates queued after it.
 
 The theory tier has no kernel of its own: its replay runs torch ops as
 CUDA graph chunks.  Its card tests hold the graph route to the eager loop
@@ -500,6 +502,81 @@ def test_slot_admission_rotation_isolates_slots(cuda_device):
         np.testing.assert_array_equal(res.tokens[rid:rid + 1], alone.tokens,
                                       err_msg=f"request {rid}")
     assert srv.compile_counts() == {"chunk": 1}
+
+
+@pytest.mark.cuda
+def test_snapshot_copy_isolates_the_offered_state(cuda_device, tmp_path):
+    """``offer`` copies on the current stream before the next in-place
+    update and fetches on a side stream: three offers, each followed at
+    once by an in-place update on the current stream, restore as offered;
+    the device and pinned host buffers are allocated once, two deep."""
+    from repro_torch.checkpoint import AsyncSnapshotter, restore
+
+    snap = AsyncSnapshotter(str(tmp_path), 1, keep=3)
+    w = torch.zeros((1024, 1024), dtype=torch.bfloat16, device=cuda_device)
+    m = torch.zeros(4096, dtype=torch.float32, device=cuda_device)
+    for r in (1, 2, 3):
+        w.fill_(r)
+        m.fill_(10 * r)
+        snap.offer(r, {"w": w, "opt": {"m": m}})
+        if r == 1:
+            first = snap._buffers[0]
+        for _ in range(4):                  # the next chunk, in place
+            w.mul_(3).add_(1)
+            m.add_(w[0, :1].float().expand(4096))
+    assert snap.drain() == 3
+    assert all(p[1]["w"].is_pinned() for p in snap._buffers)
+    for r in (1, 2, 3):
+        got = restore(snap.round_dir(r), {"w": w, "opt": {"m": m}})
+        assert got["w"].device == w.device
+        assert torch.equal(got["w"], torch.full_like(w, r))
+        assert torch.equal(got["opt"]["m"], torch.full_like(m, 10 * r))
+    assert snap._buffers[0] is first        # reused, not reallocated
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,over", [
+    ("qwen2-0.5b", dict(use_flash_attention=True)),
+    ("mamba2-370m", dict(use_ssd_kernel=True))])
+def test_slot_resume_into_a_fresh_capture_bitwise(cuda_device, tmp_path,
+                                                  arch, over):
+    """A serve preempted after a snapshot resumes on a fresh server (a new
+    capture, the snapshot copied into the lanes' tensors): tokens and TTFT
+    equal the uninterrupted serve bit for bit.  On the dense family a
+    poisoned request also retries through prefix replay (prefill at
+    32 + e tokens), on the graph route as on the eager one."""
+    from repro_torch.checkpoint import AsyncSnapshotter
+    from repro_torch.distributed import RetryPolicy, ServePreempted
+    from repro_torch.faults import ServeFaults
+
+    cfg, params, prompts = _slot_world(cuda_device, arch, **over)
+    slots = SlotConfig(n_slots=3, ctx_len=48, steps_per_launch=4)
+    clean = SlotServer(cfg, slots, device=cuda_device).serve(
+        params, prompts, 8, arrivals=SLOT_ARRIVALS)
+    faults = ServeFaults(preempt_steps=(8,))
+    with pytest.raises(ServePreempted):
+        SlotServer(cfg, slots, device=cuda_device).serve(
+            params, prompts, 8, arrivals=SLOT_ARRIVALS, faults=faults,
+            snapshot=AsyncSnapshotter(str(tmp_path), 4))
+    r, latest = AsyncSnapshotter.latest(str(tmp_path))
+    fresh = SlotServer(cfg, slots, device=cuda_device)
+    res = fresh.serve(params, prompts, 8, arrivals=SLOT_ARRIVALS,
+                      faults=faults, resume_from=latest)
+    assert res.resumed_from == r == 8
+    assert fresh.compile_counts() == {"chunk": 1}
+    np.testing.assert_array_equal(res.tokens, clean.tokens)
+    np.testing.assert_array_equal(res.ttft_steps, clean.ttft_steps)
+    if cfg.family != "dense":
+        return
+    kw = dict(arrivals=SLOT_ARRIVALS, faults=ServeFaults(poisons=((2, 5),)),
+              retry=RetryPolicy(max_attempts=2, backoff_base=2))
+    graph = SlotServer(cfg, slots, device=cuda_device).serve(
+        params, prompts, 8, **kw)
+    eager = SlotServer(cfg, slots, device=cuda_device, capture=False).serve(
+        params, prompts, 8, **kw)
+    assert graph.attempts == {2: 1} and graph.evictions == {}
+    np.testing.assert_array_equal(graph.tokens, eager.tokens)
+    assert np.all(graph.tokens >= 0)
 
 
 # ---- the theory tier: CUDA graph chunks of the exact replay ----------------

@@ -47,7 +47,9 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.kernels.ssd_chunk, repro_torch.models.layers\n"
             "import repro_torch.objectives, repro_torch.scenarios\n"
             "import repro_torch.faults, repro_torch.core.simulator\n"
-            "import repro_torch.launch.profile_sim\n"
+            "import repro_torch.launch.profile_sim, repro_torch.checkpoint\n"
+            "from repro_torch.checkpoint import AsyncSnapshotter, restore\n"
+            "from repro_torch.distributed import RetryPolicy, ServePreempted\n"
             "from repro_torch.api import SimulatorBackend, grid\n"
             "from repro_torch.scenarios import TRANSFORMS\n"
             "assert 'nan_grad' in TRANSFORMS   # faults registered\n"

@@ -49,13 +49,18 @@ def test_sampling_generator_is_threaded_across_calls():
 
 
 def test_slot_lane_knobs_raise():
-    """The slot lane's knobs construct; only the resilience knobs, which
-    are not ported, raise (after the JAX package's validation)."""
+    """The slot lane's knobs construct, the resilience knobs among them;
+    values the JAX package refuses raise."""
     job = ServeJob(n_slots=2, n_requests=5, admission="fedbuff:b=2",
                    arrival="poisson:gap=2", steps_per_launch=4, deadline=3)
     assert job.n_slots == 2
     for kw in (dict(max_retries=2), dict(queue_cap=4), dict(drain_after=8)):
-        with pytest.raises(NotImplementedError, match="item 11c"):
+        assert ServeJob(n_slots=2, **kw).n_slots == 2
+    for kw, match in ((dict(max_retries=0), "max_retries"),
+                      (dict(queue_cap=0), "queue_cap"),
+                      (dict(drain_after=-1), "drain_after"),
+                      (dict(retry_backoff=-1), "retry_backoff")):
+        with pytest.raises(ValueError, match=match):
             ServeJob(n_slots=2, **kw)
     with pytest.raises(ValueError, match="n_slots"):
         ServeJob(queue_cap=4)

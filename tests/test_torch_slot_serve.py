@@ -26,9 +26,8 @@ from repro.models import init_params as j_init_params       # noqa: E402
 from repro_torch.api import ExperimentSpec, ServeJob, run   # noqa: E402
 from repro_torch.api.backends import ServeBackend           # noqa: E402
 from repro_torch.configs import get_arch as t_get_arch      # noqa: E402
-from repro_torch.distributed import (OverloadPolicy,        # noqa: E402
-                                     Server, ServeConfig, SlotConfig,
-                                     SlotServer)
+from repro_torch.distributed import (Server,                # noqa: E402
+                                     ServeConfig, SlotConfig, SlotServer)
 from repro_torch.models import model as TM                  # noqa: E402
 from repro_torch.scenarios import render_report, tau_report  # noqa: E402
 from torch_parity import port_params, tree_f32              # noqa: E402
@@ -233,15 +232,20 @@ def test_sampled_streams_independent_of_pool_width():
     assert not np.array_equal(greedy.serve(tp, prompts, 6).tokens, res[2])
 
 
-@pytest.mark.parametrize("kw", [dict(retry=object()),
-                                dict(overload=OverloadPolicy(4)),
-                                dict(drain_after=4), dict(faults=object()),
-                                dict(snapshot=object()),
-                                dict(resume_from="somewhere")],
-                         ids=lambda kw: next(iter(kw)))
-def test_resilience_kwargs_raise(world, kw):
+@pytest.mark.parametrize("kw,exc", [
+    pytest.param(dict(retry=object()), TypeError, id="retry"),
+    pytest.param(dict(overload=object()), TypeError, id="overload"),
+    pytest.param(dict(drain_after=-1), ValueError, id="drain_after"),
+    pytest.param(dict(faults=object()), TypeError, id="faults"),
+    pytest.param(dict(snapshot=object()), TypeError, id="snapshot"),
+    pytest.param(dict(resume_from="somewhere"), FileNotFoundError,
+                 id="resume_from")])
+def test_resilience_kwargs_raise(world, kw, exc):
+    """The resilience arguments are served (tests/test_torch_resilience.py);
+    a value of the wrong kind, a negative drain step or a missing snapshot
+    raises before anything is served."""
     prompts = _prompts(2, 5, world["jcfg"].vocab)
-    with pytest.raises(NotImplementedError, match="item 11c"):
+    with pytest.raises(exc):
         world["tsrv"].serve(world["tp"], prompts, 4, **kw)
 
 
@@ -306,7 +310,17 @@ def test_backend_slot_route_with_arrivals_fedbuff_and_deadline():
 
 
 def test_backend_slot_route_refuses_a_scenario():
+    """The slot route lowers a scenario to its serve faults (a straggler
+    world has none: the serve is the clean one); the lock-step route
+    refuses any scenario."""
+    job = ServeJob(batch=2, prompt_len=5, arch_overrides=TINY_OVR, n_slots=2,
+                   steps_per_launch=2)
+    clean = run(ExperimentSpec(objective=job, T=4), device="cpu")
+    world = run(ExperimentSpec(objective=job, T=4,
+                               scenario="straggler:k=1,factor=2"),
+                device="cpu")
+    np.testing.assert_array_equal(world.x, clean.x)
+    assert world.extra["evictions"] == {} and world.extra["attempts"] == {}
     with pytest.raises(NotImplementedError, match="scenario"):
-        run(ExperimentSpec(objective=ServeJob(
-            arch_overrides=TINY_OVR, n_slots=2), T=4,
-            scenario="straggler:k=1,factor=2"), device="cpu")
+        run(ExperimentSpec(objective=ServeJob(arch_overrides=TINY_OVR), T=4,
+                           scenario="straggler:k=1,factor=2"), device="cpu")
