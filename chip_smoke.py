@@ -33,7 +33,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    sizes 1, 127, 128·256, 128·256 + 1, 1,000,003 and the 14 leaf sizes of
    qwen2-0.5b, f32 and bf16 params, count 1 and 7, weight decay 0 and 0.1,
    at the tolerances of ``tests/test_kernels.py``, with gbuf′ equal to g
-   bit for bit; then over one round's 14 leaves the kernels, their plain
+   bit for bit, and each case again at run flag 0 (the guard rails' skip)
+   on NaN g, where every operand must keep its bits; then over one
+   round's 14 leaves the kernels, their plain
    versions and a yardstick the port never calls (``torch._foreach_add_``,
    ``torch.optim.SGD(momentum=0.9, fused=True)``,
    ``torch.optim.Adam(fused=True)``) are timed with CUDA events;
@@ -129,7 +131,24 @@ Phases, each of which fails the run (non-zero exit, no result line):
     prints a ``{"durability": ...}`` line with the card, snapshot bytes,
     host ms per offer, finalise seconds and ms per round with and without
     snapshots;
-15. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
+15. scenario worlds and guard rails on the training main path at full
+    width and depth: the main path's spec with ``guards=True``, T = 16 and
+    ``FAULT_SCENARIO`` (elastic availability, a drifting data law,
+    sparsified grads at density 0.5, NaN receipts), every kernel count set
+    to 0 before it: ``fused_adam_delayed`` launched 16 × 14 times (a
+    skipped round launches at run flag 0), ``skipped`` 1 exactly on the
+    rounds whose participants the plan poisons, the health vector and
+    every round's gscale equal to a numpy replay of JAX's rule, finite
+    params, scan ≡ eager bit for bit, the loss curve within 5e-3 of
+    ``update_impl="reference"``, the unguarded spec ending with non-finite
+    params, the first skipped round run eagerly leaving params, m, v, gbuf
+    and count bit-identical, and a traced run bit-identical to the
+    untraced one, its trace valid under the port's schema with one
+    ``guard_skip`` instant per skipped round; the sparsifier timed over
+    the 14 leaves; then one traced serve on the qwen2-0.5b slot cell:
+    tokens equal to the untraced serve's, one ``admit`` span per
+    admission, one chunk capture; prints a ``{"faults": ...}`` line;
+16. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
     line.
 """
 from __future__ import annotations
@@ -164,7 +183,8 @@ from repro_torch.distributed import (AsyncConfig,             # noqa: E402
                                      RetryPolicy, Server, ServeConfig,
                                      ServePreempted, SlotConfig, SlotServer,
                                      draw_arrivals)
-from repro_torch.faults import ServeFaults, realise_serve_faults  # noqa: E402
+from repro_torch.faults import (GuardConfig, ServeFaults,     # noqa: E402
+                                realise_serve_faults)
 from repro_torch.kernels import _build, ops                   # noqa: E402
 from repro_torch.kernels import async_update as AU            # noqa: E402
 from repro_torch.kernels import flash_attention as FA         # noqa: E402
@@ -177,7 +197,7 @@ from repro_torch.models import init_params, param_specs, prefill  # noqa: E402
 from repro_torch.objectives import (LogRegProblem,            # noqa: E402
                                     make_libsvm_like, make_synthetic)
 from repro_torch.optim import OptConfig                       # noqa: E402
-from repro_torch.runtime import (PlanExecutor,                # noqa: E402
+from repro_torch.runtime import (METRICS, PlanExecutor,       # noqa: E402
                                  compile_plan, execute)
 from repro_torch.scenarios import parse_scenario, realise_world  # noqa: E402
 from repro_torch.tree import (tree_leaves,                     # noqa: E402
@@ -566,7 +586,7 @@ def _kind(name):
 
 def _scalar_sets(name, device):
     """[(label, scal)]: SGD one eff; heavy ball one [lr_eff, clip]; Adam
-    count ∈ {1, 7} × wd ∈ {0, 0.1}."""
+    count ∈ {1, 7} × wd ∈ {0, 0.1}; every block with run flag 1."""
     lr = UPDATE_LR[_kind(name)]
     if "momentum" in name:
         return [("", AU.momentum_scalars(lr, CLIP, DELAY_SCALE, device))]
@@ -619,6 +639,29 @@ def _state_keys(name):
     return ("p", "m") if "momentum" in name else ("p",)
 
 
+def _bits(t):
+    """A float tensor's bits as integers (so NaN equals itself)."""
+    return t.view(torch.int16) if t.element_size() == 2 else \
+        t.view(torch.int32)
+
+
+def _skip_case(name, base, device):
+    """Run flag 0 on NaN g: every operand must keep its bits."""
+    scal = _scalar_sets(name, device)[-1][1].clone()
+    scal[-1] = 0.0
+    t = tree_map(torch.clone, base)
+    t["g"][::3] = float("nan")
+    g = t["g"].clone()
+    _apply(name, "cuda", t, scal)
+    torch.cuda.synchronize()
+    for key in ("p", "m", "v", "gb"):
+        if not torch.equal(_bits(t[key]), _bits(base[key])):
+            raise AssertionError(f"{name}: run flag 0 changed {key} at "
+                                 f"n={base['p'].numel()} {base['p'].dtype}")
+    if not torch.equal(_bits(t["g"]), _bits(g)):
+        raise AssertionError(f"{name}: run flag 0 changed g")
+
+
 def _bytes_per_elem(name, pdt, gdt):
     """Bytes one element moves: each input read once, each output written
     once (p r/w; m and v f32 r/w; gbuf r/w; g read)."""
@@ -636,7 +679,7 @@ def phase_update_kernels(device) -> dict:
                       "replaces": REPLACES[name], "max_abs_err": 0.0}
                for name in AU.KERNELS}
     leaves = _main_leaves()
-    checked = 0
+    checked = skipped = 0
     for n in UPDATE_SIZES + tuple(leaves):
         for dtype in (torch.float32, torch.bfloat16):
             base = _update_inputs(n, dtype, device, seed=n % 9973)
@@ -670,10 +713,13 @@ def phase_update_kernels(device) -> dict:
                         e = entries[name]
                         e["max_abs_err"] = max(e["max_abs_err"], worst)
                     checked += 1
+                _skip_case(name, base, device)
+                skipped += 1
             del base
     log(f"update kernels: {checked} cases against their plain versions, all "
-        f"within tolerance, gbuf' bitwise; max abs err on the main-path "
-        f"leaves in bf16: " + ", ".join(
+        f"within tolerance, gbuf' bitwise; {skipped} cases at run flag 0 on "
+        f"NaN g, every operand bit-identical to its input; max abs err on "
+        f"the main-path leaves in bf16: " + ", ".join(
             f"{k} {e['max_abs_err']:.3e}" for k, e in entries.items()))
 
     # one round over the 14 main-path leaves: bf16 p / gbuf / g, f32 m / v
@@ -757,8 +803,9 @@ def _check_curves(res, label):
         raise AssertionError(f"{label}: non-finite or missing curves")
 
 
-def phase_train_main(device, entry: dict) -> None:
-    """The training main path, its reference twin and a warm timed run."""
+def phase_train_main(device, entry: dict) -> float:
+    """The training main path, its reference twin and a warm timed run;
+    returns the warm ms per round."""
     spec = _train_spec()
     cfg = spec.objective.make_arch()
     rounds = spec.T
@@ -811,6 +858,7 @@ def phase_train_main(device, entry: dict) -> None:
     warm = (stamps[2 * k - 1] - stamps[k - 1]) / k * 1e3
     log(f"train main path warm: {warm:.3f} ms per round (host clock over "
         f"rounds {k}..{2 * k - 1}, chunk-boundary reads)")
+    return warm
 
 
 def phase_train_others(device, entries: dict) -> None:
@@ -1858,6 +1906,233 @@ def phase_theory_tier(device) -> list:
     return rows
 
 
+#: the scenario world on the training main path: every plan channel
+#: (elastic availability, drifting data law, sparsified grads, NaN
+#: receipts) and the guard rails
+FAULT_SCENARIO = ("elastic:k=1,every=8,span=2;data_drift:a0=1.2,a1=2.0;"
+                  "sparsify:frac=0.5;nan_grad:k=1,every=4,span=1")
+FAULT_T = 16
+
+
+def _fault_spec(**job_kw):
+    job = TrainJob(**{**TRAIN_JOB, "guards": True, **job_kw})
+    return ExperimentSpec(objective=job, **{**TRAIN_SPEC, "T": FAULT_T,
+                                            "scenario": FAULT_SCENARIO})
+
+
+def _health_replay(masks, bad, backoff=0.5, recover=1.25, min_scale=0.1):
+    """JAX's health rule (src/repro/distributed/async_trainer.py) in numpy
+    f32 over the run's masks and bad flags: (gscale per round, final
+    health)."""
+    f32 = np.float32
+    h = np.ones(masks.shape[1], f32)
+    gscale = []
+    for part, b in zip(masks.astype(f32), bad):
+        gscale.append(np.sum(h * part, dtype=f32) / max(np.sum(part), f32(1)))
+        nxt = np.where(b, h * f32(backoff),
+                       np.minimum(h * f32(recover), f32(1)))
+        h = np.clip(np.where(part > 0, nxt, h), f32(min_scale), f32(1))
+    return np.asarray(gscale, f32), h
+
+
+def _sparsify_ms(device) -> float:
+    """One round of the sparsifier over qwen2-0.5b's 14 bf16 grad leaves
+    at density 0.5 (a sort per leaf), device time by events."""
+    from repro_torch.distributed.async_trainer import sparsify
+
+    gen = torch.Generator(device).manual_seed(5)
+    grads = [torch.randn(n, generator=gen, device=device).bfloat16()
+             for n in _main_leaves()]
+    ms = time_ms(lambda: [sparsify(g, 0.5) for g in grads], iters=3,
+                 warmup=1)
+    del grads
+    torch.cuda.empty_cache()
+    return ms
+
+
+def phase_faults(device, entry: dict, card: str, plain_ms: float) -> dict:
+    """The training main path under a scenario world with every plan
+    channel and the guard rails, at full width and depth, then one traced
+    serve on the qwen2-0.5b slot cell; returns the ``faults`` line."""
+    from repro_torch.obs import Recorder, validate_chrome_trace
+
+    t0 = time.perf_counter()
+    spec = _fault_spec()
+    cfg = spec.objective.make_arch()
+    groups, K, T = spec.n_workers, spec.rounds_per_launch, spec.T
+    world = TrainerBackend.world_for(spec, groups)
+    plan = compile_plan(world.schedule, spec.objective, rounds=T,
+                        n_groups=groups, seed=spec.seed,
+                        availability=world.availability,
+                        zipf_as=world.zipf_as,
+                        grad_density=world.grad_density,
+                        fault_gain=world.fault_gain)
+    poisoned = (np.isnan(plan.fault_gain) & (plan.masks > 0)).any(axis=1)
+    if not poisoned.any() or not plan.summary()["sparsified"] or \
+            plan.summary()["n_cdf_phases"] < 2 or \
+            not (world.availability[:T] == 0).any():
+        raise AssertionError(f"faults: the world lights too few channels: "
+                             f"{plan.summary()}, poisoned {poisoned}")
+    base = init_params(cfg, spec.seed, device)
+    same = lambda c, d: tree_map(torch.clone, base)
+
+    # (a) the guarded run: launches, skips, health, finite, timed warm
+    stamps = {}
+    AU.reset_launches()
+    res = TrainerBackend(device, params_fn=same, on_step=lambda i, s, m:
+                         stamps.setdefault(i, time.perf_counter())).run(spec)
+    launched = dict(AU.launches)
+    entry["launches"] = launched["fused_adam_delayed"]
+    n_leaves = len(tree_leaves(res.x["params"]))
+    want = dict.fromkeys(AU.KERNELS, 0)
+    want["fused_adam_delayed"] = T * n_leaves
+    if launched != want or res.extra["update_launches"] != want:
+        raise AssertionError(f"faults: update launches {launched}, want "
+                             f"{want}")
+    rows = res.extra["metrics"]
+    skipped = np.asarray([r["skipped"] for r in rows])
+    if not np.array_equal(skipped, poisoned.astype(np.float64)):
+        raise AssertionError(f"faults: skipped {skipped.tolist()}, the plan "
+                             f"poisons {poisoned.astype(int).tolist()}")
+    gscale, health = _health_replay(plan.masks, poisoned)
+    got_h = res.x["guard"]["health"].cpu().numpy()
+    got_g = np.asarray([r["gscale"] for r in rows], np.float32)
+    if not (np.array_equal(got_h, health)
+            and np.allclose(got_g, gscale, rtol=1e-6, atol=0)):
+        raise AssertionError(f"faults: health {got_h} / gscale {got_g}, "
+                             f"the replay {health} / {gscale}")
+    losses = res.losses
+    if not np.isfinite(losses[~poisoned]).all() or not all(
+            torch.isfinite(t).all() for t in tree_leaves(res.x["params"])):
+        raise AssertionError(f"faults: non-finite losses {losses} or params")
+    warm = (stamps[2 * K - 1] - stamps[K - 1]) / K * 1e3
+    log(f"faults: {cfg.name} L={cfg.n_layers} d={cfg.d_model}, T={T}, "
+        f"{FAULT_SCENARIO}, guards: fused_adam_delayed launches "
+        f"{entry['launches']} = {T} x {n_leaves} (skipped rounds launch at "
+        f"run flag 0); skipped rounds {np.nonzero(poisoned)[0].tolist()} = "
+        f"the plan's poisoned participants; health {got_h.tolist()} and "
+        f"every round's gscale equal to the numpy replay of JAX's rule; "
+        f"loss {losses[0]:.5f} -> {losses[-1]:.5f}; warm {warm:.3f} ms per "
+        f"round (plain main path {plain_ms:.3f})")
+    final = res.x
+    res = None
+
+    # (b) scan ≡ eager, bit for bit, every channel on
+    eager = TrainerBackend(device, params_fn=same, runtime="eager").run(spec)
+    diff = _first_difference(final, eager.x)
+    if diff is not None or not np.array_equal(eager.losses, losses,
+                                              equal_nan=True):
+        raise AssertionError(f"faults: scan and eager differ first at {diff}")
+    eager = None
+    torch.cuda.empty_cache()
+
+    # (c) the same spec on the reference update: curves within 5e-3
+    ref = TrainerBackend(device, params_fn=same).run(_fault_spec(
+        update_impl="reference"))
+    ok = ~poisoned
+    rel = np.abs(losses[ok] - ref.losses[ok]) / np.abs(ref.losses[ok])
+    if not (np.isnan(ref.losses) == ~ok).all() or not (rel <= 5e-3).all():
+        raise AssertionError(f"faults: pallas {losses} against reference "
+                             f"{ref.losses}")
+    log(f"faults: scan ≡ eager bit for bit; loss curve against "
+        f"update_impl='reference' max rel diff {rel.max():.3e} (rtol 5e-3)")
+    ref = None
+    torch.cuda.empty_cache()
+
+    # (d) unguarded, the same world poisons the params (the JAX contract)
+    bare = TrainerBackend(device, params_fn=same).run(_fault_spec(
+        guards=False))
+    if all(torch.isfinite(t).all() for t in tree_leaves(bare.x["params"])):
+        raise AssertionError("faults: the unguarded run stayed finite")
+    bare = None
+    torch.cuda.empty_cache()
+
+    # (e) a skipped round, run eagerly: every leaf keeps its bits
+    tr = AsyncTrainer(cfg, opt=OptConfig(lr=spec.stepsize.gamma,
+                                         clip_norm=1.0,
+                                         update_impl="pallas"),
+                      async_cfg=AsyncConfig(
+                          delay_rounds=1, guards=GuardConfig()),
+                      device=device)
+    tr.n_groups = groups
+    ex = PlanExecutor(tr, plan)
+    state = tr.init_state(params=tree_map(torch.clone, base))
+    q = int(np.nonzero(poisoned)[0][0])
+    for r in range(q):
+        state, _ = ex._round(state, r)
+    kept = {k: [t.clone() for t in tree_leaves(state[k])]
+            for k in ("params", "opt", "gbuf")}
+    AU.reset_launches()
+    state, row = ex._round(state, q)
+    torch.cuda.synchronize()
+    if AU.launches["fused_adam_delayed"] != n_leaves or \
+            row[METRICS.index("skipped")].item() != 1.0:
+        raise AssertionError(f"faults: round {q} was not skipped")
+    for k, old in kept.items():
+        for i, (a, b) in enumerate(zip(tree_leaves(state[k]), old)):
+            if not torch.equal(_bits(a) if a.is_floating_point() else a,
+                               _bits(b) if b.is_floating_point() else b):
+                raise AssertionError(f"faults: skipped round {q} changed "
+                                     f"{k} leaf {i}")
+    log(f"faults: round {q} run eagerly is skipped: {n_leaves} launches at "
+        "run flag 0, params, m, v, gbuf and count bit-identical")
+    del state, kept, ex, tr
+    torch.cuda.empty_cache()
+
+    # (f) a recorder changes nothing and traces every skip
+    rec = Recorder()
+    traced = TrainerBackend(device, params_fn=same, recorder=rec).run(spec)
+    diff = _first_difference(final, traced.x)
+    if diff is not None or not np.array_equal(traced.losses, losses,
+                                              equal_nan=True):
+        raise AssertionError(f"faults: the traced run differs at {diff}")
+    events = validate_chrome_trace(rec.tracer.chrome_trace())
+    skips = [e for e in rec.tracer.chrome_trace()["traceEvents"]
+             if e["name"] == "guard_skip"]
+    if len(skips) != int(poisoned.sum()):
+        raise AssertionError(f"faults: {len(skips)} guard_skip instants")
+    traced = final = None
+    torch.cuda.empty_cache()
+    sparsify_ms = _sparsify_ms(device)
+
+    # (g) one traced serve on the qwen2-0.5b slot cell
+    cell = SLOT_CELLS[0]
+    mod, scfg, params, prompts, arrivals, slots = _slot_setup(device, cell)
+    plain = SlotServer(scfg, slots, device=device).serve(
+        params, prompts, cell["T"], arrivals=arrivals)
+    srec = Recorder()
+    server = SlotServer(scfg, slots, device=device, recorder=srec)
+    served = server.serve(params, prompts, cell["T"], arrivals=arrivals)
+    if not np.array_equal(served.tokens, plain.tokens):
+        raise AssertionError("faults: the traced serve changed tokens")
+    sevents = validate_chrome_trace(srec.tracer.chrome_trace())
+    phases = srec.tracer.phase_table()
+    admits = len(served.schedule.workers)
+    if phases["admit"]["count"] != admits or \
+            server.compile_counts() != {"chunk": 1}:
+        raise AssertionError(f"faults: {phases['admit']['count']} admit "
+                             f"spans for {admits} admissions, captures "
+                             f"{server.compile_counts()}")
+    del params, server
+    torch.cuda.empty_cache()
+    out = {"card": card, "arch": cfg.name, "T": T,
+           "scenario": FAULT_SCENARIO, "plan": plan.summary(),
+           "skipped_rounds": np.nonzero(poisoned)[0].tolist(),
+           "fused_adam_delayed_launches": entry["launches"],
+           "round_ms_scenario": warm, "round_ms_plain": plain_ms,
+           "sparsify_ms_per_round": sparsify_ms,
+           "train_trace_events": events,
+           "serve_trace_events": sevents,
+           "serve_admit_spans": phases["admit"]["count"]}
+    log(f"faults: sparsifier {sparsify_ms:.3f} ms per round (14 leaves, "
+        f"density 0.5); the traced run bit-identical to the untraced one, "
+        f"{len(skips)} guard_skip instants, trace {events}; traced serve "
+        f"({cfg.name} slot cell): tokens equal the untraced serve's, "
+        f"{admits} admit spans, 1 capture, trace {sevents}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     kind, card = phase_device()
@@ -1866,7 +2141,7 @@ def main() -> None:
     flash = phase_kernels(device)
     phase_main_path(device, flash)
     updates = phase_update_kernels(device)
-    phase_train_main(device, updates["fused_adam_delayed"])
+    plain_ms = phase_train_main(device, updates["fused_adam_delayed"])
     phase_train_others(device, updates)
     phase_momentum_paths(device, updates)
     ssd = phase_ssd_kernel(device)
@@ -1876,6 +2151,8 @@ def main() -> None:
     slot_parity = phase_slot_parity(device)
     theory = phase_theory_tier(device)
     durability = phase_durability(device, card)
+    faults = phase_faults(device, updates["fused_adam_delayed"], card,
+                          plain_ms)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [flash] + [updates[k] for k in AU.KERNELS] + [ssd]
@@ -1883,6 +2160,7 @@ def main() -> None:
     print(json.dumps({"slot_lane": slot_rows, "slot_parity": slot_parity}))
     print(json.dumps({"theory_tier": theory}))
     print(json.dumps({"durability": durability}))
+    print(json.dumps({"faults": faults}))
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -18,15 +18,17 @@ Counterpart of ``repro/api/backends.py``:
   ``ServeJob.n_slots`` set, the continuous-batching slot lane through
   :class:`repro_torch.distributed.SlotServer` on the same prompt stream.
 
-The trainer backend and the lock-step serve lane refuse a ``scenario``:
-its schedule side is ported, but the per-round channels it lowers into a
-``RunPlan`` are not yet, and a run without them would not be the world the
-spec asks for.  The slot lane lowers a scenario to its serve faults, as the
-JAX package does.
+A ``scenario`` runs as in the JAX package: the trainer backend realises
+its world and lowers availability, data drift, sparsity and fault gains
+into the ``RunPlan``; the slot lane lowers it to serve faults; the
+lock-step serve lane, like JAX's, reads none of it.  Each backend takes a
+``recorder`` (:class:`repro_torch.obs.Recorder`) whose summary rides
+``RunResult.extra["obs"]``.
 """
 from __future__ import annotations
 
 import time
+from contextlib import nullcontext
 from typing import Callable, Optional, Protocol, runtime_checkable
 
 import numpy as np
@@ -39,6 +41,7 @@ from ..device import resolve_device, synchronize
 from ..kernels import async_update as update_kernels
 from ..kernels import flash_attention as flash_kernel
 from ..kernels import ssd_chunk as ssd_kernel
+from ..obs import CompileWatch
 from .result import RunResult
 from .spec import ExperimentSpec, ServeJob, StepsizePolicy, TrainJob
 
@@ -50,13 +53,10 @@ class Backend(Protocol):
     def run(self, spec: ExperimentSpec) -> RunResult: ...
 
 
-def _refuse_scenario(spec: ExperimentSpec, backend: str) -> None:
-    if spec.scenario is not None:
-        raise NotImplementedError(
-            f"the {backend} does not run scenario worlds yet: their RunPlan "
-            "channels (availability, data drift, sparsity, faults) are not "
-            "ported (ROADMAP.md queue 1, item 12); the simulator backend "
-            "runs their schedules and the slot lane their serve faults")
+def _obs(recorder, **extra):
+    """The recorder's summary for ``RunResult.extra["obs"]`` (None without
+    one)."""
+    return recorder.summary(**extra) if recorder is not None else None
 
 
 def _canonical(device) -> torch.device:
@@ -88,13 +88,16 @@ class SimulatorBackend:
 
     ``RunResult.extra`` carries ``device``, ``runtime`` (``"graph"`` or
     ``"eager"``), ``graph_replays``, ``chunk_steps``, ``host_syncs`` (1 per
-    run) and ``scenario``."""
+    run), ``scenario``, ``compile_counts`` (the backend's graph captures,
+    cumulative over its runs) and ``obs``."""
 
     name = "simulator"
 
-    def __init__(self, device="cuda", capture: bool = True):
+    def __init__(self, device="cuda", capture: bool = True, recorder=None):
         self.device = device
         self.capture = capture
+        self.recorder = recorder
+        self.watch = CompileWatch(recorder)
 
     def run(self, spec: ExperimentSpec) -> RunResult:
         prob = spec.objective
@@ -122,7 +125,8 @@ class SimulatorBackend:
         policy: StepsizePolicy = spec.stepsize
         kw = dict(batch_idx=batch_idx, clip=spec.clip,
                   log_every=spec.log_every, full_grad_fn=full_grad,
-                  loss_fn=loss, device=device, capture=self.capture)
+                  loss_fn=loss, device=device, capture=self.capture,
+                  watch=self.watch)
 
         if policy.kind == "grid":
             if full_grad is None:
@@ -154,7 +158,9 @@ class SimulatorBackend:
             log_ts=res.log_ts, grad_norms=res.grad_norms, losses=res.losses,
             gamma=gamma, grid=grid_info, schedule=schedule,
             trace=summarize(schedule), seconds=time.time() - t0,
-            extra={**res.stats, "scenario": spec.scenario})
+            extra={**res.stats, "scenario": spec.scenario,
+                   "compile_counts": self.watch.counts(),
+                   "obs": _obs(self.recorder, rounds=spec.T)})
 
 
 class TrainerBackend:
@@ -173,13 +179,20 @@ class TrainerBackend:
 
     ``snapshot`` (a :class:`repro_torch.checkpoint.AsyncSnapshotter`) gives
     scan runs periodic asynchronous snapshots, as in the JAX package; the
-    eager runtime takes none.  ``breaker`` (the divergence breaker) is not
-    ported and raises.
+    eager runtime takes none.  ``breaker`` (the divergence breaker) trips
+    through the tap lane, which is not ported: it raises (ROADMAP.md).
+
+    A spec's ``scenario`` realises its world (:meth:`world_for`) and feeds
+    ``availability``, ``zipf_as``, ``grad_density`` and ``fault_gain`` into
+    the plan, in the single run and in each run of the sequential grid;
+    ``TrainJob(guards=True)`` arms the trainer's guard rails
+    (``GuardConfig()``).  ``recorder`` traces the run (see
+    :mod:`repro_torch.runtime.executor`).
 
     ``RunResult.x`` is the final state; ``extra`` carries the JAX keys the
-    port can fill (``snapshots``, the offers, among them) plus
-    ``update_launches``, the launches of each update kernel during the run,
-    and ``device``."""
+    port can fill (``snapshots``, the offers, ``scenario``,
+    ``plan_summary`` and ``obs`` among them) plus ``update_launches``, the
+    launches of each update kernel during the run, and ``device``."""
 
     name = "trainer"
     default_runtime = "scan"
@@ -191,12 +204,12 @@ class TrainerBackend:
                  metrics: Optional[str] = None,
                  params_fn: Optional[Callable] = None,
                  batch_fn: Optional[Callable] = None,
-                 snapshot=None, breaker=None):
+                 snapshot=None, breaker=None, recorder=None):
         if breaker is not None:
             raise NotImplementedError(
-                "the divergence breaker streams losses through the tap lane "
-                "and trips the guards, neither ported yet (ROADMAP.md queue "
-                "1, item 12)")
+                "the divergence breaker trips through the tap lane "
+                '(metrics="tap"), which is not ported yet (ROADMAP.md queue '
+                "1, item 8)")
         self.device = device
         self.on_step = on_step
         self.runtime = runtime
@@ -205,14 +218,23 @@ class TrainerBackend:
         self.params_fn = params_fn
         self.batch_fn = batch_fn
         self.snapshot = snapshot
+        self.recorder = recorder
+
+    @staticmethod
+    def world_for(spec: ExperimentSpec, n_groups: Optional[int] = None):
+        """The realised :class:`repro_torch.scenarios.ScenarioWorld` for
+        ``spec.T`` rounds (the identity wrap when the spec has no scenario:
+        the same schedule bit for bit as the stationary path)."""
+        sched = spec.make_scheduler(n_groups)
+        return spec.build_world(T=spec.T * sched.wait_b, n=n_groups)
 
     @staticmethod
     def masks_for(spec: ExperimentSpec, n_groups: Optional[int] = None):
         """((rounds, n_groups) participation masks, realised Schedule) for
-        ``spec.T`` rounds."""
-        sched = spec.make_scheduler(n_groups)
-        schedule = spec.build_schedule(T=spec.T * sched.wait_b, n=n_groups)
-        return round_masks(schedule), schedule
+        ``spec.T`` rounds.  The masks are the raw schedule lowering: elastic
+        availability is folded in later, when the plan is compiled."""
+        world = TrainerBackend.world_for(spec, n_groups)
+        return round_masks(world.schedule), world.schedule
 
     def resolve_runtime(self, spec: ExperimentSpec):
         """(runtime, rounds_per_launch, metrics): constructor overrides
@@ -227,7 +249,6 @@ class TrainerBackend:
         job = spec.objective
         if not isinstance(job, TrainJob):
             raise TypeError("TrainerBackend needs a TrainJob objective")
-        _refuse_scenario(spec, "trainer backend")
         policy: StepsizePolicy = spec.stepsize
         if policy.kind == "grid":
             best = None
@@ -246,6 +267,7 @@ class TrainerBackend:
     def _make_trainer(self, spec: ExperimentSpec, job: TrainJob, lr: float,
                       adaptive: bool, device):
         from ..distributed import AsyncConfig, AsyncTrainer
+        from ..faults import GuardConfig
         from ..optim import OptConfig
 
         cfg = job.make_arch()
@@ -256,7 +278,8 @@ class TrainerBackend:
             async_cfg=AsyncConfig(delay_rounds=job.delay_rounds,
                                   delay_adaptive=adaptive,
                                   microbatches=job.microbatches,
-                                  guards=True if job.guards else None),
+                                  guards=GuardConfig() if job.guards
+                                  else None),
             device=device)
         n_groups = spec.n_workers or tr.n_groups
         tr.n_groups = n_groups
@@ -278,12 +301,18 @@ class TrainerBackend:
         t0 = time.time()
         tr, cfg, n_groups = self._make_trainer(spec, job, lr, adaptive,
                                                device)
-        masks, schedule = self.masks_for(spec, n_groups)
+        world = self.world_for(spec, n_groups)
+        schedule = world.schedule
+        masks = round_masks(schedule)
         params = self.params_fn(cfg, device) if self.params_fn else None
         state = tr.init_state(spec.seed, params=params)
         rounds = min(spec.T, masks.shape[0])
         plan = compile_plan(schedule, job, rounds=rounds, n_groups=n_groups,
-                            seed=spec.seed, adaptive=adaptive)
+                            seed=spec.seed, adaptive=adaptive,
+                            availability=world.availability,
+                            zipf_as=world.zipf_as,
+                            grad_density=world.grad_density,
+                            fault_gain=world.fault_gain)
         runtime, rounds_per_launch, metrics = self.resolve_runtime(spec)
         if metrics == "none" and metrics_floor is not None:
             metrics = metrics_floor
@@ -292,7 +321,8 @@ class TrainerBackend:
         exec_res = execute(tr, plan, state, runtime=runtime,
                            rounds_per_launch=rounds_per_launch,
                            metrics=metrics, on_step=self.on_step,
-                           batch_fn=self.batch_fn, **kw)
+                           batch_fn=self.batch_fn, recorder=self.recorder,
+                           **kw)
         update_launches = {k: update_kernels.launches[k] - before[k]
                            for k in update_kernels.KERNELS}
 
@@ -320,6 +350,7 @@ class TrainerBackend:
                    "tap_events": exec_res.tap_events,
                    "snapshots": exec_res.stats.snapshots,
                    "update_launches": update_launches,
+                   "obs": _obs(self.recorder, rounds=rounds),
                    "device": str(device)})
 
 
@@ -331,13 +362,16 @@ class ServeBackend:
     ``extra`` holds ``prompts``, ``arch``, ``prefill_seconds``,
     ``decode_seconds``, ``tok_per_s``, ``logits_finite``,
     ``flash_launches`` and ``ssd_launches`` (the flash and SSD kernels'
-    launch counters read before and after the run).  The slot lane: see
-    :meth:`_run_slots`."""
+    launch counters read before and after the run) and ``obs`` (the
+    ``recorder``'s summary: ``prefill`` and ``decode`` spans).  A
+    ``scenario`` is read by the slot lane only, as in the JAX package.  The
+    slot lane: see :meth:`_run_slots`."""
 
     name = "serve"
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", recorder=None):
         self.device = device
+        self.recorder = recorder
 
     def run(self, spec: ExperimentSpec) -> RunResult:
         from ..distributed import Server, ServeConfig
@@ -348,7 +382,9 @@ class ServeBackend:
             raise TypeError("ServeBackend needs a ServeJob objective")
         if job.n_slots:
             return self._run_slots(spec)
-        _refuse_scenario(spec, "lock-step serve lane")
+        rec = self.recorder
+        span = ((lambda name, **a: rec.span(name, "server", **a))
+                if rec is not None else (lambda name, **a: nullcontext()))
         device = resolve_device(self.device)
         t0 = time.time()
         launches0 = flash_kernel.launches, ssd_kernel.launches
@@ -364,12 +400,15 @@ class ServeBackend:
 
         synchronize(device)
         t_pre = time.time()
-        last, cache = prefill(cfg, params, {"tokens": tokens}, ctx_len=ctx)
-        toks = torch.argmax(last, dim=-1)
-        finite = bool(torch.isfinite(last).all())      # syncs the prefill
+        with span("prefill", batch=job.batch, plen=job.prompt_len):
+            last, cache = prefill(cfg, params, {"tokens": tokens},
+                                  ctx_len=ctx)
+            toks = torch.argmax(last, dim=-1)
+            finite = bool(torch.isfinite(last).all())  # syncs the prefill
         t_dec = time.time()
-        gen = server.generate(params, toks.cpu().numpy(), spec.T - 1,
-                              start_pos=job.prompt_len, cache=cache)
+        with span("decode", steps=spec.T - 1):
+            gen = server.generate(params, toks.cpu().numpy(), spec.T - 1,
+                                  start_pos=job.prompt_len, cache=cache)
         dt = time.time() - t_dec
         if server.logits_finite is not None:
             finite = finite and server.logits_finite
@@ -384,7 +423,8 @@ class ServeBackend:
                    "tok_per_s": job.batch * (spec.T - 1) / max(dt, 1e-9),
                    "logits_finite": finite,
                    "flash_launches": flash_kernel.launches - launches0[0],
-                   "ssd_launches": ssd_kernel.launches - launches0[1]})
+                   "ssd_launches": ssd_kernel.launches - launches0[1],
+                   "obs": _obs(rec, rounds=spec.T)})
 
     def _run_slots(self, spec: ExperimentSpec) -> RunResult:
         """Continuous batching: ``n_requests`` requests through ``n_slots``
@@ -417,7 +457,7 @@ class ServeBackend:
             cfg, SlotConfig(n_slots=job.n_slots, ctx_len=ctx,
                             temperature=job.temperature, seed=spec.seed,
                             steps_per_launch=job.steps_per_launch),
-            device=device)
+            device=device, recorder=self.recorder)
         # the lock-step lane's prompt stream: with n_requests == batch the
         # two lanes serve the same prompts
         prompts = np.random.default_rng(spec.seed).integers(
@@ -470,6 +510,7 @@ class ServeBackend:
                    "host_waits": res.host_waits,
                    "chunk_device_ms": res.chunk_device_ms,
                    "compile_counts": server.compile_counts(),
+                   "obs": _obs(self.recorder, rounds=spec.T),
                    "tau_report": tau_report(
                        res.schedule, parse_admission(job.admission)[0],
                        concurrency=job.n_slots,

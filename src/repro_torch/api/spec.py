@@ -6,10 +6,6 @@ defaults, the ``constant`` / ``grid`` / ``delay_adaptive`` helpers, and the
 same compact spec strings (scheduler ``"name[:k=v,...]"`` over
 :data:`repro_torch.core.REGISTRY`, timing ``"pattern[:k=v,...]"``, scenario
 in the :mod:`repro_torch.scenarios` grammar).
-
-Not ported yet: a :class:`ServeJob` that asks for serving resilience
-(``max_retries > 1``, ``queue_cap``, ``drain_after``) raises
-``NotImplementedError`` (ROADMAP.md queue 1, item 11c).
 """
 from __future__ import annotations
 
@@ -107,7 +103,10 @@ class TrainJob:
     ``update_impl``: ``"reference"`` (a tree of elementwise torch ops) or
     ``"pallas"`` / ``"pallas_interpret"`` (the fused update kernels, one
     per param leaf: CUDA on the card, their plain versions on the CPU);
-    ``"pallas_pooled*"`` and ``guards`` raise until they are ported.
+    ``"pallas_pooled*"`` raises until it is ported.  ``guards=True`` arms
+    the trainer's guard rails, ``AsyncConfig(guards=GuardConfig())``: a
+    round whose loss or raw gradient norm is not finite is skipped on the
+    device, and a per-worker health vector backs the stepsize off.
     """
 
     arch: str = "qwen2-0.5b"

@@ -22,6 +22,13 @@ On the CPU the copy is a plain ``clone``.  A SIGKILL at any point loses at
 most the two pending snapshots; everything older is an atomically
 written, sha-verified directory that :meth:`AsyncSnapshotter.latest` finds
 and :func:`repro_torch.checkpoint.restore` loads.
+
+A ``recorder`` (:class:`repro_torch.obs.Recorder`) gets a
+``snapshot_copy`` span around the queued copies of each offer and a
+``snapshot_finalise`` span (plus a ``snapshot_writes`` count) around each
+write to disk, which lands a cadence after its offer; the executor adds
+the ``snapshot_offer`` span around the whole offer.  They are host times:
+the copy span measures how long the host takes to enqueue the copies.
 """
 from __future__ import annotations
 
@@ -29,6 +36,7 @@ import os
 import re
 import shutil
 from collections import deque
+from contextlib import nullcontext
 from typing import Optional
 
 import torch
@@ -59,10 +67,7 @@ class AsyncSnapshotter:
             raise ValueError(f"snapshot cadence must be >= 1 (got {every})")
         if keep < 1:
             raise ValueError(f"keep must be >= 1 (got {keep})")
-        if recorder is not None:
-            raise NotImplementedError(
-                "a snapshot recorder is observability, not ported yet "
-                "(ROADMAP.md queue 1, item 12)")
+        self.recorder = recorder            # repro_torch.obs.Recorder | None
         self.path = str(path)
         self.every = int(every)
         self.keep = int(keep)
@@ -100,22 +105,23 @@ class AsyncSnapshotter:
         is in flight.  ``meta`` is merged into the saved ``meta.json`` (the
         slot server's host ledger rides there)."""
         device = tree_leaves(state)[0].device
-        if device.type == "cuda":
-            dev, host = self._pair(state)
-            tree_map(lambda d, s: d.copy_(s), dev, state)
-            copied = torch.cuda.Event()
-            copied.record()
-            if self._side is None:
-                self._side = torch.cuda.Stream(device)
-            self._side.wait_event(copied)
-            with torch.cuda.stream(self._side):
-                tree_map(lambda h, d: h.copy_(d, non_blocking=True), host,
-                         dev)
-                fetched = torch.cuda.Event()
-                fetched.record()
-            snap = host
-        else:
-            snap, fetched = tree_map(torch.clone, state), None
+        with self._span("snapshot_copy", round=int(round_i)):
+            if device.type == "cuda":
+                dev, host = self._pair(state)
+                tree_map(lambda d, s: d.copy_(s), dev, state)
+                copied = torch.cuda.Event()
+                copied.record()
+                if self._side is None:
+                    self._side = torch.cuda.Stream(device)
+                self._side.wait_event(copied)
+                with torch.cuda.stream(self._side):
+                    tree_map(lambda h, d: h.copy_(d, non_blocking=True),
+                             host, dev)
+                    fetched = torch.cuda.Event()
+                    fetched.record()
+                snap = host
+            else:
+                snap, fetched = tree_map(torch.clone, state), None
         self._offers += 1
         self._pending.append((int(round_i), snap, fetched, dict(meta or {})))
         while len(self._pending) > 1:
@@ -132,12 +138,22 @@ class AsyncSnapshotter:
     def round_dir(self, round_i: int) -> str:
         return os.path.join(self.path, f"round-{round_i:08d}")
 
+    def _span(self, name: str, **args):
+        rec = self.recorder
+        return rec.span(name, "snapshot", **args) if rec is not None \
+            else nullcontext()
+
     def _write_oldest(self) -> None:
         r, snap, fetched, extra = self._pending.popleft()
-        if fetched is not None:
-            fetched.synchronize()
         meta = {**self._meta, **extra, "round": r, "kind": "snapshot"}
-        checkpointer.save(self.round_dir(r), snap, step=r, meta=meta)
+        # a cadence after the offer of the same round: the trace shows the
+        # two-deep window overlapping the chunks in between
+        with self._span("snapshot_finalise", round=r):
+            if fetched is not None:
+                fetched.synchronize()
+            checkpointer.save(self.round_dir(r), snap, step=r, meta=meta)
+        if self.recorder is not None:
+            self.recorder.count("snapshot_writes")
         self._written.append((r, self.round_dir(r)))
         self._prune()
 

@@ -135,10 +135,13 @@ class _Loop:
         self.cursor.add_(1)
 
 
-def _capture(loop: _Loop, T: int, K: int) -> list:
+def _capture(loop: _Loop, T: int, K: int, watch=None) -> list:
     """The CUDA graphs whose replays, in order, run T steps of ``loop``:
     one graph of K steps replayed ⌊T/K⌋ times, then one of the T mod K
-    tail steps.  A failed capture raises."""
+    tail steps.  A failed capture raises.  ``watch`` (a
+    :class:`repro_torch.obs.CompileWatch`) counts each capture, keyed by
+    the number G of stepsizes: ``grid[G,chunk]`` and ``grid[G,tail]``."""
+    G = loop.x.shape[0]
     # warm-up on a side stream (cuBLAS handles, workspaces, the allocator),
     # then back to the initial state: capture itself executes nothing
     side = torch.cuda.Stream(loop.device)
@@ -151,24 +154,28 @@ def _capture(loop: _Loop, T: int, K: int) -> list:
     with torch.cuda.graph(main):
         for _ in range(K):
             loop.step()
+    if watch is not None:
+        watch.captured(f"grid[{G},chunk]")
     graphs = [main] * (T // K)
     if T % K:
         tail = torch.cuda.CUDAGraph()
         with torch.cuda.graph(tail, pool=main.pool()):
             for _ in range(T % K):
                 loop.step()
+        if watch is not None:
+            watch.captured(f"grid[{G},tail]")
         graphs.append(tail)
     return graphs
 
 
-def _drive(loop: _Loop, T: int, capture: bool):
+def _drive(loop: _Loop, T: int, capture: bool, watch=None):
     """Run T steps of ``loop``: CUDA graph chunks on CUDA (unless
     ``capture=False``), the eager loop otherwise.  Returns (stats, graphs,
     events): the graphs and the two CUDA events around the steps (``None``
     off CUDA) must outlive the queued work."""
     cuda = loop.device.type == "cuda"
     K = max(1, min(CHUNK_STEPS, T))
-    graphs = _capture(loop, T, K) if cuda and capture else []
+    graphs = _capture(loop, T, K, watch) if cuda and capture else []
     stats = {"runtime": "graph" if graphs else "eager",
              "graph_replays": len(graphs),
              "chunk_steps": K if graphs else None}
@@ -189,13 +196,13 @@ def _drive(loop: _Loop, T: int, capture: bool):
 
 def _replay(schedule: Schedule, grad_fn: Callable, x0, gam: np.ndarray, *,
             batch_idx, clip, log_every, full_grad_fn, loss_fn, device,
-            capture) -> list[ReplayResult]:
+            capture, watch=None) -> list[ReplayResult]:
     """Replay ``schedule`` for each column of ``gam`` ((T, G) γ̃)."""
     device = resolve_device(device)
     T = schedule.T
     log_ts = np.arange(0, T, log_every)
     loop = _Loop(schedule, grad_fn, x0, gam, batch_idx, clip, log_ts, device)
-    stats, graphs, events = _drive(loop, T, capture)
+    stats, graphs, events = _drive(loop, T, capture, watch)
 
     n_log = len(log_ts)
     parts = []                                   # packed: one read for all
@@ -238,6 +245,7 @@ def replay_grid(
     loss_fn: Optional[Callable] = None,
     device="cuda",
     capture: bool = True,
+    watch=None,
 ) -> list[ReplayResult]:
     """Replay one schedule under several server stepsizes in one loop.
 
@@ -251,7 +259,8 @@ def replay_grid(
     gam = np.stack([_server_steps(schedule, g) for g in stepsizes], axis=1)
     return _replay(schedule, grad_fn, x0, gam, batch_idx=batch_idx, clip=clip,
                    log_every=log_every, full_grad_fn=full_grad_fn,
-                   loss_fn=loss_fn, device=device, capture=capture)
+                   loss_fn=loss_fn, device=device, capture=capture,
+                   watch=watch)
 
 
 def replay(
@@ -267,16 +276,19 @@ def replay(
     loss_fn: Optional[Callable] = None,
     device="cuda",
     capture: bool = True,
+    watch=None,
 ) -> ReplayResult:
     """Run the schedule on ``device`` (default CUDA).  ``stepsize`` is the
     *server* stepsize γ (a scalar or a (T,) array); waiting variants apply
     γ/wait_b per gradient (Prop. C.2 equivalence).  ``batch_idx`` is the
     (T, bs) mini-batch table of a stochastic ``grad_fn``.  The snapshot at
-    ``log_ts[k]`` is the iterate *after* that step."""
+    ``log_ts[k]`` is the iterate *after* that step.  ``watch`` (a
+    :class:`repro_torch.obs.CompileWatch`) counts the graph captures."""
     gam = _server_steps(schedule, stepsize)[:, None]
     return _replay(schedule, grad_fn, x0, gam, batch_idx=batch_idx, clip=clip,
                    log_every=log_every, full_grad_fn=full_grad_fn,
-                   loss_fn=loss_fn, device=device, capture=capture)[0]
+                   loss_fn=loss_fn, device=device, capture=capture,
+                   watch=watch)[0]
 
 
 def run_async_sgd(

@@ -39,11 +39,17 @@
 // * in place: p, m, v and gbuf are updated where they lie (the JAX step
 //   donates them).  A thread reads its stale gbuf values into registers
 //   before it writes g over them; gbuf' = g is a copy of the bits;
-// * the scalars [lr, bc1, bc2, clip, wd] (Adam), [lr_eff, clip] (heavy
-//   ball) or [eff] (SGD) are read by
+// * the scalars [lr, bc1, bc2, clip, wd, run] (Adam), [lr_eff, clip, run]
+//   (heavy ball) or [eff, run] (SGD) are read by
 //   pointer from a small f32 device tensor, as the TPU kernels read them
 //   from an SMEM block: the clip scale, the bias corrections and the gate
 //   are device values, and nothing here makes the host wait for them;
+// * run is the guard rails' skip gate, 1 or 0, written on the device from
+//   the round's finite check.  Every block reads it first and, at 0,
+//   returns before any load or store, so p, m, v and gbuf keep their bits
+//   even when g is NaN (the stale gbuf is not overwritten with g either,
+//   as the JAX step's skip branch keeps it).  Without guards it is 1 and
+//   the kernels compute what they computed without it;
 // * the kernel allocates nothing and launches on the caller's stream.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -56,6 +62,11 @@ namespace {
 constexpr int THREADS = 256;
 constexpr int VEC = 8;                  // elements per thread per step
 constexpr int MAX_BLOCKS = 132 * 16;    // 16 blocks on each of 132 SMs
+// where each scalar block keeps its run flag
+constexpr int SGD_RUN = 1, MOMENTUM_RUN = 2, ADAM_RUN = 5;
+
+// the skip gate: false when the round's update must write nothing
+__device__ __forceinline__ bool runs(const float* scal, int at) { return scal[at] != 0.0f; }
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
@@ -135,6 +146,7 @@ template <typename P, typename G, bool ALIGNED>
 __global__ void __launch_bounds__(THREADS)
 async_update_kernel(P* __restrict__ p, G* __restrict__ gbuf, const G* __restrict__ g,
                     const float* __restrict__ scal, long long n) {
+  if (!runs(scal, SGD_RUN)) return;
   const float eff = scal[0];
   const long long nvec = ALIGNED ? n / VEC : 0;
   for (long long j = thread_id(); j < nvec; j += n_threads()) {
@@ -158,6 +170,7 @@ template <typename P, typename G, bool ALIGNED>
 __global__ void __launch_bounds__(THREADS)
 sgd_step_kernel(P* __restrict__ p, const G* __restrict__ g,
                 const float* __restrict__ scal, long long n) {
+  if (!runs(scal, SGD_RUN)) return;
   const float eff = scal[0];
   const long long nvec = ALIGNED ? n / VEC : 0;
   for (long long j = thread_id(); j < nvec; j += n_threads()) {
@@ -175,12 +188,13 @@ sgd_step_kernel(P* __restrict__ p, const G* __restrict__ g,
 
 // DELAYED: the step consumes the stale gbuf and g is written over it;
 // otherwise the step consumes g and gbuf is unused (may be null).
-// scal = [lr_eff, clip] with lr_eff = lr * delay_scale; mu is the momentum.
+// scal = [lr_eff, clip, run] with lr_eff = lr * delay_scale; mu is the momentum.
 template <typename P, typename G, bool ALIGNED, bool DELAYED>
 __global__ void __launch_bounds__(THREADS)
 momentum_kernel(P* __restrict__ p, float* __restrict__ m, G* __restrict__ gbuf,
                 const G* __restrict__ g, const float* __restrict__ scal, long long n,
                 float mu) {
+  if (!runs(scal, MOMENTUM_RUN)) return;
   const float lr_eff = scal[0], clip = scal[1];
   const long long nvec = ALIGNED ? n / VEC : 0;
   for (long long j = thread_id(); j < nvec; j += n_threads()) {
@@ -223,6 +237,7 @@ __global__ void __launch_bounds__(THREADS)
 adam_kernel(P* __restrict__ p, float* __restrict__ m, float* __restrict__ v,
             G* __restrict__ gbuf, const G* __restrict__ g,
             const float* __restrict__ scal, long long n, AdamCoefs c) {
+  if (!runs(scal, ADAM_RUN)) return;
   const AdamScalars s(scal);
   const long long nvec = ALIGNED ? n / VEC : 0;
   for (long long j = thread_id(); j < nvec; j += n_threads()) {
@@ -330,9 +345,10 @@ int momentum_launch(void* p, float* m, void* gbuf, const void* g, const float* s
 // Every entry point updates its operands in place over n > 0 contiguous
 // elements and returns the launch's cudaError_t (0 = launched).
 // p_dtype / g_dtype: 0 = float32, 1 = bfloat16 (gbuf has g's dtype; m, v
-// are float32).  scal: device float32, [eff] for the SGD kernels,
-// [lr_eff, clip] for the heavy-ball kernels and [lr, bc1, bc2, clip, wd]
-// for the Adam kernels.  stream: a cudaStream_t.
+// are float32).  scal: device float32, [eff, run] for the SGD kernels,
+// [lr_eff, clip, run] for the heavy-ball kernels and
+// [lr, bc1, bc2, clip, wd, run] for the Adam kernels, run = 0 making the
+// launch write nothing.  stream: a cudaStream_t.
 
 extern "C" int async_update(void* p, void* gbuf, const void* g, const float* scal,
                             long long n, int p_dtype, int g_dtype, void* stream) {

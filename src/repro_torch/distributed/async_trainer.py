@@ -16,8 +16,26 @@ CUDA kernel per param leaf that updates the state in place.  No value is
 read back to the host inside a round: the step-0 gate, the clip scale and
 the bias corrections stay device tensors.
 
-Not ported yet, and raising ``NotImplementedError``: the guard rails
-(``guards``), the ``grad_density`` and ``fault_gain`` channels, and the
+Scenario and fault channels, as the JAX step applies them:
+
+* ``fault_gain`` — the participation-weighted mean gain over the round's
+  participants scales the loss, its parts and the grads (a corrupted or
+  poisoned receipt);
+* ``grad_density`` — each gradient leaf keeps the entries whose magnitude
+  reaches the (1 − density) quantile of |g|, the quantile taken as
+  ``jnp.quantile`` takes it (:func:`quantile_index`, :func:`sparsify`);
+* ``guards`` (:class:`repro_torch.faults.GuardConfig`) — a round whose
+  loss or raw (fresh, sparsified) gradient norm is not finite is skipped:
+  params, moments, count and the delay buffer keep their bits, the step
+  counter advances, ``skipped`` reads 1 and ``grad_norm`` 0; a per-worker
+  health vector backs the stepsize off after bad receipts.  The skip
+  stays on the device: on the fused route the finite flag rides the
+  update kernels' scalar block as their run flag (a skipped round still
+  launches every kernel, which then writes nothing); on the reference
+  route, which builds new tensors, each leaf is selected with
+  ``torch.where``.
+
+Not ported yet, and raising ``NotImplementedError``: ``remat`` and the
 pooled state layout (ROADMAP.md queue 1).
 """
 from __future__ import annotations
@@ -25,17 +43,64 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
+from ..faults.guards import GuardConfig
 from ..models import model as M
 from ..models.specs import Spec
-from ..optim import (OptConfig, adam_init, make_delayed_apply,
+from ..optim import (OptConfig, adam_init, global_norm, make_delayed_apply,
                      make_optimizer, resolve_update_impl)
 from ..tree import tree_map
 
 F32 = torch.float32
+
+
+def quantile_index(n: int, density) -> tuple:
+    """Where ``jnp.quantile(a, 1 − density)`` (method ``linear``) reads an
+    ``n``-element ``a``, in its own f32 arithmetic: ``(low, high, low
+    weight, high weight)``.  JAX converts n to f32 and forms q·(n − 1) in
+    f32, which above 2^24 elements is not exact; this repeats it step by
+    step in numpy f32, on the host (the density is a plan value the host
+    holds), so the device is never read."""
+    one, zero = np.float32(1.0), np.float32(0.0)
+    dens = np.clip(np.float32(density), zero, one)
+    q = one - dens
+    nf = np.float32(n)
+    q = q * (nf - one)
+    low, high = np.floor(q), np.ceil(q)
+    hw = q - low
+    lw = one - hw
+    low = np.minimum(np.maximum(low, zero), nf - one)
+    high = np.minimum(np.maximum(high, zero), nf - one)
+    return int(low), int(high), lw, hw
+
+
+def sparsify(g: torch.Tensor, density) -> torch.Tensor:
+    """Magnitude top-k of one gradient leaf at keep-``density``: zero every
+    entry below the (1 − density) quantile of |g| (f32), as the JAX step
+    does (``jnp.quantile`` refuses nothing; ``torch.quantile`` refuses more
+    than 2^24 elements, so the two order statistics come from a sort and
+    the interpolation from :func:`quantile_index`).  A NaN anywhere makes
+    the threshold NaN, as in JAX, so nothing finite is kept.  Density 1 is
+    the identity bit for bit (the threshold is min |g|).
+
+    The product ``g * keep`` is the JAX step's, as written: a dropped
+    negative entry is −0 and a NaN stays NaN.  XLA's CPU compile rewrites
+    the f32 product into a select (dropped entries +0, a dropped NaN 0)
+    and keeps the bf16 one, so on bf16 grads (every config's dtype) the
+    two agree bit for bit, and on f32 up to the sign of a dropped zero and
+    a NaN in a leaf the guards skip."""
+    low, high, lw, hw = quantile_index(g.numel(), density)
+    a = g.to(F32).abs().reshape(-1)
+    srt = torch.sort(a).values
+    thr = srt[low] * lw + srt[high] * hw
+    thr = torch.where(torch.isnan(a).any(), torch.nan, thr)
+    del srt
+    keep = (a >= thr).reshape(g.shape)
+    return g * keep.to(g.dtype)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -46,8 +111,11 @@ class AsyncConfig:
     microbatches: int = 1          # gradient accumulation (memory lever)
     #: None → take ``OptConfig.update_impl``; set to override per-trainer
     update_impl: Optional[str] = None
-    #: the JAX package's device-side guard rails; not ported yet
-    guards: Optional[object] = None
+    #: device-side guard rails: non-finite rounds skip the apply with no
+    #: host read, and a per-worker health vector backs the effective
+    #: stepsize off after bad receipts.  None builds the exact unguarded
+    #: step (no extra state, no checks)
+    guards: Optional[GuardConfig] = None
 
 
 class AsyncTrainer:
@@ -55,11 +123,10 @@ class AsyncTrainer:
 
     def __init__(self, cfg: ArchConfig, opt: OptConfig = OptConfig(),
                  async_cfg: AsyncConfig = AsyncConfig(), device="cuda"):
-        if async_cfg.guards is not None:
-            raise NotImplementedError(
-                "guard rails (AsyncConfig.guards / TrainJob.guards) are not "
-                "ported yet; they come with the faults slice (ROADMAP.md "
-                "queue 1)")
+        if async_cfg.guards is not None and \
+                not isinstance(async_cfg.guards, GuardConfig):
+            raise TypeError("AsyncConfig.guards must be a GuardConfig, got "
+                            f"{type(async_cfg.guards).__name__}")
         if cfg.remat != "none":
             raise NotImplementedError(
                 f"remat={cfg.remat!r} is not ported yet; train with "
@@ -92,6 +159,9 @@ class AsyncTrainer:
         if self.async_cfg.delay_rounds > 0:
             specs["gbuf"] = tree_map(
                 lambda s: Spec(s.shape, s.axes, "zeros", s.dtype), pspecs)
+        if self.async_cfg.guards is not None:
+            specs["guard"] = {"health": Spec((self.n_groups,), (None,),
+                                             "zeros", "float32")}
         return specs
 
     def init_state(self, seed: int = 0, params=None):
@@ -106,6 +176,10 @@ class AsyncTrainer:
         }
         if self.async_cfg.delay_rounds > 0:
             state["gbuf"] = tree_map(torch.zeros_like, params)
+        if self.async_cfg.guards is not None:
+            # every worker starts at full health (scale 1 = unguarded γ)
+            state["guard"] = {"health": torch.ones(
+                (self.n_groups,), dtype=F32, device=self.device)}
         return state
 
     # ------------------------------------------------------------- train step
@@ -131,28 +205,41 @@ class AsyncTrainer:
         return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
 
     def train_step_fn(self):
-        """``step(state, batch, mask, delay_scale=None) → (state, metrics)``.
+        """``step(state, batch, mask, delay_scale=None, grad_density=None,
+        fault_gain=None) → (state, metrics)``.
 
         ``delay_scale`` is the optional per-round stepsize scale
         (γ_q = γ·delay_scale_q, a device scalar) fed from the realised
         schedule's delay metadata; omitted, the static ``delay_adaptive``
-        1/(1+delay_rounds) rule applies.  With ``delay_rounds > 0`` the
+        1/(1+delay_rounds) rule applies.  ``grad_density`` is the round's
+        keep-density, a host number (the plan's; the quantile's index
+        arithmetic runs on the host); ``fault_gain`` the round's
+        ``(n_groups,)`` per-worker gains.  With ``delay_rounds > 0`` the
         whole server update (consume the stale ``gbuf``, step params and
         moments, buffer the fresh grads) is one delayed-apply call, and
         round 0, whose buffer is empty, is gated to a zero step on the
         device.  Every metric is a device scalar."""
         acfg = self.async_cfg
+        fused = self.update_impl != "reference"
 
         def step(state, batch, mask, delay_scale=None, grad_density=None,
                  fault_gain=None):
-            if grad_density is not None or fault_gain is not None:
-                raise NotImplementedError(
-                    "the grad_density and fault_gain channels are not ported "
-                    "yet (scenarios and faults, ROADMAP.md queue 1)")
             params = state["params"]
             bsz = batch["tokens"].shape[0]
             mask = mask.to(F32)
             w = self._example_weights(mask, bsz)
+            if fault_gain is not None:
+                # the gain scales the round's received contribution after
+                # the CE's weight normalisation (folded into the weights it
+                # would cancel); a non-participant's gain, NaN included,
+                # is masked out
+                gain = torch.where(mask > 0, torch.as_tensor(
+                    fault_gain, dtype=F32, device=self.device), 1.0)
+                n_part = mask.sum()
+                fault_c = torch.where(
+                    n_part > 0,
+                    (mask * gain).sum() / torch.clamp(n_part, min=1e-6),
+                    1.0)
 
             k = acfg.microbatches
             if k > 1 and bsz % k == 0:
@@ -172,6 +259,34 @@ class AsyncTrainer:
                 parts = {"ce": loss, "aux": aux}
             else:
                 loss, parts, grads = self._value_and_grad(params, batch, w)
+            if fault_gain is not None:
+                # what the server receives is scaled, loss and grads alike,
+                # so the guard sees exactly what the step would apply
+                loss = loss * fault_c
+                parts = {n: v * fault_c for n, v in parts.items()}
+                grads = tree_map(lambda g: g * fault_c.to(g.dtype), grads)
+            if grad_density is not None:
+                grads = tree_map(lambda g: sparsify(g, grad_density), grads)
+
+            if acfg.guards is not None:
+                # the raw norm of the FRESH grads, before they can be
+                # buffered: the delayed apply's own norm is the stale one's
+                gd = acfg.guards
+                raw_norm = global_norm(grads)
+                finite = torch.isfinite(loss) & torch.isfinite(raw_norm)
+                bad = ~finite
+                if gd.spike_norm is not None:
+                    bad = bad | (raw_norm > gd.spike_norm)
+                h = state["guard"]["health"]
+                gscale = (h * mask).sum() / torch.clamp(mask.sum(), min=1.0)
+                h_next = torch.clamp(
+                    torch.where(mask > 0,
+                                torch.where(bad, h * gd.backoff,
+                                            torch.clamp(h * gd.recover,
+                                                        max=1.0)),
+                                h),
+                    gd.min_scale, 1.0)
+                run = finite.to(F32)
 
             if delay_scale is not None:
                 lr_scale = torch.as_tensor(delay_scale, dtype=F32,
@@ -185,23 +300,40 @@ class AsyncTrainer:
                 gate = (state["step"] != 0).to(F32)
             else:
                 gate = torch.ones((), dtype=F32, device=self.device)
+            if acfg.guards is not None:
+                # participation-weighted mean health scales this round's γ
+                gate = gate * gscale
+            kw = {"run": run} if acfg.guards is not None and fused else {}
 
             if acfg.delay_rounds > 0:
                 new_params, new_gbuf, new_opt, gnorm = self._delayed_apply(
                     grads, state["gbuf"], state["opt"], params, self.opt,
-                    lr_scale=lr_scale * gate)
+                    lr_scale=lr_scale * gate, **kw)
                 new_state = {"params": new_params, "opt": new_opt,
                              "step": state["step"] + 1, "gbuf": new_gbuf}
             else:
                 new_params, new_opt, gnorm = self._update(
                     grads, state["opt"], params, self.opt,
-                    lr_scale=lr_scale * gate)
+                    lr_scale=lr_scale * gate, **kw)
                 new_state = {"params": new_params, "opt": new_opt,
                              "step": state["step"] + 1}
             zero = torch.zeros((), dtype=F32, device=self.device)
+            if acfg.guards is None:
+                skipped, gscale = zero, zero + 1.0
+            else:
+                if not fused:
+                    # the reference route built new tensors: a skipped
+                    # round keeps every old leaf, bit for bit
+                    for key in [n for n in new_state if n != "step"]:
+                        new_state[key] = tree_map(
+                            lambda new, old: torch.where(finite, new, old),
+                            new_state[key], state[key])
+                new_state["guard"] = {"health": h_next}
+                gnorm = torch.where(finite, gnorm, zero)
+                skipped = 1.0 - run
             metrics = {"loss": loss, "ce": parts["ce"], "aux": parts["aux"],
                        "grad_norm": gnorm, "participation": mask.mean(),
-                       "skipped": zero, "gscale": zero + 1.0}
+                       "skipped": skipped, "gscale": gscale}
             return new_state, metrics
 
         return step

@@ -63,12 +63,23 @@ and budget, are stepped by ONE program:
 The serve snapshot is the port's own structure (the cache leaves and the
 per-slot tensors; JAX's holds PRNG keys), so serve snapshots do not cross
 packages; their ``meta.json`` ledger, ``admission_policy`` and
-``admission_trace`` have the JAX package's schema.  A recorder
-(observability) is not ported and raises.
+``admission_trace`` have the JAX package's schema.
+
+A ``recorder`` (:class:`repro_torch.obs.Recorder`) traces a serve at its
+host boundaries, with the JAX server's event names: ``admission_sweep``,
+``prefill`` and ``admit`` spans on the ``server`` lane, one ``request``
+span per request's lifetime on its ``slot{i}`` lane, ``launch`` spans
+around each chunk's replay, ``evict`` / ``retry`` / ``timeout`` /
+``shed`` / ``drain_start`` instants, ``in_flight`` and ``occupancy``
+gauges per sweep, a ``ttft_steps`` histogram and the serve's counters.
+Spans time the host: on the card a ``launch`` span is the replay's
+enqueue.  The server's :class:`~repro_torch.obs.CompileWatch` counts the
+chunk's captures (``compile_counts``).
 """
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 from typing import Callable, Optional, Union
 
 import numpy as np
@@ -77,8 +88,15 @@ import torch
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from ..models import model as M
+from ..obs import CompileWatch
 from ..tree import tree_leaves, tree_map
 from .admission import AdmissionPolicy, AdmissionTrace, parse_admission
+
+
+def _span(rec, name, lane, **args):
+    """A recorder span, or nothing without a recorder (an un-observed serve
+    pays nothing)."""
+    return rec.span(name, lane, **args) if rec is not None else nullcontext()
 
 
 @dataclasses.dataclass
@@ -425,7 +443,7 @@ class _Lanes:
 class SlotServer:
     """Continuous-batching decode over ``n_slots`` ragged lanes on
     ``device`` (default CUDA).  ``capture=False`` runs the chunk eagerly on
-    the card too."""
+    the card too.  ``recorder`` traces every serve (module docstring)."""
 
     def __init__(self, cfg: ArchConfig, slots: SlotConfig, device="cuda",
                  capture: bool = True, recorder=None):
@@ -433,15 +451,13 @@ class SlotServer:
             raise NotImplementedError(
                 f"slot serving admits token-only prompts; the {cfg.family!r} "
                 "family needs per-request modality inputs (follow-up)")
-        if recorder is not None:
-            raise NotImplementedError(
-                "a serve recorder is observability, not ported yet "
-                "(ROADMAP.md queue 1, item 12)")
         self.cfg, self.slots = cfg, slots
         self.device = resolve_device(device)
         self.capture = capture and self.device.type == "cuda"
+        self.recorder = recorder      # repro_torch.obs.Recorder | None
+        self.watch = CompileWatch(recorder)   # counts the chunk's captures
+        self.watch.register("chunk")
         self._lanes = _Lanes(cfg, slots, self.device)
-        self._captures = 0
         self._graph = None            # the captured chunk
         self._params = None           # the graph's copy of the params
         self._prefill_fns = {}        # prompt_len -> batch-1 prefill
@@ -449,10 +465,11 @@ class SlotServer:
 
     def compile_counts(self) -> dict:
         """How often each program was built: ``chunk``, the captures of the
-        chunk's CUDA graph (0 on the eager route).  Rotating requests
-        through freed slots and serving again keep it at 1.  Admission and
-        prefill run eagerly, so nothing of theirs is built."""
-        return {"chunk": self._captures}
+        chunk's CUDA graph (0 on the eager route), from the server's
+        :class:`~repro_torch.obs.CompileWatch`.  Rotating requests through
+        freed slots and serving again keep it at 1.  Admission and prefill
+        run eagerly, so nothing of theirs is built."""
+        return self.watch.counts()
 
     # ---- programs ----------------------------------------------------------
     def _load_params(self, params) -> None:
@@ -477,7 +494,7 @@ class SlotServer:
         with torch.cuda.graph(graph):
             for j in range(K):
                 lanes.step(self._params, j)
-        self._captures += 1
+        self.watch.captured("chunk")
         return graph
 
     def chunk_fn(self) -> Callable:
@@ -666,7 +683,9 @@ class SlotServer:
             resumed_from = L.t
         else:
             L = _Ledger(n_req, S, arr)
+        rec = self.recorder
         step_maps: dict = {}          # chunk start -> [(rid, fin)] per slot
+        req_ns: dict = {}             # rid -> admission's trace ns
         tap_rows = [0]
         mismatches: list = []
 
@@ -683,6 +702,10 @@ class SlotServer:
                     if rid not in L.cur_evict:
                         L.cur_evict[rid] = int(idx)
                         L.evict_events.append([rid, int(idx)])
+                        if rec is not None:
+                            rec.instant("evict", lane="faults", rid=rid,
+                                        step=int(idx))
+                            rec.count("evictions")
                 ev = L.cur_evict.get(rid) if rid >= 0 else None
                 predicted = (rid >= 0 and idx < fin_s
                              and (ev is None or idx < ev))
@@ -730,6 +753,7 @@ class SlotServer:
                 for s in range(S):
                     if L.slot_rid[s] == rid:
                         L.slot_rid[s] = -1
+                req_ns.pop(rid, None)
                 row = L.outputs.pop(rid, None)
                 if row is not None:
                     L.emitted[rid] = (L.emitted.get(rid, [])
@@ -742,6 +766,10 @@ class SlotServer:
                     L.state_of[rid] = "queued"
                     L.eligible[rid] = step + retry.backoff_steps(tries)
                     policy.requeue(rid)
+                    if rec is not None:
+                        rec.instant("retry", lane="server", rid=rid,
+                                    step=step, attempt=tries)
+                        rec.count("retries")
                 else:
                     L.state_of[rid] = "done"
                     L.evictions[rid] = step
@@ -753,6 +781,7 @@ class SlotServer:
         chunks_run = 0                # this serve's launches
         last_offered = None
         pending = None                # the chunk whose tap rows are in flight
+        drain_ns = None
         events = []                   # (start, end) CUDA events per chunk
         attempts_bound = retry.max_attempts if retry is not None else 1
         backoff_total = (sum(retry.backoff_steps(f)
@@ -767,6 +796,7 @@ class SlotServer:
                     f"slot loop passed its horizon ({horizon} steps) with "
                     f"{n_req - L.done} requests unfinished — admission "
                     "bookkeeping is stuck")
+            sweep0 = rec.now_ns() if rec is not None else 0
             drain_events()
             # -- scheduled driver preemption -------------------------------
             if preempts:
@@ -788,16 +818,28 @@ class SlotServer:
                 L.state_of[rid] = "done"
                 trace.completed(rid, s, L.fin[rid], L.in_flight + 1)
                 policy.notify_completion(rid)
+                if rec is not None and rid in req_ns:
+                    # the request's lifetime on its slot's own lane
+                    rec.span_at("request", f"slot{s}", req_ns.pop(rid),
+                                rec.now_ns(), rid=rid,
+                                steps=L.fin[rid] - L.admit_t[rid] + 1)
+                    rec.count("completions")
             # -- graceful drain (stop admitting, finish in-flight) ---------
             if (drain_after is not None and t >= drain_after
                     and L.drain_t is None):
                 L.drain_t = t
+                drain_ns = rec.now_ns() if rec is not None else None
                 for r in sorted(L.state_of):
                     if L.state_of[r] == "queued":
                         L.state_of[r] = "done"
                         L.drained[r] = t
                         trace.drained(r, t)
                         policy.cancel(r)
+                if rec is not None:
+                    rec.instant("drain_start", lane="server", step=t,
+                                cancelled=len(L.drained),
+                                in_flight=L.in_flight)
+                    rec.count("drained", len(L.drained))
             # -- deadline timeouts (queue-wait budget) ---------------------
             if deadline is not None:
                 for r in range(n_req):
@@ -810,11 +852,19 @@ class SlotServer:
                             trace.retried(r, tries)
                             if tries < retry.max_attempts:
                                 L.eligible[r] = t + retry.backoff_steps(tries)
+                                if rec is not None:
+                                    rec.instant("retry", lane="server",
+                                                rid=r, step=t, attempt=tries)
+                                    rec.count("retries")
                                 continue
                         L.timeouts[r] = t
                         L.state_of[r] = "done"
                         policy.cancel(r)
                         trace.timed_out(r, t)
+                        if rec is not None:
+                            rec.instant("timeout", lane="server", rid=r,
+                                        step=t, wait=t - int(el))
+                            rec.count("timeouts")
             # -- admissions into free slots --------------------------------
             arrived = {r for r, st_r in L.state_of.items()
                        if st_r == "queued" and L.eligible[r] <= t}
@@ -836,18 +886,27 @@ class SlotServer:
                 else:
                     pf_e, ptoks = pf, prompts_dev[rid:rid + 1]
                 rem0 = max_new - 1 - e
-                tok0, pcache = pf_e(params, ptoks)
-                admit(s, pcache, tok0, plen + e, rem0, rid,
-                      L.tries.get(rid, 0))
+                with _span(rec, "prefill", "server", rid=rid, plen=plen + e):
+                    tok0, pcache = pf_e(params, ptoks)
+                with _span(rec, "admit", "server", rid=rid, slot=s):
+                    admit(s, pcache, tok0, plen + e, rem0, rid,
+                          L.tries.get(rid, 0))
                 L.outputs[rid] = [tok0]
                 L.admit_t.setdefault(rid, t)
                 L.fin[rid] = t + rem0
                 trace.admitted(rid, t)
                 arrived.discard(rid)
+                if rec is not None:
+                    rec.hist("ttft_steps", t - int(arr[rid]))
+                    req_ns[rid] = rec.now_ns()
                 if rem0 == 0:         # budget already emitted: completes
                     L.state_of[rid] = "done"          # at admission
                     trace.completed(rid, s, t, L.in_flight + 1)
                     policy.notify_completion(rid)
+                    if rec is not None and rid in req_ns:
+                        rec.span_at("request", f"slot{s}", req_ns.pop(rid),
+                                    rec.now_ns(), rid=rid, steps=1)
+                        rec.count("completions")
                 else:
                     L.slot_rid[s] = rid
                     L.state_of[rid] = "inflight"
@@ -868,6 +927,15 @@ class SlotServer:
                         L.shed[r] = t
                         trace.shed(r, t)
                         policy.cancel(r)
+                        if rec is not None:
+                            rec.instant("shed", lane="server", rid=r,
+                                        step=t, policy=overload.shed)
+                            rec.count("shed")
+            if rec is not None:
+                rec.span_at("admission_sweep", "server", sweep0,
+                            rec.now_ns(), t=t)
+                rec.gauge("in_flight", L.in_flight, lane="server")
+                rec.gauge("occupancy", L.in_flight / S, lane="server")
             if L.done >= n_req:
                 break
             if L.in_flight == 0:
@@ -893,14 +961,15 @@ class SlotServer:
             poisoned = bool(mask.any())
             if poisoned:
                 lanes.poison.copy_(torch.from_numpy(mask))
-            if cuda:
-                ev = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-                ev[0].record()
-            chunk(params)
-            if cuda:
-                ev[1].record()
-                events.append(ev)
+            with _span(rec, "launch", "server", t=t, in_flight=L.in_flight):
+                if cuda:
+                    ev = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                    ev[0].record()
+                chunk(params)
+                if cuda:
+                    ev[1].record()
+                    events.append(ev)
             if poisoned:
                 lanes.poison.zero_()
             rows = self._queue_tap(L.chunks)
@@ -912,14 +981,16 @@ class SlotServer:
             t += K
             L.t = t
             if sync:
-                fold(pending)
+                with _span(rec, "chunk_barrier", "server", t=t):
+                    fold(pending)
                 pending = None
             if snapshot is not None and snapshot.due(t, 1 << 62):
                 drain_events()        # the ledger holds the folded rows
                 snapshot.offer(t, lanes.state(), meta=ledger_meta())
                 last_offered = t
-        if pending is not None:
-            fold(pending)
+        with _span(rec, "barrier", "server"):
+            if pending is not None:
+                fold(pending)
         drain_events()
 
         if mismatches:
@@ -957,6 +1028,17 @@ class SlotServer:
         occ = (L.busy_steps / (L.chunks * K * S)) if L.chunks else 0.0
         chunk_ms = (sum(a.elapsed_time(b) for a, b in events)
                     if cuda else None)
+        if rec is not None:
+            rec.count("requests", n_req)
+            rec.count("serve_chunks", chunks_run)
+            rec.count("serve_decode_steps", chunks_run * K)
+            rec.count("serve_tap_rows", tap_rows[0])
+            rec.gauge("occupancy_mean", float(occ), lane="server")
+            if L.drain_t is not None and drain_ns is not None:
+                rec.span_at("drain", "server", drain_ns, rec.now_ns(),
+                            t=L.drain_t, cancelled=len(L.drained))
+                rec.gauge("drain_final_occupancy", L.in_flight / S,
+                          lane="server")
         return ServeResult(tokens=toks, schedule=trace.schedule(),
                            ttft_steps=ttft, occupancy=float(occ),
                            decode_steps=L.chunks * K, chunks=L.chunks,

@@ -19,13 +19,20 @@ kernel                    computes                       replaces (TPU)
 Every function here updates its operands IN PLACE (the JAX step donates
 them) and returns the same tensors: p keeps its dtype, gbuf′ takes g's
 dtype (so gbuf and g share one), m and v are f32.  The scalars arrive as a
-small f32 tensor on the operands' device, ``[eff]`` for the SGD kernels,
-``[lr·delay_scale, clip]`` for the heavy-ball kernels and
-``[lr, bc1, bc2, clip, wd]`` for the Adam kernels (:func:`sgd_scalars`,
-:func:`momentum_scalars`, :func:`adam_scalars`), as the TPU kernels take
-them from an SMEM block.  They may be device values (clip scale, bias
-corrections, gate), and nothing here reads them back to the host.  The
-momentum μ, like β1, is a launch argument.
+small f32 tensor on the operands' device, ``[eff, run]`` for the SGD
+kernels, ``[lr·delay_scale, clip, run]`` for the heavy-ball kernels and
+``[lr, bc1, bc2, clip, wd, run]`` for the Adam kernels
+(:func:`sgd_scalars`, :func:`momentum_scalars`, :func:`adam_scalars`), as
+the TPU kernels take them from an SMEM block.  They may be device values
+(clip scale, bias corrections, gate), and nothing here reads them back to
+the host.  The momentum μ, like β1, is a launch argument.
+
+``run`` is the guard rails' skip gate (``AsyncConfig.guards``), a device
+value 1 or 0 taken from the round's finite check.  At 0 a call writes
+nothing: p, m, v and gbuf keep their bits, whatever g holds (NaN
+included), and the stale gbuf is not replaced by g — what the JAX step's
+skip branch keeps.  At 1 (the default, and always without guards) every
+call computes what it computed before the gate existed.
 
 * ``<name>_cuda`` launches the kernel on a CUDA tensor and adds one to
   ``launches[name]`` per launch; it raises on what the kernel does not take
@@ -67,16 +74,18 @@ def _f32(x, device):
     return torch.as_tensor(x, dtype=F32, device=device).reshape(())
 
 
-def sgd_scalars(lr, clip_scale, delay_scale, device):
-    """``[eff]`` with eff = (lr·clip_scale)·delay_scale, the JAX order."""
+def sgd_scalars(lr, clip_scale, delay_scale, device, run=1.0):
+    """``[eff, run]`` with eff = (lr·clip_scale)·delay_scale, the JAX
+    order."""
     eff = (lr * _f32(clip_scale, device)) * _f32(delay_scale, device)
-    return eff.reshape(1)
+    return torch.stack([eff, _f32(run, device)])
 
 
-def momentum_scalars(lr, clip_scale, delay_scale, device):
-    """``[lr·delay_scale, clip]``, as the JAX heavy-ball wrappers stack them."""
+def momentum_scalars(lr, clip_scale, delay_scale, device, run=1.0):
+    """``[lr·delay_scale, clip, run]``, as the JAX heavy-ball wrappers
+    stack the first two."""
     return torch.stack([lr * _f32(delay_scale, device),
-                        _f32(clip_scale, device)])
+                        _f32(clip_scale, device), _f32(run, device)])
 
 
 def adam_bias_corrections(beta1, beta2, count):
@@ -86,10 +95,10 @@ def adam_bias_corrections(beta1, beta2, count):
     return 1.0 - torch.pow(beta1, c), 1.0 - torch.pow(beta2, c)
 
 
-def adam_scalars(lr, bc1, bc2, clip_scale, weight_decay, device):
-    """``[lr, bc1, bc2, clip, wd]`` as one f32 tensor on ``device``."""
+def adam_scalars(lr, bc1, bc2, clip_scale, weight_decay, device, run=1.0):
+    """``[lr, bc1, bc2, clip, wd, run]`` as one f32 tensor on ``device``."""
     return torch.stack([_f32(x, device) for x in
-                        (lr, bc1, bc2, clip_scale, weight_decay)])
+                        (lr, bc1, bc2, clip_scale, weight_decay, run)])
 
 
 def _adam_coefs(beta1, beta2, eps):
@@ -104,42 +113,51 @@ def _adam_coefs(beta1, beta2, eps):
 # plain versions (the Pallas bodies, in place)
 # ---------------------------------------------------------------------------
 
+def _put(run, dst, new):
+    """dst ← new where the run flag is set, else dst's own bits (a select,
+    so the flag stays on the device)."""
+    dst.copy_(torch.where(run, new.to(dst.dtype), dst))
+
+
 def async_update_plain(p, gbuf, g, scal):
-    eff = scal[0]
+    eff, run = scal[0], scal[1] != 0
     stale = gbuf.to(F32)
-    p.copy_(p.to(F32) - eff * stale)
-    gbuf.copy_(g)
+    _put(run, p, p.to(F32) - eff * stale)
+    _put(run, gbuf, g)
     return p, gbuf
 
 
 def sgd_step_plain(p, g, scal):
-    p.copy_(p.to(F32) - scal[0] * g.to(F32))
+    _put(scal[1] != 0, p, p.to(F32) - scal[0] * g.to(F32))
     return p
 
 
 def sgd_momentum_step_plain(p, m, g, scal, *, momentum):
-    lr_eff, clip = scal.unbind()
-    m.copy_(momentum * m + clip * g.to(F32))
-    p.copy_(p.to(F32) - lr_eff * m)
+    lr_eff, clip, run = scal.unbind()
+    run = run != 0
+    m_new = momentum * m + clip * g.to(F32)
+    _put(run, p, p.to(F32) - lr_eff * m_new)
+    _put(run, m, m_new)
     return p, m
 
 
 def sgd_momentum_delayed_plain(p, m, gbuf, g, scal, *, momentum):
     sgd_momentum_step_plain(p, m, gbuf, scal, momentum=momentum)  # gbuf first
-    gbuf.copy_(g)
+    _put(scal[2] != 0, gbuf, g)
     return p, m, gbuf
 
 
 def _adam_plain(p, m, v, graw, scal, beta1, beta2, eps):
-    lr, bc1, bc2, clip, wd = scal.unbind()
+    lr, bc1, bc2, clip, wd, run = scal.unbind()
+    run = run != 0
     s = clip * graw.to(F32)
     m_new = beta1 * m + (1.0 - beta1) * s
     v_new = beta2 * v + (1.0 - beta2) * s * s
     step = (m_new / bc1) / (torch.sqrt(v_new / bc2) + eps)
     step = step + wd * p.to(F32)
-    p.copy_(p.to(F32) - lr * step)
-    m.copy_(m_new)
-    v.copy_(v_new)
+    _put(run, p, p.to(F32) - lr * step)
+    _put(run, m, m_new)
+    _put(run, v, v_new)
 
 
 def fused_adam_plain(p, m, v, g, scal, *, beta1=0.9, beta2=0.95, eps=1e-8):
@@ -150,7 +168,7 @@ def fused_adam_plain(p, m, v, g, scal, *, beta1=0.9, beta2=0.95, eps=1e-8):
 def fused_adam_delayed_plain(p, m, v, gbuf, g, scal, *, beta1=0.9,
                              beta2=0.95, eps=1e-8):
     _adam_plain(p, m, v, gbuf, scal, beta1, beta2, eps)   # reads gbuf first
-    gbuf.copy_(g)
+    _put(scal[5] != 0, gbuf, g)
     return p, m, v, gbuf
 
 
@@ -223,21 +241,21 @@ def _launch(name, params, grads, *ptrs, coefs=()):
 
 
 def async_update_cuda(p, gbuf, g, scal):
-    _check("async_update", params=p, grads=(gbuf, g), scal=scal, n_scal=1)
+    _check("async_update", params=p, grads=(gbuf, g), scal=scal, n_scal=2)
     _launch("async_update", p, g, p.data_ptr(), gbuf.data_ptr(),
             g.data_ptr(), scal.data_ptr())
     return p, gbuf
 
 
 def sgd_step_cuda(p, g, scal):
-    _check("sgd_step", params=p, grads=(g,), scal=scal, n_scal=1)
+    _check("sgd_step", params=p, grads=(g,), scal=scal, n_scal=2)
     _launch("sgd_step", p, g, p.data_ptr(), g.data_ptr(), scal.data_ptr())
     return p
 
 
 def sgd_momentum_step_cuda(p, m, g, scal, *, momentum):
     _check("sgd_momentum_step", params=p, moments=(m,), grads=(g,), scal=scal,
-           n_scal=2)
+           n_scal=3)
     _launch("sgd_momentum_step", p, g, p.data_ptr(), m.data_ptr(),
             g.data_ptr(), scal.data_ptr(), coefs=(ctypes.c_float(momentum),))
     return p, m
@@ -245,7 +263,7 @@ def sgd_momentum_step_cuda(p, m, g, scal, *, momentum):
 
 def sgd_momentum_delayed_cuda(p, m, gbuf, g, scal, *, momentum):
     _check("sgd_momentum_delayed", params=p, moments=(m,), grads=(gbuf, g),
-           scal=scal, n_scal=2)
+           scal=scal, n_scal=3)
     _launch("sgd_momentum_delayed", p, g, p.data_ptr(), m.data_ptr(),
             gbuf.data_ptr(), g.data_ptr(), scal.data_ptr(),
             coefs=(ctypes.c_float(momentum),))
@@ -254,7 +272,7 @@ def sgd_momentum_delayed_cuda(p, m, gbuf, g, scal, *, momentum):
 
 def fused_adam_cuda(p, m, v, g, scal, *, beta1=0.9, beta2=0.95, eps=1e-8):
     _check("fused_adam", params=p, moments=(m, v), grads=(g,), scal=scal,
-           n_scal=5)
+           n_scal=6)
     _launch("fused_adam", p, g, p.data_ptr(), m.data_ptr(), v.data_ptr(),
             g.data_ptr(), scal.data_ptr(),
             coefs=_adam_coefs(beta1, beta2, eps))
@@ -264,7 +282,7 @@ def fused_adam_cuda(p, m, v, g, scal, *, beta1=0.9, beta2=0.95, eps=1e-8):
 def fused_adam_delayed_cuda(p, m, v, gbuf, g, scal, *, beta1=0.9,
                             beta2=0.95, eps=1e-8):
     _check("fused_adam_delayed", params=p, moments=(m, v), grads=(gbuf, g),
-           scal=scal, n_scal=5)
+           scal=scal, n_scal=6)
     _launch("fused_adam_delayed", p, g, p.data_ptr(), m.data_ptr(),
             v.data_ptr(), gbuf.data_ptr(), g.data_ptr(), scal.data_ptr(),
             coefs=_adam_coefs(beta1, beta2, eps))

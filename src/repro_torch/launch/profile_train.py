@@ -3,6 +3,7 @@
     PYTHONPATH=src python -m repro_torch.launch.profile_train \\
         [--update-impl pallas|reference] [--opt adam|sgd] [--delay-rounds 1]
         [--rounds 4] [--warmup 2] [--trace-dir DIR]
+        [--scenario SPEC] [--guards]
 
 Runs the training main path's configuration (qwen2-0.5b at full width,
 global batch 8 × 512 tokens, 4 AsGrad workers under the ``pure``
@@ -16,7 +17,12 @@ which waits for the device), then records the same rounds under
 * wall time, the summed device time of its kernels (device rows only) and
   the device's idle share (``1 − device / wall``);
 * the update kernels' device time and their share of the device time;
+* the sorts' device time (the sparsifier of a ``sparsify`` scenario);
 * the kernels that took most device time.
+
+``--scenario`` runs the rounds under a scenario world, its channels
+lowered into the plan as ``TrainerBackend`` lowers them, and
+``--guards`` arms the guard rails (``TrainJob(guards=True)``).
 
 ``--trace-dir`` also writes the profiler's Chrome trace there
 (``train.json``).  Needs a CUDA card.
@@ -38,23 +44,31 @@ from ..runtime import PlanExecutor, compile_plan
 TOP = 15                        # kernels listed
 #: substrings of the update kernels' names in csrc/async_update.cu
 UPDATE_KERNELS = ("async_update_kernel", "sgd_step_kernel", "adam_kernel")
+#: substring of the sort kernels' names (the sparsifier's sorts)
+SORT_KERNELS = ("Sort", "sort")
 
 
-def main_path_spec(update_impl="pallas", opt="adam", delay_rounds=1, T=8):
-    """The training main path of ``chip_smoke.py``."""
+def main_path_spec(update_impl="pallas", opt="adam", delay_rounds=1, T=8,
+                   scenario=None, guards=False):
+    """The training main path of ``chip_smoke.py`` (under ``scenario``
+    with ``guards``: its faults phase)."""
     job = TrainJob(arch="qwen2-0.5b", reduced=False, global_batch=8,
                    seq_len=512, update_impl=update_impl, opt=opt,
-                   delay_rounds=delay_rounds)
+                   delay_rounds=delay_rounds, guards=guards)
     return ExperimentSpec(objective=job, scheduler="pure",
                           timing="fixed:slow=5", n_workers=4, T=T,
                           stepsize=3e-4, seed=0, runtime="scan",
-                          rounds_per_launch=4)
+                          rounds_per_launch=4, scenario=scenario)
 
 
 def _executor(tr, spec, n_groups, rounds):
-    masks, schedule = TrainerBackend.masks_for(spec, n_groups)
-    plan = compile_plan(schedule, spec.objective, rounds=rounds,
-                        n_groups=n_groups, seed=spec.seed)
+    world = TrainerBackend.world_for(spec, n_groups)
+    plan = compile_plan(world.schedule, spec.objective, rounds=rounds,
+                        n_groups=n_groups, seed=spec.seed,
+                        availability=world.availability,
+                        zipf_as=world.zipf_as,
+                        grad_density=world.grad_density,
+                        fault_gain=world.fault_gain)
     return PlanExecutor(tr, plan)
 
 
@@ -65,10 +79,13 @@ def _report(prof, wall_s: float, rounds: int) -> None:
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 / rounds
     upd_ms = sum(e.self_device_time_total for e in rows
                  if any(k in e.key for k in UPDATE_KERNELS)) / 1e3 / rounds
+    sort_ms = sum(e.self_device_time_total for e in rows
+                  if any(k in e.key for k in SORT_KERNELS)) / 1e3 / rounds
     wall_ms = wall_s * 1e3 / rounds
     print(f"profiled, per round: wall {wall_ms:.3f} ms, device "
           f"{dev_ms:.3f} ms, idle share {1 - dev_ms / wall_ms:.3f}; update "
-          f"kernels {upd_ms:.3f} ms = {upd_ms / dev_ms:.3f} of device time")
+          f"kernels {upd_ms:.3f} ms = {upd_ms / dev_ms:.3f} of device time; "
+          f"sorts {sort_ms:.3f} ms = {sort_ms / dev_ms:.3f}")
     for e in rows[:TOP]:
         print(f"  {e.self_device_time_total / 1e3 / rounds:9.3f} ms/round "
               f"{e.count // rounds:5d}x/round  {e.key[:90]}")
@@ -82,11 +99,14 @@ def main(argv=None) -> None:
     ap.add_argument("--rounds", type=int, default=4)
     ap.add_argument("--warmup", type=int, default=2)
     ap.add_argument("--trace-dir", default=None)
+    ap.add_argument("--scenario", default=None)
+    ap.add_argument("--guards", action="store_true")
     args = ap.parse_args(argv)
 
     device = resolve_device("cuda")
     spec = main_path_spec(args.update_impl, args.opt, args.delay_rounds,
-                          T=args.warmup + args.rounds)
+                          T=args.warmup + args.rounds,
+                          scenario=args.scenario, guards=args.guards)
     tr, cfg, n_groups = TrainerBackend(device)._make_trainer(
         spec, spec.objective, spec.stepsize.gamma, False, device)
     state = tr.init_state(spec.seed)
@@ -105,7 +125,8 @@ def main(argv=None) -> None:
     print(f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} batch "
           f"{spec.objective.global_batch}x{spec.objective.seq_len} "
           f"opt={args.opt} delay_rounds={args.delay_rounds} "
-          f"update_impl={tr.update_impl}: {wall * 1e3 / args.rounds:.3f} ms "
+          f"update_impl={tr.update_impl} guards={args.guards} scenario="
+          f"{args.scenario}: {wall * 1e3 / args.rounds:.3f} ms "
           f"per round (warm, {args.rounds} rounds, one launch); loss "
           f"{res.metrics['loss'][0]:.5f} -> {res.metrics['loss'][-1]:.5f}; "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")

@@ -20,6 +20,13 @@ SGD with ``momentum > 0`` on a fused impl runs the heavy-ball kernels
 (``sgd_momentum_step``, and ``sgd_momentum_delayed`` for the delayed
 apply), the f32 momentum buffer riding the same pass.
 
+The fused updates take ``run``, the guard rails' skip gate: a device
+scalar (1 or 0, from the round's finite check) that rides the kernels'
+scalar block and ticks ``count`` in place, so a skipped round launches
+every kernel, writes nothing and leaves ``count`` where it was, with no
+host read.  ``None`` is the unguarded 1.  The reference updates are
+functional and take no gate: the trainer selects their result per leaf.
+
 Not ported yet, and raising ``NotImplementedError``: the pooled impls
 (``"pallas_pooled*"``, ``optim/pool.py``; ROADMAP.md).
 """
@@ -159,18 +166,25 @@ def sgd_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0):
 # --------------------------------------------------------------------------
 # fused execution of the same updates (in place)
 # --------------------------------------------------------------------------
-def _tick(opt_state):
-    """count += 1 in place on the device (no host read), as JAX increments
-    it before use on every round, the gated round 0 included."""
+def _tick(opt_state, run=None):
+    """count += run in place on the device (no host read): by 1 on every
+    round that applies, the gated round 0 included, as JAX increments it
+    before use; by 0 on a round the guards skip."""
     count = opt_state["count"]
-    count.add_(1)
+    count.add_(1 if run is None else run.to(count.dtype))
     return count
 
 
-def _adam_scal(cfg, clip_scale, count, lr_scale):
+def _run(run):
+    """The run flag for a scalar block: the unguarded 1 when ``None``."""
+    return 1.0 if run is None else run
+
+
+def _adam_scal(cfg, clip_scale, count, lr_scale, run=None):
     bc1, bc2 = adam_bias_corrections(cfg.beta1, cfg.beta2, count)
     return adam_scalars(cfg.lr * lr_scale, bc1, bc2, clip_scale,
-                        cfg.weight_decay, count.device)
+                        cfg.weight_decay, count.device,
+                        run=_run(run))
 
 
 def _leaf_map(fn, *trees):
@@ -179,30 +193,35 @@ def _leaf_map(fn, *trees):
         fn(*leaves)
 
 
-def fused_adam_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0):
+def fused_adam_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0,
+                      run=None):
     """``adam_update`` semantics, one ``fused_adam`` launch per leaf: the
-    clip factor, bias corrections and weight decay ride the scalar block."""
+    clip factor, bias corrections, weight decay and ``run`` ride the scalar
+    block."""
     clip_scale, gnorm = clip_scale_by_global_norm(grads, cfg.clip_norm)
-    scal = _adam_scal(cfg, clip_scale, _tick(opt_state), lr_scale)
+    scal = _adam_scal(cfg, clip_scale, _tick(opt_state, run), lr_scale, run)
     kw = dict(beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps)
     _leaf_map(lambda p, g, m, v: ops.fused_adam(p, m, v, g, scal, **kw),
               params, grads, opt_state["m"], opt_state["v"])
     return params, opt_state, gnorm
 
 
-def fused_sgd_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0):
+def fused_sgd_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0,
+                     run=None):
     """SGD through the swap-free ``sgd_step`` kernel, one launch per leaf;
     with ``cfg.momentum`` the f32 momentum buffer rides the same pass
     (``sgd_momentum_step``)."""
     clip_scale, gnorm = clip_scale_by_global_norm(grads, cfg.clip_norm)
-    count = _tick(opt_state)
+    count = _tick(opt_state, run)
+    run = _run(run)
     if cfg.momentum:
-        scal = momentum_scalars(cfg.lr, clip_scale, lr_scale, count.device)
+        scal = momentum_scalars(cfg.lr, clip_scale, lr_scale, count.device,
+                                run)
         _leaf_map(lambda p, m, g: ops.sgd_momentum_step(
             p, m, g, scal, momentum=cfg.momentum),
             params, opt_state["m"], grads)
     else:
-        scal = sgd_scalars(cfg.lr, clip_scale, lr_scale, count.device)
+        scal = sgd_scalars(cfg.lr, clip_scale, lr_scale, count.device, run)
         _leaf_map(lambda p, g: ops.sgd_step(p, g, scal), params, grads)
     return params, opt_state, gnorm
 
@@ -223,25 +242,28 @@ def reference_delayed_apply(grads, gbuf, opt_state, params, cfg: OptConfig,
 
 
 def fused_delayed_apply(grads, gbuf, opt_state, params, cfg: OptConfig,
-                        lr_scale=1.0):
+                        lr_scale=1.0, run=None):
     """Per leaf, ONE kernel consumes the stale buffer, steps the params
     (and the moments for Adam, the momentum for heavy-ball SGD) and writes
-    the fresh gradient into the buffer, all in place."""
+    the fresh gradient into the buffer, all in place; at ``run`` 0 every
+    kernel writes nothing."""
     clip_scale, gnorm = clip_scale_by_global_norm(gbuf, cfg.clip_norm)
-    count = _tick(opt_state)
+    count = _tick(opt_state, run)
     if cfg.name == "adam":
-        scal = _adam_scal(cfg, clip_scale, count, lr_scale)
+        scal = _adam_scal(cfg, clip_scale, count, lr_scale, run)
         kw = dict(beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps)
         _leaf_map(lambda p, gb, g, m, v: ops.fused_adam_delayed(
             p, m, v, gb, g, scal, **kw),
             params, gbuf, grads, opt_state["m"], opt_state["v"])
     elif cfg.momentum:
-        scal = momentum_scalars(cfg.lr, clip_scale, lr_scale, count.device)
+        scal = momentum_scalars(cfg.lr, clip_scale, lr_scale, count.device,
+                                _run(run))
         _leaf_map(lambda p, m, gb, g: ops.sgd_momentum_delayed(
             p, m, gb, g, scal, momentum=cfg.momentum),
             params, opt_state["m"], gbuf, grads)
     else:
-        scal = sgd_scalars(cfg.lr, clip_scale, lr_scale, count.device)
+        scal = sgd_scalars(cfg.lr, clip_scale, lr_scale, count.device,
+                           _run(run))
         _leaf_map(lambda p, gb, g: ops.async_update(p, gb, g, scal),
                   params, gbuf, grads)
     return params, gbuf, opt_state, gnorm

@@ -20,12 +20,32 @@ chunk (scan) or per round (eager); a host sync per blocking metric read.
 ``run_scan(snapshot=...)`` offers the end-of-chunk state to a
 :class:`repro_torch.checkpoint.AsyncSnapshotter` at its due boundaries and
 drains it at the end of the run; a restored state resumes through
-``start_round``.  Not ported yet: the ``"tap"`` transport, the vmapped
-γ-grid lane and the divergence breaker (ROADMAP.md queue 1).
+``start_round``.
+
+A plan's scenario channels ride each round: the drifting data law picks
+the round's row of the device-resident CDF bank (its index is a host
+value, since the round loop is on the host), and the round passes its
+keep-density (a host number) and its per-worker fault gains (a device
+row) to the step.  A density forces the explicit-scale step, as in the
+JAX executor.
+
+``recorder`` (a :class:`repro_torch.obs.Recorder`) traces the run at host
+boundaries that exist anyway, and never adds a device sync: ``launch``
+spans around the enqueue of each chunk (or eager round), ``host_sync``
+spans around the metric reads, a ``barrier`` span around the completion
+wait, ``snapshot_offer`` spans, the counters of :class:`ExecStats`, and,
+from the metric rows once they are on the host, a ``guard_skip`` instant
+per skipped round and a ``gscale`` gauge per round whose health scale is
+not 1.  On the card a span measures host enqueue time, not device time.
+Without a recorder nothing is traced and nothing is paid.
+
+Not ported yet: the ``"tap"`` transport, the vmapped γ-grid lane and the
+divergence breaker (ROADMAP.md queue 1).
 """
 from __future__ import annotations
 
 import dataclasses
+from contextlib import nullcontext
 from typing import Callable, Optional
 
 import numpy as np
@@ -41,6 +61,15 @@ METRICS = ("loss", "ce", "aux", "grad_norm", "participation",
 
 #: metric transport modes of the scan executor that are ported
 METRIC_MODES = ("chunk", "none")
+
+_SKIP_IDX = METRICS.index("skipped")
+_GSCALE_IDX = METRICS.index("gscale")
+
+
+def _span(rec, name, lane, **args):
+    """A recorder span, or nothing without a recorder (an un-observed run
+    pays nothing on the dispatch path)."""
+    return rec.span(name, lane, **args) if rec is not None else nullcontext()
 
 
 @dataclasses.dataclass
@@ -91,13 +120,17 @@ def make_batch_fn(plan: RunPlan, cfg, device) -> Callable:
 
     Tokens: inverse-CDF Zipf draws (``searchsorted`` on the plan's
     cumulative pmf) pushed through each group's vocab permutation, the law
-    of the JAX package's device synthesis.  The uniforms come from a
+    of the JAX package's device synthesis.  On a drifting plan round q
+    draws from ``cdf_bank[cdf_index[q]]`` (the bank lives on the device,
+    the index is read on the host).  The uniforms come from a
     ``torch.Generator`` on ``device`` seeded with ``plan.data_keys[q]``:
     torch's stream, not JAX's."""
     from ..models import batch_specs
 
     specs = batch_specs(cfg, plan.global_batch, plan.seq_len)
     cdf = torch.as_tensor(plan.token_cdf, device=device)
+    bank = (None if plan.cdf_bank is None
+            else torch.as_tensor(plan.cdf_bank, device=device))
     perms = torch.as_tensor(plan.group_perms, dtype=torch.int64,
                             device=device)
     per = plan.global_batch // plan.n_groups
@@ -106,11 +139,13 @@ def make_batch_fn(plan: RunPlan, cfg, device) -> Callable:
     def batch_of(q: int) -> dict:
         gen = torch.Generator(device=device)
         gen.manual_seed(int(plan.data_keys[q]))
+        cdf_q = cdf if bank is None else bank[int(plan.cdf_index[q])]
         out = {}
         for k, sp in sorted(specs.items()):
             u = torch.rand((plan.global_batch, sp.shape[1]), generator=gen,
                            device=device)
-            ranks = torch.searchsorted(cdf, u).clamp_(0, cdf.shape[0] - 1)
+            ranks = torch.searchsorted(cdf_q, u).clamp_(0,
+                                                        cdf_q.shape[0] - 1)
             out[k] = perms[gidx[:, None], ranks]
         return out
 
@@ -139,13 +174,14 @@ class PlanExecutor:
 
     ``batch_fn(q) -> dict`` replaces the on-device synthesis (tests inject
     the JAX package's batches through it); its arrays are moved to the
-    device each round."""
+    device each round.  ``recorder`` traces the runs (module docstring)."""
 
     def __init__(self, trainer, plan: RunPlan, *,
-                 batch_fn: Optional[Callable] = None):
+                 batch_fn: Optional[Callable] = None, recorder=None):
         self.trainer = trainer
         self.plan = plan
         self.device = trainer.device
+        self.recorder = recorder
         if batch_fn is None:
             self._batch_of = make_batch_fn(plan, trainer.cfg, self.device)
         else:
@@ -155,12 +191,20 @@ class PlanExecutor:
         self._step = trainer.train_step_fn()
         self._masks = torch.as_tensor(plan.masks, device=self.device)
         self._scales = torch.as_tensor(plan.delay_scales, device=self.device)
+        self._gains = (None if plan.fault_gain is None else
+                       torch.as_tensor(plan.fault_gain, device=self.device))
 
     def _round(self, state, q: int):
-        """Round q: its batch, its mask, its scale (adaptive plans only: a
-        neutral plan leaves the trainer's static delay rule in charge) →
-        (state, metric row on the device)."""
-        kw = {"delay_scale": self._scales[q]} if self.plan.adaptive else {}
+        """Round q: its batch, its mask, its scale (adaptive or sparsified
+        plans only: a neutral plan leaves the trainer's static delay rule in
+        charge) and its channels → (state, metric row on the device)."""
+        plan, kw = self.plan, {}
+        if plan.adaptive or plan.grad_density is not None:
+            kw["delay_scale"] = self._scales[q]
+        if plan.grad_density is not None:
+            kw["grad_density"] = plan.grad_density[q]
+        if self._gains is not None:
+            kw["fault_gain"] = self._gains[q]
         state, m = self._step(state, self._batch_of(q), self._masks[q], **kw)
         return state, torch.stack([m[k].to(torch.float32) for k in METRICS])
 
@@ -169,8 +213,36 @@ class PlanExecutor:
         offer queues a device copy and its host fetch and returns, so the
         next chunk launches at once."""
         if snapshot is not None and snapshot.due(hi, self.plan.rounds):
-            snapshot.offer(hi, state)
+            with _span(self.recorder, "snapshot_offer", "snapshot",
+                       round=hi):
+                snapshot.offer(hi, state)
             stats.snapshots += 1
+
+    def _attach_obs(self, snapshot) -> None:
+        """Give the snapshotter this run's recorder (its finalise spans come
+        a cadence after the offer, inside the snapshotter)."""
+        if self.recorder is not None and snapshot is not None and \
+                getattr(snapshot, "recorder", None) is None:
+            snapshot.recorder = self.recorder
+
+    def _record(self, stats: ExecStats, rounds: int, all_ms: np.ndarray,
+                lo: int) -> None:
+        """The run's counters, and the guard channels of the metric rows
+        (rounds ``lo``, ``lo + 1``, ...), now on the host."""
+        rec = self.recorder
+        if rec is None:
+            return
+        for i, row in enumerate(all_ms):
+            if row[_SKIP_IDX] > 0:
+                rec.instant("guard_skip", lane="faults", round=lo + i,
+                            gscale=float(row[_GSCALE_IDX]))
+            elif row[_GSCALE_IDX] != 1.0:
+                rec.gauge("gscale", float(row[_GSCALE_IDX]), lane="faults")
+        rec.count("rounds", rounds)
+        rec.count("launches", stats.launches)
+        rec.count("host_syncs", stats.host_syncs)
+        rec.count("tap_events", stats.tap_events)
+        rec.count("snapshots", stats.snapshots)
 
     def run_scan(self, state, *, rounds_per_launch: int = 8,
                  metrics: str = "chunk", on_step: Optional[Callable] = None,
@@ -194,68 +266,84 @@ class PlanExecutor:
             raise ValueError('metrics="none" discards metrics on device; an '
                              'on_step callback would never fire')
         stats = ExecStats()
+        rec = self.recorder
+        self._attach_obs(snapshot)
         chunks = []
         for lo, hi in _chunk_bounds(self.plan.rounds, rounds_per_launch,
                                     start_round):
             rows = []
-            for q in range(lo, hi):
-                state, row = self._round(state, q)
-                rows.append(row)
+            with _span(rec, "launch", "executor", lo=lo, hi=hi):
+                for q in range(lo, hi):
+                    state, row = self._round(state, q)
+                    rows.append(row)
             stats.launches += 1
             self._maybe_snapshot(snapshot, hi, state, stats)
             if metrics == "none":
                 continue
             ms = torch.stack(rows)                   # (K, n_metrics), device
             if on_step is not None:
-                ms = ms.cpu().numpy()                # blocking read per chunk
+                with _span(rec, "host_sync", "executor", lo=lo, hi=hi):
+                    ms = ms.cpu().numpy()            # blocking read per chunk
                 stats.host_syncs += 1
                 for i in range(lo, hi):
                     on_step(i, state, _row_dict(ms[i - lo]))
             chunks.append(ms)
         if snapshot is not None:
             snapshot.drain()
+        rounds = self.plan.rounds - start_round
         if metrics == "none":
-            synchronize(self.device)                 # completion barrier
+            with _span(rec, "barrier", "executor"):
+                synchronize(self.device)             # completion barrier
+            self._record(stats, rounds, np.zeros((0, len(METRICS))), 0)
             return ExecResult(state=state, metrics={}, stats=stats)
         if on_step is None and chunks:
-            chunks = [torch.cat(chunks).cpu().numpy()]   # one deferred read
+            with _span(rec, "host_sync", "executor", deferred=True):
+                chunks = [torch.cat(chunks).cpu().numpy()]  # one read
             stats.host_syncs = 1
-        synchronize(self.device)
+        with _span(rec, "barrier", "executor"):
+            synchronize(self.device)
         all_ms = np.concatenate(chunks, axis=0) if chunks else \
             np.zeros((0, len(METRICS)), np.float32)
+        self._record(stats, rounds, all_ms, start_round)
         return ExecResult(state=state, metrics=_curves(all_ms), stats=stats)
 
     def run_eager(self, state, *, on_step: Optional[Callable] = None,
                   start_round: int = 0) -> ExecResult:
         """The parity oracle: one launch and one host read per round."""
         stats = ExecStats()
+        rec = self.recorder
         rows = []
         for q in range(start_round, self.plan.rounds):
-            state, row = self._round(state, q)
+            with _span(rec, "launch", "executor", lo=q, hi=q + 1):
+                state, row = self._round(state, q)
             stats.launches += 1
-            row = row.cpu().numpy()                  # host sync per round
+            with _span(rec, "host_sync", "executor", lo=q, hi=q + 1):
+                row = row.cpu().numpy()              # host sync per round
             stats.host_syncs += 1
             rows.append(row)
             if on_step is not None:
                 on_step(q, state, _row_dict(row))
         all_ms = np.stack(rows) if rows else \
             np.zeros((0, len(METRICS)), np.float32)
+        self._record(stats, len(rows), all_ms, start_round)
         return ExecResult(state=state, metrics=_curves(all_ms), stats=stats)
 
 
 def run_scan(trainer, plan: RunPlan, state, *, rounds_per_launch: int = 8,
              metrics: str = "chunk", on_step: Optional[Callable] = None,
              start_round: int = 0, batch_fn=None,
-             snapshot=None) -> ExecResult:
-    return PlanExecutor(trainer, plan, batch_fn=batch_fn).run_scan(
+             snapshot=None, recorder=None) -> ExecResult:
+    return PlanExecutor(trainer, plan, batch_fn=batch_fn,
+                        recorder=recorder).run_scan(
         state, rounds_per_launch=rounds_per_launch, metrics=metrics,
         on_step=on_step, start_round=start_round, snapshot=snapshot)
 
 
 def run_eager(trainer, plan: RunPlan, state, *,
               on_step: Optional[Callable] = None, start_round: int = 0,
-              batch_fn=None) -> ExecResult:
-    return PlanExecutor(trainer, plan, batch_fn=batch_fn).run_eager(
+              batch_fn=None, recorder=None) -> ExecResult:
+    return PlanExecutor(trainer, plan, batch_fn=batch_fn,
+                        recorder=recorder).run_eager(
         state, on_step=on_step, start_round=start_round)
 
 

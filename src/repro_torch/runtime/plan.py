@@ -15,10 +15,12 @@ the same stream.  It seeds a ``torch.Generator`` on the device; the batches
 it draws are torch's stream, not JAX's threefry stream, so tests that
 compare the two packages inject the JAX batches.
 
-Not ported yet, and raising ``NotImplementedError``: the scenario channels
-(``availability``, ``zipf_as``, ``grad_density``, ``fault_gain``);
-ROADMAP.md lists them with the vmapped grid lane, which has no plan axis
-here.
+The scenario channels lower as in the JAX package, by the same numpy code
+(array-equal to its plan, error messages included): ``availability`` is
+multiplied into the masks, a ``zipf_as`` trajectory quantises into
+``cdf_bank`` / ``cdf_index``, and ``grad_density`` / ``fault_gain`` ride
+as per-round arrays.  The vmapped γ-grid lane has no plan axis here
+(ROADMAP.md); the port's grid runs one plan per γ.
 """
 from __future__ import annotations
 
@@ -46,6 +48,24 @@ class RunPlan:
     Static data-synthesis tables: ``token_cdf`` ``(vocab,)`` f32 cumulative
     Zipf pmf and ``group_perms`` ``(n_groups, vocab)`` int32 group vocab
     permutations.
+
+    Scenario channels (``repro_torch.scenarios`` worlds; all optional, all
+    ``None`` for a stationary plan):
+
+    * elastic membership has no channel of its own — the availability
+      table is folded into ``masks`` at compile time (a down worker's mask
+      entry is zeroed, hard-dropping its residual in-flight receipts),
+    * ``cdf_bank``/``cdf_index`` — drifting data law: ``(n_phases,
+      vocab)`` f32 cumulative Zipf pmfs and the ``(rounds,)`` int32 row
+      index per round; round q samples tokens from
+      ``cdf_bank[cdf_index[q]]``,
+    * ``grad_density`` — ``(rounds,)`` f32 keep-densities in (0, 1]:
+      per-leaf magnitude top-k gradient sparsification inside the train
+      step (1.0 ⇒ exact no-op),
+    * ``fault_gain`` — ``(rounds, n_groups)`` f32 per-worker loss-weight
+      gains (``repro_torch.faults``): 1.0 neutral, huge-but-finite =
+      corrupted receipt, NaN = poisoned receipt.  Only participating
+      workers' gains matter (the mask zeroes the rest).
     """
 
     masks: np.ndarray
@@ -57,6 +77,10 @@ class RunPlan:
     seq_len: int
     seed: int
     adaptive: bool = False
+    cdf_bank: Optional[np.ndarray] = None
+    cdf_index: Optional[np.ndarray] = None
+    grad_density: Optional[np.ndarray] = None
+    fault_gain: Optional[np.ndarray] = None
 
     @property
     def rounds(self) -> int:
@@ -85,15 +109,51 @@ class RunPlan:
             raise ValueError(
                 f"the {self.n_groups} groups must divide "
                 f"global_batch={self.global_batch}")
+        if (self.cdf_bank is None) != (self.cdf_index is None):
+            raise ValueError("cdf_bank and cdf_index must be set together")
+        if self.cdf_bank is not None:
+            if self.cdf_bank.ndim != 2 or \
+                    self.cdf_bank.shape[1] != self.vocab:
+                raise ValueError(
+                    f"cdf_bank must be (n_phases, vocab={self.vocab}); got "
+                    f"{self.cdf_bank.shape}")
+            if self.cdf_index.shape != (self.rounds,):
+                raise ValueError(
+                    f"cdf_index must be (rounds={self.rounds},); got "
+                    f"{self.cdf_index.shape}")
+            if self.cdf_index.min(initial=0) < 0 or \
+                    self.cdf_index.max(initial=0) >= self.cdf_bank.shape[0]:
+                raise ValueError("cdf_index out of cdf_bank range")
+        if self.grad_density is not None:
+            if self.grad_density.shape != (self.rounds,):
+                raise ValueError(
+                    f"grad_density must be (rounds={self.rounds},); got "
+                    f"{self.grad_density.shape}")
+            if np.any(self.grad_density <= 0) or \
+                    np.any(self.grad_density > 1):
+                raise ValueError("grad_density values must be in (0, 1]")
+        if self.fault_gain is not None:
+            if self.fault_gain.shape != (self.rounds, self.n_groups):
+                raise ValueError(
+                    f"fault_gain must be (rounds={self.rounds}, "
+                    f"n_groups={self.n_groups}); got {self.fault_gain.shape}")
+            # NaN compares False everywhere, so this only rejects real zeros
+            if np.any(self.fault_gain == 0):
+                raise ValueError(
+                    "fault_gain must not contain zeros — drop workers via "
+                    "the availability channel, not a zero gain")
 
     def summary(self) -> dict:
-        """The JAX plan's summary keys, with the channels this port lacks
-        at their stationary values."""
+        """The JAX plan's summary keys; ``n_grid`` is 0 (the port has no
+        γ-axis)."""
         return {"rounds": self.rounds, "n_groups": self.n_groups,
                 "vocab": self.vocab, "global_batch": self.global_batch,
                 "seq_len": self.seq_len, "seed": self.seed,
-                "adaptive": self.adaptive, "n_grid": 0, "n_cdf_phases": 0,
-                "sparsified": False, "faulted": False}
+                "adaptive": self.adaptive, "n_grid": 0,
+                "n_cdf_phases": (0 if self.cdf_bank is None
+                                 else int(self.cdf_bank.shape[0])),
+                "sparsified": self.grad_density is not None,
+                "faulted": self.fault_gain is not None}
 
 
 def round_keys(seed: int, rounds: int) -> np.ndarray:
@@ -105,10 +165,54 @@ def round_keys(seed: int, rounds: int) -> np.ndarray:
         dtype=np.uint64)
 
 
+def quantize_zipf_trajectory(zipf_as: np.ndarray, vocab: int,
+                             n_phases: int = 8):
+    """Quantise a per-round Zipf-exponent trajectory into a CDF bank.
+
+    Returns ``(cdf_bank (n_phases', vocab) f32, cdf_index (rounds,)
+    int32)`` with ``n_phases' <= n_phases`` distinct levels (nearest-level
+    rounding on a linear grid between the trajectory's extremes; a
+    constant trajectory collapses to one phase).  Each bank row is the
+    cumulative :func:`repro_torch.data.zipf_pmf` at that exponent — the
+    same inverse-CDF table a stationary plan at that exponent would carry.
+    """
+    from ..data import zipf_pmf
+
+    z = np.asarray(zipf_as, dtype=np.float64)
+    if z.ndim != 1 or not z.size:
+        raise ValueError("zipf_as must be a non-empty 1-D trajectory")
+    if np.any(z <= 0):
+        raise ValueError("zipf exponents must be positive")
+    lo, hi = float(z.min()), float(z.max())
+    if hi - lo < 1e-12:
+        levels = np.asarray([lo])
+    else:
+        levels = np.linspace(lo, hi, max(int(n_phases), 2))
+    idx = np.argmin(np.abs(z[:, None] - levels[None, :]), axis=1)
+    used = np.unique(idx)
+    remap = np.zeros(len(levels), dtype=np.int32)
+    remap[used] = np.arange(len(used), dtype=np.int32)
+    bank = np.stack([np.cumsum(zipf_pmf(vocab, levels[u])) for u in used])
+    return bank.astype(np.float32), remap[idx].astype(np.int32)
+
+
+def _pad_rows(x: np.ndarray, R: int, fill) -> np.ndarray:
+    """``x[:R]``, padded to R rows with ``fill`` (the channel's neutral
+    value) when shorter."""
+    if x.shape[0] < R:
+        pad = np.full((R - x.shape[0],) + x.shape[1:], fill, x.dtype)
+        x = np.concatenate([x, pad])
+    return x[:R]
+
+
 def compile_plan(schedule: Schedule, job, *, rounds: Optional[int] = None,
                  n_groups: Optional[int] = None, seed: int = 0,
-                 adaptive: bool = False, availability=None, zipf_as=None,
-                 grad_density=None, fault_gain=None) -> RunPlan:
+                 adaptive: bool = False,
+                 availability: Optional[np.ndarray] = None,
+                 zipf_as: Optional[np.ndarray] = None,
+                 grad_density: Optional[np.ndarray] = None,
+                 fault_gain: Optional[np.ndarray] = None,
+                 n_cdf_phases: int = 8) -> RunPlan:
     """Lower ``(schedule, job)`` to a :class:`RunPlan`.
 
     ``job`` is a :class:`repro_torch.api.TrainJob` (anything exposing
@@ -116,22 +220,55 @@ def compile_plan(schedule: Schedule, job, *, rounds: Optional[int] = None,
     ``delay_rounds``).  ``adaptive`` applies the per-round delay-adaptive
     scale from the schedule's delay metadata; the realised buffering depth
     is 1 round whenever ``delay_rounds > 0`` (the trainer's single
-    swapped-every-round gbuf)."""
+    swapped-every-round gbuf).
+
+    Scenario channels (typically from a realised
+    :class:`repro_torch.scenarios.ScenarioWorld`):
+
+    * ``availability`` — ``(rounds', n)`` 0/1 membership, multiplied into
+      the participation masks (elastic hard-drop),
+    * ``zipf_as`` — ``(rounds',)`` Zipf-exponent trajectory, quantised via
+      :func:`quantize_zipf_trajectory` into ``cdf_bank``/``cdf_index``,
+    * ``grad_density`` — ``(rounds',)`` keep-densities in (0, 1],
+    * ``fault_gain`` — ``(rounds', n)`` per-worker loss-weight gains
+      (``repro_torch.faults``; NaN = poisoned receipt).
+
+    Shorter channels than the plan's rounds are padded with their neutral
+    value (all-up / last exponent / density 1 / gain 1)."""
     from ..data import DataConfig, HeterogeneousTokenPipeline
 
-    channels = dict(availability=availability, zipf_as=zipf_as,
-                    grad_density=grad_density, fault_gain=fault_gain)
-    unported = sorted(k for k, v in channels.items() if v is not None)
-    if unported:
-        raise NotImplementedError(
-            f"plan channels {unported} are not ported yet (scenarios and "
-            "faults: ROADMAP.md queue 1)")
     n = n_groups if n_groups is not None else schedule.n_workers
     masks, scales = lower_rounds(
         schedule, rounds,
         delay_rounds=1 if getattr(job, "delay_rounds", 0) > 0 else 0,
         adaptive=adaptive)
+    R = masks.shape[0]
+    if availability is not None:
+        avail = np.asarray(availability, dtype=np.float32)
+        if avail.ndim != 2 or avail.shape[1] != masks.shape[1]:
+            raise ValueError(
+                f"availability must be (rounds, n_workers="
+                f"{masks.shape[1]}); got {avail.shape}")
+        masks = masks * _pad_rows(avail, R, 1.0)
     cfg = job.make_arch()
+    cdf_bank = cdf_index = None
+    if zipf_as is not None:
+        z = np.asarray(zipf_as, dtype=np.float64)
+        z = _pad_rows(z, R, z[-1])
+        cdf_bank, cdf_index = quantize_zipf_trajectory(z, cfg.vocab,
+                                                       n_cdf_phases)
+    density = None
+    if grad_density is not None:
+        density = _pad_rows(np.asarray(grad_density, dtype=np.float32), R,
+                            1.0)
+    gain = None
+    if fault_gain is not None:
+        gain = np.asarray(fault_gain, dtype=np.float32)
+        if gain.ndim != 2 or gain.shape[1] != masks.shape[1]:
+            raise ValueError(
+                f"fault_gain must be (rounds, n_workers="
+                f"{masks.shape[1]}); got {gain.shape}")
+        gain = _pad_rows(gain, R, 1.0)
     pipe = HeterogeneousTokenPipeline(DataConfig(
         vocab=cfg.vocab, seq_len=job.seq_len, global_batch=job.global_batch,
         n_groups=n, heterogeneity=job.heterogeneity, seed=seed))
@@ -142,4 +279,5 @@ def compile_plan(schedule: Schedule, job, *, rounds: Optional[int] = None,
         token_cdf=np.cumsum(pipe.pmf).astype(np.float32),
         group_perms=np.stack(pipe.perms).astype(np.int32),
         global_batch=job.global_batch, seq_len=job.seq_len,
-        seed=seed, adaptive=adaptive)
+        seed=seed, adaptive=adaptive, cdf_bank=cdf_bank,
+        cdf_index=cdf_index, grad_density=density, fault_gain=gain)

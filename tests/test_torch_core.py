@@ -117,12 +117,25 @@ def test_round_keys_are_a_pure_function_of_seed_and_round():
 
 
 def test_plan_refuses_unported_channels():
-    tspec, _ = _specs("pure", global_batch=8, seq_len=16)
+    """The channels once refused here now lower as in the JAX package (the
+    two plans are compared in ``test_torch_faults.py``): short channels pad
+    with their neutral values, and a malformed one raises JAX's error."""
+    tspec, jspec = _specs("pure", global_batch=8, seq_len=16)
     _, schedule = TrainerBackend.masks_for(tspec, 4)
-    with pytest.raises(NotImplementedError, match="zipf_as"):
-        compile_plan(schedule, tspec.objective, zipf_as=np.ones(3))
-    with pytest.raises(NotImplementedError, match="fault_gain"):
-        compile_plan(schedule, tspec.objective, fault_gain=np.ones((3, 4)))
+    _, jschedule = JBackend.masks_for(jspec, 4)
+    gain = np.ones((3, 4), np.float32)
+    gain[1, 2] = np.nan
+    kw = dict(zipf_as=np.asarray([1.2, 2.0, 1.6]), fault_gain=gain)
+    tp = compile_plan(schedule, tspec.objective, **kw)
+    jp = j_compile_plan(jschedule, jspec.objective, **kw)
+    for f in ("cdf_bank", "cdf_index", "fault_gain", "masks"):
+        np.testing.assert_array_equal(getattr(tp, f), getattr(jp, f))
+    assert tp.summary() == jp.summary()
+    assert tp.summary()["faulted"] and tp.summary()["n_cdf_phases"] == 3
+    assert (tp.cdf_index[3:] == tp.cdf_index[2]).all()     # last exponent
+    assert (tp.fault_gain[3:] == 1.0).all()                # neutral gain
+    with pytest.raises(ValueError, match="fault_gain must be"):
+        compile_plan(schedule, tspec.objective, fault_gain=np.ones((3, 3)))
 
 
 def test_spec_validates_scheduler_as_jax_does():

@@ -9,7 +9,8 @@ JAX nor the JAX package, so it runs where only the port is installed:
 
 Tolerances are those of the kernel suite, ``test_kernels.py``: flash and
 the SGD and heavy-ball updates f32 2e-4, the Adam updates f32 rtol 1e-5 /
-atol 1e-6, bf16 3e-2; the update kernels' buffer swap is bitwise; the SSD
+atol 1e-6, bf16 3e-2; the update kernels' buffer swap is bitwise, and at
+run flag 0 they write nothing (every output keeps its bits); the SSD
 kernel f32 1e-3, bf16 4e-2, and a prefill through it within bf16 3e-2 of
 the einsum branch (``test_kernels.py:169-267``).
 
@@ -254,6 +255,30 @@ def test_update_kernel_matches_plain_in_place(cuda_device, name, dtype, n):
     assert got["p"].dtype == dtype
     if "gb" in keys:
         assert torch.equal(got["gb"], base["g"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", AU.KERNELS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", [127, 128 * 256 + 37, 1_000_003])
+def test_update_kernel_run_flag_zero_writes_nothing(cuda_device, name, dtype,
+                                                    n):
+    """Run flag 0 (the guard rails' skip) on NaN g: the launch is counted
+    and every output keeps its input's bits, the stale buffer included."""
+    base = _update_operands(cuda_device, n, dtype)
+    base["g"][::3] = float("nan")
+    scal = _scalars(name, cuda_device).clone()
+    scal[-1] = 0.0
+    keys = _operands(name, base)
+    got = {k: v.clone() for k, v in base.items()}
+    before = AU.launches[name]
+    getattr(AU, f"{name}_cuda")(*(got[k] for k in keys), scal, **_kw(name))
+    torch.cuda.synchronize()
+    assert AU.launches[name] == before + 1
+    bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 \
+        else t.view(torch.int32)
+    for k in keys:
+        assert torch.equal(bits(got[k]), bits(base[k])), k
 
 
 @pytest.mark.cuda

@@ -31,6 +31,9 @@ def _absolute_imports(path):
 def test_port_sources_import_no_jax_or_repro():
     files = _sources()
     assert len(files) > 10 and files[-1].exists()
+    obs = {f.name for f in files if f.parent.name == "obs"}
+    assert obs == {"__init__.py", "tracer.py", "schema.py", "summary.py",
+                   "recorder.py", "compile_watch.py"}
     bad = [(str(f.relative_to(ROOT)), mod) for f in files
            for mod in _absolute_imports(f)
            if mod.split(".")[0] in FORBIDDEN]
@@ -52,6 +55,12 @@ def test_port_imports_with_jax_blocked():
             "from repro_torch.distributed import RetryPolicy, ServePreempted\n"
             "from repro_torch.api import SimulatorBackend, grid\n"
             "from repro_torch.scenarios import TRANSFORMS\n"
+            "import repro_torch.obs, repro_torch.obs.schema\n"
+            "from repro_torch.obs import Recorder, CompileWatch, Tracer\n"
+            "from repro_torch.obs import validate_chrome_trace\n"
+            "from repro_torch.runtime import quantize_zipf_trajectory\n"
+            "from repro_torch.distributed.async_trainer import sparsify\n"
+            "from repro_torch.faults import GuardConfig\n"
             "assert 'nan_grad' in TRANSFORMS   # faults registered\n"
             "from repro_torch.kernels.ops import ssd_chunk, sgd_momentum_step\n"
             "from repro_torch.kernels.ops import sgd_momentum_delayed\n"

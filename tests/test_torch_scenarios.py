@@ -23,6 +23,7 @@ import repro.faults as jfaults                               # noqa: E402
 import repro.scenarios as jscen                              # noqa: E402
 
 from repro_torch import api, faults, scenarios               # noqa: E402
+from repro_torch.runtime import compile_plan                  # noqa: E402
 from repro_torch.core import (PATTERNS, TimingModel,         # noqa: E402
                               build_schedule, heterogeneous_speeds,
                               make_scheduler)
@@ -179,17 +180,29 @@ def test_spec_scenario_wrap_matches_jax():
 
 
 def test_trainer_and_serve_backends_refuse_a_scenario():
-    train = api.ExperimentSpec(objective=api.TrainJob(), n_workers=2, T=2,
-                               scenario="straggler:k=1")
-    with pytest.raises(NotImplementedError, match="scenario"):
-        api.TrainerBackend(device="cpu").run(train)
-    with pytest.raises(NotImplementedError, match="scenario"):
-        api.run(train, device="cpu")
-    serve = api.ExperimentSpec(objective=api.ServeJob(), T=2, scenario="")
-    with pytest.raises(NotImplementedError, match="scenario"):
-        api.ServeBackend(device="cpu").run(serve)
-    with pytest.raises(NotImplementedError, match="scenario"):
-        api.run(serve, device="cpu")
+    """Neither backend refuses a scenario any more.  The trainer realises
+    the world and lowers its channels into the plan (an elastic world's
+    down workers are dropped from the masks); the lock-step serve lane,
+    like JAX's, reads none of it: the tokens are the clean serve's."""
+    job = api.TrainJob(seq_len=16, arch_overrides=(("n_layers", 1),))
+    train = api.ExperimentSpec(objective=job, n_workers=2, T=4,
+                               scenario="straggler:k=1;elastic:k=1,every=2,"
+                                        "span=1")
+    res = api.run(train, device="cpu")
+    assert res.extra["scenario"] == train.scenario
+    assert np.isfinite(res.losses).all()
+    world = api.TrainerBackend.world_for(train, 2)
+    assert (world.availability[:4] == 0).any()
+    plan = compile_plan(world.schedule, job, rounds=4, n_groups=2,
+                        availability=world.availability)
+    assert res.extra["plan_summary"] == plan.summary()
+    assert (plan.masks[world.availability[:4] == 0] == 0).all()
+    serve = api.ExperimentSpec(objective=api.ServeJob(), T=2)
+    clean = api.ServeBackend(device="cpu").run(serve)
+    for scenario in ("", "straggler:k=1", "nan_grad:k=1,every=1"):
+        got = api.run(dataclasses.replace(serve, scenario=scenario),
+                      device="cpu")
+        np.testing.assert_array_equal(got.x, clean.x)
 
 
 def test_simulator_runs_a_scenario_world():

@@ -29,6 +29,7 @@ from repro_torch.configs import get_arch as t_get_arch      # noqa: E402
 from repro_torch.distributed import (Server,                # noqa: E402
                                      ServeConfig, SlotConfig, SlotServer)
 from repro_torch.models import model as TM                  # noqa: E402
+from repro_torch.obs import Recorder                        # noqa: E402
 from repro_torch.scenarios import render_report, tau_report  # noqa: E402
 from torch_parity import port_params, tree_f32              # noqa: E402
 
@@ -261,9 +262,10 @@ def test_refuses_budget_overflow_other_families_and_a_recorder():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         SlotServer(t_get_arch("zamba2-7b").reduced(),
                    SlotConfig(n_slots=1, ctx_len=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 12"):
-        SlotServer(tcfg, SlotConfig(n_slots=1, ctx_len=8), device="cpu",
-                   recorder=object())
+    # a recorder is taken now; its traces are held in test_torch_obs.py
+    srv_rec = SlotServer(tcfg, SlotConfig(n_slots=1, ctx_len=8),
+                         device="cpu", recorder=Recorder())
+    assert srv_rec.compile_counts() == {"chunk": 0}
 
 
 TINY_OVR = tuple(dict(TINY, dtype="float32").items())
@@ -312,7 +314,8 @@ def test_backend_slot_route_with_arrivals_fedbuff_and_deadline():
 def test_backend_slot_route_refuses_a_scenario():
     """The slot route lowers a scenario to its serve faults (a straggler
     world has none: the serve is the clean one); the lock-step route
-    refuses any scenario."""
+    reads none of a scenario, as JAX's does, so its tokens are the clean
+    serve's."""
     job = ServeJob(batch=2, prompt_len=5, arch_overrides=TINY_OVR, n_slots=2,
                    steps_per_launch=2)
     clean = run(ExperimentSpec(objective=job, T=4), device="cpu")
@@ -321,6 +324,9 @@ def test_backend_slot_route_refuses_a_scenario():
                 device="cpu")
     np.testing.assert_array_equal(world.x, clean.x)
     assert world.extra["evictions"] == {} and world.extra["attempts"] == {}
-    with pytest.raises(NotImplementedError, match="scenario"):
-        run(ExperimentSpec(objective=ServeJob(arch_overrides=TINY_OVR), T=4,
-                           scenario="straggler:k=1,factor=2"), device="cpu")
+    lock = ServeJob(arch_overrides=TINY_OVR)
+    np.testing.assert_array_equal(
+        run(ExperimentSpec(objective=lock, T=4,
+                           scenario="straggler:k=1,factor=2"),
+            device="cpu").x,
+        run(ExperimentSpec(objective=lock, T=4), device="cpu").x)

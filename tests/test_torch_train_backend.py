@@ -95,9 +95,14 @@ def test_grid_policy_runs_the_sequential_loop():
                           metrics="none", **SPEC)
     res = TrainerBackend("cpu").run(spec)
     assert res.gamma in (1e-2, 1e-3) and res.losses is not None
-    with pytest.raises(NotImplementedError, match="guard"):
-        run(dataclasses.replace(spec, objective=TrainJob(guards=True, **JOB)),
-            device="cpu")
+    # guards run now, in every run of the sequential grid (a clean world
+    # skips nothing and keeps every health scale at 1)
+    guarded = run(dataclasses.replace(
+        spec, objective=TrainJob(guards=True, **JOB)), device="cpu")
+    assert guarded.gamma in (1e-2, 1e-3)
+    assert all(m["skipped"] == 0.0 and m["gscale"] == 1.0
+               for m in guarded.extra["metrics"])
+    assert guarded.x["guard"]["health"].tolist() == [1.0] * SPEC["n_workers"]
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         run(dataclasses.replace(spec, objective=TrainJob(
             update_impl="pallas_pooled", **JOB)), device="cpu")

@@ -39,6 +39,7 @@ from repro_torch.api import ExperimentSpec, TrainJob           # noqa: E402
 from repro_torch.api import TrainerBackend                     # noqa: E402
 from repro_torch.configs import get_arch as t_get_arch         # noqa: E402
 from repro_torch.distributed import AsyncConfig, AsyncTrainer  # noqa: E402
+from repro_torch.faults import GuardConfig                     # noqa: E402
 from repro_torch.models import model as TM                     # noqa: E402
 from repro_torch.models import state_from_numpy, state_to_numpy  # noqa: E402
 from repro_torch.optim import OptConfig                        # noqa: E402
@@ -221,19 +222,26 @@ def test_state_crosses_bitwise_both_ways():
 
 
 def test_trainer_refuses_unported_knobs():
+    """``remat`` is still refused; guards and the channels are taken now
+    (their parity with JAX: tests/test_torch_faults.py), and guards must be
+    a ``GuardConfig``."""
     _, tcfg = _cfgs("float32")
-    with pytest.raises(NotImplementedError, match="guard"):
+    with pytest.raises(TypeError, match="GuardConfig"):
         AsyncTrainer(tcfg, async_cfg=AsyncConfig(guards=object()),
                      device="cpu")
     with pytest.raises(NotImplementedError, match="remat"):
         AsyncTrainer(tcfg.with_(remat="full"), device="cpu")
     tr = AsyncTrainer(tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="grad_density"):
-        tr.train_step_fn()(tr.init_state(0), {"tokens": torch.zeros(
-            (2, 4), dtype=torch.int64)}, torch.ones(1), grad_density=0.5)
+    state, m = tr.train_step_fn()(tr.init_state(0), {"tokens": torch.zeros(
+        (2, 4), dtype=torch.int64)}, torch.ones(1), grad_density=0.5)
+    assert int(state["step"]) == 1 and np.isfinite(m["loss"].item())
     specs = tr.state_specs()
     assert set(specs) == {"params", "opt", "step", "gbuf"}
     assert specs["opt"]["m"]["embed"].dtype == "float32"
+    guarded = AsyncTrainer(tcfg, async_cfg=AsyncConfig(
+        guards=GuardConfig()), device="cpu")
+    assert guarded.state_specs()["guard"]["health"].shape == (1,)
+    assert guarded.init_state(0)["guard"]["health"].tolist() == [1.0]
 
 
 # ---------------------------------------------------------------------------

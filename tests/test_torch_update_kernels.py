@@ -191,14 +191,19 @@ def test_bias_corrections_and_scalars_match_the_jax_wrapper():
     c32 = jnp.asarray(7).astype(jnp.float32)
     np.testing.assert_allclose(bc1.item(), float(1.0 - 0.9 ** c32), rtol=1e-6)
     np.testing.assert_allclose(bc2.item(), float(1.0 - 0.95 ** c32), rtol=1e-6)
+    # every block ends with the guard rails' run flag, 1 unless given
     scal = AU.adam_scalars(1e-3, bc1, bc2, 0.5, 0.1, "cpu")
-    assert scal.dtype == torch.float32 and scal.shape == (5,)
+    assert scal.dtype == torch.float32 and scal.shape == (6,)
+    assert scal[-1].item() == 1.0
     eff = AU.sgd_scalars(0.01, torch.tensor(0.5), 0.25, "cpu")
-    assert eff.shape == (1,) and eff.dtype == torch.float32
-    np.testing.assert_allclose(eff.item(), 0.01 * 0.5 * 0.25, rtol=1e-7)
-    mom = AU.momentum_scalars(0.01, torch.tensor(0.5), 0.25, "cpu")
-    assert mom.shape == (2,) and mom.dtype == torch.float32
-    np.testing.assert_allclose(mom.numpy(), [0.01 * 0.25, 0.5], rtol=1e-7)
+    assert eff.shape == (2,) and eff.dtype == torch.float32
+    np.testing.assert_allclose(eff[0].item(), 0.01 * 0.5 * 0.25, rtol=1e-7)
+    assert eff[1].item() == 1.0
+    mom = AU.momentum_scalars(0.01, torch.tensor(0.5), 0.25, "cpu",
+                              run=torch.tensor(0.0))
+    assert mom.shape == (3,) and mom.dtype == torch.float32
+    np.testing.assert_allclose(mom.numpy(), [0.01 * 0.25, 0.5, 0.0],
+                               rtol=1e-7)
 
 
 def test_cpu_route_counts_no_launch_and_unknown_devices_raise():
@@ -216,3 +221,57 @@ def test_cpu_route_counts_no_launch_and_unknown_devices_raise():
         AU.sgd_momentum_delayed_cuda(
             x["p"], x["m"], x["gb"], x["g"],
             AU.momentum_scalars(0.1, 1.0, 1.0, "cpu"), momentum=0.9)
+
+
+# ---------------------------------------------------------------------------
+# the guard rails' run flag
+# ---------------------------------------------------------------------------
+_OPERANDS = {"async_update": ("p", "gb", "g"), "sgd_step": ("p", "g"),
+             "sgd_momentum_step": ("p", "m", "g"),
+             "sgd_momentum_delayed": ("p", "m", "gb", "g"),
+             "fused_adam": ("p", "m", "v", "g"),
+             "fused_adam_delayed": ("p", "m", "v", "gb", "g")}
+
+
+def _flagged_scalars(name, run):
+    if "adam" in name:
+        bc1, bc2 = AU.adam_bias_corrections(
+            0.9, 0.95, torch.tensor(3, dtype=torch.int32))
+        return AU.adam_scalars(1e-3, bc1, bc2, 0.5, 0.01, "cpu", run=run)
+    if "momentum" in name:
+        return AU.momentum_scalars(0.02, 0.5, 0.25, "cpu", run=run)
+    return AU.sgd_scalars(0.02, 0.5, 0.25, "cpu", run=run)
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else \
+        t.view(torch.int32)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("name", AU.KERNELS)
+def test_run_flag_zero_writes_nothing_on_nan_grads(name, dtype):
+    """At run 0 every plain version leaves p, m, v and gbuf bit-identical
+    to its input although g is NaN (the stale gbuf is not replaced); an
+    explicit run 1 computes what the default does, bit for bit."""
+    n = 128 * 256 + 37
+    base = _t(_inputs(n, dtype, seed=23))
+    base["g"][::3] = float("nan")
+    kw = {"momentum": 0.9} if "momentum" in name else {}
+    fn = getattr(AU, f"{name}_plain")
+    keys = _OPERANDS[name]
+    skipped = {k: v.clone() for k, v in base.items()}
+    fn(*(skipped[k] for k in keys), _flagged_scalars(name, torch.tensor(0.)),
+       **kw)
+    for k in keys:
+        assert torch.equal(_bits(skipped[k]), _bits(base[k])), k
+    clean = _t(_inputs(n, dtype, seed=29))
+    one, default = ({k: v.clone() for k, v in clean.items()}
+                    for _ in range(2))
+    fn(*(one[k] for k in keys), _flagged_scalars(name, torch.tensor(1.)),
+       **kw)
+    fn(*(default[k] for k in keys), _flagged_scalars(name, 1.0), **kw)
+    for k in keys:
+        assert torch.equal(_bits(one[k]), _bits(default[k])), k
+    if "gb" in keys:
+        assert torch.equal(_bits(one["gb"]), _bits(clean["g"]))
