@@ -148,8 +148,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
     the 14 leaves; then one traced serve on the qwen2-0.5b slot cell:
     tokens equal to the untraced serve's, one ``admit`` span per
     admission, one chunk capture; prints a ``{"faults": ...}`` line;
-16. prints a ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-    line.
+16. the trainer's lanes, at full width on qwen2-0.5b, every kernel count
+    set to 0 before each path and read after it: the six update kernels
+    against their plain versions at the pool shapes their paths give them
+    (``fused_adam_delayed`` over the main path's one bf16 pool of
+    494,032,768 elements, the other five over their paths' 2-layer pool)
+    and timed as one launch over the main path's pool; the grad pooling's
+    device time; (a) the main path with ``update_impl="pallas_pooled"``:
+    ``fused_adam_delayed`` launched exactly 8 times (one pool × 8 rounds),
+    the curve within 5e-3 of the reference, its distance to the per-leaf
+    curve, finite params, warm ms per round, and a run snapshotted at
+    round 4, restored and resumed bit for bit; (b) the other five kernels
+    through pools at 2 layers, T 2 (one launch per round, curves within
+    5e-3 of their per-leaf routes); (c) phase 15's scenario cell on the
+    pooled route at 2 layers (16 launches, a skipped round leaving every
+    pool and the count bit-identical); (d) ``metrics="tap"`` rows bit-equal
+    to ``"chunk"``'s with no host sync and ms per round against chunk, then
+    ``DivergenceBreaker(window=3, factor=5)`` on
+    ``corrupt_receipt:k=3,scale=1e4,every=4,span=2`` (unguarded, T 16, K 4)
+    tripping, the curve whole chunks past the trip; (e) the grid lane
+    (γ ∈ {1e-4, 3e-4, 1e-3}, T 4, K 2): every point's curve and final
+    state bit-identical to its solo run, seconds against the three solo
+    runs, and ``run`` taking the lane; (f) ``remat="full"``: the curve
+    within 1e-6 relative of ``remat="none"``'s and a lower peak memory;
+    prints a ``{"trainer_lanes": ...}`` line;
+17. prints a ``{"kernels": [...]}`` line (each update kernel's
+    ``launches`` from its pooled path) and, last, the ``{"ok": true,
+    ...}`` line.
 """
 from __future__ import annotations
 
@@ -183,7 +208,8 @@ from repro_torch.distributed import (AsyncConfig,             # noqa: E402
                                      RetryPolicy, Server, ServeConfig,
                                      ServePreempted, SlotConfig, SlotServer,
                                      draw_arrivals)
-from repro_torch.faults import (GuardConfig, ServeFaults,     # noqa: E402
+from repro_torch.faults import (DivergenceBreaker,           # noqa: E402
+                                GuardConfig, ServeFaults,
                                 realise_serve_faults)
 from repro_torch.kernels import _build, ops                   # noqa: E402
 from repro_torch.kernels import async_update as AU            # noqa: E402
@@ -196,7 +222,8 @@ from repro_torch.core import replay                            # noqa: E402
 from repro_torch.models import init_params, param_specs, prefill  # noqa: E402
 from repro_torch.objectives import (LogRegProblem,            # noqa: E402
                                     make_libsvm_like, make_synthetic)
-from repro_torch.optim import OptConfig                       # noqa: E402
+from repro_torch.optim import (OptConfig, build_layout,       # noqa: E402
+                               pool_tree)
 from repro_torch.runtime import (METRICS, PlanExecutor,       # noqa: E402
                                  compile_plan, execute)
 from repro_torch.scenarios import parse_scenario, realise_world  # noqa: E402
@@ -803,9 +830,10 @@ def _check_curves(res, label):
         raise AssertionError(f"{label}: non-finite or missing curves")
 
 
-def phase_train_main(device, entry: dict) -> float:
+def phase_train_main(device, entry: dict) -> dict:
     """The training main path, its reference twin and a warm timed run;
-    returns the warm ms per round."""
+    returns the warm ms per round (``warm_ms``) and the two loss curves
+    (``losses``, ``ref_losses``)."""
     spec = _train_spec()
     cfg = spec.objective.make_arch()
     rounds = spec.T
@@ -847,6 +875,7 @@ def phase_train_main(device, entry: dict) -> float:
         f"(rtol 5e-3); reference {ref.losses[0]:.5f} -> {ref.losses[-1]:.5f}")
     if not (rel <= 5e-3).all():
         raise AssertionError("pallas and reference loss curves disagree")
+    ref_losses = ref.losses
     ref = None
     torch.cuda.empty_cache()
 
@@ -858,7 +887,7 @@ def phase_train_main(device, entry: dict) -> float:
     warm = (stamps[2 * k - 1] - stamps[k - 1]) / k * 1e3
     log(f"train main path warm: {warm:.3f} ms per round (host clock over "
         f"rounds {k}..{2 * k - 1}, chunk-boundary reads)")
-    return warm
+    return {"warm_ms": warm, "losses": losses, "ref_losses": ref_losses}
 
 
 def phase_train_others(device, entries: dict) -> None:
@@ -2133,6 +2162,458 @@ def phase_faults(device, entry: dict, card: str, plain_ms: float) -> dict:
     return out
 
 
+#: phase 16, the trainer's lanes: the grid lane's γs and size, the
+#: breaker's world
+LANE_GRID = (1e-4, 3e-4, 1e-3)
+LANE_GRID_T, LANE_GRID_K = 4, 2
+BREAKER_SCENARIO = "corrupt_receipt:k=3,scale=1e4,every=4,span=2"
+BREAKER_T = 16
+POOLED = "pallas_pooled"
+
+
+def _lane_trainer(cfg, device, lr, impl=POOLED, groups=4, **async_kw):
+    """An ``AsyncTrainer`` built as ``TrainerBackend`` builds the main
+    path's (Adam, clip 1, delay 1)."""
+    tr = AsyncTrainer(cfg, opt=OptConfig(lr=lr, clip_norm=1.0,
+                                         update_impl=impl),
+                      async_cfg=AsyncConfig(delay_rounds=1, **async_kw),
+                      device=device)
+    tr.n_groups = groups
+    return tr
+
+
+def _lane_plan(spec, rounds=None, **kw):
+    world = TrainerBackend.world_for(spec, spec.n_workers)
+    return world, compile_plan(
+        world.schedule, spec.objective, rounds=rounds or spec.T,
+        n_groups=spec.n_workers, seed=spec.seed,
+        availability=world.availability, zipf_as=world.zipf_as,
+        grad_density=world.grad_density, fault_gain=world.fault_gain, **kw)
+
+
+def _pool_cols(cfg):
+    lay = build_layout(param_specs(cfg), 1)
+    if list(lay.cols) != ["bfloat16"]:
+        raise AssertionError(f"{cfg.name}: pools {lay.cols}, want one bf16")
+    return lay.cols["bfloat16"], lay
+
+
+def _pooled_kernels(device, entries, lay, n_two) -> dict:
+    """Each update kernel against its plain version at the pool shape its
+    path gives it (``fused_adam_delayed``: the main path's pool, full
+    depth; the other five: their paths' 2-layer pool), then timed on one
+    main-path pool: one launch over all of it against 14 launches over its
+    leaves' bands (the per-leaf route's calls), alternately, twice."""
+    bf16 = torch.bfloat16
+    n_main = lay.cols["bfloat16"]
+    out = {}
+    for name in AU.KERNELS:
+        n = n_main if name == "fused_adam_delayed" else n_two
+        base = _update_inputs(n, bf16, device, seed=11)
+        scal = _scalar_sets(name, device)[-1][1]
+        got = _apply(name, "cuda", tree_map(torch.clone, base), scal)
+        torch.cuda.synchronize()
+        want = _apply(name, "plain", tree_map(torch.clone, base), scal)
+        rtol, atol = UPDATE_TOL[_kind(name)][bf16]
+        worst = 0.0
+        for key in _state_keys(name):
+            err = (got[key].float() - want[key].float()).abs()
+            bad = int((err > atol + rtol * want[key].float().abs()).sum())
+            if bad or not torch.isfinite(got[key]).all():
+                raise AssertionError(f"{name} at the pool shape n={n}: {key}"
+                                     f" {bad} elements off its plain version")
+            worst = max(worst, err.max().item())
+            del err
+        if _delayed(name) and not torch.equal(got["gb"], base["g"]):
+            raise AssertionError(f"{name} at n={n}: gbuf' != g bitwise")
+        del base, want, got
+        torch.cuda.empty_cache()
+        out[name] = {"checked_elements": n, "max_abs_err": worst}
+    pool = _update_inputs(n_main, bf16, device, seed=12)
+    bands = [{k: v[s.col:s.col + s.size] for k, v in pool.items()}
+             for s in lay.groups["bfloat16"]]
+    for name in AU.KERNELS:
+        scal = _scalar_sets(name, device)[-1][1]
+        ms = {}
+        for route in ("leaves", "pool", "leaves", "pool"):  # 2nd of each
+            ms[route] = time_ms(
+                (lambda: _apply(name, "cuda", pool, scal)) if route == "pool"
+                else (lambda: [_apply(name, "cuda", b, scal) for b in bands]),
+                iters=10)
+        out[name].update(pooled_ms=ms["pool"], per_leaf_ms=ms["leaves"],
+                         bound_ms=entries[name]["bound_ms"])
+        log(f"{name} pooled: n={out[name]['checked_elements']:,} against its"
+            f" plain version, max abs err {out[name]['max_abs_err']:.3e}; "
+            f"over one {n_main:,}-element pool: one launch "
+            f"{ms['pool']:.4f} ms, 14 launches over its leaves "
+            f"{ms['leaves']:.4f} ms (bound {entries[name]['bound_ms']:.4f} "
+            "ms)")
+    del pool, bands
+    torch.cuda.empty_cache()
+    return out
+
+
+def _timed_scan(ex, state, **kw):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ex.run_scan(state, **kw)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def _lane_pooled_main(device, entries, train, base, spec, cfg, out):
+    """(a) the pooled main path: launches, curves, finite params, warm
+    ms per round; then a run snapshotted at round 4, restored and
+    resumed, bit for bit.  Returns the final state."""
+    T, K = spec.T, spec.rounds_per_launch
+    same = lambda c, d: tree_map(torch.clone, base)
+    stamps = {}
+    AU.reset_launches()
+    res = TrainerBackend(device, params_fn=same, on_step=lambda i, s, m:
+                         stamps.setdefault(i, time.perf_counter())).run(spec)
+    launched = dict(AU.launches)
+    want = {**dict.fromkeys(AU.KERNELS, 0), "fused_adam_delayed": T}
+    if launched != want or res.extra["update_launches"] != want:
+        raise AssertionError(f"lanes: pooled launches {launched}, want "
+                             f"{want}")
+    entries["fused_adam_delayed"]["launches"] = T
+    _check_curves(res, "pooled main path")
+    rel = np.abs(res.losses - train["ref_losses"]) / np.abs(
+        train["ref_losses"])
+    if not (rel <= 5e-3).all():
+        raise AssertionError(f"lanes: pooled {res.losses} against the "
+                             f"reference {train['ref_losses']}")
+    per_leaf = float(np.abs(res.losses - train["losses"]).max())
+    tr = _lane_trainer(cfg, device, spec.stepsize.gamma)
+    if not all(torch.isfinite(t).all() for t in
+               tree_leaves(tr.params_of(res.x))):
+        raise AssertionError("lanes: pooled params not finite")
+    warm = (stamps[2 * K - 1] - stamps[K - 1]) / K * 1e3
+    out.update(pooled_launches=T, per_leaf_launches=T * 14,
+               round_ms_pooled=warm, round_ms_per_leaf=train["warm_ms"],
+               max_rel_pooled_vs_reference=float(rel.max()),
+               max_abs_pooled_vs_per_leaf=per_leaf)
+    log(f"lanes (a): pooled main path {cfg.name} L={cfg.n_layers}: "
+        f"fused_adam_delayed launches {T} (one bf16 pool x {T} rounds, "
+        f"per leaf {T * 14}); max rel diff to the reference {rel.max():.3e}"
+        f" (rtol 5e-3); max abs diff to the per-leaf curve {per_leaf:.3e};"
+        f" params finite; warm {warm:.3f} ms per round (per leaf "
+        f"{train['warm_ms']:.3f})")
+    final, losses = res.x, res.losses
+    res = None
+
+    # snapshotted at round 4 (a 4-round head of the same plan), restored,
+    # resumed: the uninterrupted run's state bit for bit
+    _, head = _lane_plan(spec, rounds=4)
+    _, plan = _lane_plan(spec)
+    snapdir = SNAP_ROOT / "lanes"
+    shutil.rmtree(snapdir, ignore_errors=True)
+    try:
+        snap = AsyncSnapshotter(str(snapdir), 4, keep=1)
+        PlanExecutor(tr, head).run_scan(
+            tr.init_state(params=tree_map(torch.clone, base)),
+            rounds_per_launch=K, metrics="none", snapshot=snap)
+        r, path = AsyncSnapshotter.latest(str(snapdir))
+        restored = restore(path, final)
+        tail = PlanExecutor(tr, plan).run_scan(
+            restored, rounds_per_launch=K, start_round=r)
+    finally:
+        shutil.rmtree(snapdir, ignore_errors=True)
+    diff = _first_difference(final, tail.state)
+    if r != 4 or diff is not None or not np.array_equal(
+            tail.metrics["loss"], losses[4:]):
+        raise AssertionError(f"lanes: the pooled run resumed at {r} differs"
+                             f" first at {diff}")
+    log("lanes (a): a pooled run snapshotted at round 4, restored and "
+        "resumed: final pools, count and step bit-identical, curve equal")
+    del tail, restored
+    torch.cuda.empty_cache()
+    return final, losses
+
+
+def _lane_other_kernels(device, entries, out):
+    """(b) the other five kernels through pools at 2 layers, T 2: one
+    launch per round each, curve within 5e-3 of its per-leaf route."""
+    rows = {}
+    base = init_params(_momentum_spec(0).objective.make_arch(),
+                       TRAIN_SPEC["seed"], device)
+    same = lambda c, d: tree_map(torch.clone, base)
+    for name, opt, delay in OTHER_PATHS:
+        spec = _train_spec(T=2, opt=opt, delay_rounds=delay,
+                           arch_overrides=(("n_layers", 2),),
+                           update_impl=POOLED)
+        AU.reset_launches()
+        res = TrainerBackend(device, params_fn=same).run(spec)
+        pooled, launched = res.losses, dict(AU.launches)
+        leaf = TrainerBackend(device, params_fn=same).run(
+            dataclasses.replace(spec, objective=dataclasses.replace(
+                spec.objective, update_impl="pallas"))).losses
+        rows[name] = (launched, pooled, leaf)
+    for name, delay in MOMENTUM_PATHS:
+        AU.reset_launches()
+        pooled = _momentum_curve(device, delay, POOLED, base)
+        launched = dict(AU.launches)
+        rows[name] = (launched, pooled, _momentum_curve(device, delay,
+                                                        "pallas", base))
+    for name, (launched, pooled, leaf) in rows.items():
+        want = {**dict.fromkeys(AU.KERNELS, 0), name: 2}
+        rel = np.abs(pooled - leaf) / np.abs(leaf)
+        if launched != want or not (np.isfinite(pooled).all()
+                                    and (rel <= 5e-3).all()):
+            raise AssertionError(f"lanes (b): {name} pooled launches "
+                                 f"{launched}, curve {pooled} against the "
+                                 f"per-leaf {leaf}")
+        entries[name]["launches"] = 2
+        out.setdefault("other_paths", {})[name] = {
+            "launches": 2, "max_rel_vs_per_leaf": float(rel.max())}
+        log(f"lanes (b): {name} through its pool (2 layers, T 2): 2 "
+            f"launches; max rel diff to the per-leaf route {rel.max():.3e}")
+    del base
+    torch.cuda.empty_cache()
+
+
+def _lane_skip_gate(device, out):
+    """(c) the scenario cell of phase 15 on the pooled route at 2 layers:
+    16 launches, skipped = the poisoned rounds, and a skipped round run
+    eagerly leaves every pool and the count bit-identical."""
+    spec = _fault_spec(update_impl=POOLED,
+                       arch_overrides=(("n_layers", 2),))
+    cfg = spec.objective.make_arch()
+    _, plan = _lane_plan(spec)
+    poisoned = (np.isnan(plan.fault_gain) & (plan.masks > 0)).any(axis=1)
+    base = init_params(cfg, spec.seed, device)
+    AU.reset_launches()
+    res = TrainerBackend(device, params_fn=lambda c, d: tree_map(
+        torch.clone, base)).run(spec)
+    launched = dict(AU.launches)
+    skipped = np.asarray([r["skipped"] for r in res.extra["metrics"]])
+    if launched["fused_adam_delayed"] != FAULT_T or \
+            not np.array_equal(skipped, poisoned.astype(np.float64)):
+        raise AssertionError(f"lanes (c): launches {launched}, skipped "
+                             f"{skipped}, poisoned {poisoned}")
+    res = None
+    tr = _lane_trainer(cfg, device, spec.stepsize.gamma,
+                       guards=GuardConfig())
+    ex = PlanExecutor(tr, plan)
+    state = tr.init_state(params=tree_map(torch.clone, base))
+    q = int(np.nonzero(poisoned)[0][0])
+    for r in range(q):
+        state, _ = ex._round(state, r)
+    kept = [t.clone() for t in tree_leaves({"pools": state["pools"],
+                                            "opt": state["opt"]})]
+    AU.reset_launches()
+    state, row = ex._round(state, q)
+    torch.cuda.synchronize()
+    now = tree_leaves({"pools": state["pools"], "opt": state["opt"]})
+    if AU.launches["fused_adam_delayed"] != 1 or \
+            row[METRICS.index("skipped")].item() != 1.0 or not all(
+                torch.equal(_bits(a) if a.is_floating_point() else a,
+                            _bits(b) if b.is_floating_point() else b)
+                for a, b in zip(now, kept)):
+        raise AssertionError(f"lanes (c): round {q} through the pools was "
+                             "not skipped bit for bit")
+    out["skip_gate"] = {"launches": FAULT_T,
+                        "skipped_rounds": np.nonzero(poisoned)[0].tolist()}
+    log(f"lanes (c): {FAULT_SCENARIO} guarded on the pooled route (2 layers,"
+        f" T {FAULT_T}): {FAULT_T} launches, skipped rounds "
+        f"{np.nonzero(poisoned)[0].tolist()}; round {q} run eagerly: one "
+        "launch at run flag 0, every pool and the count bit-identical")
+    del state, kept, now, ex, tr, base
+    torch.cuda.empty_cache()
+
+
+def _lane_tap(device, base, spec, cfg, out):
+    """(d) tap at full width: rows bit-equal to chunk's, no host sync, a
+    row per round, ms per round against chunk; then the breaker on a
+    corrupted world trips and the curve covers whole chunks only."""
+    T, K = spec.T, spec.rounds_per_launch
+    tr = _lane_trainer(cfg, device, spec.stepsize.gamma)
+    _, plan = _lane_plan(spec)
+    ex = PlanExecutor(tr, plan)
+    fresh = lambda: tr.init_state(params=tree_map(torch.clone, base))
+    runs = {"chunk": [], "tap": []}
+    for mode in ("chunk", "tap") * 3:            # alternately; the median
+        runs[mode].append(_timed_scan(ex, fresh(), rounds_per_launch=K,
+                                      metrics=mode))
+    chunk, tap = runs["chunk"][-1][0], runs["tap"][-1][0]
+    chunk_s = float(np.median([secs for _, secs in runs["chunk"]]))
+    tap_s = float(np.median([secs for _, secs in runs["tap"]]))
+    if any(not np.array_equal(tap.metrics[k], chunk.metrics[k])
+           for k in METRICS) or (tap.host_syncs, tap.tap_events,
+                                 tap.launches) != (0, T, T // K):
+        raise AssertionError(f"lanes (d): tap rows differ from chunk's or "
+                             f"accounting {tap.stats}")
+    out.update(round_ms_tap=tap_s / T * 1e3, round_ms_chunk=chunk_s / T *
+               1e3, tap_waits=tap.stats.tap_waits)
+    log(f"lanes (d): tap at full width: {T} rows bit-equal to chunk's, "
+        f"host_syncs 0, tap_events {T}, launches {T // K}, ring waits "
+        f"{tap.stats.tap_waits}; {tap_s / T * 1e3:.3f} ms per round against "
+        f"chunk {chunk_s / T * 1e3:.3f} (median of 3 alternate runs each; "
+        f"tap {[round(x / T * 1e3, 3) for _, x in runs['tap']]}, chunk "
+        f"{[round(x / T * 1e3, 3) for _, x in runs['chunk']]})")
+    runs = chunk = tap = None
+    torch.cuda.empty_cache()
+
+    bspec = dataclasses.replace(_train_spec(T=BREAKER_T, update_impl=POOLED),
+                                scenario=BREAKER_SCENARIO)
+    br = DivergenceBreaker(window=3, factor=5.0)
+    res = TrainerBackend(device, params_fn=lambda c, d: tree_map(
+        torch.clone, base), metrics="tap", breaker=br).run(bspec)
+    n, trip = len(res.losses), res.extra["tripped_round"]
+    if trip is None or trip != br.tripped_round or n % K or \
+            not trip < n <= BREAKER_T or res.extra["tap_events"] != n or \
+            res.extra["launches"] != n // K:
+        raise AssertionError(f"lanes (d): breaker trip {trip}, {n} rounds, "
+                             f"extra {res.extra['launches']} launches")
+    out["breaker"] = {"scenario": BREAKER_SCENARIO, "tripped_round": trip,
+                      "rounds_launched": n, "of": BREAKER_T,
+                      "tap_waits": res.extra["tap_waits"]}
+    log(f"lanes (d): breaker (window 3, factor 5) on {BREAKER_SCENARIO}, "
+        f"unguarded, T {BREAKER_T}, K {K}: tripped at round {trip}; {n} "
+        f"rounds launched in {n // K} whole chunks; loss max "
+        f"{res.losses.max():.4g}")
+    del res, tr, ex
+    torch.cuda.empty_cache()
+
+
+def _lane_grid(device, base, cfg, out):
+    """(e) the grid lane at full width: every point's curve and final
+    state bit-identical to its solo run; the lane's seconds against the
+    three solo runs'; the same spec through ``run`` takes the lane."""
+    spec = dataclasses.replace(
+        _train_spec(T=LANE_GRID_T, update_impl=POOLED),
+        stepsize=LANE_GRID, rounds_per_launch=LANE_GRID_K)
+    _, gplan = _lane_plan(spec, grid_gammas=LANE_GRID)
+    _, plan = _lane_plan(spec)
+    tr = _lane_trainer(cfg, device, LANE_GRID[0])
+    ex = PlanExecutor(tr, gplan)
+    for _ in range(2):                           # the second is warm
+        grid_res = None
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        grid_res = ex.run_grid(tr.init_state(params=tree_map(torch.clone,
+                                                             base)),
+                               rounds_per_launch=LANE_GRID_K)
+        torch.cuda.synchronize()
+        grid_s = time.perf_counter() - t0
+    solo_s = []
+    for i, g in enumerate(LANE_GRID):
+        tri = _lane_trainer(cfg, device, g)
+        solo, secs = _timed_scan(
+            PlanExecutor(tri, plan),
+            tri.init_state(params=tree_map(torch.clone, base)),
+            rounds_per_launch=LANE_GRID_K)
+        solo_s.append(secs)
+        for k in METRICS:
+            if not np.array_equal(grid_res.metrics[k][i], solo.metrics[k]):
+                raise AssertionError(f"lanes (e): γ={g} {k} "
+                                     f"{grid_res.metrics[k][i]} against solo"
+                                     f" {solo.metrics[k]}")
+        for (path, a), b in zip(tree_leaves_with_path(grid_res.state),
+                                tree_leaves(solo.state)):
+            if not torch.equal(a[i], b):
+                raise AssertionError(f"lanes (e): γ={g} differs from its "
+                                     f"solo run at {path}")
+        del solo, tri
+    losses = grid_res.metrics["loss"]
+    grid_res = ex = None
+    torch.cuda.empty_cache()
+    res = TrainerBackend(device, params_fn=lambda c, d: tree_map(
+        torch.clone, base)).run(spec)
+    best = LANE_GRID.index(res.gamma)
+    if not res.extra.get("grid_lane") or not np.array_equal(
+            res.losses, losses[best]):
+        raise AssertionError(f"lanes (e): run() took {res.extra.get('grid_lane')}"
+                             f", best γ {res.gamma}")
+    res = None
+    torch.cuda.empty_cache()
+    out["grid"] = {"gammas": list(LANE_GRID), "T": LANE_GRID_T,
+                   "K": LANE_GRID_K, "lane_s": grid_s, "solo_s": solo_s,
+                   "best_gamma": LANE_GRID[best]}
+    log(f"lanes (e): grid lane {LANE_GRID} at full width, T {LANE_GRID_T}, "
+        f"K {LANE_GRID_K}: every point's curve and final pools "
+        f"bit-identical to its solo run; lane {grid_s:.2f} s against solo "
+        f"{sum(solo_s):.2f} s ({[round(x, 2) for x in solo_s]}); run() took"
+        f" the lane, best γ {LANE_GRID[best]}")
+
+
+def _lane_remat(device, base, spec, out):
+    """(f) remat="full" on the pooled main path: the curve within 1e-6
+    relative of remat="none"'s, and a lower peak."""
+    same = lambda c, d: tree_map(torch.clone, base)
+    K = spec.rounds_per_launch
+    curves, peaks, warm = {}, {}, {}
+    for remat in ("none", "full"):
+        rspec = dataclasses.replace(spec, objective=dataclasses.replace(
+            spec.objective, remat=remat))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        stamps = {}
+        res = TrainerBackend(device, params_fn=same, on_step=lambda i, s, m:
+                             stamps.setdefault(i, time.perf_counter())).run(
+            rspec)
+        torch.cuda.synchronize()
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2**30
+        warm[remat] = (stamps[2 * K - 1] - stamps[K - 1]) / K * 1e3
+        curves[remat] = res.losses
+        res = None
+    rel = np.abs(curves["full"] - curves["none"]) / np.abs(curves["none"])
+    if not (rel <= 1e-6).all() or not peaks["full"] < peaks["none"]:
+        raise AssertionError(f"lanes (f): remat curve {curves['full']} "
+                             f"against {curves['none']}, peaks {peaks}")
+    out.update(peak_gib_remat=peaks["full"], peak_gib_no_remat=peaks["none"],
+               round_ms_remat=warm["full"], round_ms_no_remat=warm["none"],
+               max_rel_remat=float(rel.max()))
+    log(f"lanes (f): remat='full' on the pooled main path: max rel diff to "
+        f"remat='none' {rel.max():.3e} (1e-6); peak {peaks['full']:.2f} GiB "
+        f"against {peaks['none']:.2f} GiB; warm {warm['full']:.3f} ms per "
+        f"round against {warm['none']:.3f}")
+
+
+def phase_trainer_lanes(device, entries: dict, card: str,
+                        train: dict) -> dict:
+    """The trainer's lanes at full width: the pooled update (its kernels
+    at the pool shapes, the main path, the other five kernels, the skip
+    gate), tap and the breaker, the grid lane and remat; returns the
+    ``trainer_lanes`` line."""
+    t0 = time.perf_counter()
+    spec = _train_spec(update_impl=POOLED)
+    cfg = spec.objective.make_arch()
+    n_main, lay = _pool_cols(cfg)
+    n_two, _ = _pool_cols(cfg.with_(n_layers=2))
+    out = {"card": card, "arch": cfg.name, "pool_elements": n_main,
+           "pool_leaves": lay.n_leaves}
+    out["kernels"] = _pooled_kernels(device, entries, lay, n_two)
+
+    # the grad pooling's device time: the round's 14 bf16 grads → one pool
+    gen = torch.Generator(device).manual_seed(13)
+    grads = tree_map(lambda s: torch.randn(s.shape, generator=gen,
+                                           device=device).bfloat16(),
+                     param_specs(cfg))
+    out["grad_pool_ms"] = time_ms(lambda: pool_tree(lay, grads), iters=10)
+    log(f"lanes: pooling one round's {lay.n_leaves} grads ({n_main:,} bf16 "
+        f"elements) {out['grad_pool_ms']:.4f} ms")
+    del grads
+    torch.cuda.empty_cache()
+
+    base = init_params(cfg, spec.seed, device)
+    final, _ = _lane_pooled_main(device, entries, train, base, spec, cfg,
+                                 out)
+    del final
+    torch.cuda.empty_cache()
+    _lane_other_kernels(device, entries, out)
+    _lane_skip_gate(device, out)
+    _lane_tap(device, base, spec, cfg, out)
+    _lane_grid(device, base, cfg, out)
+    _lane_remat(device, base, spec, out)
+    del base
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"trainer lanes: every gate passed in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     kind, card = phase_device()
@@ -2141,7 +2622,8 @@ def main() -> None:
     flash = phase_kernels(device)
     phase_main_path(device, flash)
     updates = phase_update_kernels(device)
-    plain_ms = phase_train_main(device, updates["fused_adam_delayed"])
+    train = phase_train_main(device, updates["fused_adam_delayed"])
+    plain_ms = train["warm_ms"]
     phase_train_others(device, updates)
     phase_momentum_paths(device, updates)
     ssd = phase_ssd_kernel(device)
@@ -2153,6 +2635,7 @@ def main() -> None:
     durability = phase_durability(device, card)
     faults = phase_faults(device, updates["fused_adam_delayed"], card,
                           plain_ms)
+    lanes = phase_trainer_lanes(device, updates, card, train)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [flash] + [updates[k] for k in AU.KERNELS] + [ssd]
@@ -2161,6 +2644,7 @@ def main() -> None:
     print(json.dumps({"theory_tier": theory}))
     print(json.dumps({"durability": durability}))
     print(json.dumps({"faults": faults}))
+    print(json.dumps({"trainer_lanes": lanes}))
     print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -67,6 +67,13 @@ def _canonical(device) -> torch.device:
     return device
 
 
+def _tree_index(tree, i: int):
+    """Point ``i`` of a stacked ``(n_grid, ...)`` state, as new tensors."""
+    if not isinstance(tree, dict):
+        return tree[i].clone()
+    return {k: _tree_index(v, i) for k, v in tree.items()}
+
+
 def _grid_score(grad_norms: np.ndarray) -> float:
     """The paper's selection protocol (App. A.1): best final grad norm with
     small fluctuations — tail mean plus half the tail standard deviation."""
@@ -168,10 +175,17 @@ class TrainerBackend:
     CUDA).
 
     ``on_step(i, state, metrics)`` is invoked once per round (at chunk
-    boundaries on the scan runtime).  ``runtime`` / ``rounds_per_launch`` /
-    ``metrics`` override the spec's fields; both unset falls back to
-    ``"scan"`` / the spec's K / ``"chunk"``.  A grid stepsize policy runs
-    the sequential loop (one run per γ, best tail loss wins).
+    boundaries on the scan runtime under ``"chunk"``, per delivered row
+    with ``state=None`` under ``"tap"``).  ``runtime`` /
+    ``rounds_per_launch`` / ``metrics`` override the spec's fields; both
+    unset falls back to ``"scan"`` / the spec's K / ``"chunk"``.
+
+    A grid stepsize policy on the scan runtime runs every γ on one trainer
+    over one plan with a γ-axis (:meth:`_run_grid`, the executor's
+    :meth:`~repro_torch.runtime.PlanExecutor.run_grid`); the eager
+    runtime, an ``on_step`` callback or a single γ keep the sequential
+    loop (one run per γ), as in the JAX package.  Either way the best
+    tail loss (mean of the last three rounds) wins.
 
     Two injection hooks replace the port's own random streams, so a test
     can hold a run to the JAX package's: ``params_fn(cfg, device)`` returns
@@ -179,8 +193,10 @@ class TrainerBackend:
 
     ``snapshot`` (a :class:`repro_torch.checkpoint.AsyncSnapshotter`) gives
     scan runs periodic asynchronous snapshots, as in the JAX package; the
-    eager runtime takes none.  ``breaker`` (the divergence breaker) trips
-    through the tap lane, which is not ported: it raises (ROADMAP.md).
+    eager runtime takes none.  ``breaker`` (a
+    :class:`repro_torch.faults.DivergenceBreaker`) trips through the tap
+    lane: a scan run with ``metrics="tap"`` stops launching chunks once
+    the loss diverges, and ``extra["tripped_round"]`` reports the trip.
 
     A spec's ``scenario`` realises its world (:meth:`world_for`) and feeds
     ``availability``, ``zipf_as``, ``grad_density`` and ``fault_gain`` into
@@ -190,9 +206,11 @@ class TrainerBackend:
     :mod:`repro_torch.runtime.executor`).
 
     ``RunResult.x`` is the final state; ``extra`` carries the JAX keys the
-    port can fill (``snapshots``, the offers, ``scenario``,
-    ``plan_summary`` and ``obs`` among them) plus ``update_launches``, the
-    launches of each update kernel during the run, and ``device``."""
+    port can fill (``snapshots``, the offers, ``tripped_round``,
+    ``scenario``, ``plan_summary`` and ``obs`` among them; the grid lane
+    adds ``grid_lane`` and ``n_grid``) plus ``update_launches``, the
+    launches of each update kernel during the run, ``tap_waits`` and
+    ``device``."""
 
     name = "trainer"
     default_runtime = "scan"
@@ -205,11 +223,6 @@ class TrainerBackend:
                  params_fn: Optional[Callable] = None,
                  batch_fn: Optional[Callable] = None,
                  snapshot=None, breaker=None, recorder=None):
-        if breaker is not None:
-            raise NotImplementedError(
-                "the divergence breaker trips through the tap lane "
-                '(metrics="tap"), which is not ported yet (ROADMAP.md queue '
-                "1, item 8)")
         self.device = device
         self.on_step = on_step
         self.runtime = runtime
@@ -218,6 +231,7 @@ class TrainerBackend:
         self.params_fn = params_fn
         self.batch_fn = batch_fn
         self.snapshot = snapshot
+        self.breaker = breaker
         self.recorder = recorder
 
     @staticmethod
@@ -251,6 +265,12 @@ class TrainerBackend:
             raise TypeError("TrainerBackend needs a TrainJob objective")
         policy: StepsizePolicy = spec.stepsize
         if policy.kind == "grid":
+            runtime, _, _ = self.resolve_runtime(spec)
+            # the grid lane has no per-round callback hook, so an on_step
+            # consumer keeps the sequential loop
+            if runtime == "scan" and len(policy.gammas) > 1 \
+                    and self.on_step is None:
+                return self._run_grid(spec, job)
             best = None
             for g in policy.gammas:
                 # scoring needs loss curves, so a metrics="none" resolution
@@ -316,7 +336,9 @@ class TrainerBackend:
         runtime, rounds_per_launch, metrics = self.resolve_runtime(spec)
         if metrics == "none" and metrics_floor is not None:
             metrics = metrics_floor
-        kw = {"snapshot": self.snapshot} if runtime == "scan" else {}
+        kw = {}
+        if runtime == "scan":           # durability / breaker: scan lanes
+            kw = {"snapshot": self.snapshot, "breaker": self.breaker}
         before = dict(update_kernels.launches)
         exec_res = execute(tr, plan, state, runtime=runtime,
                            rounds_per_launch=rounds_per_launch,
@@ -348,7 +370,81 @@ class TrainerBackend:
                    "launches": exec_res.launches,
                    "host_syncs": exec_res.host_syncs,
                    "tap_events": exec_res.tap_events,
+                   "tap_waits": exec_res.stats.tap_waits,
                    "snapshots": exec_res.stats.snapshots,
+                   "tripped_round": exec_res.stats.tripped_round,
+                   "update_launches": update_launches,
+                   "obs": _obs(self.recorder, rounds=rounds),
+                   "device": str(device)})
+
+    def _run_grid(self, spec: ExperimentSpec, job: TrainJob) -> RunResult:
+        """Every grid γ on one trainer built at γ_base = gammas[0], over
+        one plan whose ``grid_scales`` rows fold each γ in; every point is
+        scored by the sequential loop's tail-loss protocol, and the best
+        point's final state is ``x``."""
+        from ..runtime import PlanExecutor, compile_plan
+
+        device = resolve_device(self.device)
+        t0 = time.time()
+        gammas = spec.stepsize.gammas
+        tr, cfg, n_groups = self._make_trainer(spec, job, gammas[0], False,
+                                               device)
+        world = self.world_for(spec, n_groups)
+        schedule = world.schedule
+        masks = round_masks(schedule)
+        rounds = min(spec.T, masks.shape[0])
+        plan = compile_plan(schedule, job, rounds=rounds, n_groups=n_groups,
+                            seed=spec.seed, grid_gammas=gammas,
+                            availability=world.availability,
+                            zipf_as=world.zipf_as,
+                            grad_density=world.grad_density,
+                            fault_gain=world.fault_gain)
+        _, rounds_per_launch, _ = self.resolve_runtime(spec)
+        params = self.params_fn(cfg, device) if self.params_fn else None
+        ex = PlanExecutor(tr, plan, batch_fn=self.batch_fn,
+                          recorder=self.recorder)
+        before = dict(update_kernels.launches)
+        # scoring needs curves, so the grid lane always reads them back
+        # (one deferred read for the whole grid)
+        res = ex.run_grid(tr.init_state(spec.seed, params=params),
+                          rounds_per_launch=rounds_per_launch,
+                          metrics="chunk", snapshot=self.snapshot)
+        update_launches = {k: update_kernels.launches[k] - before[k]
+                           for k in update_kernels.KERNELS}
+        losses = res.metrics["loss"]              # (n_grid, rounds)
+        gnorms = res.metrics["grad_norm"]
+        scores = [float(np.mean(losses[i, -3:])) for i in range(len(gammas))]
+        best = int(np.argmin(scores))
+        grid_info = {g: {"losses": losses[i].astype(np.float64),
+                         "grad_norms": gnorms[i].astype(np.float64),
+                         "score": scores[i]}
+                     for i, g in enumerate(gammas)}
+        best_state = _tree_index(res.state, best)
+        best_rows = [{k: float(res.metrics[k][best, q]) for k in res.metrics}
+                     for q in range(rounds)]
+        return RunResult(
+            spec=spec, backend=self.name, x=best_state,
+            log_ts=np.arange(rounds),
+            losses=losses[best].astype(np.float64),
+            grad_norms=gnorms[best].astype(np.float64),
+            gamma=float(gammas[best]), grid=grid_info, schedule=schedule,
+            trace=summarize(schedule), seconds=time.time() - t0,
+            extra={"metrics": best_rows, "masks": masks,
+                   "arch": cfg.name, "n_groups": n_groups,
+                   "update_impl": tr.update_impl,
+                   "delay_scales": None,
+                   "scenario": spec.scenario,
+                   "plan_summary": plan.summary(),
+                   "runtime": "scan", "grid_lane": True,
+                   "n_grid": len(gammas),
+                   "rounds_per_launch": rounds_per_launch,
+                   "metrics_mode": "chunk",
+                   "launches": res.launches,
+                   "host_syncs": res.host_syncs,
+                   "tap_events": res.tap_events,
+                   "tap_waits": res.stats.tap_waits,
+                   "snapshots": res.stats.snapshots,
+                   "tripped_round": res.stats.tripped_round,
                    "update_launches": update_launches,
                    "obs": _obs(self.recorder, rounds=rounds),
                    "device": str(device)})

@@ -102,8 +102,11 @@ class TrainJob:
     update per round); the schedule realises ``T·wait_b`` gradient receipts.
     ``update_impl``: ``"reference"`` (a tree of elementwise torch ops) or
     ``"pallas"`` / ``"pallas_interpret"`` (the fused update kernels, one
-    per param leaf: CUDA on the card, their plain versions on the CPU);
-    ``"pallas_pooled*"`` raises until it is ported.  ``guards=True`` arms
+    per param leaf: CUDA on the card, their plain versions on the CPU)
+    or ``"pallas_pooled"`` / ``"pallas_pooled_interpret"`` (the same
+    kernels, one launch per dtype pool over the pooled state of
+    :mod:`repro_torch.optim.pool`).  ``remat="full"`` recomputes each
+    layer's activations in the backward pass.  ``guards=True`` arms
     the trainer's guard rails, ``AsyncConfig(guards=GuardConfig())``: a
     round whose loss or raw gradient norm is not finite is skipped on the
     device, and a per-worker health vector backs the stepsize off.

@@ -35,8 +35,17 @@ Scenario and fault channels, as the JAX step applies them:
   route, which builds new tensors, each leaf is selected with
   ``torch.where``.
 
-Not ported yet, and raising ``NotImplementedError``: ``remat`` and the
-pooled state layout (ROADMAP.md queue 1).
+The pooled impls (``update_impl="pallas_pooled"``, and its
+``"_interpret"`` twin, which routes by the device as well) keep the state
+in per-dtype pool buffers (:mod:`repro_torch.optim.pool`, one shard): the
+model's params are views into the ``p`` pool, so a round copies no
+params; the fresh grads are pooled once (a copy, as JAX's ``pool_tree``
+is), after the fault gain, the sparsifier and the finite check; and the
+whole server update is one kernel launch per dtype pool.
+
+``cfg.remat == "full"`` (every ``ArchConfig``'s default) recomputes each
+layer's activations in the backward pass (:func:`repro_torch.models.
+model.forward_logits`), as JAX's ``jax.checkpoint`` over the layer scan.
 """
 from __future__ import annotations
 
@@ -53,6 +62,8 @@ from ..models import model as M
 from ..models.specs import Spec
 from ..optim import (OptConfig, adam_init, global_norm, make_delayed_apply,
                      make_optimizer, resolve_update_impl)
+from ..optim.pool import (build_layout, init_pools, pool_tree,
+                          pooled_delayed_apply, pooled_update, unpool_tree)
 from ..tree import tree_map
 
 F32 = torch.float32
@@ -127,10 +138,6 @@ class AsyncTrainer:
                 not isinstance(async_cfg.guards, GuardConfig):
             raise TypeError("AsyncConfig.guards must be a GuardConfig, got "
                             f"{type(async_cfg.guards).__name__}")
-        if cfg.remat != "none":
-            raise NotImplementedError(
-                f"remat={cfg.remat!r} is not ported yet; train with "
-                "remat='none'")
         self.cfg = cfg
         if async_cfg.update_impl is not None:
             opt = dataclasses.replace(opt, update_impl=async_cfg.update_impl)
@@ -140,13 +147,36 @@ class AsyncTrainer:
         #: one device, no mesh: the backend sets the worker-group count
         self.n_groups = 1
         self.update_impl = resolve_update_impl(opt.update_impl)
-        _, self._update = make_optimizer(opt)
-        self._delayed_apply = make_delayed_apply(opt)
+        #: pooled impls flatten the whole state into per-dtype pools once
+        #: here (one shard: one card has no mesh); the update is then one
+        #: kernel per dtype pool, not one per leaf
+        self.pooled = self.update_impl.startswith("pallas_pooled")
+        if self.pooled:
+            self.pool_layout = build_layout(M.param_specs(cfg), 1)
+        else:
+            _, self._update = make_optimizer(opt)
+            self._delayed_apply = make_delayed_apply(opt)
 
     # ------------------------------------------------------------------ state
-    def state_specs(self):
-        """State tree as Specs: params, f32 moments, counters, and the
-        delayed buffer (param dtype) when ``delay_rounds > 0``."""
+    def _pooled_state_specs(self):
+        """Pooled state as Specs: per dtype group one ``(n_shards, cols)``
+        pool each for p (param dtype), m and v (f32) and, when delayed,
+        gbuf (param dtype)."""
+        lay = self.pool_layout
+        pool = lambda dk, dtype: Spec((lay.n_shards, lay.cols[dk]),
+                                      (None, None), "zeros", dtype)
+        pools = {}
+        for dk in lay.groups:
+            grp = {"p": pool(dk, dk), "m": pool(dk, "float32"),
+                   "v": pool(dk, "float32")}
+            if self.async_cfg.delay_rounds > 0:
+                grp["gbuf"] = pool(dk, dk)
+            pools[dk] = grp
+        return {"pools": pools,
+                "opt": {"count": Spec((), (), "zeros", "int32")},
+                "step": Spec((), (), "zeros", "int32")}
+
+    def _tree_state_specs(self):
         pspecs = M.param_specs(self.cfg)
         f32_like = lambda s: Spec(s.shape, s.axes, "zeros", "float32")
         specs = {
@@ -159,6 +189,14 @@ class AsyncTrainer:
         if self.async_cfg.delay_rounds > 0:
             specs["gbuf"] = tree_map(
                 lambda s: Spec(s.shape, s.axes, "zeros", s.dtype), pspecs)
+        return specs
+
+    def state_specs(self):
+        """State tree as Specs: params, f32 moments, counters, and the
+        delayed buffer (param dtype) when ``delay_rounds > 0``; on a pooled
+        impl the pools, the count and the step instead."""
+        specs = self._pooled_state_specs() if self.pooled \
+            else self._tree_state_specs()
         if self.async_cfg.guards is not None:
             specs["guard"] = {"health": Spec((self.n_groups,), (None,),
                                              "zeros", "float32")}
@@ -169,18 +207,31 @@ class AsyncTrainer:
         replaces the port's own init from ``seed``."""
         if params is None:
             params = M.init_params(self.cfg, seed, self.device)
-        state = {
-            "params": params,
-            "opt": adam_init(params),
-            "step": torch.zeros((), dtype=torch.int32, device=self.device),
-        }
-        if self.async_cfg.delay_rounds > 0:
-            state["gbuf"] = tree_map(torch.zeros_like, params)
+        zero = lambda: torch.zeros((), dtype=torch.int32, device=self.device)
+        delayed = self.async_cfg.delay_rounds > 0
+        if self.pooled:
+            state = {"pools": init_pools(self.pool_layout, params, delayed),
+                     "opt": {"count": zero()}, "step": zero()}
+        else:
+            state = {"params": params, "opt": adam_init(params),
+                     "step": zero()}
+            if delayed:
+                state["gbuf"] = tree_map(torch.zeros_like, params)
         if self.async_cfg.guards is not None:
             # every worker starts at full health (scale 1 = unguarded γ)
             state["guard"] = {"health": torch.ones(
                 (self.n_groups,), dtype=F32, device=self.device)}
         return state
+
+    def params_of(self, state):
+        """The params tree of a trainer state, whatever its layout: the
+        tree itself, or on a pooled state views into the ``p`` pools (an
+        in-place update of the pools shows through them)."""
+        if self.pooled:
+            return unpool_tree(self.pool_layout,
+                               {dk: b["p"] for dk, b in
+                                state["pools"].items()})
+        return state["params"]
 
     # ------------------------------------------------------------- train step
     def _example_weights(self, mask, batch_size: int):
@@ -224,7 +275,7 @@ class AsyncTrainer:
 
         def step(state, batch, mask, delay_scale=None, grad_density=None,
                  fault_gain=None):
-            params = state["params"]
+            params = self.params_of(state)
             bsz = batch["tokens"].shape[0]
             mask = mask.to(F32)
             w = self._example_weights(mask, bsz)
@@ -305,7 +356,18 @@ class AsyncTrainer:
                 gate = gate * gscale
             kw = {"run": run} if acfg.guards is not None and fused else {}
 
-            if acfg.delay_rounds > 0:
+            if self.pooled:
+                # the fresh grads pooled once, in JAX's order: after the
+                # fault gain, the sparsifier and the finite check
+                apply = pooled_delayed_apply if acfg.delay_rounds > 0 \
+                    else pooled_update
+                pools, count, gnorm = apply(
+                    pool_tree(self.pool_layout, grads), state["pools"],
+                    state["opt"]["count"], self.opt,
+                    lr_scale=lr_scale * gate, **kw)
+                new_state = {"pools": pools, "opt": {"count": count},
+                             "step": state["step"] + 1}
+            elif acfg.delay_rounds > 0:
                 new_params, new_gbuf, new_opt, gnorm = self._delayed_apply(
                     grads, state["gbuf"], state["opt"], params, self.opt,
                     lr_scale=lr_scale * gate, **kw)

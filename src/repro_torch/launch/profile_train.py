@@ -1,9 +1,9 @@
 """Where the training path's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \\
-        [--update-impl pallas|reference] [--opt adam|sgd] [--delay-rounds 1]
-        [--rounds 4] [--warmup 2] [--trace-dir DIR]
-        [--scenario SPEC] [--guards]
+        [--update-impl pallas|pallas_pooled|reference] [--remat none|full]
+        [--opt adam|sgd] [--delay-rounds 1] [--rounds 4] [--warmup 2]
+        [--trace-dir DIR] [--scenario SPEC] [--guards]
 
 Runs the training main path's configuration (qwen2-0.5b at full width,
 global batch 8 × 512 tokens, 4 AsGrad workers under the ``pure``
@@ -19,6 +19,11 @@ which waits for the device), then records the same rounds under
 * the update kernels' device time and their share of the device time;
 * the sorts' device time (the sparsifier of a ``sparsify`` scenario);
 * the kernels that took most device time.
+
+``--update-impl pallas_pooled`` runs the update through the per-dtype
+pools (one kernel launch per round), and ``--remat full`` recomputes each
+layer's activations in the backward pass; the printed peak memory is the
+one to compare with and without it.
 
 ``--scenario`` runs the rounds under a scenario world, its channels
 lowered into the plan as ``TrainerBackend`` lowers them, and
@@ -49,12 +54,12 @@ SORT_KERNELS = ("Sort", "sort")
 
 
 def main_path_spec(update_impl="pallas", opt="adam", delay_rounds=1, T=8,
-                   scenario=None, guards=False):
+                   scenario=None, guards=False, remat="none"):
     """The training main path of ``chip_smoke.py`` (under ``scenario``
     with ``guards``: its faults phase)."""
     job = TrainJob(arch="qwen2-0.5b", reduced=False, global_batch=8,
                    seq_len=512, update_impl=update_impl, opt=opt,
-                   delay_rounds=delay_rounds, guards=guards)
+                   delay_rounds=delay_rounds, guards=guards, remat=remat)
     return ExperimentSpec(objective=job, scheduler="pure",
                           timing="fixed:slow=5", n_workers=4, T=T,
                           stepsize=3e-4, seed=0, runtime="scan",
@@ -94,6 +99,7 @@ def _report(prof, wall_s: float, rounds: int) -> None:
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--update-impl", default="pallas")
+    ap.add_argument("--remat", default="none", choices=("none", "full"))
     ap.add_argument("--opt", default="adam")
     ap.add_argument("--delay-rounds", type=int, default=1)
     ap.add_argument("--rounds", type=int, default=4)
@@ -106,7 +112,8 @@ def main(argv=None) -> None:
     device = resolve_device("cuda")
     spec = main_path_spec(args.update_impl, args.opt, args.delay_rounds,
                           T=args.warmup + args.rounds,
-                          scenario=args.scenario, guards=args.guards)
+                          scenario=args.scenario, guards=args.guards,
+                          remat=args.remat)
     tr, cfg, n_groups = TrainerBackend(device)._make_trainer(
         spec, spec.objective, spec.stepsize.gamma, False, device)
     state = tr.init_state(spec.seed)
@@ -125,7 +132,8 @@ def main(argv=None) -> None:
     print(f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} batch "
           f"{spec.objective.global_batch}x{spec.objective.seq_len} "
           f"opt={args.opt} delay_rounds={args.delay_rounds} "
-          f"update_impl={tr.update_impl} guards={args.guards} scenario="
+          f"update_impl={tr.update_impl} remat={cfg.remat} "
+          f"guards={args.guards} scenario="
           f"{args.scenario}: {wall * 1e3 / args.rounds:.3f} ms "
           f"per round (warm, {args.rounds} rounds, one launch); loss "
           f"{res.metrics['loss'][0]:.5f} -> {res.metrics['loss'][-1]:.5f}; "

@@ -53,15 +53,19 @@ _STATE_KEYS = {"params", "opt", "step"}
 
 
 def _check_state(tree: dict) -> None:
-    if not _STATE_KEYS <= set(tree) or not {"m", "v", "count"} <= set(tree["opt"]):
+    opt = set(tree.get("opt", ()))
+    pooled = {"pools", "opt", "step"} <= set(tree) and "count" in opt
+    if not pooled and (not _STATE_KEYS <= set(tree)
+                       or not {"m", "v", "count"} <= opt):
         raise ValueError(f"not a trainer state: keys {sorted(tree)} (want "
                          "params, opt{m, v, count}, step and, when delayed, "
-                         "gbuf)")
+                         "gbuf; or pools, opt{count}, step)")
 
 
 def state_to_numpy(state: dict) -> dict:
-    """An ``AsyncTrainer`` state (params, opt.m/v/count, step, gbuf) →
-    numpy, bf16 leaves as uint16 bits, int32 counters as int32."""
+    """An ``AsyncTrainer`` state (params, opt.m/v/count, step, gbuf; or
+    the pooled pools, opt.count, step) → numpy, bf16 leaves as uint16
+    bits, int32 counters as int32."""
     _check_state(state)
     return params_to_numpy(state)
 

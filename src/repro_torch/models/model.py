@@ -28,6 +28,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
@@ -233,20 +234,31 @@ def _unembed(cfg, params, h):
 
 
 def forward_logits(cfg: ArchConfig, params, batch, window=None):
-    """Full-sequence forward → (logits (B,S,V), aux_loss = 0.0)."""
+    """Full-sequence forward → (logits (B,S,V), aux_loss = 0.0).
+
+    Under autograd with ``cfg.remat == "full"`` each layer runs inside
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: only the
+    layer's input is kept, and the backward pass recomputes the rest, as
+    JAX's ``_scan(..., remat)`` does with ``jax.checkpoint``.  Any other
+    value, or no autograd, runs the layers as they are."""
     _require_family(cfg)
     if window is None:
         window = cfg.sliding_window
     tokens = batch["tokens"]
     h = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+
+    def block(p, x):
+        if cfg.family == "ssm":
+            return _apply_mamba(cfg, p["mamba"], x)
+        x = _apply_attn(cfg, p["attn"], x, positions=positions, window=window)
+        return _apply_mlp(cfg, p["mlp"], x)
+
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
     for i in range(cfg.n_layers):
         p = _layer(params["blocks"], i)
-        if cfg.family == "ssm":
-            h = _apply_mamba(cfg, p["mamba"], h)
-            continue
-        h = _apply_attn(cfg, p["attn"], h, positions=positions, window=window)
-        h = _apply_mlp(cfg, p["mlp"], h)
+        h = (checkpoint(block, p, h, use_reentrant=False) if remat
+             else block(p, h))
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h), 0.0
 
@@ -257,13 +269,8 @@ def loss_fn(cfg: ArchConfig, params, batch, example_weights=None,
     (B,) carries the AsGrad worker-participation mask (see
     ``distributed.async_trainer``).  Returns (loss, {"ce", "aux"}).
 
-    ``cfg.remat`` other than ``"none"`` raises: activation recomputation
-    (``jax.checkpoint`` in the JAX package) is not ported, and running
-    without it would silently change the memory a config asks for."""
-    if cfg.remat != "none":
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported yet (activation "
-            "recomputation); train with remat='none'")
+    With ``cfg.remat == "full"`` the backward pass recomputes each
+    layer's activations (see :func:`forward_logits`)."""
     logits, aux = forward_logits(cfg, params, batch, window=window)
     labels = batch["tokens"][:, 1:]
     lg = logits[:, :-1]

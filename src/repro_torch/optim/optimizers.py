@@ -27,8 +27,12 @@ every kernel, writes nothing and leaves ``count`` where it was, with no
 host read.  ``None`` is the unguarded 1.  The reference updates are
 functional and take no gate: the trainer selects their result per leaf.
 
-Not ported yet, and raising ``NotImplementedError``: the pooled impls
-(``"pallas_pooled*"``, ``optim/pool.py``; ROADMAP.md).
+The pooled impls (``"pallas_pooled"``, ``"pallas_pooled_interpret"``;
+the second, like ``"pallas_interpret"``, routes by the device) change the
+state layout to per-dtype pool buffers, so they live outside the tree
+contract of :func:`make_optimizer` and :func:`make_delayed_apply`, which
+refuse them with the JAX package's words: :mod:`repro_torch.optim.pool`
+runs them, and ``AsyncTrainer`` routes there.
 """
 from __future__ import annotations
 
@@ -53,10 +57,6 @@ def resolve_update_impl(impl: str) -> str:
     if impl not in UPDATE_IMPLS:
         raise ValueError(
             f"unknown update_impl {impl!r}; want one of {UPDATE_IMPLS}")
-    if impl.startswith("pallas_pooled"):
-        raise NotImplementedError(
-            f"update_impl={impl!r} (per-dtype pool buffers, optim/pool.py) "
-            "is not ported yet (ROADMAP.md queue 1, item 4)")
     return impl
 
 
@@ -70,7 +70,9 @@ class OptConfig:
     weight_decay: float = 0.0
     momentum: float = 0.0         # sgd only
     clip_norm: Optional[float] = 1.0   # Assumption 4 enforcement
-    update_impl: str = "reference"     # reference | pallas | pallas_interpret
+    #: reference | pallas | pallas_interpret | pallas_pooled |
+    #: pallas_pooled_interpret
+    update_impl: str = "reference"
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -278,8 +280,16 @@ def _resolve(cfg: OptConfig) -> str:
 
 def make_optimizer(cfg: OptConfig):
     """(init_fn, update_fn) for ``cfg``, routed through ``cfg.update_impl``:
-    ``update(grads, opt_state, params, cfg, lr_scale) → (p', state', gnorm)``."""
+    ``update(grads, opt_state, params, cfg, lr_scale) → (p', state', gnorm)``.
+    The pooled impls change the state layout and raise (use
+    :mod:`repro_torch.optim.pool`)."""
     impl = _resolve(cfg)
+    if impl.startswith("pallas_pooled"):
+        raise ValueError(
+            f"update_impl={cfg.update_impl!r} pools the state into per-dtype "
+            "buffers and cannot serve the tree-based optimizer contract; "
+            "use repro_torch.optim.pool (AsyncTrainer does this "
+            "automatically)")
     if impl == "reference":
         return adam_init, adam_update if cfg.name == "adam" else sgd_update
     return adam_init, (fused_adam_update if cfg.name == "adam"
@@ -290,8 +300,15 @@ def make_delayed_apply(cfg: OptConfig):
     """The delayed-buffer server update as one callable:
 
         apply(grads, gbuf, opt_state, params, cfg, lr_scale)
-            → (new_params, new_gbuf, new_opt_state, gnorm)"""
+            → (new_params, new_gbuf, new_opt_state, gnorm)
+
+    The pooled impls operate on pooled state and raise."""
     impl = _resolve(cfg)
+    if impl.startswith("pallas_pooled"):
+        raise ValueError(
+            f"update_impl={cfg.update_impl!r} operates on pooled state; use "
+            "repro_torch.optim.pool.pooled_delayed_apply (AsyncTrainer does "
+            "this automatically)")
     if impl == "reference":
         return reference_delayed_apply
     return fused_delayed_apply

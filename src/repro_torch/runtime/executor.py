@@ -6,21 +6,50 @@ live on the device for the whole run and batches are synthesised there from
 the plan's tables, so no round ships data from the host.
 
 * ``"scan"`` (:meth:`PlanExecutor.run_scan`) — ``rounds_per_launch`` (K)
-  rounds are issued back to back as one launch; their metric rows are
-  stacked on the device.  Metrics mode ``"chunk"`` reads the stack back at
-  each chunk boundary when an ``on_step`` callback wants the values, and
-  otherwise once for the whole run at its end; ``"none"`` discards them.
-  PyTorch runs eagerly, so a "launch" here is a chunk of rounds the host
-  enqueues without waiting; a CUDA graph over a round is a later slice.
+  rounds are issued back to back as one launch.  PyTorch runs eagerly, so
+  a "launch" here is a chunk of rounds the host enqueues without waiting;
+  a CUDA graph over a round is a later slice.  How the metric rows reach
+  the host is the ``metrics`` mode:
+
+  - ``"chunk"`` stacks the rows on the device and reads the stack back at
+    each chunk boundary when an ``on_step`` callback wants the values, and
+    otherwise once for the whole run at its end;
+  - ``"tap"`` streams each round's row to the host as the device reaches
+    it, with no blocking read on the enqueue path: the row is copied
+    (``non_blocking``) into a slot of a pinned host ring and an event is
+    recorded behind the copy; the host delivers the rows whose events have
+    completed, in round order, whenever it polls (after each round's
+    enqueue and before each chunk's launch), and the rest at the end of
+    the run.  ``on_step(i, None, row)`` fires per round (the mid-chunk
+    state is not the callback's).  The ring holds one chunk of rows: a
+    slot is written again only after its previous row, K rounds older,
+    was delivered, so the host runs at most one chunk ahead of the device
+    (K rounds stay queued on it; the waits are ``ExecStats.tap_waits``),
+    which is what lets the divergence breaker stop the launches one chunk
+    after the chunk that tripped it;
+  - ``"none"`` discards the rows.
 * ``"eager"`` (:meth:`PlanExecutor.run_eager`) — one round per launch and
   one host read of its metric row per round: the parity oracle.
 
+:meth:`PlanExecutor.run_grid` is the γ-grid lane: a plan compiled with a
+γ-axis (``compile_plan(..., grid_gammas=...)``) runs every grid point on
+one trainer.  Each round's batch is synthesised once and shared by the
+points; each point takes its own scale row through the explicit-scale
+step.  The states are stacked with a leading ``(n_grid,)`` axis, and each
+point steps on its contiguous slice (a pooled state's kernels run on the
+point's slice of each pool).  The points run one after the other: one
+batched launch over them is later work.
+
 ``launches`` and ``host_syncs`` count as in the JAX package: a launch per
-chunk (scan) or per round (eager); a host sync per blocking metric read.
-``run_scan(snapshot=...)`` offers the end-of-chunk state to a
+chunk (scan, grid) or per round (eager); a host sync per blocking metric
+read.  ``run_scan(snapshot=...)`` and ``run_grid(snapshot=...)`` offer the
+end-of-chunk state (stacked, on the grid lane) to a
 :class:`repro_torch.checkpoint.AsyncSnapshotter` at its due boundaries and
-drains it at the end of the run; a restored state resumes through
-``start_round``.
+drain it at the end of the run; a restored state resumes through
+``start_round``.  ``run_scan(breaker=...)`` (``"tap"`` only) feeds each
+delivered row's loss to a :class:`repro_torch.faults.DivergenceBreaker`;
+once it trips no further chunk is launched, the curves cover the launched
+chunks, and ``ExecStats.tripped_round`` holds the trip.
 
 A plan's scenario channels ride each round: the drifting data law picks
 the round's row of the device-resident CDF bank (its index is a host
@@ -36,15 +65,15 @@ spans around the metric reads, a ``barrier`` span around the completion
 wait, ``snapshot_offer`` spans, the counters of :class:`ExecStats`, and,
 from the metric rows once they are on the host, a ``guard_skip`` instant
 per skipped round and a ``gscale`` gauge per round whose health scale is
-not 1.  On the card a span measures host enqueue time, not device time.
-Without a recorder nothing is traced and nothing is paid.
-
-Not ported yet: the ``"tap"`` transport, the vmapped γ-grid lane and the
-divergence breaker (ROADMAP.md queue 1).
+not 1; under ``"tap"`` also a ``tap_round`` instant per delivered row and
+a ``breaker_trip`` instant.  On the card a span measures host enqueue
+time, not device time.  Without a recorder nothing is traced and nothing
+is paid.
 """
 from __future__ import annotations
 
 import dataclasses
+from collections import deque
 from contextlib import nullcontext
 from typing import Callable, Optional
 
@@ -52,6 +81,7 @@ import numpy as np
 import torch
 
 from ..device import synchronize
+from ..tree import tree_leaves, tree_map
 from .plan import RunPlan
 
 #: fixed metric order of the on-device metric row; mirrors the dict
@@ -59,9 +89,10 @@ from .plan import RunPlan
 METRICS = ("loss", "ce", "aux", "grad_norm", "participation",
            "skipped", "gscale")
 
-#: metric transport modes of the scan executor that are ported
-METRIC_MODES = ("chunk", "none")
+#: metric transport modes of the scan executor
+METRIC_MODES = ("chunk", "tap", "none")
 
+_LOSS_IDX = METRICS.index("loss")
 _SKIP_IDX = METRICS.index("skipped")
 _GSCALE_IDX = METRICS.index("gscale")
 
@@ -74,15 +105,28 @@ def _span(rec, name, lane, **args):
 
 @dataclasses.dataclass
 class ExecStats:
-    """Dispatch accounting: ``launches`` (chunks on the scan runtime,
-    rounds on the eager one), ``host_syncs`` (times the host blocked on
-    a metric read mid-run or at its end) and ``snapshots`` (offers to the
-    snapshotter); ``tap_events`` stays 0 until the tap lane is ported."""
+    """Dispatch accounting, one counter per mechanism:
+
+    * ``launches`` — chunks on the scan runtime and the grid lane, rounds
+      on the eager one;
+    * ``host_syncs`` — times the host blocked on a metric read mid-run or
+      at its end (none under ``"tap"`` and ``"none"``: the end-of-run wait
+      for completion is a barrier, not a metric read);
+    * ``tap_events`` — metric rows delivered by the tap (one per round
+      under ``"tap"``);
+    * ``tap_waits`` — times the tap ring had to wait for a row one chunk
+      old before reusing its slot (the host had run that far ahead);
+    * ``snapshots`` — offers to the snapshotter;
+    * ``tripped_round`` — the round at which the divergence breaker
+      tripped (None: no breaker, or it never tripped).
+    """
 
     launches: int = 0
     host_syncs: int = 0
     tap_events: int = 0
+    tap_waits: int = 0
     snapshots: int = 0
+    tripped_round: Optional[int] = None
 
 
 @dataclasses.dataclass
@@ -107,10 +151,15 @@ class ExecResult:
 
     @property
     def rows(self) -> list:
-        """Metrics as one dict per round."""
+        """Metrics as one dict per round (a single run's curves only: a
+        grid result keeps its ``(n_grid, rounds)`` arrays)."""
         if not self.metrics:
             return []
         first = next(iter(self.metrics.values()))
+        if first.ndim != 1:
+            raise ValueError(
+                "rows is a single-run view; grid results carry "
+                f"(n_grid, rounds) curves (got shape {first.shape})")
         return [{k: float(v[i]) for k, v in self.metrics.items()}
                 for i in range(len(first))]
 
@@ -166,7 +215,56 @@ def _chunk_bounds(rounds: int, rounds_per_launch: int, start: int):
 
 
 def _curves(all_ms: np.ndarray) -> dict:
-    return {k: all_ms[:, j] for j, k in enumerate(METRICS)}
+    return {k: all_ms[..., j] for j, k in enumerate(METRICS)}
+
+
+class _TapRing:
+    """The tap's transport: round i's device metric row is copied without
+    blocking into slot ``i % depth`` of a pinned host ring, and an event is
+    recorded behind the copy; :meth:`poll` hands the rows whose events have
+    completed to ``emit(i, row)`` in round order.  A slot is reused only
+    once its previous row has been handed over, waiting on its event if it
+    must.  On the CPU the copy is done when it returns."""
+
+    def __init__(self, device, depth: int, emit: Callable):
+        self.cuda = device.type == "cuda"
+        self.depth = depth
+        self.emit = emit
+        self.host = torch.empty((depth, len(METRICS)), dtype=torch.float32,
+                                pin_memory=self.cuda)
+        self.pending: deque = deque()      # (round, event or None)
+        self.waits = 0
+
+    def _ready(self, ev) -> bool:
+        return ev is None or ev.query()
+
+    def _hand_over(self, count_wait: bool = True) -> None:
+        i, ev = self.pending.popleft()
+        if not self._ready(ev):
+            self.waits += count_wait
+            ev.synchronize()
+        self.emit(i, self.host[i % self.depth].numpy().copy())
+
+    def put(self, i: int, row: torch.Tensor) -> None:
+        if len(self.pending) == self.depth:      # slot i % depth is taken
+            self._hand_over()
+        self.host[i % self.depth].copy_(row, non_blocking=self.cuda)
+        ev = None
+        if self.cuda:
+            ev = torch.cuda.Event()
+            ev.record()
+        self.pending.append((i, ev))
+        self.poll()
+
+    def poll(self) -> None:
+        while self.pending and self._ready(self.pending[0][1]):
+            self._hand_over()
+
+    def drain(self) -> None:
+        """Every pending row, waiting as needed (the end-of-run barrier,
+        not counted in ``waits``)."""
+        while self.pending:
+            self._hand_over(count_wait=False)
 
 
 class PlanExecutor:
@@ -193,20 +291,35 @@ class PlanExecutor:
         self._scales = torch.as_tensor(plan.delay_scales, device=self.device)
         self._gains = (None if plan.fault_gain is None else
                        torch.as_tensor(plan.fault_gain, device=self.device))
+        self._grid = (None if plan.grid_scales is None else
+                      torch.as_tensor(plan.grid_scales, device=self.device))
+        self._tap_sink = None         # the running tap's host consumer
 
-    def _round(self, state, q: int):
+    def _round(self, state, q: int, *, batch=None, scale=None):
         """Round q: its batch, its mask, its scale (adaptive or sparsified
         plans only: a neutral plan leaves the trainer's static delay rule in
-        charge) and its channels → (state, metric row on the device)."""
+        charge; the grid lane passes each point's ``scale``) and its
+        channels → (state, metric row on the device)."""
         plan, kw = self.plan, {}
-        if plan.adaptive or plan.grad_density is not None:
+        if scale is not None:
+            kw["delay_scale"] = scale
+        elif plan.adaptive or plan.grad_density is not None:
             kw["delay_scale"] = self._scales[q]
         if plan.grad_density is not None:
             kw["grad_density"] = plan.grad_density[q]
         if self._gains is not None:
             kw["fault_gain"] = self._gains[q]
-        state, m = self._step(state, self._batch_of(q), self._masks[q], **kw)
+        if batch is None:
+            batch = self._batch_of(q)
+        state, m = self._step(state, batch, self._masks[q], **kw)
         return state, torch.stack([m[k].to(torch.float32) for k in METRICS])
+
+    def _emit_tap(self, idx, row) -> None:
+        """Host end of the tap: one delivered row to the running tap's
+        consumer."""
+        sink = self._tap_sink
+        if sink is not None:
+            sink(int(idx), np.asarray(row))
 
     def _maybe_snapshot(self, snapshot, hi: int, state, stats) -> None:
         """Offer the end-of-chunk state when ``hi`` is a due boundary: the
@@ -233,11 +346,7 @@ class PlanExecutor:
         if rec is None:
             return
         for i, row in enumerate(all_ms):
-            if row[_SKIP_IDX] > 0:
-                rec.instant("guard_skip", lane="faults", round=lo + i,
-                            gscale=float(row[_GSCALE_IDX]))
-            elif row[_GSCALE_IDX] != 1.0:
-                rec.gauge("gscale", float(row[_GSCALE_IDX]), lane="faults")
+            _guard_events(rec, lo + i, row)
         rec.count("rounds", rounds)
         rec.count("launches", stats.launches)
         rec.count("host_syncs", stats.host_syncs)
@@ -246,25 +355,32 @@ class PlanExecutor:
 
     def run_scan(self, state, *, rounds_per_launch: int = 8,
                  metrics: str = "chunk", on_step: Optional[Callable] = None,
-                 start_round: int = 0, snapshot=None) -> ExecResult:
+                 start_round: int = 0, snapshot=None,
+                 breaker=None) -> ExecResult:
         """Rounds ``[start_round, rounds)``, K = ``rounds_per_launch`` per
-        launch.  ``on_step(i, state, metrics_i)`` fires for every round at
-        chunk boundaries with the end-of-chunk state (``"chunk"`` only).
+        launch.  ``on_step(i, state, metrics_i)`` fires for every round:
+        at chunk boundaries with the end-of-chunk state under ``"chunk"``,
+        per delivered row with ``state=None`` under ``"tap"``.
         ``snapshot`` (an :class:`~repro_torch.checkpoint.AsyncSnapshotter`)
         is offered the state at every due chunk boundary and drained at the
         end; the batches are a pure function of (seed, round), so a state
         restored from round r and run from ``start_round=r`` ends as the
-        uninterrupted run does."""
-        if metrics == "tap":
-            raise NotImplementedError(
-                'metrics="tap" (per-round streaming) is not ported yet '
-                '(ROADMAP.md queue 1); use "chunk" or "none"')
+        uninterrupted run does.  ``breaker`` (``"tap"`` only) stops the
+        launches once it trips (module docstring)."""
         if metrics not in METRIC_MODES:
             raise ValueError(f"unknown metrics mode {metrics!r}; want one "
                              f"of {METRIC_MODES}")
         if metrics == "none" and on_step is not None:
             raise ValueError('metrics="none" discards metrics on device; an '
                              'on_step callback would never fire')
+        if breaker is not None and metrics != "tap":
+            raise ValueError(
+                'the divergence breaker trips through the tap lane — run '
+                'with metrics="tap" (chunk/none never stream per-round '
+                'losses to the host mid-run)')
+        if metrics == "tap":
+            return self._run_tap(state, rounds_per_launch, on_step,
+                                 start_round, snapshot, breaker)
         stats = ExecStats()
         rec = self.recorder
         self._attach_obs(snapshot)
@@ -307,6 +423,143 @@ class PlanExecutor:
         self._record(stats, rounds, all_ms, start_round)
         return ExecResult(state=state, metrics=_curves(all_ms), stats=stats)
 
+    def _run_tap(self, state, rounds_per_launch, on_step, start_round,
+                 snapshot, breaker) -> ExecResult:
+        """``run_scan(metrics="tap")``: every round's row through the
+        :class:`_TapRing`, no blocking metric read on the enqueue path."""
+        stats = ExecStats()
+        rec = self.recorder
+        self._attach_obs(snapshot)
+        tap_rows = {}
+
+        def sink(i, row):
+            tap_rows[i] = row
+            stats.tap_events += 1
+            if rec is not None:
+                # a host boundary that exists anyway: one instant per row,
+                # plus the guard channels when they fire
+                rec.instant("tap_round", lane="tap", round=i)
+                _guard_events(rec, i, row)
+            if breaker is not None and not breaker.tripped:
+                breaker.observe(i, row[_LOSS_IDX])
+                if breaker.tripped and rec is not None:
+                    rec.instant("breaker_trip", lane="faults",
+                                round=breaker.tripped_round)
+            if on_step is not None:
+                on_step(i, None, _row_dict(row))
+
+        k = max(int(rounds_per_launch), 1)
+        ring = _TapRing(self.device, k, self._emit_tap)
+        launched_hi = start_round
+        self._tap_sink = sink
+        try:
+            for lo, hi in _chunk_bounds(self.plan.rounds, k, start_round):
+                ring.poll()
+                if breaker is not None and breaker.tripped:
+                    break                # stop launching; the queue drains
+                with _span(rec, "launch", "executor", lo=lo, hi=hi):
+                    for q in range(lo, hi):
+                        state, row = self._round(state, q)
+                        ring.put(q, row)
+                stats.launches += 1
+                launched_hi = hi
+                self._maybe_snapshot(snapshot, hi, state, stats)
+            with _span(rec, "barrier", "executor"):
+                ring.drain()
+                synchronize(self.device)         # completion barrier
+        finally:
+            self._tap_sink = None
+        stats.tap_waits = ring.waits
+        if snapshot is not None:
+            snapshot.drain()
+        if breaker is not None:
+            stats.tripped_round = breaker.tripped_round
+        n_rounds = launched_hi - start_round
+        if len(tap_rows) != n_rounds:
+            raise RuntimeError(
+                f"metrics tap delivered {len(tap_rows)}/{n_rounds} rows — a "
+                f"row was dropped or the run was interrupted mid-chunk")
+        all_ms = (np.stack([tap_rows[i] for i in
+                            range(start_round, launched_hi)])
+                  if n_rounds else np.zeros((0, len(METRICS)), np.float32))
+        self._record(stats, n_rounds, np.zeros((0, len(METRICS))), 0)
+        return ExecResult(state=state, metrics=_curves(all_ms), stats=stats)
+
+    # ------------------------------------------------------------------ grid
+    def stack_state(self, state):
+        """One state tiled with a leading ``(n_grid,)`` axis (new
+        tensors): every grid point starts from the same iterate."""
+        g = self.plan.n_grid
+        return tree_map(lambda x: x.unsqueeze(0).expand(
+            (g,) + tuple(x.shape)).clone(), state)
+
+    def run_grid(self, state, *, rounds_per_launch: int = 8,
+                 metrics: str = "chunk", start_round: int = 0,
+                 snapshot=None) -> ExecResult:
+        """Every grid point of a γ-axis plan on this executor's trainer.
+
+        ``state`` is one trainer state (tiled by :meth:`stack_state`) or an
+        already stacked ``(n_grid, ...)`` tree (a resumed grid run).  Round
+        q's batch is drawn once; point i steps its slice of the stacked
+        state with the scale ``grid_scales[i, q]``, and what the step
+        returns as new tensors (the step counter, the reference route's
+        leaves) is copied back into the slice.  Metrics come back as
+        ``(n_grid, rounds)`` curves under ``"chunk"`` (one deferred read;
+        there is no per-point ``on_step``) or not at all under ``"none"``;
+        ``"tap"`` is refused, as in the JAX package.  ``snapshot`` is
+        offered the stacked state at due chunk boundaries; a restored grid
+        snapshot is the already stacked state of a resumed run."""
+        plan = self.plan
+        if plan.grid_scales is None:
+            raise ValueError(
+                "plan has no γ-axis; compile it with grid_gammas=... to "
+                "use the grid lane")
+        if metrics not in ("chunk", "none"):
+            raise ValueError(
+                f'grid lane supports metrics="chunk"|"none" (got '
+                f'{metrics!r})')
+        g = plan.n_grid
+        stacked = state["step"].dim() == 1
+        states = state if stacked else self.stack_state(state)
+        state = None
+        points = [tree_map(lambda x, i=i: x[i], states) for i in range(g)]
+        stats = ExecStats()
+        rec = self.recorder
+        self._attach_obs(snapshot)
+        chunks = []
+        last_hi = start_round
+        for lo, hi in _chunk_bounds(plan.rounds, rounds_per_launch,
+                                    start_round):
+            rows = []
+            with _span(rec, "launch", "executor", lo=lo, hi=hi, grid=g):
+                for q in range(lo, hi):
+                    batch = self._batch_of(q)
+                    row = []
+                    for i, view in enumerate(points):
+                        new, m = self._round(view, q, batch=batch,
+                                             scale=self._grid[i, q])
+                        _write_back(view, new)
+                        row.append(m)
+                    rows.append(torch.stack(row))        # (n_grid, n_m)
+            stats.launches += 1
+            last_hi = hi
+            self._maybe_snapshot(snapshot, hi, states, stats)
+            if metrics == "chunk":
+                chunks.append(torch.stack(rows, dim=1))  # (n_grid, K, n_m)
+        if chunks:
+            with _span(rec, "host_sync", "executor", deferred=True):
+                all_ms = torch.cat(chunks, dim=1).cpu().numpy()  # one read
+            stats.host_syncs = 1
+        with _span(rec, "barrier", "executor"):
+            synchronize(self.device)
+        if snapshot is not None:
+            snapshot.drain()
+        self._record(stats, last_hi - start_round,
+                     np.zeros((0, len(METRICS))), 0)
+        return ExecResult(state=states,
+                          metrics=_curves(all_ms) if chunks else {},
+                          stats=stats)
+
     def run_eager(self, state, *, on_step: Optional[Callable] = None,
                   start_round: int = 0) -> ExecResult:
         """The parity oracle: one launch and one host read per round."""
@@ -329,14 +582,44 @@ class PlanExecutor:
         return ExecResult(state=state, metrics=_curves(all_ms), stats=stats)
 
 
+def _guard_events(rec, i: int, row) -> None:
+    """Round i's guard channels from its host metric row: a ``guard_skip``
+    instant when it was skipped, else a ``gscale`` gauge when its health
+    scale is not 1."""
+    if row[_SKIP_IDX] > 0:
+        rec.instant("guard_skip", lane="faults", round=i,
+                    gscale=float(row[_GSCALE_IDX]))
+    elif row[_GSCALE_IDX] != 1.0:
+        rec.gauge("gscale", float(row[_GSCALE_IDX]), lane="faults")
+
+
+def _write_back(view, new) -> None:
+    """Copy each leaf of ``new`` that is not already ``view``'s own storage
+    into it (the in-place routes return their operands; the step counter,
+    the health vector and the reference route's leaves are new tensors)."""
+    for dst, src in zip(tree_leaves(view), tree_leaves(new)):
+        if src.data_ptr() != dst.data_ptr():
+            dst.copy_(src)
+
+
 def run_scan(trainer, plan: RunPlan, state, *, rounds_per_launch: int = 8,
              metrics: str = "chunk", on_step: Optional[Callable] = None,
              start_round: int = 0, batch_fn=None,
-             snapshot=None, recorder=None) -> ExecResult:
+             snapshot=None, breaker=None, recorder=None) -> ExecResult:
     return PlanExecutor(trainer, plan, batch_fn=batch_fn,
                         recorder=recorder).run_scan(
         state, rounds_per_launch=rounds_per_launch, metrics=metrics,
-        on_step=on_step, start_round=start_round, snapshot=snapshot)
+        on_step=on_step, start_round=start_round, snapshot=snapshot,
+        breaker=breaker)
+
+
+def run_grid(trainer, plan: RunPlan, state, *, rounds_per_launch: int = 8,
+             metrics: str = "chunk", start_round: int = 0, batch_fn=None,
+             snapshot=None, recorder=None) -> ExecResult:
+    return PlanExecutor(trainer, plan, batch_fn=batch_fn,
+                        recorder=recorder).run_grid(
+        state, rounds_per_launch=rounds_per_launch, metrics=metrics,
+        start_round=start_round, snapshot=snapshot)
 
 
 def run_eager(trainer, plan: RunPlan, state, *,

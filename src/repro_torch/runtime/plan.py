@@ -19,13 +19,14 @@ The scenario channels lower as in the JAX package, by the same numpy code
 (array-equal to its plan, error messages included): ``availability`` is
 multiplied into the masks, a ``zipf_as`` trajectory quantises into
 ``cdf_bank`` / ``cdf_index``, and ``grad_density`` / ``fault_gain`` ride
-as per-round arrays.  The vmapped γ-grid lane has no plan axis here
-(ROADMAP.md); the port's grid runs one plan per γ.
+as per-round arrays.  ``compile_plan(..., grid_gammas=...)`` adds the
+γ-axis, ``grid_scales``, that the executor's grid lane steps every grid
+point over (:meth:`repro_torch.runtime.PlanExecutor.run_grid`).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -48,6 +49,11 @@ class RunPlan:
     Static data-synthesis tables: ``token_cdf`` ``(vocab,)`` f32 cumulative
     Zipf pmf and ``group_perms`` ``(n_groups, vocab)`` int32 group vocab
     permutations.
+
+    ``grid_scales`` is the optional γ-axis: ``(n_grid, rounds)`` f32
+    per-round stepsize scales, one row per grid point (``γ_g/γ_base ×
+    delay_scales``).  The ordering, masks and data keys do not depend on
+    γ, so one plan serves the whole grid.
 
     Scenario channels (``repro_torch.scenarios`` worlds; all optional, all
     ``None`` for a stationary plan):
@@ -77,6 +83,7 @@ class RunPlan:
     seq_len: int
     seed: int
     adaptive: bool = False
+    grid_scales: Optional[np.ndarray] = None
     cdf_bank: Optional[np.ndarray] = None
     cdf_index: Optional[np.ndarray] = None
     grad_density: Optional[np.ndarray] = None
@@ -94,6 +101,12 @@ class RunPlan:
     def vocab(self) -> int:
         return int(self.token_cdf.shape[0])
 
+    @property
+    def n_grid(self) -> int:
+        """Grid points on the γ-axis (0 when the plan has none)."""
+        return 0 if self.grid_scales is None \
+            else int(self.grid_scales.shape[0])
+
     def __post_init__(self):
         if self.masks.shape[0] != self.delay_scales.shape[0] or \
                 self.masks.shape[0] != self.data_keys.shape[0]:
@@ -109,6 +122,14 @@ class RunPlan:
             raise ValueError(
                 f"the {self.n_groups} groups must divide "
                 f"global_batch={self.global_batch}")
+        if self.grid_scales is not None and (
+                self.grid_scales.ndim != 2
+                or self.grid_scales.shape[1] != self.masks.shape[0]
+                or not self.grid_scales.shape[0]):
+            raise ValueError(
+                f"grid_scales must be (n_grid >= 1, rounds="
+                f"{self.masks.shape[0]}); got "
+                f"{self.grid_scales.shape}")
         if (self.cdf_bank is None) != (self.cdf_index is None):
             raise ValueError("cdf_bank and cdf_index must be set together")
         if self.cdf_bank is not None:
@@ -143,13 +164,20 @@ class RunPlan:
                     "fault_gain must not contain zeros — drop workers via "
                     "the availability channel, not a zero gain")
 
+    def grid_slice(self, lo: int = 0, hi: Optional[int] = None):
+        """``(n_grid, hi-lo)`` per-γ scale columns for one chunk (host
+        numpy; the executor moves them to the device)."""
+        if self.grid_scales is None:
+            raise ValueError("plan has no γ-axis (grid_scales is None)")
+        hi = self.rounds if hi is None else hi
+        return self.grid_scales[:, lo:hi]
+
     def summary(self) -> dict:
-        """The JAX plan's summary keys; ``n_grid`` is 0 (the port has no
-        γ-axis)."""
+        """The JAX plan's summary keys."""
         return {"rounds": self.rounds, "n_groups": self.n_groups,
                 "vocab": self.vocab, "global_batch": self.global_batch,
                 "seq_len": self.seq_len, "seed": self.seed,
-                "adaptive": self.adaptive, "n_grid": 0,
+                "adaptive": self.adaptive, "n_grid": self.n_grid,
                 "n_cdf_phases": (0 if self.cdf_bank is None
                                  else int(self.cdf_bank.shape[0])),
                 "sparsified": self.grad_density is not None,
@@ -208,6 +236,8 @@ def _pad_rows(x: np.ndarray, R: int, fill) -> np.ndarray:
 def compile_plan(schedule: Schedule, job, *, rounds: Optional[int] = None,
                  n_groups: Optional[int] = None, seed: int = 0,
                  adaptive: bool = False,
+                 grid_gammas: Optional[Sequence[float]] = None,
+                 base_gamma: Optional[float] = None,
                  availability: Optional[np.ndarray] = None,
                  zipf_as: Optional[np.ndarray] = None,
                  grad_density: Optional[np.ndarray] = None,
@@ -221,6 +251,13 @@ def compile_plan(schedule: Schedule, job, *, rounds: Optional[int] = None,
     scale from the schedule's delay metadata; the realised buffering depth
     is 1 round whenever ``delay_rounds > 0`` (the trainer's single
     swapped-every-round gbuf).
+
+    ``grid_gammas`` adds the γ-axis: one ``grid_scales`` row per grid
+    point, ``γ_g / base_gamma`` (default ``base_gamma = grid_gammas[0]``,
+    the lr the executing trainer was built with) times the per-round
+    scales; the optimizer applies ``lr · scale`` everywhere, so scaling
+    the scale is running at γ_g.  Every row folds the whole stepsize
+    policy in, so the grid lane always calls the explicit-scale step.
 
     Scenario channels (typically from a realised
     :class:`repro_torch.scenarios.ScenarioWorld`):
@@ -269,6 +306,14 @@ def compile_plan(schedule: Schedule, job, *, rounds: Optional[int] = None,
                 f"fault_gain must be (rounds, n_workers="
                 f"{masks.shape[1]}); got {gain.shape}")
         gain = _pad_rows(gain, R, 1.0)
+    grid_scales = None
+    if grid_gammas is not None:
+        g = np.asarray([float(x) for x in grid_gammas], np.float32)
+        if g.ndim != 1 or not g.size:
+            raise ValueError("grid_gammas must be a non-empty 1-D sequence")
+        base = np.float32(base_gamma if base_gamma is not None else g[0])
+        grid_scales = ((g / base)[:, None]
+                       * scales[None, :]).astype(np.float32)
     pipe = HeterogeneousTokenPipeline(DataConfig(
         vocab=cfg.vocab, seq_len=job.seq_len, global_batch=job.global_batch,
         n_groups=n, heterogeneity=job.heterogeneity, seed=seed))
@@ -279,5 +324,6 @@ def compile_plan(schedule: Schedule, job, *, rounds: Optional[int] = None,
         token_cdf=np.cumsum(pipe.pmf).astype(np.float32),
         group_perms=np.stack(pipe.perms).astype(np.int32),
         global_batch=job.global_batch, seq_len=job.seq_len,
-        seed=seed, adaptive=adaptive, cdf_bank=cdf_bank,
+        seed=seed, adaptive=adaptive, grid_scales=grid_scales,
+        cdf_bank=cdf_bank,
         cdf_index=cdf_index, grad_density=density, fault_gain=gain)

@@ -38,6 +38,7 @@ from repro_torch.checkpoint import (AsyncSnapshotter,          # noqa: E402
                                     save, verify)
 from repro_torch.configs import get_arch as t_get_arch         # noqa: E402
 from repro_torch.distributed import AsyncConfig, AsyncTrainer  # noqa: E402
+from repro_torch.faults import DivergenceBreaker               # noqa: E402
 from repro_torch.models import state_from_numpy                # noqa: E402
 from repro_torch.optim import OptConfig                        # noqa: E402
 from repro_torch.runtime import PlanExecutor, compile_plan     # noqa: E402
@@ -347,8 +348,10 @@ def test_trainer_backend_snapshot_knob(tmp_path):
     eager = TrainerBackend("cpu", runtime="eager", snapshot=AsyncSnapshotter(
         str(tmp_path / "e"), 2)).run(spec)
     assert eager.extra["snapshots"] == 0          # scan-only, as in JAX
-    with pytest.raises(NotImplementedError, match="breaker"):
-        TrainerBackend("cpu", breaker=object())
+    # the divergence breaker is taken now (it trips through the tap lane:
+    # tests/test_torch_tap_grid.py)
+    br = DivergenceBreaker()
+    assert TrainerBackend("cpu", breaker=br).breaker is br
 
 
 _TRAIN_CHILD = """

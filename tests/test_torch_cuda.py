@@ -20,11 +20,20 @@ every slot to the same request served alone, and a serve resumed from a
 snapshot into a fresh capture to the uninterrupted serve; the snapshotter's
 test holds an offered state against the in-place updates queued after it.
 
+The pooled update's tests run ``optim.pool`` over qwen2-0.5b's 14-leaf
+bf16 pool at 2 layers: one launch per call against the same call routed
+to the plain versions on the card (the update tolerances above), and at
+run flag 0 on NaN grads every pool and the count keep their bits; a
+pooled run launches once per round, within 5e-3 of the per-leaf curve,
+and its ``metrics="tap"`` rows equal the chunk transport's bit for bit.
+
 The theory tier has no kernel of its own: its replay runs torch ops as
 CUDA graph chunks.  Its card tests hold the graph route to the eager loop
 and a grid to solo replays bit for bit, and the card to the CPU within
 ``chip_smoke.py``'s rtol 1e-4 / atol 1e-6.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -359,6 +368,122 @@ def test_momentum_trainer_launches_its_kernel(cuda_device, delay):
     assert np.isfinite(curves["pallas"]).all()
     np.testing.assert_allclose(curves["pallas"], curves["reference"],
                                rtol=5e-3)
+
+
+def _qwen2_pool(device, seed=0):
+    """The 14-leaf pool of qwen2-0.5b at 2 layers: (layout, pooled state
+    with random p/m/v/gbuf, a random grad pool), bf16 p / gbuf / g, f32
+    m / v."""
+    from repro_torch.models import param_specs
+    from repro_torch.optim import build_layout
+
+    lay = build_layout(param_specs(get_arch("qwen2-0.5b").with_(
+        n_layers=2)), 1)
+    assert lay.n_leaves == 14 and list(lay.cols) == ["bfloat16"]
+    gen = torch.Generator(device).manual_seed(seed)
+    shape = (1, lay.cols["bfloat16"])
+    randn = lambda: torch.randn(shape, generator=gen, device=device)
+    pools = {"bfloat16": {"p": randn().bfloat16(), "m": randn() * 0.1,
+                          "v": torch.rand(shape, generator=gen,
+                                          device=device) * 0.01,
+                          "gbuf": randn().bfloat16()}}
+    return lay, pools, {"bfloat16": randn().bfloat16()}
+
+
+def _pooled_call(name, momentum, delayed, grads, pools, count, run=None):
+    from repro_torch.optim import (OptConfig, pooled_delayed_apply,
+                                   pooled_update)
+
+    cfg = OptConfig(name=name, lr=1e-3, momentum=momentum, clip_norm=1.0,
+                    weight_decay=0.01 if name == "adam" else 0.0)
+    apply = pooled_delayed_apply if delayed else pooled_update
+    return apply(grads, pools, count, cfg, lr_scale=0.5, run=run)
+
+
+_POOLED = [("fused_adam_delayed", "adam", 0.0, True),
+           ("fused_adam", "adam", 0.0, False),
+           ("async_update", "sgd", 0.0, True), ("sgd_step", "sgd", 0.0, False),
+           ("sgd_momentum_delayed", "sgd", 0.9, True),
+           ("sgd_momentum_step", "sgd", 0.9, False)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,name,momentum,delayed", _POOLED)
+def test_pooled_kernels_match_plain_over_the_qwen2_pool(
+        cuda_device, monkeypatch, kernel, name, momentum, delayed):
+    """optim.pool's updates over qwen2-0.5b's 14-leaf bf16 pool (2 layers,
+    151.7M elements): one launch of the kernel per call, against the same
+    call routed to the plain versions on the card."""
+    _, pools, grads = _qwen2_pool(cuda_device)
+    want = {dk: {k: v.clone() for k, v in b.items()} for dk, b in
+            pools.items()}
+    count = torch.full((), 4, dtype=torch.int32, device=cuda_device)
+    count2 = count.clone()
+    AU.reset_launches()
+    _, got_count, gnorm = _pooled_call(name, momentum, delayed, grads,
+                                       pools, count)
+    torch.cuda.synchronize()
+    launched = dict(AU.launches)
+    with monkeypatch.context() as mp:
+        mp.setattr(ops, "_route", lambda what, t: "cpu")   # plain, on card
+        _, want_count, want_gnorm = _pooled_call(name, momentum, delayed,
+                                                 grads, want, count2)
+    assert launched == {**dict.fromkeys(AU.KERNELS, 0), kernel: 1}
+    assert int(got_count) == int(want_count) == 5
+    assert torch.equal(gnorm, want_gnorm)
+    tol = dict(rtol=3e-2, atol=3e-2)
+    for k in _compared(kernel):
+        np.testing.assert_allclose(
+            pools["bfloat16"][k].float().cpu().numpy(),
+            want["bfloat16"][k].float().cpu().numpy(), err_msg=k, **tol)
+    if delayed:
+        assert torch.equal(pools["bfloat16"]["gbuf"], grads["bfloat16"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,name,momentum,delayed", _POOLED)
+def test_pooled_run_flag_zero_keeps_every_pool(cuda_device, kernel, name,
+                                               momentum, delayed):
+    """The guard rails' skip through the pools on the card: NaN grads at
+    run flag 0, one launch, and every pool and the count keep their bits."""
+    _, pools, grads = _qwen2_pool(cuda_device, seed=1)
+    grads["bfloat16"][:, ::3] = float("nan")
+    kept = {k: v.clone() for k, v in pools["bfloat16"].items()}
+    count = torch.full((), 4, dtype=torch.int32, device=cuda_device)
+    before = AU.launches[kernel]
+    _pooled_call(name, momentum, delayed, grads, pools, count,
+                 run=torch.zeros((), device=cuda_device))
+    torch.cuda.synchronize()
+    assert AU.launches[kernel] == before + 1 and int(count) == 4
+    bits = lambda t: t.view(torch.int16) if t.dtype == torch.bfloat16 \
+        else t.view(torch.int32)
+    for k, v in kept.items():
+        assert torch.equal(bits(pools["bfloat16"][k]), bits(v)), k
+
+
+@pytest.mark.cuda
+def test_pooled_and_tap_runs_on_the_card(cuda_device):
+    """run(TrainJob(update_impl="pallas_pooled")) at reduced size: one
+    fused_adam_delayed launch per round (one bf16 pool), the per-leaf
+    route's curve within 5e-3; and metrics="tap" rows bit-equal to the
+    chunk transport's, with no host sync."""
+    T = 4
+    spec = ExperimentSpec(objective=TrainJob(global_batch=4, seq_len=32,
+                                             update_impl="pallas_pooled"),
+                          n_workers=2, T=T, stepsize=1e-3,
+                          rounds_per_launch=2)
+    AU.reset_launches()
+    pooled = run(spec, device="cuda")
+    assert AU.launches == {**dict.fromkeys(AU.KERNELS, 0),
+                           "fused_adam_delayed": T}
+    leaf = run(dataclasses.replace(spec, objective=TrainJob(
+        global_batch=4, seq_len=32, update_impl="pallas")), device="cuda")
+    np.testing.assert_allclose(pooled.losses, leaf.losses, rtol=5e-3)
+    tap = TrainerBackend("cuda", metrics="tap").run(spec)
+    np.testing.assert_array_equal(tap.losses, pooled.losses)
+    np.testing.assert_array_equal(tap.grad_norms, pooled.grad_norms)
+    assert (tap.extra["host_syncs"], tap.extra["tap_events"],
+            tap.extra["launches"]) == (0, T, 2)
 
 
 #: (B, nc, c, H, P, N): the kernel test matrix of test_kernels.py, ragged

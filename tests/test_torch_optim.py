@@ -225,8 +225,15 @@ def test_update_impl_resolution():
     with pytest.raises(ValueError, match="update_impl"):
         TO.resolve_update_impl("cuda")
     for impl in ("pallas_pooled", "pallas_pooled_interpret"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        # the pooled impls run through optim.pool; the tree factories
+        # refuse them with the JAX package's words
+        assert TO.resolve_update_impl(impl) == impl
+        with pytest.raises(ValueError, match="pools the state into "
+                           "per-dtype buffers and cannot serve the "
+                           "tree-based optimizer contract"):
             TO.make_optimizer(TO.OptConfig(update_impl=impl))
+        with pytest.raises(ValueError, match="operates on pooled state"):
+            TO.make_delayed_apply(TO.OptConfig(update_impl=impl))
     # heavy-ball SGD on a fused impl runs its kernels
     cfg = TO.OptConfig(name="sgd", momentum=0.9, update_impl="pallas")
     assert TO.make_optimizer(cfg)[1] is TO.fused_sgd_update

@@ -91,18 +91,30 @@ def test_run_defaults_to_cuda_and_raises_without_it():
 
 
 def test_grid_policy_runs_the_sequential_loop():
-    spec = ExperimentSpec(objective=TrainJob(**JOB), stepsize=(1e-2, 1e-3),
-                          metrics="none", **SPEC)
-    res = TrainerBackend("cpu").run(spec)
-    assert res.gamma in (1e-2, 1e-3) and res.losses is not None
-    # guards run now, in every run of the sequential grid (a clean world
-    # skips nothing and keeps every health scale at 1)
-    guarded = run(dataclasses.replace(
-        spec, objective=TrainJob(guards=True, **JOB)), device="cpu")
-    assert guarded.gamma in (1e-2, 1e-3)
+    """A grid policy on the scan runtime goes through the grid lane (one
+    trainer, one plan with a γ-axis, even under metrics="none"); the eager
+    runtime keeps the sequential loop, whose winner equals the lane's bit
+    for bit (γ ratio 1/4 is exact in f32); an on_step callback keeps it
+    too.  That run is pooled and guarded: guards run in every run of the
+    loop (a clean world skips nothing and keeps every health scale at 1),
+    and the pooled curve equals the per-leaf reference run's within the
+    trainer-curve tolerance of tests/test_optim_pool.py (rtol 5e-3)."""
+    spec = ExperimentSpec(objective=TrainJob(**JOB), stepsize=(1e-2, 2.5e-3),
+                          metrics="none", **{**SPEC, "T": 3})
+    lane = TrainerBackend("cpu").run(spec)
+    assert lane.extra["grid_lane"] is True and lane.extra["n_grid"] == 2
+    assert lane.extra["plan_summary"]["n_grid"] == 2
+    assert lane.gamma in (1e-2, 2.5e-3) and lane.losses is not None
+    eager = TrainerBackend("cpu", runtime="eager").run(spec)
+    assert "grid_lane" not in eager.extra and eager.gamma == lane.gamma
+    np.testing.assert_array_equal(eager.losses, lane.losses)
+    seen = []
+    pooled = TrainerBackend("cpu", on_step=lambda i, s, m: seen.append(i)).run(
+        dataclasses.replace(spec, objective=TrainJob(
+            guards=True, update_impl="pallas_pooled", **JOB)))
+    assert "grid_lane" not in pooled.extra and seen == [0, 1, 2] * 2
+    assert pooled.gamma == lane.gamma
+    np.testing.assert_allclose(pooled.losses, eager.losses, rtol=5e-3)
     assert all(m["skipped"] == 0.0 and m["gscale"] == 1.0
-               for m in guarded.extra["metrics"])
-    assert guarded.x["guard"]["health"].tolist() == [1.0] * SPEC["n_workers"]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        run(dataclasses.replace(spec, objective=TrainJob(
-            update_impl="pallas_pooled", **JOB)), device="cpu")
+               for m in pooled.extra["metrics"])
+    assert pooled.x["guard"]["health"].tolist() == [1.0] * SPEC["n_workers"]

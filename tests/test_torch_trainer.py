@@ -104,9 +104,23 @@ def test_loss_and_grads_match_jax(dtype):
 
 
 def test_loss_refuses_remat():
+    """``remat="full"`` is taken now: the loss and every gradient equal
+    ``remat="none"``'s bit for bit (the recomputed activations are the
+    same operations on the same inputs; its parity with JAX's
+    ``jax.checkpoint``: tests/test_torch_tap_grid.py)."""
     _, tcfg = _cfgs("float32")
-    with pytest.raises(NotImplementedError, match="remat"):
-        TM.loss_fn(tcfg.with_(remat="full"), {}, {"tokens": None})
+    tok = torch.from_numpy(_tokens(tcfg.vocab, 2)).long()
+    base = TM.init_params(tcfg, 0, "cpu")
+    out = {}
+    for remat in ("full", "none"):
+        p = jax.tree_util.tree_map(
+            lambda t: t.clone().requires_grad_(True), base)
+        loss, _ = TM.loss_fn(tcfg.with_(remat=remat), p, {"tokens": tok})
+        loss.backward()
+        out[remat] = [loss.detach()] + [t.grad for t in
+                                        jax.tree_util.tree_leaves(p)]
+    for a, b in zip(out["full"], out["none"]):
+        assert torch.equal(a, b)
 
 
 def _pair(dtype, *, opt="adam", impl="reference", momentum=0.0, **acfg):
@@ -222,19 +236,24 @@ def test_state_crosses_bitwise_both_ways():
 
 
 def test_trainer_refuses_unported_knobs():
-    """``remat`` is still refused; guards and the channels are taken now
-    (their parity with JAX: tests/test_torch_faults.py), and guards must be
-    a ``GuardConfig``."""
+    """``remat`` is taken now, and a round with it equals one without, bit
+    for bit; guards and the channels are taken (their parity with JAX:
+    tests/test_torch_faults.py), and guards must be a ``GuardConfig``."""
     _, tcfg = _cfgs("float32")
     with pytest.raises(TypeError, match="GuardConfig"):
         AsyncTrainer(tcfg, async_cfg=AsyncConfig(guards=object()),
                      device="cpu")
-    with pytest.raises(NotImplementedError, match="remat"):
-        AsyncTrainer(tcfg.with_(remat="full"), device="cpu")
-    tr = AsyncTrainer(tcfg, device="cpu")
-    state, m = tr.train_step_fn()(tr.init_state(0), {"tokens": torch.zeros(
-        (2, 4), dtype=torch.int64)}, torch.ones(1), grad_density=0.5)
-    assert int(state["step"]) == 1 and np.isfinite(m["loss"].item())
+    batch = {"tokens": torch.from_numpy(_tokens(tcfg.vocab, 3, b=2)).long()}
+    stepped = {}
+    for remat in ("full", "none"):
+        tr = AsyncTrainer(tcfg.with_(remat=remat), device="cpu")
+        stepped[remat] = tr.train_step_fn()(tr.init_state(0), batch,
+                                            torch.ones(1), grad_density=0.5)
+    assert int(stepped["full"][0]["step"]) == 1
+    assert np.isfinite(stepped["full"][1]["loss"].item())
+    for a, b in zip(jax.tree_util.tree_leaves(stepped["full"]),
+                    jax.tree_util.tree_leaves(stepped["none"])):
+        assert torch.equal(a, b)
     specs = tr.state_specs()
     assert set(specs) == {"params", "opt", "step", "gbuf"}
     assert specs["opt"]["m"]["embed"].dtype == "float32"
@@ -275,8 +294,16 @@ def test_scan_equals_eager_and_counts_dispatch():
     for a, b in zip(jax.tree_util.tree_leaves(none.x),
                     jax.tree_util.tree_leaves(scan.x)):
         assert torch.equal(a, b)
-    with pytest.raises(NotImplementedError, match="tap"):
-        TrainerBackend("cpu", metrics="tap").run(_spec())
+    # the tap streams every round's row: the chunk curves bit for bit,
+    # no host sync
+    tap = TrainerBackend("cpu", metrics="tap").run(_spec())
+    np.testing.assert_array_equal(tap.losses, scan.losses)
+    np.testing.assert_array_equal(tap.grad_norms, scan.grad_norms)
+    assert (tap.extra["launches"], tap.extra["host_syncs"],
+            tap.extra["tap_events"]) == (3, 0, 5)
+    for a, b in zip(jax.tree_util.tree_leaves(tap.x),
+                    jax.tree_util.tree_leaves(scan.x)):
+        assert torch.equal(a, b)
 
 
 def test_adaptive_plan_feeds_delay_scales():

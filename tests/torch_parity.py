@@ -12,6 +12,14 @@ import jax.numpy as jnp
 
 from repro_torch.models.convert import params_from_numpy
 
+# The suite runs its files in parallel worker processes (pytest-xdist).
+# torch's intra-op pool, a thread per core in every worker, oversubscribes
+# the cores several times over, and the port's CPU tests are mostly small
+# ops: four of their files took 197 s on 4 workers so and 65 s with one
+# thread per worker.  Every port test file that compares with JAX imports
+# this module, so each worker runs torch on one thread.
+torch.set_num_threads(1)
+
 TOL = {"float32": dict(rtol=1e-5, atol=1e-5),
        "bfloat16": dict(rtol=3e-2, atol=3e-2)}
 
