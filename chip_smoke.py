@@ -172,9 +172,34 @@ Phases, each of which fails the run (non-zero exit, no result line):
     runs, and ``run`` taking the lane; (f) ``remat="full"``: the curve
     within 1e-6 relative of ``remat="none"``'s and a lower peak memory;
     prints a ``{"trainer_lanes": ...}`` line;
-17. prints a ``{"kernels": [...]}`` line (each update kernel's
-    ``launches`` from its pooled path) and, last, the ``{"ok": true,
-    ...}`` line.
+17. the hybrid (zamba2-7b) and MoE (deepseek-moe-16b) families at full
+    width, bf16, both kernel switches on, after the earlier phases'
+    memory is freed: flash at each family's prefill shape ((4, 1024, 32,
+    112) and (4, 1024, 16, 128)) and SSD at zamba2-7b's (x (4, 8, 128,
+    112, 64), N 64) against their plain versions in f32 and bf16, timed
+    (kernel, plain, bound, SDPA as a yardstick); per arch,
+    ``run(ServeJob(arch, reduced=False, batch=4, prompt_len=1024))`` with
+    T 16 (one flash launch per attention block: 13 insertions on
+    zamba2-7b, 28 layers on deepseek-moe-16b; one SSD launch per Mamba2
+    layer: 81; on the tensor-core routes; finite logits, 16 tokens a row)
+    and the slot lane through ``run(ServeJob(n_slots=8))`` (16 requests
+    of 512, T 32, ``poisson:gap=2``, K 8: 16 × those launches, one chunk
+    capture), then on params built once (``init_params`` host seconds):
+    a warm prefill and 8 lock-step decode steps under the profiler, the
+    prefill at full width and reduced depth with the kernels against
+    their plain versions in the same branches and against both switches
+    off: gated in f32 at 9 layers (one insertion and a 3-layer tail) and
+    4 (2e-4), and on zamba2-7b in bf16 against the plain versions at 2
+    layers (an insertion before each; 3e-2); the other bf16 comparisons
+    reported (an ulp of difference moves the MoE's routing), one slot
+    server's two serves (tokens equal to ``run``'s), a
+    profiled serve and the eager route (bit for bit); on zamba2-7b the
+    slot lane ≡ the lock-step lane through ``run`` at 9 layers in f32;
+    prints a ``{"families": ...}`` line;
+18. prints a ``{"kernels": [...]}`` line (each update kernel's
+    ``launches`` from its pooled path; flash's and SSD's launches on
+    phase 17's paths under ``family_launches``) and, last, the ``{"ok":
+    true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -182,7 +207,9 @@ import contextlib
 import dataclasses
 import functools
 import json
+import math
 import re
+import resource
 import shutil
 import subprocess
 import sys
@@ -220,6 +247,8 @@ from repro_torch.launch.profile_serve import (idle_share,  # noqa: E402
                                            profiled)
 from repro_torch.core import replay                            # noqa: E402
 from repro_torch.models import init_params, param_specs, prefill  # noqa: E402
+from repro_torch.models.specs import (DEVICE_DRAW_MIN, Spec,  # noqa: E402
+                                      materialize)
 from repro_torch.objectives import (LogRegProblem,            # noqa: E402
                                     make_libsvm_like, make_synthetic)
 from repro_torch.optim import (OptConfig, build_layout,       # noqa: E402
@@ -2614,6 +2643,445 @@ def phase_trainer_lanes(device, entries: dict, card: str,
     return out
 
 
+#: the hybrid and MoE families (phase 17): full width, bf16, both kernel
+#: switches on (the SSD switch is inert on the MoE)
+FAMILY_ARCHS = ("zamba2-7b", "deepseek-moe-16b")
+FAMILY_REDUCED = False
+FAMILY_SWITCHES = (("use_flash_attention", True), ("use_ssd_kernel", True))
+FAMILY_LOCK = dict(batch=4, prompt_len=1024, T=16, seed=0)
+FAMILY_DECODE_STEPS = 8
+#: the depth at which each arch's prefill is held kernels ≡ plain in f32
+#: (zamba2-7b: one insertion of the shared block and a 3-layer tail); bf16
+#: is held at 2 layers and reported at this depth
+FAMILY_PLAIN_LAYERS = {"zamba2-7b": 9, "deepseek-moe-16b": 4}
+FAMILY_SLOT = dict(n_slots=8, n_requests=16, prompt_len=512, T=32,
+                   arrival="poisson:gap=2")
+#: slot ≡ lock-step on the hybrid: full width, 9 layers, f32, TF32 off
+FAMILY_PARITY = dict(arch="zamba2-7b", n_layers=9, batch=4, prompt_len=512,
+                     T=32)
+#: (arch, B, Sq, Sk, H, KV, D, causal, window): each family's prefill
+FAMILY_FLASH_SHAPES = (
+    ("zamba2-7b", 4, 1024, 1024, 32, 32, 112, True, None),
+    ("deepseek-moe-16b", 4, 1024, 1024, 16, 16, 128, True, None))
+#: (arch, B, nc, c, H, P, N): zamba2-7b's prefill
+FAMILY_SSD_SHAPE = ("zamba2-7b", 4, 8, 128, 112, 64, 64)
+
+
+def _family_counts(cfg) -> dict:
+    """Flash and SSD launches of one prefill: one flash per attention
+    block (the hybrid's g insertions), one SSD per Mamba2 layer."""
+    if cfg.family == "hybrid":
+        return {"flash": cfg.n_layers // cfg.attn_every, "ssd": cfg.n_layers}
+    return {"flash": cfg.n_layers, "ssd": 0}
+
+
+def _cut_depth(params, cfg):
+    """Views of full-depth params at ``cfg``'s smaller depth: each stacked
+    leaf's first rows (the hybrid's tail keeps its own layers)."""
+    return tree_map(lambda s, p: p if tuple(p.shape) == s.shape
+                    else p[:s.shape[0]], param_specs(cfg), params)
+
+
+def _prefill_plain_kernels(cfg, params, tokens):
+    """Last-token logits of a prefill whose ``ops.flash_attention`` and
+    ``ops.ssd_chunk`` calls go to the kernels' plain versions: the same
+    branches and casts as the kernels' prefill, on the card."""
+    routed = ops.flash_attention, ops.ssd_chunk
+    ops.flash_attention = FA.flash_attention_plain
+    ops.ssd_chunk = SSD.ssd_chunk_plain
+    try:
+        return prefill(cfg, params, {"tokens": tokens})[0]
+    finally:
+        ops.flash_attention, ops.ssd_chunk = routed
+
+
+def _routes(fseen, sseen) -> dict:
+    return {"flash": sorted({FA.route(getattr(torch, d[0])) for d in fseen}),
+            "ssd": sorted({SSD.route(getattr(torch, d[0]),
+                                     getattr(torch, d[3])) for d in sseen})}
+
+
+def _counted_run(label, spec, device, want) -> tuple:
+    """``run(spec)`` with both kernels' counts set to 0 before and read
+    after; each must equal ``want`` and every launch take the tensor-core
+    route.  Returns (result, launches, peak GiB)."""
+    torch.cuda.reset_peak_memory_stats()
+    FA.launches = SSD.launches = 0
+    with _dtypes_seen(FA, "flash_attention_cuda") as fseen, \
+            _dtypes_seen(SSD, "ssd_chunk_cuda") as sseen:
+        res = run(spec, device=device)
+    got = {"flash": FA.launches, "ssd": SSD.launches}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if got != want or {"flash": res.extra["flash_launches"],
+                       "ssd": res.extra["ssd_launches"]} != want:
+        raise AssertionError(f"{label}: launches {got}, want {want}")
+    routes = _routes(fseen, sseen)
+    for name in ("flash", "ssd"):
+        if routes[name] != (["tensor_cores"] if want[name] else []):
+            raise AssertionError(f"{label}: {name} routes {routes[name]}")
+    return res, got, peak
+
+
+def _family_kernel_rows(device) -> list:
+    """Flash at each family's prefill shape and SSD at zamba2-7b's: each
+    against its plain version (f32 and bf16), then bf16 timed on the
+    device with its plain version, its bound and (flash) SDPA."""
+    rows = []
+    for label, B, Sq, Sk, H, KV, D, causal, window in FAMILY_FLASH_SHAPES:
+        kw = dict(causal=causal, window=window)
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _qkv(B, Sq, Sk, H, KV, D, dtype, device)
+            err, bad = _compare(FA.flash_attention_cuda(q, k, v, **kw),
+                                FA.flash_attention_plain(q, k, v, **kw),
+                                TOL[dtype])
+            log(f"families: flash {label} {str(dtype)[6:]}: max_abs_err="
+                f"{err:.3e} (tol {TOL[dtype]:g}) bad={bad}")
+            if bad:
+                raise AssertionError(f"flash disagrees with its plain "
+                                     f"version at {label}'s shape {dtype}")
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        row = {"kernel": "flash_attention", "arch": label,
+               "shape": [B, Sq, H, D], "max_abs_err": err,
+               "ms": device_ms(lambda: FA.flash_attention_cuda(q, k, v, **kw)),
+               "plain_ms": device_ms(
+                   lambda: FA.flash_attention_plain(q, k, v, **kw), iters=2),
+               "sdpa_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, is_causal=causal))}
+        row["bound_ms"], row["bound_by"] = flash_bound(q, k, **kw)
+        rows.append(row)
+        del q, k, v, qt, kt, vt
+    label, *shape = FAMILY_SSD_SHAPE
+    for dtype in (torch.float32, torch.bfloat16):
+        args = _ssd_inputs(*shape, dtype, device)
+        (y, st), (wy, wst) = SSD.ssd_chunk_cuda(*args), SSD.ssd_chunk_plain(*args)
+        (ey, by), (es, bs) = (_compare(y, wy, SSD_TOL[dtype]),
+                              _compare(st, wst, SSD_TOL[dtype]))
+        log(f"families: ssd {label} {str(dtype)[6:]}: max_abs_err y {ey:.3e} "
+            f"states {es:.3e} (tol {SSD_TOL[dtype]:g}) bad={by + bs}")
+        if by or bs:
+            raise AssertionError(f"ssd disagrees with its plain version at "
+                                 f"{label}'s shape {dtype}")
+        del y, st, wy, wst
+    row = {"kernel": "ssd_chunk", "arch": label, "shape": shape,
+           "max_abs_err": max(ey, es),
+           "ms": device_ms(lambda: SSD.ssd_chunk_cuda(*args)),
+           "plain_ms": device_ms(lambda: SSD.ssd_chunk_plain(*args), iters=5),
+           "sdpa_ms": None}
+    row["bound_ms"], row["bound_by"] = ssd_bound(args[0], args[3])
+    rows.append(row)
+    del args
+    for r in rows:
+        log(f"families: {r['kernel']} at {r['arch']}'s shape {r['shape']} "
+            f"bf16: device time per call: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, sdpa {r['sdpa_ms']}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    torch.cuda.empty_cache()
+    return rows
+
+
+def _family_lockstep(device, arch, out) -> tuple:
+    """The lock-step lane through ``run``: launches per prefill, routes,
+    finite logits and the token matrix; appends the lane's row to
+    ``out["rows"]`` and returns (cfg, prompts)."""
+    s = FAMILY_LOCK
+    job = ServeJob(arch=arch, reduced=FAMILY_REDUCED, batch=s["batch"],
+                   prompt_len=s["prompt_len"], arch_overrides=FAMILY_SWITCHES)
+    cfg = job.make_arch()
+    want = _family_counts(cfg)
+    res, launches, peak = _counted_run(
+        f"{arch} lock-step", ExperimentSpec(objective=job, T=s["T"],
+                                            seed=s["seed"]), device, want)
+    if not res.extra["logits_finite"]:
+        raise AssertionError(f"{arch}: non-finite logits")
+    x = res.x
+    if x.shape != (s["batch"], s["T"]) or x.min() < 0 or x.max() >= cfg.vocab:
+        raise AssertionError(f"{arch}: bad token matrix {x.shape}")
+    log(f"families: {arch} L={cfg.n_layers} d={cfg.d_model} lock-step "
+        f"through run: batch {s['batch']}, prompt {s['prompt_len']}, "
+        f"T={s['T']}: launches {launches} per prefill on the tensor-core "
+        f"routes, {res.extra['tok_per_s']:.1f} tok/s, peak {peak:.2f} GiB")
+    out["rows"].append(dict(arch=arch, lane="lockstep", **launches,
+                            run_tok_per_s=res.extra["tok_per_s"],
+                            peak_gib=peak))
+    prompts = res.extra["prompts"]
+    del res
+    return cfg, prompts
+
+
+def _family_profile(device, cfg, params, prompts, row) -> None:
+    """A warm prefill and ``FAMILY_DECODE_STEPS`` lock-step decode steps
+    timed with the host clock, then the same under the profiler (its
+    device time and idle share; the profiler slows the host)."""
+    s, steps = FAMILY_LOCK, FAMILY_DECODE_STEPS
+    batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
+                                       device=device)}
+    ctx = s["prompt_len"] + steps
+    server = Server(cfg, ServeConfig(batch=s["batch"], ctx_len=ctx),
+                    device=device)
+
+    def pre():
+        last, cache = prefill(cfg, params, batch, ctx_len=ctx)
+        return torch.argmax(last, dim=-1).cpu().numpy(), cache
+
+    def dec(first, cache):
+        return lambda: server.generate(params, first, steps,
+                                       start_pos=s["prompt_len"],
+                                       cache=cache)
+
+    first, cache = pre()                                         # warm-up
+    dec(first, cache)()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    first, cache = pre()
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    dec(first, cache)()
+    t2 = time.perf_counter()
+    (first, cache), pre_wall, pre_k, _ = profiled(pre)
+    _, dec_wall, dec_k, _ = profiled(dec(first, cache))
+    row.update(
+        prefill_wall_ms=(t1 - t0) * 1e3,
+        decode_wall_ms_per_step=(t2 - t1) / steps * 1e3,
+        tok_per_s=s["batch"] * steps / (t2 - t1),
+        prefill_device_ms=sum(ms for ms, _ in pre_k.values()),
+        prefill_idle_share=idle_share(pre_k, pre_wall),
+        decode_device_ms_per_step=sum(ms for ms, _ in dec_k.values()) / steps,
+        decode_idle_share=idle_share(dec_k, dec_wall))
+    log(f"families: {cfg.name} lock-step (warm): prefill "
+        f"{row['prefill_wall_ms']:.2f} ms, decode "
+        f"{row['decode_wall_ms_per_step']:.2f} ms/step = "
+        f"{row['tok_per_s']:.1f} tok/s; profiled: prefill "
+        f"{row['prefill_device_ms']:.2f} ms device, idle "
+        f"{row['prefill_idle_share']:.3f}; decode "
+        f"{row['decode_device_ms_per_step']:.3f} ms/step device, idle "
+        f"{row['decode_idle_share']:.3f}")
+    del cache, server
+
+
+def _family_plain_gate(device, cfg, params, prompts) -> dict:
+    """The prefill at full width and reduced depth with the kernels,
+    against their plain versions in the same branches and against both
+    switches off.  Gated in f32 (the kernels' CUDA-core routes) at
+    ``FAMILY_PLAIN_LAYERS`` (zamba2-7b: one insertion and a 3-layer tail),
+    within the f32 tolerance, and on the hybrid in bf16 (the tensor-core
+    routes) against the plain versions at 2 layers, within 3e-2; reported
+    otherwise.  Each kernel's bf16 output is within an ulp of its plain
+    version's (the kernel checks above), but the model amplifies that:
+    through 9 Mamba2 layers to 6.25e-2, and on the MoE an ulp moves a
+    token across a routing or capacity boundary (1.09 at 4 layers, the
+    argmax unchanged); the switches-off branches round bf16 at other
+    places besides (P before P·V, the SSD's y)."""
+    tokens = torch.as_tensor(prompts, dtype=torch.int64, device=device)
+    two = (cfg.with_(n_layers=2, attn_every=1) if cfg.family == "hybrid"
+           else cfg.with_(n_layers=2))
+    deep = cfg.with_(n_layers=FAMILY_PLAIN_LAYERS[cfg.name])
+    gate = {}
+    for cut, dtype in ((deep, "float32"), (deep, "bfloat16"),
+                       (two, "bfloat16")):
+        cut = cut.with_(dtype=dtype)
+        pc = _cut_depth(params, cut)
+        FA.launches = SSD.launches = 0
+        a = prefill(cut, pc, {"tokens": tokens})[0].float()
+        got = {"flash": FA.launches, "ssd": SSD.launches}
+        if got != _family_counts(cut):
+            raise AssertionError(f"{cut.name} at {cut.n_layers} layers: "
+                                 f"launches {got}")
+        tol = TOL[getattr(torch, dtype)]
+        for name, b in (
+                ("plain_versions", _prefill_plain_kernels(cut, pc, tokens)),
+                ("switches_off", prefill(cut.with_(
+                    use_flash_attention=False, use_ssd_kernel=False), pc,
+                    {"tokens": tokens})[0])):
+            gated = dtype == "float32" or (
+                cfg.family == "hybrid" and cut.n_layers == 2
+                and name == "plain_versions")
+            b = b.float()
+            err, bad = _compare(a, b, tol)
+            gate[f"{dtype}_{cut.n_layers}_layers_{name}"] = {
+                "max_abs_err": err, "outside_tol": bad, "tol": tol,
+                "argmax_agree": int((a.argmax(-1) == b.argmax(-1)).sum()),
+                "gated": gated}
+            log(f"families: {cut.name} prefill at full width, {cut.n_layers} "
+                f"layers, {dtype}, kernels vs {name.replace('_', ' ')}: "
+                f"last-token logits max_abs_err {err:.3e} (|logit| max "
+                f"{b.abs().max().item():.3f}) outside {tol:g}: {bad} of "
+                f"{b.numel()}; argmax agree "
+                f"{int((a.argmax(-1) == b.argmax(-1)).sum())}/{a.shape[0]}"
+                f"{'' if gated else ' (reported)'}")
+            if not torch.isfinite(a).all() or (gated and bad):
+                raise AssertionError(f"{cut.name}: kernel prefill disagrees "
+                                     f"with {name} ({dtype}, {cut.n_layers} "
+                                     f"layers)")
+        del pc, a, b
+    return gate
+
+
+def _family_slot(device, cfg) -> tuple:
+    """The slot lane through ``run``: launches (requests × one prefill's),
+    one chunk capture, a graph replay per chunk.  Run before the phase
+    builds its own params, since the graph route holds a copy of the
+    params it serves.  Returns (the lane's row, prompts, arrivals,
+    tokens)."""
+    s, arch = FAMILY_SLOT, cfg.name
+    n_req, T, plen = s["n_requests"], s["T"], s["prompt_len"]
+    job = ServeJob(arch=arch, reduced=FAMILY_REDUCED, batch=s["n_slots"],
+                   prompt_len=plen, arch_overrides=FAMILY_SWITCHES,
+                   n_slots=s["n_slots"], n_requests=n_req,
+                   arrival=s["arrival"], steps_per_launch=SLOT_K)
+    want = {k: n_req * v for k, v in _family_counts(cfg).items()}
+    res, launches, peak = _counted_run(
+        f"{arch} slot lane", ExperimentSpec(objective=job, T=T,
+                                            seed=SLOT_SEED), device, want)
+    e = res.extra
+    if e["compile_counts"]["chunk"] != 1 or e["graph_replays"] != e["chunks"]:
+        raise AssertionError(f"{arch} slot lane: {e['compile_counts']}, "
+                             f"{e['graph_replays']} replays")
+    prompts, arrivals, tokens = e["prompts"], e["arrivals"], res.x
+    del res
+    torch.cuda.empty_cache()
+    return dict(arch=arch, lane="slot", n_slots=s["n_slots"],
+                n_requests=n_req, prompt_len=plen, T=T,
+                arrival=s["arrival"], **launches, run_peak_gib=peak), \
+        prompts, arrivals, tokens
+
+
+def _family_slot_serves(device, cfg, params, row, prompts, arrivals,
+                        tokens) -> None:
+    """On ``params``: one graph-route server serves twice (tokens equal to
+    ``run``'s), once profiled, then the eager route (equal bit for bit)."""
+    s = FAMILY_SLOT
+    n_req, T = s["n_requests"], s["T"]
+    slots = SlotConfig(n_slots=s["n_slots"], ctx_len=s["prompt_len"] + T,
+                       seed=SLOT_SEED, steps_per_launch=SLOT_K)
+
+    def serve(srv, label):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = srv.serve(params, prompts, T, arrivals=arrivals)
+        torch.cuda.synchronize()
+        _check_served(f"{cfg.name} {label}", r.tokens, r, cfg, n_req, T)
+        return r, time.perf_counter() - t0
+
+    torch.cuda.reset_peak_memory_stats()
+    server = SlotServer(cfg, slots, device=device)
+    first, _ = serve(server, "graph")
+    warm, wall = serve(server, "graph, again")
+    for got, what in ((first.tokens, "run()"), (warm.tokens, "a second serve")):
+        if not np.array_equal(got, tokens):
+            raise AssertionError(f"{cfg.name}: the slot server's tokens "
+                                 f"differ from {what}'s")
+    _, prof_wall, kernels, _ = profiled(lambda: serve(server, "profiled"))
+    if server.compile_counts() != {"chunk": 1}:
+        raise AssertionError(f"{cfg.name}: {server.compile_counts()}")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del server
+    torch.cuda.empty_cache()
+    eager, eager_wall = serve(SlotServer(cfg, slots, device=device,
+                                         capture=False), "eager")
+    if not np.array_equal(eager.tokens, tokens):
+        bad = np.argwhere(eager.tokens != tokens)
+        raise AssertionError(f"{cfg.name}: graph route and eager route "
+                             f"disagree at (request, token) {bad[:5].tolist()}")
+    row.update(wall_s=wall, tok_per_s=n_req * T / wall,
+               decode_steps=warm.decode_steps, chunks=warm.chunks,
+               decode_device_ms_per_step=warm.chunk_device_ms
+               / warm.decode_steps,
+               profiled_wall_s=prof_wall,
+               profiled_device_ms=sum(ms for ms, _ in kernels.values()),
+               idle_share=idle_share(kernels, prof_wall),
+               host_waits=warm.host_waits, occupancy=warm.occupancy,
+               eager_wall_s=eager_wall, peak_gib=peak)
+    log(f"families: {cfg.name} slot lane ({s['n_slots']} slots, {n_req} "
+        f"requests, prompt {s['prompt_len']}, T={T}, {s['arrival']}, K="
+        f"{SLOT_K}): launches flash {row['flash']} ssd {row['ssd']}; warm "
+        f"serve {wall * 1e3:.1f} ms, {row['tok_per_s']:.1f} tok/s, chunk "
+        f"device time {row['decode_device_ms_per_step']:.4f} ms per decode "
+        f"step, host waits {warm.host_waits}, idle share "
+        f"{row['idle_share']:.3f}, peak {peak:.2f} GiB; graph ≡ run() ≡ a "
+        f"second serve ≡ eager, bit for bit")
+
+
+def _family_parity(device) -> dict:
+    """The hybrid's slot lane against its lock-step lane through ``run``:
+    full width, 9 layers, f32 (TF32 off), both kernels on (their f32
+    routes), n_slots = n_requests = batch, greedy: equal token matrices."""
+    p = FAMILY_PARITY
+    over = (("n_layers", p["n_layers"]), ("dtype", "float32")) + \
+        FAMILY_SWITCHES
+    base = dict(arch=p["arch"], reduced=FAMILY_REDUCED, batch=p["batch"],
+                prompt_len=p["prompt_len"], arch_overrides=over)
+    lock = run(ExperimentSpec(objective=ServeJob(**base), T=p["T"],
+                              seed=SLOT_SEED), device=device)
+    slot = run(ExperimentSpec(objective=ServeJob(
+        **base, n_slots=p["batch"], steps_per_launch=SLOT_K), T=p["T"],
+        seed=SLOT_SEED), device=device)
+    if not np.array_equal(lock.x, slot.x):
+        diff = np.argwhere(lock.x != slot.x)
+        step = int(diff[:, 1].min())
+        rid = int(diff[diff[:, 1] == step][0, 0])
+        raise AssertionError(f"{p['arch']}: slot lane diverged from the "
+                             f"lock-step lane at request {rid}, step {step}")
+    log(f"families: slot lane ≡ lock-step lane ({p['arch']} full width, "
+        f"{p['n_layers']} layers, f32, batch {p['batch']}, prompt "
+        f"{p['prompt_len']}, T={p['T']}): token matrices bit-identical")
+    return {"arch": p["arch"], "layers": p["n_layers"], "equal": True}
+
+
+def phase_families(device, card: str, entries: dict) -> dict:
+    """The hybrid (zamba2-7b) and MoE (deepseek-moe-16b) families at full
+    width on both serving lanes, with the kernels at their new shapes;
+    returns the ``families`` line and adds each path's launches to the
+    flash and SSD entries of the kernels line."""
+    t0 = time.perf_counter()
+    out = {"card": card, "rows": [], "init": {}, "plain_gates": {}}
+    out["kernel_shapes"] = _family_kernel_rows(device)
+    # the host's draw rate, which the init of a leaf below
+    # specs.DEVICE_DRAW_MIN runs at (the larger ones draw on the card)
+    n = 1 << 26
+    t_draw = time.perf_counter()
+    materialize(Spec((n,), (None,), "fan_in"), torch.Generator().manual_seed(0))
+    out["host_draw_per_s"] = n / (time.perf_counter() - t_draw)
+    log(f"families: the host draws {out['host_draw_per_s'] / 1e6:.1f} M "
+        f"normals/s into a bf16 leaf")
+    for arch in FAMILY_ARCHS:
+        cfg, prompts = _family_lockstep(device, arch, out)
+        lock_row = out["rows"][-1]
+        slot_row, sprompts, arrivals, stokens = _family_slot(device, cfg)
+        torch.cuda.synchronize()
+        t_init = time.perf_counter()
+        params = init_params(cfg, FAMILY_LOCK["seed"], device)
+        torch.cuda.synchronize()
+        specs = [sp for _, sp in tree_leaves_with_path(param_specs(cfg))]
+        out["init"][arch] = {
+            "host_s": time.perf_counter() - t_init,
+            "max_rss_gib": resource.getrusage(
+                resource.RUSAGE_SELF).ru_maxrss / 2**20,
+            "elements": sum(math.prod(sp.shape) for sp in specs),
+            "card_drawn": sum(math.prod(sp.shape) for sp in specs
+                              if math.prod(sp.shape) > DEVICE_DRAW_MIN)}
+        log(f"families: init_params({arch}, full width) "
+            f"{out['init'][arch]['host_s']:.2f} s, "
+            f"{out['init'][arch]['card_drawn']:,} of "
+            f"{out['init'][arch]['elements']:,} elements drawn on the card; "
+            f"process peak host RSS {out['init'][arch]['max_rss_gib']:.2f} GiB")
+        _family_profile(device, cfg, params, prompts, lock_row)
+        out["plain_gates"][arch] = _family_plain_gate(device, cfg, params,
+                                                      prompts)
+        _family_slot_serves(device, cfg, params, slot_row, sprompts,
+                            arrivals, stokens)
+        out["rows"].append(slot_row)
+        del params
+        torch.cuda.empty_cache()
+        if arch == FAMILY_PARITY["arch"]:
+            out["slot_parity"] = _family_parity(device)
+    for name, entry in (("flash", entries["flash"]), ("ssd", entries["ssd"])):
+        entry["family_launches"] = {f"{r['arch']}/{r['lane']}": r[name]
+                                    for r in out["rows"] if r[name]}
+    out["seconds"] = time.perf_counter() - t0
+    log(f"families: every gate passed in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     kind, card = phase_device()
@@ -2636,6 +3104,8 @@ def main() -> None:
     faults = phase_faults(device, updates["fused_adam_delayed"], card,
                           plain_ms)
     lanes = phase_trainer_lanes(device, updates, card, train)
+    torch.cuda.empty_cache()
+    families = phase_families(device, card, {"flash": flash, "ssd": ssd})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [flash] + [updates[k] for k in AU.KERNELS] + [ssd]
@@ -2645,7 +3115,11 @@ def main() -> None:
     print(json.dumps({"durability": durability}))
     print(json.dumps({"faults": faults}))
     print(json.dumps({"trainer_lanes": lanes}))
-    print(json.dumps({"kernels": [{k: e[k] for k in keys} for e in entries]}))
+    print(json.dumps({"families": families}))
+    print(json.dumps({"kernels": [
+        {**{k: e[k] for k in keys},
+         **{k: e[k] for k in ("family_launches",) if k in e}}
+        for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,
         "count": torch.cuda.device_count()}}), flush=True)

@@ -4,8 +4,8 @@ Counterpart of ``repro/distributed/serve.py`` on one device.  PyTorch runs
 eagerly, so there is no compiled step to cache and no mesh; the cache the
 JAX package donates to each step is updated in place here.  The cache is
 whatever ``models.init_cache`` / ``prefill`` make for the family: ring k/v
-caches with a positions buffer (dense) or conv and SSD states with none
-(ssm); the server reads neither.
+caches with a positions buffer (dense, moe), conv and SSD states with none
+(ssm), or both (hybrid); the server reads none of them.
 """
 from __future__ import annotations
 

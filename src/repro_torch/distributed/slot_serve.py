@@ -31,9 +31,12 @@ and budget, are stepped by ONE program:
   scheduler via :class:`~repro_torch.distributed.admission.AdmissionPolicy`,
   and the realised trace lowers to an ordinary ``Schedule``.
 * **Prefill** per admitted request: an eager batch-1 prefill at the prompt
-  length (the path's kernel work: the flash kernel on the dense family,
-  the SSD kernel on the ssm family) gives the first token and a cache row,
-  which in-place index copies write into the request's slot.
+  length (the path's kernel work: the flash kernel on the dense and moe
+  families, the SSD kernel on the ssm family, both on the hybrid) gives
+  the first token and a cache row, which in-place index copies write into
+  the request's slot.  On the moe family the rows of a decode step share
+  one capacity-bounded dispatch, so a request's tokens depend on its
+  neighbours, empty slots included, as in the JAX package.
 * **Sampling** (``temperature > 0``) is Gumbel-max over a counter-based
   integer hash of (seed, request id, attempt, decode step within the
   attempt, vocabulary index), computed with torch ops inside the chunk;
@@ -587,9 +590,9 @@ class SlotServer:
         * ``retry`` (:class:`RetryPolicy`) — evictions and timeouts consume
           attempts and re-queue with deterministic backoff; the emitted
           prefix replays through prefill (``prompt_len + e`` tokens) at
-          re-admission.  On the ssm family a replay length that the SSD
-          chunk does not divide is refused (``ValueError``), as in the JAX
-          package.
+          re-admission.  On the ssm and hybrid families a replay length
+          that the SSD chunk does not divide is refused (``ValueError``),
+          as in the JAX package.
         * ``overload`` (:class:`OverloadPolicy`) — bounded admission queue;
           eligible waiters beyond ``queue_cap`` are shed.
         * ``drain_after=k`` — at the first sweep with ``t >= k`` every

@@ -1,15 +1,16 @@
 """Where the serving path's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--arch qwen2-0.5b|mamba2-370m] [--no-flash] [--no-ssd] \
-        [--slots N] [--trace-dir DIR]
+        [--arch qwen2-0.5b|mamba2-370m|zamba2-7b|deepseek-moe-16b] \
+        [--no-flash] [--no-ssd] [--slots N] [--trace-dir DIR]
 
 Runs a serving main path's configuration at full width (a batch of 4
-prompts of 1024 tokens, greedy decode): qwen2-0.5b (the default) with the
-flash kernel on, or with plain attention under ``--no-flash``; or
-mamba2-370m with the SSD chunk kernel on, or with the einsum branch under
-``--no-ssd``.  It warms the lock-step path up (one prefill and ``STEPS``
-decode steps), times
+prompts of 1024 tokens, greedy decode): qwen2-0.5b (the default) or
+deepseek-moe-16b with the flash kernel on, or with plain attention under
+``--no-flash``; mamba2-370m with the SSD chunk kernel on, or with the
+einsum branch under ``--no-ssd``; or zamba2-7b with both kernels on, each
+switched off by its flag.  It warms the lock-step path up (one prefill and
+``STEPS`` decode steps), times
 a second prefill and decode with the host clock around
 ``torch.cuda.synchronize()``, then records the same work under
 ``torch.profiler`` and prints, for prefill and for decode apart:
@@ -50,7 +51,7 @@ from ..distributed import Server, ServeConfig, SlotConfig, SlotServer
 from ..distributed import draw_arrivals
 from ..models import init_params, prefill
 
-ARCHS = ("qwen2-0.5b", "mamba2-370m")
+ARCHS = ("qwen2-0.5b", "mamba2-370m", "zamba2-7b", "deepseek-moe-16b")
 BATCH, PROMPT_LEN, STEPS, SEED = 4, 1024, 8, 0
 TOP = 12                        # kernels listed per phase
 #: the slot lane's cell: requests per slot, prompt length, tokens per
@@ -100,13 +101,23 @@ def _report(name: str, kernels: dict, wall_s: float) -> None:
         print(f"  {ms:9.3f} ms  {n:5d}x  {key[:90]}")
 
 
+def _switches(cfg) -> str:
+    """The kernel switches that the family reads."""
+    out = []
+    if cfg.family != "ssm":
+        out.append(f"flash={cfg.use_flash_attention}")
+    if cfg.family in ("ssm", "hybrid"):
+        out.append(f"ssd_kernel={cfg.use_ssd_kernel}")
+    return " ".join(out)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--arch", choices=ARCHS, default=ARCHS[0])
     ap.add_argument("--no-flash", action="store_true",
-                    help="plain attention (dense family)")
+                    help="plain attention (dense, moe and hybrid families)")
     ap.add_argument("--no-ssd", action="store_true",
-                    help="the einsum SSD branch (ssm family)")
+                    help="the einsum SSD branch (ssm and hybrid families)")
     ap.add_argument("--slots", type=int, default=None, metavar="N",
                     help="profile the slot lane with N slots")
     ap.add_argument("--trace-dir", default=None)
@@ -146,8 +157,7 @@ def main(argv=None) -> None:
 
     serve()                                                 # warm-up
     pre_s, dec_s = serve()
-    kernel = (f"ssd_kernel={cfg.use_ssd_kernel}" if cfg.family == "ssm"
-              else f"flash={cfg.use_flash_attention}")
+    kernel = _switches(cfg)
     print(f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} batch={BATCH} "
           f"prompt={PROMPT_LEN} {kernel}: "
           f"prefill {pre_s * 1e3:.3f} ms, decode {dec_s / STEPS * 1e3:.3f}"
@@ -185,8 +195,7 @@ def _profile_slots(cfg, params, n_slots: int, device, trace_dir) -> None:
 
     serve()                                     # warm-up: captures the chunk
     res, wall = serve()
-    kernel = (f"ssd_kernel={cfg.use_ssd_kernel}" if cfg.family == "ssm"
-              else f"flash={cfg.use_flash_attention}")
+    kernel = _switches(cfg)
     print(f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} slots={n_slots} "
           f"requests={n_req} prompt={SLOT_PROMPT} T={SLOT_T} "
           f"arrival={SLOT_ARRIVAL} admission={SLOT_ADMISSION} K={SLOT_K} "

@@ -1,8 +1,10 @@
-"""Model building blocks of the dense and SSM families, plain PyTorch.
+"""Model building blocks of the dense, SSM, hybrid and MoE families, plain
+PyTorch.
 
 Counterpart of ``repro/models/layers.py`` (norm, RoPE, GQA attention,
-one-token decode attention, SwiGLU, Mamba2's chunked SSD scan and its
-one-token step, the depthwise causal conv, the token cross entropy).
+one-token decode attention, SwiGLU, the capacity-dispatched MoE, Mamba2's
+chunked SSD scan and its one-token step, the depthwise causal conv, the
+token cross entropy).
 Activations follow the JAX package's dtype rules:
 
 * JAX promotes mixed operands (bf16 params × f32 activations → f32); torch
@@ -163,6 +165,77 @@ def swiglu(x, w_gate, w_up, w_down):
     u = einsum("bsd,df->bsf", x, w_up)
     h = F.silu(g.to(F32)).to(x.dtype) * u
     return einsum("bsf,fd->bsd", h, w_down)
+
+
+# ---------------------------------------------------------------------------
+# Mixture of Experts (gather/scatter capacity dispatch)
+# ---------------------------------------------------------------------------
+
+def _top_k(x, k: int):
+    """``jax.lax.top_k`` along the last axis: the k largest values and
+    their indices, ties to the lower index.  A stable descending sort gives
+    that order; ``torch.topk`` orders ties otherwise."""
+    vals, idx = torch.sort(x, dim=-1, descending=True, stable=True)
+    return vals[..., :k], idx[..., :k]
+
+
+def moe_router(x, w_router, top_k: int):
+    """Returns (weights (T,k) f32, ids (T,k) int64, aux load-balance loss):
+    f32 router logits, softmax, the top k renormalised, and the Switch aux
+    loss E · Σ_e (share of tokens whose first expert is e) · (mean prob e)."""
+    logits = x.to(F32) @ w_router.to(F32)
+    probs = torch.softmax(logits, dim=-1)
+    w, ids = _top_k(probs, top_k)
+    w = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-9)
+    E = w_router.shape[-1]
+    me = torch.mean(probs, dim=0)
+    fe = torch.mean(F.one_hot(ids[:, 0], E).to(F32), dim=0)
+    return w, ids, E * torch.sum(me * fe)
+
+
+def moe_ffn(x, w_router, w_gate, w_up, w_down, top_k: int,
+            capacity_factor: float = 1.25):
+    """Fine-grained top-k MoE over flattened tokens, as the JAX package's.
+
+    x: (B,S,d); expert weights (E,d,f) / (E,f,d).  Each expert takes the
+    top C tokens by routing weight, C = min(ceil(T·k/E·cf), T); a routed
+    token beyond an expert's capacity is dropped there (its residual passes
+    through).  One device: one dispatch group.  Returns (y (B,S,d), aux).
+
+    The combine is the JAX scatter-add without atomics: a token's ≤ k
+    expert outputs are gathered through the inverse of the dispatch and
+    summed in ascending expert order, the order of JAX's scatter updates,
+    so the result is deterministic (a captured graph replays it bit for
+    bit).  Tokens an expert picks at routing weight 0 add exactly 0 in
+    JAX; they add nothing here.  Every shape follows from x's, so no value
+    is read on the host."""
+    B, S, d = x.shape
+    E = w_gate.shape[0]
+    T = B * S
+    xt = x.reshape(T, d)
+    weights, ids, aux = moe_router(xt, w_router, top_k)
+    C = min(int(math.ceil(T * top_k / E * capacity_factor)), T)
+    w_full = torch.zeros((T, E), dtype=F32, device=x.device)
+    w_full.scatter_(1, ids, weights)                           # (T, E)
+    gate_w, token_idx = _top_k(w_full.t(), C)                   # (E, C)
+    x_e = xt[token_idx]                                        # (E, C, d)
+    g = einsum("ecd,edf->ecf", x_e, w_gate)
+    u = einsum("ecd,edf->ecf", x_e, w_up)
+    h = F.silu(g.to(F32)).to(x.dtype) * u
+    y_e = einsum("ecf,efd->ecd", h, w_down)
+    y_e = y_e * gate_w[..., None].to(y_e.dtype)
+    # pick[e, t]: the c at which expert e took token t, or C (a zero row)
+    pick = torch.full((E, T), C, dtype=torch.int64, device=x.device)
+    pick.scatter_(1, token_idx, torch.arange(
+        C, device=x.device).expand(E, C).contiguous())
+    experts = torch.sort(ids, dim=-1).values                   # (T, k)
+    rows = experts * (C + 1) + torch.gather(pick.t(), 1, experts)
+    y_pad = torch.cat([y_e, y_e.new_zeros((E, 1, d))], dim=1)
+    parts = y_pad.reshape(E * (C + 1), d)[rows]                # (T, k, d)
+    y = torch.zeros((T, d), dtype=y_e.dtype, device=x.device)
+    for j in range(top_k):
+        y = y + parts[:, j]
+    return y.reshape(B, S, d), aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,16 +1,25 @@
 """Model: param specs, forward, prefill, lock-step and ragged decode.
 
-Counterpart of ``repro/models/model.py`` for two families: ``dense`` (GQA
+Counterpart of ``repro/models/model.py`` for four families: ``dense`` (GQA
 attention with optional QKV bias / QK-norm, RoPE, RMSNorm, SwiGLU, tied or
-separate unembedding) and ``ssm`` (Mamba2 blocks: projections, depthwise
-causal conv, the chunked SSD scan, gated RMSNorm).  Params are a nested
-dict of tensors with the JAX tree's paths and its stacked-over-layers
-layout (``blocks/attn/wq`` is ``(L, d, H, Dh)``); a Python loop over layers
-takes the place of ``jax.lax.scan``.  One device, no mesh: ``_shard_act``
-has no counterpart.
+separate unembedding), ``moe`` (the dense attention with a capacity-
+dispatched top-k MoE of SwiGLU experts plus shared experts in place of the
+MLP), ``ssm`` (Mamba2 blocks: projections, depthwise causal conv, the
+chunked SSD scan, gated RMSNorm) and ``hybrid`` (Mamba2 layers with ONE
+shared attention + MLP block applied before every ``attn_every`` of them,
+its weights reused at each insertion, and a tail of the remaining Mamba2
+layers).  Params are a nested dict of tensors with the JAX tree's paths and
+its stacked-over-layers layout (``blocks/attn/wq`` is ``(L, d, H, Dh)``); a
+Python loop over layers takes the place of ``jax.lax.scan`` (of the two
+nested scans, for the hybrid).  One device, no mesh: ``_shard_act`` has no
+counterpart, and the MoE dispatches in one group.
 
 The SSM decode cache holds per-layer conv and SSD states
 (``{"ssm": {"conv", "ssd"}}``, the JAX layout) and no positions buffer.
+The hybrid's holds the g = n_layers // attn_every insertions' ring
+(``attn``) and positions, the grouped layers' states flat (``ssm``, g·k
+layers: layer i is group i // k, inner layer i % k) and, when n_layers is
+not a multiple of k, the tail's (``ssm_tail``).
 With ``cfg.use_ssd_kernel`` every SSD layer's intra-chunk part goes
 through ``kernels.ops.ssd_chunk`` (the CUDA kernel on the card, its plain
 version on the CPU); the kernel has no backward either.
@@ -37,9 +46,9 @@ from . import layers as L
 from .specs import Spec, count_params, init_tree, torch_dtype
 
 F32 = torch.float32
-_LATER = ("is not ported yet; the other model families are a later slice "
+_LATER = ("is not ported yet; the audio and vlm families are a later slice "
           "(ROADMAP.md queue 1, 'The other model families')")
-FAMILIES = ("dense", "ssm")
+FAMILIES = ("dense", "ssm", "hybrid", "moe")
 
 
 def _require_family(cfg: ArchConfig):
@@ -84,6 +93,24 @@ def _mlp_specs(cfg: ArchConfig, stacked: Optional[int], ff: int):
     }
 
 
+def _moe_specs(cfg: ArchConfig, stacked: int):
+    pre, ax = (stacked,), ("layers",)
+    d, E, fe = cfg.d_model, cfg.n_experts, cfg.moe_d_ff
+    s = {
+        "norm": Spec(pre + (d,), ax + ("embed",), "ones"),
+        "router": Spec(pre + (d, E), ax + ("embed", "experts"), "fan_in",
+                       dtype="float32"),
+        "w_gate": Spec(pre + (E, d, fe), ax + ("experts", "embed", "ff"), "fan_in"),
+        "w_up": Spec(pre + (E, d, fe), ax + ("experts", "embed", "ff"), "fan_in"),
+        "w_down": Spec(pre + (E, fe, d), ax + ("experts", "ff", "embed"), "fan_in"),
+    }
+    if cfg.n_shared_experts:
+        fs = cfg.n_shared_experts * cfg.moe_d_ff
+        s["shared"] = _mlp_specs(cfg, stacked, fs)
+        del s["shared"]["norm"]  # shares the moe norm
+    return s
+
+
 def _mamba_specs(cfg: ArchConfig, stacked: Optional[int]):
     pre = (stacked,) if stacked else ()
     ax = ("layers",) if stacked else ()
@@ -119,10 +146,28 @@ def param_specs(cfg: ArchConfig) -> dict:
     nl = cfg.n_layers
     if cfg.family == "ssm":
         specs["blocks"] = {"mamba": _mamba_specs(cfg, nl)}
+    elif cfg.family == "hybrid":
+        g, k, rem = _groups(cfg)
+        specs["blocks"] = {"mamba": _mamba_specs(cfg, g * k)}
+        if rem:
+            specs["tail"] = {"mamba": _mamba_specs(cfg, rem)}
+        specs["shared_attn"] = _attn_specs(cfg, None)
+        specs["shared_mlp"] = _mlp_specs(cfg, None, cfg.d_ff)
+    elif cfg.family == "moe":
+        specs["blocks"] = {"attn": _attn_specs(cfg, nl),
+                           "moe": _moe_specs(cfg, nl)}
     else:
         specs["blocks"] = {"attn": _attn_specs(cfg, nl),
                            "mlp": _mlp_specs(cfg, nl, cfg.d_ff)}
     return specs
+
+
+def _groups(cfg: ArchConfig) -> tuple:
+    """The hybrid's layout: (g insertions of the shared block, k Mamba2
+    layers after each, rem tail layers)."""
+    k = cfg.attn_every
+    g = cfg.n_layers // k
+    return g, k, cfg.n_layers - g * k
 
 
 def init_params(cfg: ArchConfig, seed: int, device="cuda") -> dict:
@@ -133,6 +178,14 @@ def init_params(cfg: ArchConfig, seed: int, device="cuda") -> dict:
 
 def n_params(cfg: ArchConfig) -> int:
     return count_params(param_specs(cfg))
+
+
+def n_active_params(cfg: ArchConfig) -> int:
+    """Active parameters per token (MoE counts top_k + shared experts)."""
+    if cfg.family != "moe":
+        return n_params(cfg)
+    per_expert = 3 * cfg.d_model * cfg.moe_d_ff * cfg.n_layers
+    return n_params(cfg) - (cfg.n_experts - cfg.top_k) * per_expert
 
 
 def _layer(tree: dict, i: int) -> dict:
@@ -176,6 +229,18 @@ def _apply_attn(cfg, p, h, *, positions, window=None, return_kv=False):
 def _apply_mlp(cfg, p, h):
     x = L.rms_norm(h, p["norm"], cfg.norm_eps)
     return h + L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+
+
+def _apply_moe(cfg, p, h):
+    """Pre-norm MoE block (the shared experts read the same norm) →
+    (h', aux)."""
+    x = L.rms_norm(h, p["norm"], cfg.norm_eps)
+    y, aux = L.moe_ffn(x, p["router"], p["w_gate"], p["w_up"], p["w_down"],
+                       cfg.top_k, cfg.capacity_factor)
+    if "shared" in p:
+        sp = p["shared"]
+        y = y + L.swiglu(x, sp["w_gate"], sp["w_up"], sp["w_down"])
+    return h + y, aux
 
 
 def _mamba_inner(p, x_n):
@@ -233,41 +298,84 @@ def _unembed(cfg, params, h):
     return L.einsum("bsd,dv->bsv", h, params["lm_head"])
 
 
-def forward_logits(cfg: ArchConfig, params, batch, window=None):
-    """Full-sequence forward → (logits (B,S,V), aux_loss = 0.0).
+def _decoder_stack(cfg, params, h, positions, window):
+    """Every layer of the family over the sequence → (h, aux).
 
-    Under autograd with ``cfg.remat == "full"`` each layer runs inside
+    Under autograd with ``cfg.remat == "full"`` each block runs inside
     ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: only the
-    layer's input is kept, and the backward pass recomputes the rest, as
-    JAX's ``_scan(..., remat)`` does with ``jax.checkpoint``.  Any other
-    value, or no autograd, runs the layers as they are."""
+    block's input is kept, and the backward pass recomputes the rest, as
+    JAX's ``_scan(..., remat)`` does with ``jax.checkpoint`` (the hybrid's
+    shared block and each of its Mamba2 layers are blocks of their own)."""
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+
+    def run(fn, *args):
+        return (checkpoint(fn, *args, use_reentrant=False) if remat
+                else fn(*args))
+
+    def mamba(p, x):
+        return _apply_mamba(cfg, p, x)
+
+    blocks = params["blocks"]
+    if cfg.family == "hybrid":
+        g, k, rem = _groups(cfg)
+        sa, sm = params["shared_attn"], params["shared_mlp"]
+
+        def shared(x):
+            x = _apply_attn(cfg, sa, x, positions=positions, window=window)
+            return _apply_mlp(cfg, sm, x)
+
+        for i in range(g * k):
+            if i % k == 0:
+                h = run(shared, h)
+            h = run(mamba, _layer(blocks["mamba"], i), h)
+        for i in range(rem):
+            h = run(mamba, _layer(params["tail"]["mamba"], i), h)
+        return h, 0.0
+    if cfg.family == "moe":
+        def block(p, x):
+            x = _apply_attn(cfg, p["attn"], x, positions=positions,
+                            window=window)
+            return _apply_moe(cfg, p["moe"], x)
+
+        aux = torch.zeros((), dtype=F32, device=h.device)
+        for i in range(cfg.n_layers):
+            h, a = run(block, _layer(blocks, i), h)
+            aux = aux + a
+        return h, aux / cfg.n_layers
+
+    def block(p, x):
+        if cfg.family == "ssm":
+            return mamba(p["mamba"], x)
+        x = _apply_attn(cfg, p["attn"], x, positions=positions, window=window)
+        return _apply_mlp(cfg, p["mlp"], x)
+
+    for i in range(cfg.n_layers):
+        h = run(block, _layer(blocks, i), h)
+    return h, 0.0
+
+
+def forward_logits(cfg: ArchConfig, params, batch, window=None):
+    """Full-sequence forward → (logits (B,S,V), aux loss: the MoE's
+    load-balance term averaged over layers, 0.0 for the other families).
+    ``cfg.remat == "full"`` recomputes each block in the backward pass
+    (see :func:`_decoder_stack`)."""
     _require_family(cfg)
     if window is None:
         window = cfg.sliding_window
     tokens = batch["tokens"]
     h = _embed(cfg, params, tokens)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-
-    def block(p, x):
-        if cfg.family == "ssm":
-            return _apply_mamba(cfg, p["mamba"], x)
-        x = _apply_attn(cfg, p["attn"], x, positions=positions, window=window)
-        return _apply_mlp(cfg, p["mlp"], x)
-
-    remat = cfg.remat == "full" and torch.is_grad_enabled()
-    for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
-        h = (checkpoint(block, p, h, use_reentrant=False) if remat
-             else block(p, h))
+    h, aux = _decoder_stack(cfg, params, h, positions, window)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _unembed(cfg, params, h), 0.0
+    return _unembed(cfg, params, h), aux
 
 
 def loss_fn(cfg: ArchConfig, params, batch, example_weights=None,
             aux_coeff: float = 0.01, window=None):
-    """Next-token CE (neither ported family has an aux loss).  ``example_weights``
-    (B,) carries the AsGrad worker-participation mask (see
-    ``distributed.async_trainer``).  Returns (loss, {"ce", "aux"}).
+    """Next-token CE plus ``aux_coeff`` × the MoE aux loss (0 for the other
+    families).  ``example_weights`` (B,) carries the AsGrad
+    worker-participation mask (see ``distributed.async_trainer``).
+    Returns (loss, {"ce", "aux"}).
 
     With ``cfg.remat == "full"`` the backward pass recomputes each
     layer's activations (see :func:`forward_logits`)."""
@@ -298,14 +406,24 @@ def _ring_from_seq(k_seq, v_seq, W: int):
     return kc, vc, positions
 
 
+def _mamba_with_state(cfg, p, h, convs, ssds):
+    """One Mamba2 layer over the prompt; appends its conv state (copied
+    out of the layer's full conv input, which is then freed) and SSD
+    state."""
+    h, (cs, ss) = _apply_mamba(cfg, p, h, return_state=True)
+    convs.append(cs.clone())
+    ssds.append(ss)
+    return h
+
+
 def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None):
     """Process the prompt, return (last-token logits (B,V), decode cache).
 
     The cache matches ``cache_specs(cfg, B, ctx_len)``; ctx_len defaults to
-    the prompt length.  Only the last position is unembedded.  An SSM
-    prompt must hold at least ``ssm_conv − 1`` tokens (the conv state is
-    the last K−1 pre-conv inputs), and the SSD chunk, ``min(ssm_chunk, S)``,
-    must divide its length."""
+    the prompt length.  Only the last position is unembedded.  An SSM or
+    hybrid prompt must hold at least ``ssm_conv − 1`` tokens (the conv
+    state is the last K−1 pre-conv inputs), and the SSD chunk,
+    ``min(ssm_chunk, S)``, must divide its length."""
     _require_family(cfg)
     window = cfg.sliding_window
     tokens = batch["tokens"]
@@ -313,30 +431,52 @@ def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None):
     ctx = ctx_len or S
     W = min(cfg.sliding_window or ctx, ctx)
     h = _embed(cfg, params, tokens)
+    if cfg.family in ("ssm", "hybrid") and S < cfg.ssm_conv - 1:
+        raise ValueError(f"an SSM prompt needs at least ssm_conv - 1 = "
+                         f"{cfg.ssm_conv - 1} tokens, got {S}")
+    positions = torch.arange(S, device=tokens.device)
+    ks, vs, convs, ssds = [], [], [], []
     if cfg.family == "ssm":
-        if S < cfg.ssm_conv - 1:
-            raise ValueError(f"an SSM prompt needs at least ssm_conv - 1 = "
-                             f"{cfg.ssm_conv - 1} tokens, got {S}")
-        convs, ssds = [], []
         for i in range(cfg.n_layers):
             p = _layer(params["blocks"], i)
-            h, (cs, ss) = _apply_mamba(cfg, p["mamba"], h, return_state=True)
-            convs.append(cs)
-            ssds.append(ss)
+            h = _mamba_with_state(cfg, p["mamba"], h, convs, ssds)
         cache = {"ssm": {"conv": torch.stack(convs), "ssd": torch.stack(ssds)}}
-        h = L.rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
-        return _unembed(cfg, params, h)[:, 0], cache
-    positions = torch.arange(S, device=tokens.device)
-    ks, vs = [], []
-    for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
-        h, (k, v) = _apply_attn(cfg, p["attn"], h, positions=positions,
-                                window=window, return_kv=True)
-        h = _apply_mlp(cfg, p["mlp"], h)
-        ks.append(k)
-        vs.append(v)
-    kc, vc, posbuf = _ring_from_seq(torch.stack(ks), torch.stack(vs), W)
-    cache = {"self": {"k": kc, "v": vc}, "positions": posbuf}
+    elif cfg.family == "hybrid":
+        g, k, rem = _groups(cfg)
+        sa, sm = params["shared_attn"], params["shared_mlp"]
+        for i in range(g * k):
+            if i % k == 0:
+                h, (kk, vv) = _apply_attn(cfg, sa, h, positions=positions,
+                                          window=window, return_kv=True)
+                h = _apply_mlp(cfg, sm, h)
+                ks.append(kk)
+                vs.append(vv)
+            h = _mamba_with_state(cfg, _layer(params["blocks"]["mamba"], i),
+                                  h, convs, ssds)
+        cache = {"ssm": {"conv": torch.stack(convs), "ssd": torch.stack(ssds)}}
+        if rem:
+            convs, ssds = [], []
+            for i in range(rem):
+                h = _mamba_with_state(cfg, _layer(params["tail"]["mamba"], i),
+                                      h, convs, ssds)
+            cache["ssm_tail"] = {"conv": torch.stack(convs),
+                                 "ssd": torch.stack(ssds)}
+        kc, vc, posbuf = _ring_from_seq(torch.stack(ks), torch.stack(vs), W)
+        cache["attn"] = {"k": kc, "v": vc}
+        cache["positions"] = posbuf
+    else:
+        for i in range(cfg.n_layers):
+            p = _layer(params["blocks"], i)
+            h, (kk, vv) = _apply_attn(cfg, p["attn"], h, positions=positions,
+                                      window=window, return_kv=True)
+            if cfg.family == "moe":
+                h, _ = _apply_moe(cfg, p["moe"], h)
+            else:
+                h = _apply_mlp(cfg, p["mlp"], h)
+            ks.append(kk)
+            vs.append(vv)
+        kc, vc, posbuf = _ring_from_seq(torch.stack(ks), torch.stack(vs), W)
+        cache = {"self": {"k": kc, "v": vc}, "positions": posbuf}
     h = L.rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h)[:, 0], cache
 
@@ -348,16 +488,25 @@ def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None):
 def cache_specs(cfg: ArchConfig, batch: int, ctx_len: int, *,
                 ragged: bool = False) -> dict:
     """Cache tree as Specs: ring k/v caches and one shared (W,) positions
-    buffer (dense), or per-layer conv states in the param dtype and f32 SSD
-    states (ssm, no positions).
+    buffer (dense, moe), per-layer conv states in the param dtype and f32
+    SSD states (ssm, no positions), or both (hybrid: the ring of its g
+    insertions, the g·k grouped layers' states flat and the tail's).
 
     ``ragged=True`` declares the slot server's cache: the positions buffer
     grows a batch axis, (batch, W), so each row tracks its own positions.
     Every other leaf already carries a batch axis and is unchanged."""
     _require_family(cfg)
-    if cfg.family == "ssm":
-        nl, conv_dim = cfg.n_layers, cfg.d_inner + 2 * cfg.ssm_state
-        return {"ssm": {
+    W = min(cfg.sliding_window or ctx_len, ctx_len)
+    KV, Dh = cfg.n_kv_heads, cfg.d_head
+    axes = ("layers", "batch", "ctx", "kv_heads", "head")
+
+    def ring(nl):
+        return {"k": Spec((nl, batch, W, KV, Dh), axes, "zeros", cfg.dtype),
+                "v": Spec((nl, batch, W, KV, Dh), axes, "zeros", cfg.dtype)}
+
+    def ssm_states(nl):
+        conv_dim = cfg.d_inner + 2 * cfg.ssm_state
+        return {
             "conv": Spec((nl, batch, cfg.ssm_conv - 1, conv_dim),
                          ("layers", "batch", None, "d_inner"), "zeros",
                          cfg.dtype),
@@ -365,16 +514,21 @@ def cache_specs(cfg: ArchConfig, batch: int, ctx_len: int, *,
                          cfg.ssm_state),
                         ("layers", "batch", "ssm_heads", None, None),
                         "zeros", "float32"),
-        }}
-    W = min(cfg.sliding_window or ctx_len, ctx_len)
-    KV, Dh, nl = cfg.n_kv_heads, cfg.d_head, cfg.n_layers
-    axes = ("layers", "batch", "ctx", "kv_heads", "head")
-    return {
-        "self": {"k": Spec((nl, batch, W, KV, Dh), axes, "zeros", cfg.dtype),
-                 "v": Spec((nl, batch, W, KV, Dh), axes, "zeros", cfg.dtype)},
-        "positions": (Spec((batch, W), ("batch", "ctx"), "zeros", "int32")
-                      if ragged else Spec((W,), ("ctx",), "zeros", "int32")),
-    }
+        }
+
+    positions = (Spec((batch, W), ("batch", "ctx"), "zeros", "int32")
+                 if ragged else Spec((W,), ("ctx",), "zeros", "int32"))
+    if cfg.family == "ssm":
+        return {"ssm": ssm_states(cfg.n_layers)}
+    if cfg.family == "hybrid":
+        g, k, rem = _groups(cfg)
+        c = {"ssm": ssm_states(g * k)}
+        if rem:
+            c["ssm_tail"] = ssm_states(rem)
+        c["attn"] = ring(g)
+        c["positions"] = positions
+        return c
+    return {"self": ring(cfg.n_layers), "positions": positions}
 
 
 def init_cache(cfg: ArchConfig, batch: int, ctx_len: int, device="cuda", *,
@@ -435,40 +589,61 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int):
     positions (ragged: the slot server, against a cache made with
     ``ragged=True``).  The SSM family does not read it.  Where the JAX
     package donates the cache, the port updates it in place: the positions
-    buffer and each layer's ring slot ``pos mod W`` (dense), or each
-    layer's conv and SSD states (ssm), are written, and the same dict is
-    returned.  The ragged path reads no tensor value on the host, so a CUDA
-    graph can capture it.  Returns (logits (B, V), cache)."""
+    buffer and each attention layer's ring slot ``pos mod W`` (dense, moe,
+    hybrid), and each Mamba2 layer's conv and SSD states (ssm, hybrid), are
+    written, and the same dict is returned.  The ragged path reads no
+    tensor value on the host, so a CUDA graph can capture it.  Returns
+    (logits (B, V), cache)."""
     _require_family(cfg)
     ragged = isinstance(pos, torch.Tensor) and pos.dim() == 1
     if not ragged:
         pos = int(pos)
     h = _embed(cfg, params, tokens[:, None])            # (B,1,d)
+    if "positions" in cache:
+        W = min(cfg.sliding_window or ctx_len, ctx_len)
+        cpos = cache["positions"]
+        rows = None
+        if ragged:
+            rows = torch.arange(tokens.shape[0], device=tokens.device)
+            slot = (pos % W).long()
+            cpos[rows, slot] = pos.to(cpos.dtype)
+        else:
+            slot = pos % W
+            cpos[slot] = pos
+
+        def attn(p, x, kc, vc):
+            return _decode_attn(cfg, p, x, kc, vc, cpos, pos,
+                                cfg.sliding_window, slot, rows)
+
+    def mamba(p, x, states, i):
+        x, states["conv"][i], states["ssd"][i] = _decode_mamba(
+            cfg, p, x, states["conv"][i], states["ssd"][i])
+        return x
+
     if cfg.family == "ssm":
-        conv, ssd = cache["ssm"]["conv"], cache["ssm"]["ssd"]
+        for i in range(cfg.n_layers):
+            h = mamba(_layer(params["blocks"], i)["mamba"], h, cache["ssm"], i)
+    elif cfg.family == "hybrid":
+        g, k, rem = _groups(cfg)
+        ring = cache["attn"]
+        for i in range(g * k):
+            if i % k == 0:
+                h = attn(params["shared_attn"], h, ring["k"][i // k],
+                         ring["v"][i // k])
+                h = _apply_mlp(cfg, params["shared_mlp"], h)
+            h = mamba(_layer(params["blocks"]["mamba"], i), h, cache["ssm"], i)
+        for i in range(rem):
+            h = mamba(_layer(params["tail"]["mamba"], i), h,
+                      cache["ssm_tail"], i)
+    else:
+        ring = cache["self"]
         for i in range(cfg.n_layers):
             p = _layer(params["blocks"], i)
-            h, cs, ss = _decode_mamba(cfg, p["mamba"], h, conv[i], ssd[i])
-            conv[i] = cs
-            ssd[i] = ss
-        h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-        return _unembed(cfg, params, h)[:, 0], cache
-    W = min(cfg.sliding_window or ctx_len, ctx_len)
-    cpos = cache["positions"]
-    rows = None
-    if ragged:
-        rows = torch.arange(tokens.shape[0], device=tokens.device)
-        slot = (pos % W).long()
-        cpos[rows, slot] = pos.to(cpos.dtype)
-    else:
-        slot = pos % W
-        cpos[slot] = pos
-    for i in range(cfg.n_layers):
-        p = _layer(params["blocks"], i)
-        h = _decode_attn(cfg, p["attn"], h, cache["self"]["k"][i],
-                         cache["self"]["v"][i], cpos, pos,
-                         cfg.sliding_window, slot, rows)
-        h = _apply_mlp(cfg, p["mlp"], h)
+            h = attn(p["attn"], h, ring["k"][i], ring["v"][i])
+            if cfg.family == "moe":
+                h, _ = _apply_moe(cfg, p["moe"], h)
+            else:
+                h = _apply_mlp(cfg, p["mlp"], h)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h)[:, 0], cache
 
@@ -478,6 +653,6 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int):
 # ============================================================================
 
 def batch_specs(cfg: ArchConfig, batch: int, seq: int) -> dict:
-    """Train/prefill batch as Specs (dense and ssm: int32 tokens)."""
+    """Train/prefill batch as Specs (the ported families: int32 tokens)."""
     _require_family(cfg)
     return {"tokens": Spec((batch, seq), ("batch", "seq"), "zeros", "int32")}

@@ -5,11 +5,19 @@ as a :class:`Spec`; ``init_tree`` materialises a nested dict of tensors with
 the same paths as the JAX tree.  The logical axes are kept for parity with
 the JAX specs; the port runs on one device and shards nothing.
 
-Random streams: each leaf draws from its own CPU ``torch.Generator`` seeded
-from ``(seed, crc32(path))`` (see :func:`leaf_seed`), so a leaf's values depend neither on the
-traversal order nor on the target device.  These streams are the port's
-own: they do not reproduce JAX's threefry draws.  Tests that compare the
-two packages carry weights across with ``models.convert``.
+Random streams: each leaf draws from its own ``torch.Generator`` seeded
+from ``(seed, crc32(path))`` (see :func:`leaf_seed`), so a leaf's values do
+not depend on the traversal order.  A leaf draws on the CPU, whatever its
+target device, unless it has more than ``DEVICE_DRAW_MIN`` elements and its
+target is a card: then it draws on the card (:func:`materialize_on`), one
+slice along its first axis after another from one CUDA generator, since a
+full-width MoE's expert stack (5.2 billion elements) would otherwise take
+minutes of host time and tens of GB of host f32.  Every leaf of a reduced
+config, and every leaf of qwen2-0.5b and mamba2-370m at full width, lies
+below that size, so their values do not depend on the target device.  These
+streams are the port's own: they do not reproduce JAX's threefry draws.
+Tests that compare the two packages carry weights across with
+``models.convert``.
 """
 from __future__ import annotations
 
@@ -22,6 +30,8 @@ import torch
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
            "int32": torch.int32}
+#: leaves with more elements than this draw on their target card
+DEVICE_DRAW_MIN = 1 << 28
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,14 +73,31 @@ def materialize(spec: Spec, gen: torch.Generator,
         lo, hi = math.log(1e-3), math.log(1e-1)
         dt0 = torch.exp(torch.rand(spec.shape, generator=gen) * (hi - lo) + lo)
         return (dt0 + torch.log(-torch.expm1(-dt0))).to(dt).to(device)
+    x = torch.randn(spec.shape, generator=gen) * _std(spec)
+    return x.to(dt).to(device)
+
+
+def _std(spec: Spec) -> float:
     if spec.init == "embed":
         std = 1.0
     elif spec.init == "fan_in":
         std = 1.0 / math.sqrt(max(_fan_in(spec.shape, spec.axes), 1))
     else:  # "normal"
         std = 0.02
-    x = torch.randn(spec.shape, generator=gen) * (std * spec.scale)
-    return x.to(dt).to(device)
+    return std * spec.scale
+
+
+def materialize_on(spec: Spec, seed: int, device) -> torch.Tensor:
+    """One normal-law leaf drawn on ``device`` (a card): f32 normals from
+    one ``torch.Generator(device)`` seeded with ``seed``, one slice along
+    the first axis after another, each scaled and cast into the leaf."""
+    gen = torch.Generator(device).manual_seed(seed)
+    out = torch.empty(spec.shape, dtype=torch_dtype(spec.dtype), device=device)
+    std = _std(spec)
+    for i in range(spec.shape[0]):
+        out[i] = torch.randn(spec.shape[1:], generator=gen,
+                             device=device) * std
+    return out
 
 
 def _leaves(tree, prefix=""):
@@ -98,6 +125,11 @@ def init_tree(specs: dict, seed: int, device="cpu") -> dict:
         for k, v in tree.items():
             path = f"{prefix}[{k!r}]"
             if isinstance(v, Spec):
+                if (torch.device(device).type == "cuda"
+                        and v.init in ("normal", "fan_in", "embed")
+                        and math.prod(v.shape) > DEVICE_DRAW_MIN):
+                    out[k] = materialize_on(v, leaf_seed(seed, path), device)
+                    continue
                 gen = torch.Generator().manual_seed(leaf_seed(seed, path))
                 out[k] = materialize(v, gen, device)
             else:

@@ -20,6 +20,11 @@ every slot to the same request served alone, and a serve resumed from a
 snapshot into a fresh capture to the uninterrupted serve; the snapshotter's
 test holds an offered state against the in-place updates queued after it.
 
+The hybrid and MoE families (zamba2-7b, deepseek-moe-16b) add flash at
+their prefill shapes (D = 112 and 128), SSD at zamba2-7b's (112 heads,
+N 64), and a full-width, reduced-depth slot serve of each whose captured
+chunk equals the eager steps bit for bit.
+
 The pooled update's tests run ``optim.pool`` over qwen2-0.5b's 14-leaf
 bf16 pool at 2 layers: one launch per call against the same call routed
 to the plain versions on the card (the update tolerances above), and at
@@ -123,6 +128,18 @@ def test_flash_kernel_every_head_dim(cuda_device, dtype, D):
         got = FA.flash_attention_cuda(q, k, v, causal=causal, window=window)
         _close(got, FA.flash_attention_plain(q, k, v, causal=causal,
                                              window=window), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("H,D", [(32, 112), (16, 128)],
+                         ids=["zamba2-7b", "deepseek-moe-16b"])
+def test_flash_kernel_at_the_new_families_prefill(cuda_device, dtype, H, D):
+    """The prefill of 4 prompts of 1024 tokens on zamba2-7b's shared
+    attention (32 heads of 112) and deepseek-moe-16b's (16 of 128)."""
+    q, k, v = _qkv(cuda_device, 4, 1024, 1024, H, H, D, dtype)
+    got = FA.flash_attention_cuda(q, k, v, causal=True)
+    _close(got, FA.flash_attention_plain(q, k, v, causal=True), dtype)
 
 
 @pytest.mark.cuda
@@ -495,7 +512,8 @@ SSD_CASES = [(1, 1, 16, 2, 32, 16), (1, 1, 64, 4, 64, 32),
              (1, 1, 128, 8, 64, 128), (1, 2, 64, 6, 64, 64),
              (2, 2, 32, 8, 64, 64), (2, 2, 128, 8, 64, 64),
              (1, 2, 16, 4, 64, 128),
-             (1, 4, 128, 32, 64, 128)]          # the slot lane's admission
+             (1, 4, 128, 32, 64, 128),          # the slot lane's admission
+             (4, 8, 128, 112, 64, 64)]          # zamba2-7b's prefill
 SSD_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-3),
            torch.bfloat16: dict(rtol=4e-2, atol=4e-2)}
 
@@ -634,6 +652,34 @@ def test_slot_graph_route_matches_eager_bitwise(cuda_device, arch, over,
         assert got.chunk_device_ms > 0 and np.all(got.tokens >= 0)
     assert graph.compile_counts() == {"chunk": 1}
     assert eager.compile_counts() == {"chunk": 0}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch,layers", [("zamba2-7b", 7),
+                                         ("deepseek-moe-16b", 2)])
+def test_new_families_slot_graph_route_matches_eager_bitwise(cuda_device,
+                                                             arch, layers):
+    """The hybrid (one insertion of the shared block and a 1-layer tail)
+    and the MoE at full width and reduced depth, with their kernels on:
+    the captured chunk's tokens equal the eager steps' bit for bit (the
+    MoE's combine is deterministic), and every admission's prefill
+    launches the flash kernel once per attention block."""
+    cfg = get_arch(arch).with_(n_layers=layers, use_flash_attention=True,
+                               use_ssd_kernel=True)
+    params = init_params(cfg, 0, cuda_device)
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab, (7, 32))
+    slots = SlotConfig(n_slots=3, ctx_len=40, steps_per_launch=4)
+    graph = SlotServer(cfg, slots, device=cuda_device)
+    before = FA.launches
+    got = graph.serve(params, prompts, 8, arrivals=SLOT_ARRIVALS)
+    n_attn = layers // cfg.attn_every if cfg.family == "hybrid" else layers
+    assert FA.launches == before + 7 * n_attn
+    again = graph.serve(params, prompts, 8, arrivals=SLOT_ARRIVALS)
+    want = SlotServer(cfg, slots, device=cuda_device, capture=False).serve(
+        params, prompts, 8, arrivals=SLOT_ARRIVALS)
+    np.testing.assert_array_equal(got.tokens, again.tokens)
+    np.testing.assert_array_equal(got.tokens, want.tokens)
+    assert graph.compile_counts() == {"chunk": 1} and np.all(got.tokens >= 0)
 
 
 @pytest.mark.cuda

@@ -89,8 +89,8 @@ def test_init_cache_and_specs_match_jax():
 
 
 def test_other_families_raise():
-    """dense and ssm are ported; moe and hybrid (as audio and vlm) raise."""
-    for arch in ("deepseek-moe-16b", "zamba2-7b"):
+    """dense, ssm, hybrid and moe are ported; audio and vlm raise."""
+    for arch in ("seamless-m4t-large-v2", "pixtral-12b"):
         cfg = t_get_arch(arch).reduced()
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             TM.param_specs(cfg)

@@ -259,9 +259,10 @@ def test_refuses_budget_overflow_other_families_and_a_recorder():
     with pytest.raises(NotImplementedError, match="vlm"):
         SlotServer(t_get_arch("pixtral-12b").reduced(),
                    SlotConfig(n_slots=1, ctx_len=8), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SlotServer(t_get_arch("zamba2-7b").reduced(),
-                   SlotConfig(n_slots=1, ctx_len=8), device="cpu")
+    for arch in ("zamba2-7b", "deepseek-moe-16b"):   # hybrid and moe
+        srv_fam = SlotServer(t_get_arch(arch).reduced(),
+                             SlotConfig(n_slots=1, ctx_len=8), device="cpu")
+        assert srv_fam.compile_counts() == {"chunk": 0}
     # a recorder is taken now; its traces are held in test_torch_obs.py
     srv_rec = SlotServer(tcfg, SlotConfig(n_slots=1, ctx_len=8),
                          device="cpu", recorder=Recorder())

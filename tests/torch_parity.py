@@ -10,7 +10,9 @@ import torch
 import jax
 import jax.numpy as jnp
 
+from repro_torch.models import init_params, params_to_numpy
 from repro_torch.models.convert import params_from_numpy
+from repro_torch.tree import tree_leaves_with_path
 
 # The suite runs its files in parallel worker processes (pytest-xdist).
 # torch's intra-op pool, a thread per core in every worker, oversubscribes
@@ -84,3 +86,20 @@ def tree_f32(jax_tree):
     return jax.tree_util.tree_map(
         lambda a: a.astype(jnp.float32)
         if jnp.issubdtype(a.dtype, jnp.floating) else a, jax_tree)
+
+
+def port_init_as_jax(cfg, seed):
+    """The port's ``init_params(cfg, seed)`` on the CPU, as a JAX tree."""
+    return to_jax(params_to_numpy(init_params(cfg, seed, device="cpu")))
+
+
+def assert_tree_close(port_tree, jax_tree, **tol):
+    """The same leaf paths, shapes and (within ``tol``) values."""
+    want = dict(tree_leaves_with_path(
+        jax.tree_util.tree_map(np.asarray, jax_tree)))
+    got = dict(tree_leaves_with_path(port_tree))
+    assert sorted(got) == sorted(want)
+    for path, w in want.items():
+        assert tuple(got[path].shape) == w.shape, path
+        np.testing.assert_allclose(f32(got[path]), np.asarray(w, np.float32),
+                                   err_msg=path, **tol)
