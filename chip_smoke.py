@@ -196,10 +196,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
     profiled serve and the eager route (bit for bit); on zamba2-7b the
     slot lane ≡ the lock-step lane through ``run`` at 9 layers in f32;
     prints a ``{"families": ...}`` line;
-18. prints a ``{"kernels": [...]}`` line (each update kernel's
+18. the ssm, hybrid, MoE, audio and vlm families trained and the audio
+    and vlm families served at the model level, after phase 17's memory
+    is freed: flash at the new shapes (seamless-m4t-large-v2's encoder
+    (4, 1024, 16, 64) non-causal, its cross-attention 256 × 1024
+    non-causal, its decoder 256 × 256 causal; pixtral-12b's (4, 1024, 32
+    heads, 8 kv heads, 128) causal) against its plain version in f32 and
+    bf16 and timed (kernel, plain, bound, SDPA as a yardstick); each of
+    mamba2-370m, zamba2-7b (13 layers: two groups and a one-layer tail),
+    deepseek-moe-16b (4 layers), seamless-m4t-large-v2 and pixtral-12b
+    (4 layers) at full width on the training main path's settings with
+    ``update_impl="pallas_pooled"`` (8 × 512 tokens, audio frames 8 ×
+    512 and tokens 8 × 128): ``fused_adam_delayed`` launched once per
+    dtype pool a round, finite curves, warm ms a round and peak memory,
+    the eager runtime bit-identical to scan, the update kernel over the
+    run's bf16 pool held to its plain version at both ends and timed, a
+    profiled chunk (device ms, idle share, the update's ms), and the
+    pooled curve within 5e-3 of ``update_impl="reference"`` at 2 layers;
+    seamless-m4t-large-v2 and pixtral-12b at full width and depth in bf16
+    with flash on through ``prefill`` (4 × 1024 frames and 256 tokens; 4 ×
+    1024 tokens with 256 patches) and ``Server.generate`` for 16 steps:
+    72 and 40 flash launches a prefill on the tensor-core route, a second
+    run's greedy tokens equal, warm and profiled times, the prefill with
+    the kernel against its plain version in f32 at 4 layers (the phase-3
+    tolerance) and in bf16 at 2 (3e-2), and ``run(ServeJob)`` refused;
+    prints a ``{"new_families": ...}`` line;
+19. prints a ``{"kernels": [...]}`` line (each update kernel's
     ``launches`` from its pooled path; flash's and SSD's launches on
-    phase 17's paths under ``family_launches``) and, last, the ``{"ok":
-    true, ...}`` line.
+    phase 17's and 18's paths and ``fused_adam_delayed``'s on phase 18's
+    under ``family_launches``; flash's times at phase 18's shapes under
+    ``family_shapes`` and ``fused_adam_delayed``'s over phase 18's pools
+    under ``family_pools``) and, last, the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -244,7 +271,7 @@ from repro_torch.kernels import flash_attention as FA         # noqa: E402
 from repro_torch.kernels import ssd_chunk as SSD              # noqa: E402
 from repro_torch.kernels.ref import attention_mask            # noqa: E402
 from repro_torch.launch.profile_serve import (idle_share,  # noqa: E402
-                                           profiled)
+                                              model_batch, profiled)
 from repro_torch.core import replay                            # noqa: E402
 from repro_torch.models import init_params, param_specs, prefill  # noqa: E402
 from repro_torch.models.specs import (DEVICE_DRAW_MIN, Spec,  # noqa: E402
@@ -2682,15 +2709,16 @@ def _cut_depth(params, cfg):
                     else p[:s.shape[0]], param_specs(cfg), params)
 
 
-def _prefill_plain_kernels(cfg, params, tokens):
-    """Last-token logits of a prefill whose ``ops.flash_attention`` and
-    ``ops.ssd_chunk`` calls go to the kernels' plain versions: the same
-    branches and casts as the kernels' prefill, on the card."""
+def _prefill_plain_kernels(cfg, params, batch):
+    """Last-token logits of a prefill of ``batch`` whose
+    ``ops.flash_attention`` and ``ops.ssd_chunk`` calls go to the kernels'
+    plain versions: the same branches and casts as the kernels' prefill,
+    on the card."""
     routed = ops.flash_attention, ops.ssd_chunk
     ops.flash_attention = FA.flash_attention_plain
     ops.ssd_chunk = SSD.ssd_chunk_plain
     try:
-        return prefill(cfg, params, {"tokens": tokens})[0]
+        return prefill(cfg, params, batch)[0]
     finally:
         ops.flash_attention, ops.ssd_chunk = routed
 
@@ -2722,34 +2750,43 @@ def _counted_run(label, spec, device, want) -> tuple:
     return res, got, peak
 
 
-def _family_kernel_rows(device) -> list:
-    """Flash at each family's prefill shape and SSD at zamba2-7b's: each
-    against its plain version (f32 and bf16), then bf16 timed on the
-    device with its plain version, its bound and (flash) SDPA."""
+def _flash_rows(device, shapes, tag) -> list:
+    """Flash at each of ``shapes`` ((label, B, Sq, Sk, H, KV, D, causal,
+    window)) against its plain version (f32 and bf16), then bf16 timed on
+    the device with its plain version, its bound and SDPA (GQA)."""
     rows = []
-    for label, B, Sq, Sk, H, KV, D, causal, window in FAMILY_FLASH_SHAPES:
+    for label, B, Sq, Sk, H, KV, D, causal, window in shapes:
         kw = dict(causal=causal, window=window)
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _qkv(B, Sq, Sk, H, KV, D, dtype, device)
             err, bad = _compare(FA.flash_attention_cuda(q, k, v, **kw),
                                 FA.flash_attention_plain(q, k, v, **kw),
                                 TOL[dtype])
-            log(f"families: flash {label} {str(dtype)[6:]}: max_abs_err="
+            log(f"{tag}: flash {label} {str(dtype)[6:]}: max_abs_err="
                 f"{err:.3e} (tol {TOL[dtype]:g}) bad={bad}")
             if bad:
                 raise AssertionError(f"flash disagrees with its plain "
                                      f"version at {label}'s shape {dtype}")
         qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
         row = {"kernel": "flash_attention", "arch": label,
-               "shape": [B, Sq, H, D], "max_abs_err": err,
+               "shape": [B, Sq, Sk, H, KV, D], "causal": causal,
+               "max_abs_err": err,
                "ms": device_ms(lambda: FA.flash_attention_cuda(q, k, v, **kw)),
                "plain_ms": device_ms(
                    lambda: FA.flash_attention_plain(q, k, v, **kw), iters=2),
                "sdpa_ms": device_ms(lambda: F.scaled_dot_product_attention(
-                   qt, kt, vt, is_causal=causal))}
+                   qt, kt, vt, is_causal=causal, enable_gqa=True))}
         row["bound_ms"], row["bound_by"] = flash_bound(q, k, **kw)
         rows.append(row)
         del q, k, v, qt, kt, vt
+    return rows
+
+
+def _family_kernel_rows(device) -> list:
+    """Flash at each family's prefill shape and SSD at zamba2-7b's: each
+    against its plain version (f32 and bf16), then bf16 timed on the
+    device with its plain version, its bound and (flash) SDPA."""
+    rows = _flash_rows(device, FAMILY_FLASH_SHAPES, "families")
     label, *shape = FAMILY_SSD_SHAPE
     for dtype in (torch.float32, torch.bfloat16):
         args = _ssd_inputs(*shape, dtype, device)
@@ -2812,20 +2849,25 @@ def _family_profile(device, cfg, params, prompts, row) -> None:
     """A warm prefill and ``FAMILY_DECODE_STEPS`` lock-step decode steps
     timed with the host clock, then the same under the profiler (its
     device time and idle share; the profiler slows the host)."""
-    s, steps = FAMILY_LOCK, FAMILY_DECODE_STEPS
     batch = {"tokens": torch.as_tensor(prompts, dtype=torch.int64,
                                        device=device)}
-    ctx = s["prompt_len"] + steps
-    server = Server(cfg, ServeConfig(batch=s["batch"], ctx_len=ctx),
-                    device=device)
+    _serve_profile(cfg, params, batch, FAMILY_DECODE_STEPS, row, "families")
+
+
+def _serve_profile(cfg, params, batch, steps, row, tag) -> None:
+    """``_family_profile`` on any prefill ``batch`` (tokens, plus frames or
+    patches): a warm prefill and ``steps`` decode steps from its cache."""
+    n, plen = batch["tokens"].shape
+    ctx = plen + steps
+    server = Server(cfg, ServeConfig(batch=n, ctx_len=ctx),
+                    device=batch["tokens"].device)
 
     def pre():
         last, cache = prefill(cfg, params, batch, ctx_len=ctx)
         return torch.argmax(last, dim=-1).cpu().numpy(), cache
 
     def dec(first, cache):
-        return lambda: server.generate(params, first, steps,
-                                       start_pos=s["prompt_len"],
+        return lambda: server.generate(params, first, steps, start_pos=plen,
                                        cache=cache)
 
     first, cache = pre()                                         # warm-up
@@ -2842,12 +2884,12 @@ def _family_profile(device, cfg, params, prompts, row) -> None:
     row.update(
         prefill_wall_ms=(t1 - t0) * 1e3,
         decode_wall_ms_per_step=(t2 - t1) / steps * 1e3,
-        tok_per_s=s["batch"] * steps / (t2 - t1),
+        tok_per_s=n * steps / (t2 - t1),
         prefill_device_ms=sum(ms for ms, _ in pre_k.values()),
         prefill_idle_share=idle_share(pre_k, pre_wall),
         decode_device_ms_per_step=sum(ms for ms, _ in dec_k.values()) / steps,
         decode_idle_share=idle_share(dec_k, dec_wall))
-    log(f"families: {cfg.name} lock-step (warm): prefill "
+    log(f"{tag}: {cfg.name} lock-step (warm): prefill "
         f"{row['prefill_wall_ms']:.2f} ms, decode "
         f"{row['decode_wall_ms_per_step']:.2f} ms/step = "
         f"{row['tok_per_s']:.1f} tok/s; profiled: prefill "
@@ -2888,7 +2930,8 @@ def _family_plain_gate(device, cfg, params, prompts) -> dict:
                                  f"launches {got}")
         tol = TOL[getattr(torch, dtype)]
         for name, b in (
-                ("plain_versions", _prefill_plain_kernels(cut, pc, tokens)),
+                ("plain_versions", _prefill_plain_kernels(
+                    cut, pc, {"tokens": tokens})),
                 ("switches_off", prefill(cut.with_(
                     use_flash_attention=False, use_ssd_kernel=False), pc,
                     {"tokens": tokens})[0])):
@@ -3082,6 +3125,334 @@ def phase_families(device, card: str, entries: dict) -> dict:
     return out
 
 
+#: phase 18: the ssm, hybrid, MoE, audio and vlm families trained on the
+#: training main path's settings (bf16, 8 × 512 tokens — audio: frames 8 ×
+#: 512 and tokens 8 × 128 — over 4 workers, Adam, delay 1, the pooled
+#: update, T 8, scan) at full width; depth is cut where the state (12 bytes
+#: a param) would not fit one card: zamba2-7b ≈81, deepseek-moe-16b ≈203
+#: and pixtral-12b ≈147 GB at full depth
+NEW_REDUCED = False
+NEW_TRAIN = (("mamba2-370m", ()),
+             ("zamba2-7b", (("n_layers", 13),)),        # 2 groups + a tail
+             ("deepseek-moe-16b", (("n_layers", 4),)),
+             ("seamless-m4t-large-v2", ()),
+             ("pixtral-12b", (("n_layers", 4),)))
+#: the cut at which each family's scan run is held to its eager run bit
+#: for bit and its pooled curve to the reference update's: 2 layers (the
+#: hybrid with its shared block before each, the audio family's encoder
+#: cut too); pixtral-12b 1, since the reference update holds two states
+#: at once and its 2 × 0.67 B embed and head leave no room for a second
+#: layer's on the card
+NEW_REF_CUT = {"zamba2-7b": (("n_layers", 2), ("attn_every", 1)),
+               "seamless-m4t-large-v2": (("n_layers", 2), ("enc_layers", 2)),
+               "pixtral-12b": (("n_layers", 1),)}
+#: the audio and vlm families served at the model level (phase 18), full
+#: width and depth, bf16, flash on: frames / tokens of ``batch_specs(cfg,
+#: 4, 1024)`` (seamless: 4 × 1024 frames, 256 tokens; pixtral: 4 × 1024
+#: tokens, 256 of them patches), 16 decode steps
+NEW_SERVE = ("seamless-m4t-large-v2", "pixtral-12b")
+NEW_SERVE_SHAPE = dict(batch=4, seq=1024, steps=16, seed=0)
+#: depth of the f32 kernel ≡ plain gate (audio: both stacks); bf16 at 2
+NEW_PLAIN_LAYERS = 4
+#: (label, B, Sq, Sk, H, KV, D, causal, window): the new flash shapes
+NEW_FLASH_SHAPES = (
+    ("seamless-m4t-large-v2/encoder", 4, 1024, 1024, 16, 16, 64, False,
+     None),
+    ("seamless-m4t-large-v2/cross", 4, 256, 1024, 16, 16, 64, False, None),
+    ("seamless-m4t-large-v2/decoder", 4, 256, 256, 16, 16, 64, True, None),
+    ("pixtral-12b", 4, 1024, 1024, 32, 8, 128, True, None))
+#: elements at each end of a pool whose update-kernel result is held to
+#: the plain version (the far end lies past 2^31 on the largest pool)
+POOL_CHECK = 1 << 24
+
+
+def _new_train_spec(arch, over, **job_kw):
+    return _train_spec(arch=arch, reduced=NEW_REDUCED, arch_overrides=over,
+                       update_impl=POOLED, **job_kw)
+
+
+def _pool_kernel(device, pools) -> dict:
+    """``fused_adam_delayed`` over a trained state's bf16 pool: one launch
+    held to its plain version at both ends of the pool (the far end past
+    2^31 elements on the largest pool), then timed over the whole pool
+    with CUDA events; the bound moves each operand once."""
+    name = "fused_adam_delayed"
+    grp = pools["bfloat16"]
+    n = grp["p"].numel()
+    gen = torch.Generator(device).manual_seed(21)
+    t = {"p": grp["p"][0], "m": grp["m"][0], "v": grp["v"][0],
+         "gb": grp["gbuf"][0],
+         "g": torch.randn(n, generator=gen, device=device,
+                          dtype=torch.bfloat16)}
+    scal = _scalar_sets(name, device)[-1][1]
+    k = min(POOL_CHECK, n // 2)
+    ends = (slice(0, k), slice(n - k, n))
+    want = [_apply(name, "plain", {key: x[sl].clone() for key, x in t.items()},
+                   scal) for sl in ends]
+    g_ends = [t["g"][sl].clone() for sl in ends]
+    _apply(name, "cuda", t, scal)
+    torch.cuda.synchronize()
+    rtol, atol = UPDATE_TOL["adam"][torch.bfloat16]
+    worst = 0.0
+    for sl, w, g in zip(ends, want, g_ends):
+        for key in _state_keys(name):
+            err = (t[key][sl].float() - w[key].float()).abs()
+            if (err > atol + rtol * w[key].float().abs()).any():
+                raise AssertionError(f"{name} over a {n:,}-element pool: "
+                                     f"{key} off its plain version at "
+                                     f"[{sl.start}, {sl.stop})")
+            worst = max(worst, err.max().item())
+        if not torch.equal(t["gb"][sl], g):
+            raise AssertionError(f"{name} over the pool: gbuf' != g")
+    ms = time_ms(lambda: _apply(name, "cuda", t, scal), iters=5, warmup=1)
+    nbytes = n * _bytes_per_elem(name, torch.bfloat16, torch.bfloat16)
+    del t, want, g_ends
+    return {"elements": n, "ms": ms, "bound_ms": nbytes / PEAK_BYTES * 1e3,
+            "bound_by": "bytes", "max_abs_err_ends": worst}
+
+
+def _train_new_family(device, arch, over, card) -> tuple:
+    """One family on the training main path's settings.  At the cut of
+    ``NEW_REF_CUT``: the scan run's final state and curve equal the eager
+    run's bit for bit, and its curve is within 5e-3 of the reference
+    update's.  At the cell's depth: launches (one per dtype pool a
+    round), finite curves, warm ms a round, peak memory; the update
+    kernel over its bf16 pool; a profiled warm chunk (device ms, idle
+    share, the update's ms).  Returns (the row, the initial params)."""
+    t_arch = time.perf_counter()
+    spec = _new_train_spec(arch, over)
+    cfg = spec.objective.make_arch()
+    T, K = spec.T, spec.rounds_per_launch
+    row = {"arch": arch, "layers": cfg.n_layers, "d_model": cfg.d_model,
+           "card": card}
+    # first, while the card is empty (the reference update keeps two
+    # states alive at once, the old one and the new one it builds); every
+    # run draws the same params from the seed, and none is kept between
+    cut = _new_train_spec(arch, over + NEW_REF_CUT.get(
+        arch, (("n_layers", 2),)))
+    scan = run(cut, device=device)
+    eager = TrainerBackend(device, runtime="eager").run(cut)
+    diff = _first_difference(scan.x, eager.x)
+    if diff is not None or not np.array_equal(eager.losses, scan.losses):
+        raise AssertionError(f"{arch}: scan and eager differ (first leaf "
+                             f"{diff})")
+    pooled = scan.losses
+    del scan, eager
+    torch.cuda.empty_cache()
+    ref = run(dataclasses.replace(cut, objective=dataclasses.replace(
+        cut.objective, update_impl="reference")), device=device).losses
+    if not np.isfinite(ref).all():
+        raise AssertionError(f"{arch}: non-finite reference curve")
+    rel = np.abs(pooled - ref) / np.abs(ref)
+    if not (rel <= 5e-3).all():
+        raise AssertionError(f"{arch}: pooled {pooled} against the "
+                             f"reference {ref} at the cut")
+    row["cut_layers"] = cut.objective.make_arch().n_layers
+    row["max_rel_vs_reference_at_cut"] = float(rel.max())
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    base = init_params(cfg, spec.seed, device)
+    torch.cuda.synchronize()
+    row.update(params=sum(p.numel() for p in tree_leaves(base)),
+               init_s=time.perf_counter() - t0)
+    same = lambda c, d: tree_map(torch.clone, base)
+    torch.cuda.reset_peak_memory_stats()
+    AU.reset_launches()
+    stamps = {}
+    t0 = time.perf_counter()
+    res = TrainerBackend(device, params_fn=same, on_step=lambda i, s, m:
+                         stamps.setdefault(i, time.perf_counter())).run(spec)
+    row["first_run_s"] = time.perf_counter() - t0
+    launched = dict(AU.launches)
+    n_pools = len(res.x["pools"])
+    want = {**dict.fromkeys(AU.KERNELS, 0), "fused_adam_delayed": T * n_pools}
+    if launched != want or res.extra["update_launches"] != want:
+        raise AssertionError(f"{arch}: update launches {launched}, want "
+                             f"{want}")
+    _check_curves(res, f"{arch} training")
+    row.update(pools=n_pools, launches=T * n_pools,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               warm_ms=(stamps[2 * K - 1] - stamps[K - 1]) / K * 1e3,
+               loss_first=float(res.losses[0]),
+               loss_last=float(res.losses[-1]))
+    row["pool_kernel"] = _pool_kernel(device, res.x["pools"])
+    del res
+    torch.cuda.empty_cache()
+
+    # a profiled chunk of K rounds; the process is warm from the runs above
+    tr, _, _ = TrainerBackend(device)._make_trainer(
+        spec, spec.objective, spec.stepsize.gamma, False, device)
+    ex = PlanExecutor(tr, _lane_plan(spec, rounds=K)[1])
+    state = tr.init_state(params=same(None, None))
+    _, wall, kernels, _ = profiled(
+        lambda: ex.run_scan(state, rounds_per_launch=K))
+    dev = sum(ms for ms, _ in kernels.values())
+    row.update(profiled_ms=wall * 1e3 / K, device_ms=dev / K,
+               idle_share=idle_share(kernels, wall),
+               update_kernel_ms=sum(ms for name, (ms, _) in kernels.items()
+                                    if "adam_kernel" in name) / K)
+    del state, ex, tr
+    torch.cuda.empty_cache()
+    row["seconds"] = time.perf_counter() - t_arch
+    pk = row["pool_kernel"]
+    log(f"new families: train {arch} L={cfg.n_layers} d={cfg.d_model} "
+        f"({row['params'] / 1e9:.3f} B params, init {row['init_s']:.2f} s): "
+        f"fused_adam_delayed launches {row['launches']} = {T} rounds x "
+        f"{n_pools} pools; loss {row['loss_first']:.5f} -> "
+        f"{row['loss_last']:.5f}; warm {row['warm_ms']:.3f} ms/round; "
+        f"profiled {row['profiled_ms']:.3f} ms/round, device "
+        f"{row['device_ms']:.3f} ms, idle {row['idle_share']:.3f}, update "
+        f"{row['update_kernel_ms']:.3f} ms; peak {row['peak_gib']:.2f} GiB; "
+        f"at {row['cut_layers']} layers scan = eager bit for bit, pooled "
+        f"vs reference max rel {rel.max():.3e} (5e-3); update kernel over the {pk['elements']:,}"
+        f"-element bf16 pool {pk['ms']:.4f} ms (bound {pk['bound_ms']:.4f} "
+        f"ms), ends within the update tolerance (max abs "
+        f"{pk['max_abs_err_ends']:.3e}); {row['seconds']:.1f} s")
+    return row, base
+
+
+def _serve_new_family(device, arch, params, card) -> dict:
+    """An audio or vlm arch at full width and depth at the model level,
+    flash on: ``prefill`` (one flash launch per attention: audio's encoder
+    self, decoder self and cross; on the tensor-core route) then
+    ``Server.generate`` from its cache; a second run's tokens equal the
+    first's; warm and profiled times; the prefill at 4 layers in f32
+    with the kernel against its plain version (the phase-3 tolerance) and
+    at 2 layers in bf16 (3e-2); ``run(ServeJob)`` refused."""
+    t_arch = time.perf_counter()
+    s = NEW_SERVE_SHAPE
+    cfg = get_arch(arch)
+    if NEW_REDUCED:
+        cfg = cfg.reduced()
+    cfg = cfg.with_(use_flash_attention=True)
+    row = {"arch": arch, "layers": cfg.n_layers, "card": card}
+    if params is None:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = init_params(cfg, s["seed"], device)
+        torch.cuda.synchronize()
+        row["init_s"] = time.perf_counter() - t0
+    batch = model_batch(cfg, s["batch"], s["seq"], s["seed"], device)
+    plen, steps = batch["tokens"].shape[1], s["steps"]
+    want = (cfg.enc_layers + 2 * cfg.n_layers if cfg.family == "audio"
+            else cfg.n_layers)
+
+    def serve():
+        FA.launches = 0
+        with _dtypes_seen(FA, "flash_attention_cuda") as seen:
+            last, cache = prefill(cfg, params, batch, ctx_len=plen + steps)
+            got = FA.launches
+        server = Server(cfg, ServeConfig(batch=s["batch"],
+                                         ctx_len=plen + steps), device=device)
+        toks = server.generate(params, torch.argmax(last, -1).cpu().numpy(),
+                               steps, start_pos=plen, cache=cache)
+        return got, seen, cache, toks, server.logits_finite
+
+    torch.cuda.reset_peak_memory_stats()
+    got, seen, cache, toks, finite = serve()
+    routes = sorted({FA.route(getattr(torch, d[0])) for d in seen})
+    if got != want or routes != ["tensor_cores"]:
+        raise AssertionError(f"{arch}: {got} flash launches per prefill on "
+                             f"{routes}, want {want} on the tensor cores")
+    if not finite or toks.shape != (s["batch"], steps) or toks.min() < 0 \
+            or toks.max() >= cfg.vocab:
+        raise AssertionError(f"{arch}: bad decode {toks.shape}, finite "
+                             f"{finite}")
+    if cfg.family == "audio" and tuple(cache["cross_k"].shape[:3]) != (
+            cfg.n_layers, s["batch"], s["seq"]):
+        raise AssertionError(f"{arch}: cross k {cache['cross_k'].shape}")
+    del cache
+    again = serve()[3]
+    if not np.array_equal(again, toks):
+        raise AssertionError(f"{arch}: a second run's tokens differ")
+    row.update(flash_launches=got, peak_gib=torch.cuda.max_memory_allocated()
+               / 2**30, inputs={k: list(v.shape) for k, v in batch.items()})
+    _serve_profile(cfg, params, batch, steps, row, "new families")
+
+    gates = {}
+    deep = {"n_layers": NEW_PLAIN_LAYERS}
+    two = {"n_layers": 2}
+    if cfg.family == "audio":
+        deep["enc_layers"], two["enc_layers"] = NEW_PLAIN_LAYERS, 2
+    for cut, dtype in ((deep, "float32"), (two, "bfloat16")):
+        c = cfg.with_(dtype=dtype, **cut)
+        pc = _cut_depth(params, c)
+        with torch.no_grad():
+            a = prefill(c, pc, batch)[0].float()
+            b = _prefill_plain_kernels(c, pc, batch).float()
+        tol = TOL[getattr(torch, dtype)]
+        err, bad = _compare(a, b, tol)
+        gates[f"{dtype}_{c.n_layers}_layers"] = {
+            "max_abs_err": err, "outside_tol": bad, "tol": tol,
+            "argmax_agree": int((a.argmax(-1) == b.argmax(-1)).sum())}
+        log(f"new families: {arch} prefill at full width, {c.n_layers} "
+            f"layers, {dtype}, kernel vs plain version: last-token logits "
+            f"max_abs_err {err:.3e} (|logit| max {b.abs().max().item():.3f})"
+            f" outside {tol:g}: {bad} of {b.numel()}")
+        if bad or not torch.isfinite(a).all():
+            raise AssertionError(f"{arch}: kernel prefill disagrees with its"
+                                 f" plain version ({dtype}, {c.n_layers} "
+                                 "layers)")
+        del pc, a, b
+    row["plain_gates"] = gates
+    _expect_raise(lambda: run(ExperimentSpec(objective=ServeJob(
+        arch=arch, reduced=NEW_REDUCED), T=4), device=device),
+        NotImplementedError)
+    row["seconds"] = time.perf_counter() - t_arch
+    log(f"new families: {arch} L={cfg.n_layers} model-level serve, inputs "
+        f"{row['inputs']}: {got} flash launches per prefill on the tensor "
+        f"cores, {steps} greedy tokens a row, a second run's tokens equal; "
+        f"peak {row['peak_gib']:.2f} GiB; run(ServeJob) refused; "
+        f"{row['seconds']:.1f} s")
+    del params
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_new_families(device, card: str, entries: dict) -> dict:
+    """Phase 18: the five families trained, the audio and vlm families
+    served at the model level, flash at their new shapes; returns the
+    ``new_families`` line and adds each path's launches to the flash and
+    ``fused_adam_delayed`` entries of the kernels line."""
+    t0 = time.perf_counter()
+    out = {"card": card, "train": [], "serve": []}
+    out["flash_shapes"] = _flash_rows(device, NEW_FLASH_SHAPES,
+                                      "new families")
+    for r in out["flash_shapes"]:
+        log(f"new families: flash at {r['arch']} {r['shape']} causal="
+            f"{r['causal']} bf16: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, sdpa {r['sdpa_ms']:.4f} ms, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    torch.cuda.empty_cache()
+    for arch, over in NEW_TRAIN:
+        row, base = _train_new_family(device, arch, over, card)
+        out["train"].append(row)
+        if arch in NEW_SERVE and not over:       # full depth: serve these
+            out["serve"].append(_serve_new_family(device, arch, base, card))
+        del base
+        torch.cuda.empty_cache()
+    for arch in NEW_SERVE:
+        if arch not in {r["arch"] for r in out["serve"]}:
+            out["serve"].append(_serve_new_family(device, arch, None, card))
+    fl = entries["flash"]
+    fl.setdefault("family_launches", {}).update(
+        {f"{r['arch']}/prefill": r["flash_launches"] for r in out["serve"]})
+    fl["family_shapes"] = [
+        {"arch": r["arch"], "shape": r["shape"], "causal": r["causal"],
+         "ms": r["ms"], "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+         "bound_by": r["bound_by"], "library_ms": r["sdpa_ms"]}
+        for r in out["flash_shapes"]]
+    upd = entries["fused_adam_delayed"]
+    upd.setdefault("family_launches", {}).update(
+        {f"{r['arch']}/train": r["launches"] for r in out["train"]})
+    upd["family_pools"] = [{"arch": r["arch"], **r["pool_kernel"]}
+                           for r in out["train"]]
+    out["seconds"] = time.perf_counter() - t0
+    log(f"new families: every gate passed in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     kind, card = phase_device()
@@ -3106,6 +3477,9 @@ def main() -> None:
     lanes = phase_trainer_lanes(device, updates, card, train)
     torch.cuda.empty_cache()
     families = phase_families(device, card, {"flash": flash, "ssd": ssd})
+    torch.cuda.empty_cache()
+    new = phase_new_families(device, card, {
+        "flash": flash, "fused_adam_delayed": updates["fused_adam_delayed"]})
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [flash] + [updates[k] for k in AU.KERNELS] + [ssd]
@@ -3116,9 +3490,11 @@ def main() -> None:
     print(json.dumps({"faults": faults}))
     print(json.dumps({"trainer_lanes": lanes}))
     print(json.dumps({"families": families}))
+    print(json.dumps({"new_families": new}))
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys},
-         **{k: e[k] for k in ("family_launches",) if k in e}}
+         **{k: e[k] for k in ("family_launches", "family_shapes",
+                               "family_pools") if k in e}}
         for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

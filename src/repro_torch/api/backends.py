@@ -461,7 +461,9 @@ class ServeBackend:
     launch counters read before and after the run) and ``obs`` (the
     ``recorder``'s summary: ``prefill`` and ``decode`` spans).  A
     ``scenario`` is read by the slot lane only, as in the JAX package.  The
-    slot lane: see :meth:`_run_slots`."""
+    slot lane: see :meth:`_run_slots`.  The audio and vlm families raise
+    ``NotImplementedError`` on both lanes before any parameter is made: a
+    ``ServeJob`` has no modality inputs to give their prefill."""
 
     name = "serve"
 
@@ -476,6 +478,18 @@ class ServeBackend:
         job = spec.objective
         if not isinstance(job, ServeJob):
             raise TypeError("ServeBackend needs a ServeJob objective")
+        family = job.make_arch().family
+        if family in ("audio", "vlm"):
+            # refused before any parameter is made: a ServeJob carries
+            # token prompts only, and the JAX ServeBackend hands prefill no
+            # frames or patches either (it fails on the missing key)
+            raise NotImplementedError(
+                f"ServeBackend serves token-only prompts; the {family!r} "
+                f"family ({job.arch}) needs "
+                f"{'frames' if family == 'audio' else 'patches'} for each "
+                "prompt, which a ServeJob does not carry.  Serve it at the "
+                "model level: repro_torch.models.prefill with the modality "
+                "input, then Server.generate from that cache")
         if job.n_slots:
             return self._run_slots(spec)
         rec = self.recorder

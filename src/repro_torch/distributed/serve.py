@@ -4,8 +4,10 @@ Counterpart of ``repro/distributed/serve.py`` on one device.  PyTorch runs
 eagerly, so there is no compiled step to cache and no mesh; the cache the
 JAX package donates to each step is updated in place here.  The cache is
 whatever ``models.init_cache`` / ``prefill`` make for the family: ring k/v
-caches with a positions buffer (dense, moe), conv and SSD states with none
-(ssm), or both (hybrid); the server reads none of them.
+caches with a positions buffer (dense, vlm, moe; audio adds the cross k/v
+of its encoder memory, so it decodes from a prefilled cache), conv and
+SSD states with none (ssm), or both (hybrid); the server reads none of
+them.
 """
 from __future__ import annotations
 

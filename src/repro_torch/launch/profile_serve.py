@@ -1,7 +1,8 @@
 """Where the serving path's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_serve \
-        [--arch qwen2-0.5b|mamba2-370m|zamba2-7b|deepseek-moe-16b] \
+        [--arch qwen2-0.5b|mamba2-370m|zamba2-7b|deepseek-moe-16b|
+                seamless-m4t-large-v2|pixtral-12b] \
         [--no-flash] [--no-ssd] [--slots N] [--trace-dir DIR]
 
 Runs a serving main path's configuration at full width (a batch of 4
@@ -9,8 +10,13 @@ prompts of 1024 tokens, greedy decode): qwen2-0.5b (the default) or
 deepseek-moe-16b with the flash kernel on, or with plain attention under
 ``--no-flash``; mamba2-370m with the SSD chunk kernel on, or with the
 einsum branch under ``--no-ssd``; or zamba2-7b with both kernels on, each
-switched off by its flag.  It warms the lock-step path up (one prefill and
-``STEPS`` decode steps), times
+switched off by its flag.  The audio and vlm families run at the model
+level (``prefill`` with their modality inputs, then ``Server.generate``
+from its cache), since ``ServeBackend`` and the slot lane refuse them:
+seamless-m4t-large-v2 with 4 × 1024 frames and prompts of 256 tokens,
+pixtral-12b with prompts of 1024 tokens whose first 256 positions are
+patches (:func:`model_batch`, ``batch_specs``' shapes).  It warms the
+lock-step path up (one prefill and ``STEPS`` decode steps), times
 a second prefill and decode with the host clock around
 ``torch.cuda.synchronize()``, then records the same work under
 ``torch.profiler`` and prints, for prefill and for decode apart:
@@ -49,15 +55,33 @@ from ..configs import get_arch
 from ..device import resolve_device
 from ..distributed import Server, ServeConfig, SlotConfig, SlotServer
 from ..distributed import draw_arrivals
-from ..models import init_params, prefill
+from ..models import batch_specs, init_params, prefill
 
-ARCHS = ("qwen2-0.5b", "mamba2-370m", "zamba2-7b", "deepseek-moe-16b")
+ARCHS = ("qwen2-0.5b", "mamba2-370m", "zamba2-7b", "deepseek-moe-16b",
+         "seamless-m4t-large-v2", "pixtral-12b")
 BATCH, PROMPT_LEN, STEPS, SEED = 4, 1024, 8, 0
 TOP = 12                        # kernels listed per phase
 #: the slot lane's cell: requests per slot, prompt length, tokens per
 #: request, arrivals, admission, decode steps per chunk
 SLOT_REQUESTS, SLOT_PROMPT, SLOT_T = 4, 512, 64
 SLOT_ARRIVAL, SLOT_ADMISSION, SLOT_K = "poisson:gap=2", "pure", 8
+
+
+def model_batch(cfg, batch: int, seq: int, seed: int, device) -> dict:
+    """A prefill batch of ``batch_specs(cfg, batch, seq)``'s shapes: the
+    tokens from ``numpy.random.default_rng(seed)`` (the serving lanes'
+    prompt stream), the stubbed modality inputs (audio frames, vlm
+    patches) f32 standard normals from a ``torch.Generator`` on
+    ``device`` seeded with ``seed``."""
+    gen = torch.Generator(device).manual_seed(seed)
+    out = {}
+    for k, sp in sorted(batch_specs(cfg, batch, seq).items()):
+        if sp.dtype == "int32":
+            out[k] = torch.as_tensor(np.random.default_rng(seed).integers(
+                0, cfg.vocab, sp.shape), dtype=torch.int64, device=device)
+        else:
+            out[k] = torch.randn(sp.shape, generator=gen, device=device)
+    return out
 
 
 def kernel_times(prof) -> dict:
@@ -126,14 +150,16 @@ def main(argv=None) -> None:
     device = resolve_device("cuda")
     cfg = get_arch(args.arch).with_(use_flash_attention=not args.no_flash,
                                     use_ssd_kernel=not args.no_ssd)
+    if args.slots and cfg.family in ("audio", "vlm"):
+        ap.error(f"the slot lane serves token-only prompts; {args.arch} "
+                 "runs at the model level only (omit --slots)")
     params = init_params(cfg, SEED, device)
     if args.slots:
         _profile_slots(cfg, params, args.slots, device, args.trace_dir)
         return
-    ctx = PROMPT_LEN + STEPS + 1
-    prompts = np.random.default_rng(SEED).integers(
-        0, cfg.vocab, (BATCH, PROMPT_LEN))
-    tokens = torch.as_tensor(prompts, dtype=torch.int64, device=device)
+    batch = model_batch(cfg, BATCH, PROMPT_LEN, SEED, device)
+    plen = batch["tokens"].shape[1]        # audio: PROMPT_LEN // dec_ratio
+    ctx = plen + STEPS + 1
     server = Server(cfg, ServeConfig(batch=BATCH, ctx_len=ctx),
                     device=device)
 
@@ -143,23 +169,22 @@ def main(argv=None) -> None:
         with pre_ctx or contextlib.nullcontext():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            last, cache = prefill(cfg, params, {"tokens": tokens},
-                                  ctx_len=ctx)
+            last, cache = prefill(cfg, params, batch, ctx_len=ctx)
             first = torch.argmax(last, dim=-1)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
         with dec_ctx or contextlib.nullcontext():
             t2 = time.perf_counter()
             server.generate(params, first.cpu().numpy(), STEPS,
-                            start_pos=PROMPT_LEN, cache=cache)
+                            start_pos=plen, cache=cache)
             t3 = time.perf_counter()
         return t1 - t0, t3 - t2
 
     serve()                                                 # warm-up
     pre_s, dec_s = serve()
     kernel = _switches(cfg)
-    print(f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} batch={BATCH} "
-          f"prompt={PROMPT_LEN} {kernel}: "
+    inputs = " ".join(f"{k}={tuple(v.shape)}" for k, v in batch.items())
+    print(f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} {inputs} {kernel}: "
           f"prefill {pre_s * 1e3:.3f} ms, decode {dec_s / STEPS * 1e3:.3f}"
           f" ms/step = {BATCH * STEPS / dec_s:.1f} tok/s")
 

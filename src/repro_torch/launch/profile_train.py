@@ -1,6 +1,7 @@
 """Where the training path's time goes on the card.
 
     PYTHONPATH=src python -m repro_torch.launch.profile_train \\
+        [--arch qwen2-0.5b] [--n-layers N]
         [--update-impl pallas|pallas_pooled|reference] [--remat none|full]
         [--opt adam|sgd] [--delay-rounds 1] [--rounds 4] [--warmup 2]
         [--trace-dir DIR] [--scenario SPEC] [--guards]
@@ -24,6 +25,13 @@ which waits for the device), then records the same rounds under
 pools (one kernel launch per round), and ``--remat full`` recomputes each
 layer's activations in the backward pass; the printed peak memory is the
 one to compare with and without it.
+
+``--arch`` trains another arch of the registry at full width on the same
+settings (an audio arch takes 8 × 512 frames and 8 × 128 tokens, a vlm
+arch patches in its first positions), and ``--n-layers`` cuts its depth
+(a hybrid keeps ``attn_every``: 13 layers of zamba2-7b are two groups of
+six and a one-layer tail) for archs whose state at full depth would not
+fit one card.
 
 ``--scenario`` runs the rounds under a scenario world, its channels
 lowered into the plan as ``TrainerBackend`` lowers them, and
@@ -54,12 +62,16 @@ SORT_KERNELS = ("Sort", "sort")
 
 
 def main_path_spec(update_impl="pallas", opt="adam", delay_rounds=1, T=8,
-                   scenario=None, guards=False, remat="none"):
+                   scenario=None, guards=False, remat="none",
+                   arch="qwen2-0.5b", n_layers=None):
     """The training main path of ``chip_smoke.py`` (under ``scenario``
-    with ``guards``: its faults phase)."""
-    job = TrainJob(arch="qwen2-0.5b", reduced=False, global_batch=8,
+    with ``guards``: its faults phase; with ``arch`` and ``n_layers``: its
+    families' training phase)."""
+    over = (("n_layers", n_layers),) if n_layers else ()
+    job = TrainJob(arch=arch, reduced=False, global_batch=8,
                    seq_len=512, update_impl=update_impl, opt=opt,
-                   delay_rounds=delay_rounds, guards=guards, remat=remat)
+                   delay_rounds=delay_rounds, guards=guards, remat=remat,
+                   arch_overrides=over)
     return ExperimentSpec(objective=job, scheduler="pure",
                           timing="fixed:slow=5", n_workers=4, T=T,
                           stepsize=3e-4, seed=0, runtime="scan",
@@ -98,6 +110,9 @@ def _report(prof, wall_s: float, rounds: int) -> None:
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--arch", default="qwen2-0.5b")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the arch's depth (full depth by default)")
     ap.add_argument("--update-impl", default="pallas")
     ap.add_argument("--remat", default="none", choices=("none", "full"))
     ap.add_argument("--opt", default="adam")
@@ -113,7 +128,8 @@ def main(argv=None) -> None:
     spec = main_path_spec(args.update_impl, args.opt, args.delay_rounds,
                           T=args.warmup + args.rounds,
                           scenario=args.scenario, guards=args.guards,
-                          remat=args.remat)
+                          remat=args.remat, arch=args.arch,
+                          n_layers=args.n_layers)
     tr, cfg, n_groups = TrainerBackend(device)._make_trainer(
         spec, spec.objective, spec.stepsize.gamma, False, device)
     state = tr.init_state(spec.seed)

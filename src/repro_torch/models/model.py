@@ -1,35 +1,45 @@
 """Model: param specs, forward, prefill, lock-step and ragged decode.
 
-Counterpart of ``repro/models/model.py`` for four families: ``dense`` (GQA
-attention with optional QKV bias / QK-norm, RoPE, RMSNorm, SwiGLU, tied or
-separate unembedding), ``moe`` (the dense attention with a capacity-
-dispatched top-k MoE of SwiGLU experts plus shared experts in place of the
-MLP), ``ssm`` (Mamba2 blocks: projections, depthwise causal conv, the
-chunked SSD scan, gated RMSNorm) and ``hybrid`` (Mamba2 layers with ONE
-shared attention + MLP block applied before every ``attn_every`` of them,
-its weights reused at each insertion, and a tail of the remaining Mamba2
-layers).  Params are a nested dict of tensors with the JAX tree's paths and
-its stacked-over-layers layout (``blocks/attn/wq`` is ``(L, d, H, Dh)``); a
-Python loop over layers takes the place of ``jax.lax.scan`` (of the two
-nested scans, for the hybrid).  One device, no mesh: ``_shard_act`` has no
-counterpart, and the MoE dispatches in one group.
+Counterpart of ``repro/models/model.py`` for all six families: ``dense``
+(GQA attention with optional QKV bias / QK-norm, RoPE, RMSNorm, SwiGLU,
+tied or separate unembedding), ``moe`` (the dense attention with a
+capacity-dispatched top-k MoE of SwiGLU experts plus shared experts in
+place of the MLP), ``ssm`` (Mamba2 blocks: projections, depthwise causal
+conv, the chunked SSD scan, gated RMSNorm), ``hybrid`` (Mamba2 layers with
+ONE shared attention + MLP block applied before every ``attn_every`` of
+them, its weights reused at each insertion, and a tail of the remaining
+Mamba2 layers), ``audio`` (an encoder-decoder: stubbed frame embeddings
+through ``frontend_proj`` and a bidirectional encoder, then decoder layers
+of causal self-attention, cross-attention to the encoder's memory and an
+MLP) and ``vlm`` (the dense decoder, with stubbed patch embeddings
+projected by ``projector`` into the first positions).  Params are a nested
+dict of tensors with the JAX tree's paths and its stacked-over-layers
+layout (``blocks/attn/wq`` is ``(L, d, H, Dh)``); a Python loop over
+layers takes the place of ``jax.lax.scan`` (of the two nested scans, for
+the hybrid).  One device, no mesh: ``_shard_act`` has no counterpart, and
+the MoE dispatches in one group.
 
 The SSM decode cache holds per-layer conv and SSD states
 (``{"ssm": {"conv", "ssd"}}``, the JAX layout) and no positions buffer.
 The hybrid's holds the g = n_layers // attn_every insertions' ring
 (``attn``) and positions, the grouped layers' states flat (``ssm``, g·k
 layers: layer i is group i // k, inner layer i % k) and, when n_layers is
-not a multiple of k, the tail's (``ssm_tail``).
+not a multiple of k, the tail's (``ssm_tail``).  The audio cache adds
+each decoder layer's cross-attention k/v of the encoder memory
+(``cross_k`` / ``cross_v``, (L, B, S_frames, KV, Dh)); ``cache_specs``
+declares them with ``ctx_len`` rows, as the JAX package does, so a cache
+to decode from comes from :func:`prefill`.
 With ``cfg.use_ssd_kernel`` every SSD layer's intra-chunk part goes
 through ``kernels.ops.ssd_chunk`` (the CUDA kernel on the card, its plain
 version on the CPU); the kernel has no backward either.
 
 With ``cfg.use_flash_attention`` every prefill layer's attention goes
 through ``kernels.ops.flash_attention``: the CUDA kernel on the card, its
-plain version on the CPU.  Decode attention is plain PyTorch, as in the
-JAX package.  The flash kernel has no backward, so training
-(:func:`loss_fn` under autograd) runs with ``use_flash_attention=False``;
-the kernel's wrapper raises rather than drop the gradient.
+plain version on the CPU; the audio encoder's and the cross-attention run
+it non-causal.  Decode attention is plain PyTorch, as in the JAX package.
+The flash kernel has no backward, so training (:func:`loss_fn` under
+autograd) runs with ``use_flash_attention=False``; the kernel's wrapper
+raises rather than drop the gradient.
 """
 from __future__ import annotations
 
@@ -46,14 +56,13 @@ from . import layers as L
 from .specs import Spec, count_params, init_tree, torch_dtype
 
 F32 = torch.float32
-_LATER = ("is not ported yet; the audio and vlm families are a later slice "
-          "(ROADMAP.md queue 1, 'The other model families')")
-FAMILIES = ("dense", "ssm", "hybrid", "moe")
+FAMILIES = ("dense", "ssm", "hybrid", "moe", "audio", "vlm")
 
 
 def _require_family(cfg: ArchConfig):
     if cfg.family not in FAMILIES:
-        raise NotImplementedError(f"family {cfg.family!r} {_LATER}")
+        raise ValueError(f"unknown family {cfg.family!r}; the families are "
+                         f"{FAMILIES}")
 
 
 # ============================================================================
@@ -156,9 +165,22 @@ def param_specs(cfg: ArchConfig) -> dict:
     elif cfg.family == "moe":
         specs["blocks"] = {"attn": _attn_specs(cfg, nl),
                            "moe": _moe_specs(cfg, nl)}
+    elif cfg.family == "audio":
+        specs["frontend_proj"] = Spec((cfg.frontend_dim, d),
+                                      (None, "embed"), "fan_in")
+        specs["enc_blocks"] = {"attn": _attn_specs(cfg, cfg.enc_layers),
+                               "mlp": _mlp_specs(cfg, cfg.enc_layers,
+                                                 cfg.d_ff)}
+        specs["enc_norm"] = Spec((d,), ("embed",), "ones")
+        specs["blocks"] = {"attn": _attn_specs(cfg, nl),
+                           "cross": _attn_specs(cfg, nl),
+                           "mlp": _mlp_specs(cfg, nl, cfg.d_ff)}
     else:
         specs["blocks"] = {"attn": _attn_specs(cfg, nl),
                            "mlp": _mlp_specs(cfg, nl, cfg.d_ff)}
+    if cfg.family == "vlm":
+        specs["projector"] = Spec((cfg.vision_dim, d), (None, "embed"),
+                                  "fan_in")
     return specs
 
 
@@ -198,10 +220,13 @@ def _layer(tree: dict, i: int) -> dict:
 # block applications
 # ============================================================================
 
-def _qkv(cfg, p, x):
+def _qkv(cfg, p, x, src=None):
+    """q from ``x``; k and v from ``src`` (a cross-attention memory) or,
+    without one, from ``x``."""
+    src = x if src is None else src
     q = L.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = L.einsum("bsd,dhk->bshk", x, p["wk"])
-    v = L.einsum("bsd,dhk->bshk", x, p["wv"])
+    k = L.einsum("bsd,dhk->bshk", src, p["wk"])
+    v = L.einsum("bsd,dhk->bshk", src, p["wv"])
     if cfg.qkv_bias:
         q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
     if cfg.qk_norm:
@@ -210,16 +235,21 @@ def _qkv(cfg, p, x):
     return q, k, v
 
 
-def _apply_attn(cfg, p, h, *, positions, window=None, return_kv=False):
-    """Pre-norm causal self-attention block."""
+def _apply_attn(cfg, p, h, *, causal=True, positions=None, kv_h=None,
+                window=None, return_kv=False):
+    """Pre-norm attention block.  ``kv_h``: a cross-attention memory, the
+    source of k and v (un-normed; no RoPE, never causal); otherwise
+    self-attention, with RoPE at ``positions`` when they are given."""
     x = L.rms_norm(h, p["norm"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, p, x)
-    q = L.rope(q, positions, cfg.rope_theta)
-    k = L.rope(k, positions, cfg.rope_theta)
+    q, k, v = _qkv(cfg, p, x, kv_h)
+    if kv_h is None and positions is not None:
+        q = L.rope(q, positions, cfg.rope_theta)
+        k = L.rope(k, positions, cfg.rope_theta)
+    causal = causal and kv_h is None
     if cfg.use_flash_attention:
-        o = ops.flash_attention(q, k, v, causal=True, window=window)
+        o = ops.flash_attention(q, k, v, causal=causal, window=window)
     else:
-        o = L.attention(q, k, v, causal=True, window=window)
+        o = L.attention(q, k, v, causal=causal, window=window)
     out = h + L.einsum("bshk,hkd->bsd", o, p["wo"])
     if return_kv:
         return out, (k, v)
@@ -298,19 +328,28 @@ def _unembed(cfg, params, h):
     return L.einsum("bsd,dv->bsv", h, params["lm_head"])
 
 
-def _decoder_stack(cfg, params, h, positions, window):
-    """Every layer of the family over the sequence → (h, aux).
-
-    Under autograd with ``cfg.remat == "full"`` each block runs inside
-    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)``: only the
-    block's input is kept, and the backward pass recomputes the rest, as
-    JAX's ``_scan(..., remat)`` does with ``jax.checkpoint`` (the hybrid's
-    shared block and each of its Mamba2 layers are blocks of their own)."""
+def _runner(cfg):
+    """``run(fn, *args)``: ``fn(*args)``, inside
+    ``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` under
+    autograd with ``cfg.remat == "full"``: only the block's inputs are
+    kept, and the backward pass recomputes the rest, as JAX's ``_scan(...,
+    remat)`` does with ``jax.checkpoint``."""
     remat = cfg.remat == "full" and torch.is_grad_enabled()
 
     def run(fn, *args):
         return (checkpoint(fn, *args, use_reentrant=False) if remat
                 else fn(*args))
+    return run
+
+
+def _decoder_stack(cfg, params, h, positions, window, memory=None):
+    """Every layer of the family over the sequence → (h, aux).  ``memory``:
+    the audio encoder's output, which each decoder layer cross-attends to.
+
+    With ``cfg.remat == "full"`` under autograd each block is recomputed in
+    the backward pass (:func:`_runner`; the hybrid's shared block and each
+    of its Mamba2 layers are blocks of their own)."""
+    run = _runner(cfg)
 
     def mamba(p, x):
         return _apply_mamba(cfg, p, x)
@@ -342,6 +381,16 @@ def _decoder_stack(cfg, params, h, positions, window):
             h, a = run(block, _layer(blocks, i), h)
             aux = aux + a
         return h, aux / cfg.n_layers
+    if cfg.family == "audio":
+        def block(p, x, mem):
+            x = _apply_attn(cfg, p["attn"], x, positions=positions,
+                            window=window)
+            x = _apply_attn(cfg, p["cross"], x, kv_h=mem)
+            return _apply_mlp(cfg, p["mlp"], x)
+
+        for i in range(cfg.n_layers):
+            h = run(block, _layer(blocks, i), h, memory)
+        return h, 0.0
 
     def block(p, x):
         if cfg.family == "ssm":
@@ -354,18 +403,64 @@ def _decoder_stack(cfg, params, h, positions, window):
     return h, 0.0
 
 
+def _encoder_stack(cfg, params, frames):
+    """The audio encoder over stubbed frame embeddings (B, S, frontend_dim):
+    ``frontend_proj``, bidirectional self-attention blocks with RoPE (remat
+    as in :func:`_decoder_stack`), then ``enc_norm``."""
+    h = L.einsum("bsf,fd->bsd", frames.to(torch_dtype(cfg.dtype)),
+                 params["frontend_proj"])
+    positions = torch.arange(h.shape[1], device=h.device)
+    run = _runner(cfg)
+
+    def block(p, x):
+        x = _apply_attn(cfg, p["attn"], x, causal=False, positions=positions)
+        return _apply_mlp(cfg, p["mlp"], x)
+
+    for i in range(cfg.enc_layers):
+        h = run(block, _layer(params["enc_blocks"], i), h)
+    return L.rms_norm(h, params["enc_norm"], cfg.norm_eps)
+
+
+def _embed_input(cfg, params, batch):
+    """The input embedding of training and prefill → (h, cross-attention
+    memory or None).  audio: the encoder over ``batch["frames"]`` gives
+    the memory.  vlm: ``batch["patches"]`` (B, P, vision_dim) through
+    ``projector`` replace the first P token embeddings; a prompt shorter
+    than P is lengthened to P, as in the JAX package, where a prompt of 2
+    to P − 1 tokens then fails (its positions no longer broadcast against
+    the sequence), so such a prompt is refused here."""
+    memory = None
+    if cfg.family == "audio":
+        memory = _encoder_stack(cfg, params, batch["frames"])
+    tokens = batch["tokens"]
+    h = _embed(cfg, params, tokens)
+    if cfg.family == "vlm":
+        patches = L.einsum("bpv,vd->bpd",
+                           batch["patches"].to(torch_dtype(cfg.dtype)),
+                           params["projector"])
+        P, S = patches.shape[1], tokens.shape[1]
+        if 1 < S < P:
+            raise ValueError(f"a vlm prompt of {S} tokens is shorter than "
+                             f"its {P} patches (the JAX package's shapes "
+                             "break there too)")
+        dt = torch.promote_types(patches.dtype, h.dtype)   # jnp.concatenate
+        h = torch.cat([patches.to(dt), h[:, P:].to(dt)], dim=1)
+    return h, memory
+
+
 def forward_logits(cfg: ArchConfig, params, batch, window=None):
     """Full-sequence forward → (logits (B,S,V), aux loss: the MoE's
     load-balance term averaged over layers, 0.0 for the other families).
-    ``cfg.remat == "full"`` recomputes each block in the backward pass
-    (see :func:`_decoder_stack`)."""
+    ``batch`` holds ``tokens`` (B,S), plus ``frames`` (audio) or
+    ``patches`` (vlm).  ``cfg.remat == "full"`` recomputes each block in
+    the backward pass (see :func:`_decoder_stack`)."""
     _require_family(cfg)
     if window is None:
         window = cfg.sliding_window
     tokens = batch["tokens"]
-    h = _embed(cfg, params, tokens)
+    h, memory = _embed_input(cfg, params, batch)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h, aux = _decoder_stack(cfg, params, h, positions, window)
+    h, aux = _decoder_stack(cfg, params, h, positions, window, memory)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h), aux
 
@@ -423,14 +518,17 @@ def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None):
     the prompt length.  Only the last position is unembedded.  An SSM or
     hybrid prompt must hold at least ``ssm_conv − 1`` tokens (the conv
     state is the last K−1 pre-conv inputs), and the SSD chunk,
-    ``min(ssm_chunk, S)``, must divide its length."""
+    ``min(ssm_chunk, S)``, must divide its length.  The audio cache's
+    ``cross_k`` / ``cross_v`` are each decoder layer's ``memory @ wk`` and
+    ``memory @ wv`` over the encoder's output (un-normed, no bias: JAX's
+    prefill computes them so), with the frames' length."""
     _require_family(cfg)
     window = cfg.sliding_window
     tokens = batch["tokens"]
     S = tokens.shape[1]
     ctx = ctx_len or S
     W = min(cfg.sliding_window or ctx, ctx)
-    h = _embed(cfg, params, tokens)
+    h, memory = _embed_input(cfg, params, batch)
     if cfg.family in ("ssm", "hybrid") and S < cfg.ssm_conv - 1:
         raise ValueError(f"an SSM prompt needs at least ssm_conv - 1 = "
                          f"{cfg.ssm_conv - 1} tokens, got {S}")
@@ -465,18 +563,29 @@ def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None):
         cache["attn"] = {"k": kc, "v": vc}
         cache["positions"] = posbuf
     else:
+        cks, cvs = [], []
         for i in range(cfg.n_layers):
             p = _layer(params["blocks"], i)
             h, (kk, vv) = _apply_attn(cfg, p["attn"], h, positions=positions,
                                       window=window, return_kv=True)
             if cfg.family == "moe":
                 h, _ = _apply_moe(cfg, p["moe"], h)
+            elif cfg.family == "audio":
+                cks.append(L.einsum("bsd,dhk->bshk", memory,
+                                    p["cross"]["wk"]))
+                cvs.append(L.einsum("bsd,dhk->bshk", memory,
+                                    p["cross"]["wv"]))
+                h = _apply_attn(cfg, p["cross"], h, kv_h=memory)
+                h = _apply_mlp(cfg, p["mlp"], h)
             else:
                 h = _apply_mlp(cfg, p["mlp"], h)
             ks.append(kk)
             vs.append(vv)
         kc, vc, posbuf = _ring_from_seq(torch.stack(ks), torch.stack(vs), W)
         cache = {"self": {"k": kc, "v": vc}, "positions": posbuf}
+        if cfg.family == "audio":
+            cache["cross_k"] = torch.stack(cks)
+            cache["cross_v"] = torch.stack(cvs)
     h = L.rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h)[:, 0], cache
 
@@ -488,7 +597,9 @@ def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None):
 def cache_specs(cfg: ArchConfig, batch: int, ctx_len: int, *,
                 ragged: bool = False) -> dict:
     """Cache tree as Specs: ring k/v caches and one shared (W,) positions
-    buffer (dense, moe), per-layer conv states in the param dtype and f32
+    buffer (dense, vlm, moe; audio adds per-layer cross k/v, declared with
+    ``ctx_len`` rows as in the JAX package, where :func:`prefill` emits the
+    frames' length), per-layer conv states in the param dtype and f32
     SSD states (ssm, no positions), or both (hybrid: the ring of its g
     insertions, the g·k grouped layers' states flat and the tail's).
 
@@ -528,7 +639,12 @@ def cache_specs(cfg: ArchConfig, batch: int, ctx_len: int, *,
         c["attn"] = ring(g)
         c["positions"] = positions
         return c
-    return {"self": ring(cfg.n_layers), "positions": positions}
+    c = {"self": ring(cfg.n_layers), "positions": positions}
+    if cfg.family == "audio":
+        for name in ("cross_k", "cross_v"):
+            c[name] = Spec((cfg.n_layers, batch, ctx_len, KV, Dh), axes,
+                           "zeros", cfg.dtype)
+    return c
 
 
 def init_cache(cfg: ArchConfig, batch: int, ctx_len: int, device="cuda", *,
@@ -562,6 +678,15 @@ def _decode_attn(cfg, p, h, kc, vc, cache_positions, pos, window, slot,
     return h + L.einsum("bshk,hkd->bsd", o, p["wo"])
 
 
+def _decode_cross(cfg, p, h, ck, cv):
+    """One-token cross-attention to the cached memory k/v: no bias, no
+    QK-norm, no RoPE on q, as in the JAX package."""
+    x = L.rms_norm(h, p["norm"], cfg.norm_eps)
+    q = L.einsum("bsd,dhk->bshk", x, p["wq"])
+    o = L.attention(q, ck, cv, causal=False)
+    return h + L.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
 def _decode_mamba(cfg, p, h, conv_state, ssd_state):
     """One-token Mamba2 block → (h', conv state', SSD state')."""
     B = h.shape[0]
@@ -589,9 +714,10 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int):
     positions (ragged: the slot server, against a cache made with
     ``ragged=True``).  The SSM family does not read it.  Where the JAX
     package donates the cache, the port updates it in place: the positions
-    buffer and each attention layer's ring slot ``pos mod W`` (dense, moe,
-    hybrid), and each Mamba2 layer's conv and SSD states (ssm, hybrid), are
-    written, and the same dict is returned.  The ragged path reads no
+    buffer and each attention layer's ring slot ``pos mod W`` (dense, vlm,
+    moe, hybrid, audio), and each Mamba2 layer's conv and SSD states (ssm,
+    hybrid), are written, and the same dict is returned; audio's cross k/v
+    are read only.  The ragged path reads no
     tensor value on the host, so a CUDA graph can capture it.  Returns
     (logits (B, V), cache)."""
     _require_family(cfg)
@@ -642,8 +768,11 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int):
             h = attn(p["attn"], h, ring["k"][i], ring["v"][i])
             if cfg.family == "moe":
                 h, _ = _apply_moe(cfg, p["moe"], h)
-            else:
-                h = _apply_mlp(cfg, p["mlp"], h)
+                continue
+            if cfg.family == "audio":
+                h = _decode_cross(cfg, p["cross"], h, cache["cross_k"][i],
+                                  cache["cross_v"][i])
+            h = _apply_mlp(cfg, p["mlp"], h)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
     return _unembed(cfg, params, h)[:, 0], cache
 
@@ -653,6 +782,21 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int):
 # ============================================================================
 
 def batch_specs(cfg: ArchConfig, batch: int, seq: int) -> dict:
-    """Train/prefill batch as Specs (the ported families: int32 tokens)."""
+    """Train/prefill batch as Specs: int32 tokens (B, seq); audio: f32
+    frames (B, seq, frontend_dim) and tokens (B, max(seq // dec_ratio,
+    8)); vlm: tokens and f32 patches (B, min(n_patches, max(seq // 4, 4)),
+    vision_dim).  The stubbed modality inputs have the "normal" law."""
     _require_family(cfg)
-    return {"tokens": Spec((batch, seq), ("batch", "seq"), "zeros", "int32")}
+    s: dict = {}
+    if cfg.family == "audio":
+        s["frames"] = Spec((batch, seq, cfg.frontend_dim),
+                           ("batch", "seq", None), "normal", "float32")
+        s["tokens"] = Spec((batch, max(seq // cfg.dec_ratio, 8)),
+                           ("batch", "seq"), "zeros", "int32")
+        return s
+    s["tokens"] = Spec((batch, seq), ("batch", "seq"), "zeros", "int32")
+    if cfg.family == "vlm":
+        npatch = min(cfg.n_patches, max(seq // 4, 4))
+        s["patches"] = Spec((batch, npatch, cfg.vision_dim),
+                            ("batch", "seq", None), "normal", "float32")
+    return s

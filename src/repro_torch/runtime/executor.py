@@ -167,13 +167,17 @@ class ExecResult:
 def make_batch_fn(plan: RunPlan, cfg, device) -> Callable:
     """``batch_of(q) -> batch dict``, drawn on ``device``.
 
-    Tokens: inverse-CDF Zipf draws (``searchsorted`` on the plan's
-    cumulative pmf) pushed through each group's vocab permutation, the law
-    of the JAX package's device synthesis.  On a drifting plan round q
-    draws from ``cdf_bank[cdf_index[q]]`` (the bank lives on the device,
-    the index is read on the host).  The uniforms come from a
-    ``torch.Generator`` on ``device`` seeded with ``plan.data_keys[q]``:
-    torch's stream, not JAX's."""
+    Tokens (the int32 specs of ``batch_specs``, whose length the audio
+    family shortens to ``seq_len // dec_ratio``): inverse-CDF Zipf draws
+    (``searchsorted`` on the plan's cumulative pmf) pushed through each
+    group's vocab permutation, the law of the JAX package's device
+    synthesis.  On a drifting plan round q draws from
+    ``cdf_bank[cdf_index[q]]`` (the bank lives on the device, the index is
+    read on the host).  The stubbed modality inputs (audio ``frames``, vlm
+    ``patches``) are f32 standard normals of their spec's shape, as in the
+    JAX package.  Every draw comes from one ``torch.Generator`` on
+    ``device`` seeded with ``plan.data_keys[q]``, taken by the specs in
+    key order: torch's stream, not JAX's."""
     from ..models import batch_specs
 
     specs = batch_specs(cfg, plan.global_batch, plan.seq_len)
@@ -191,6 +195,9 @@ def make_batch_fn(plan: RunPlan, cfg, device) -> Callable:
         cdf_q = cdf if bank is None else bank[int(plan.cdf_index[q])]
         out = {}
         for k, sp in sorted(specs.items()):
+            if sp.dtype != "int32":            # stubbed modality inputs
+                out[k] = torch.randn(sp.shape, generator=gen, device=device)
+                continue
             u = torch.rand((plan.global_batch, sp.shape[1]), generator=gen,
                            device=device)
             ranks = torch.searchsorted(cdf_q, u).clamp_(0,

@@ -23,7 +23,10 @@ test holds an offered state against the in-place updates queued after it.
 The hybrid and MoE families (zamba2-7b, deepseek-moe-16b) add flash at
 their prefill shapes (D = 112 and 128), SSD at zamba2-7b's (112 heads,
 N 64), and a full-width, reduced-depth slot serve of each whose captured
-chunk equals the eager steps bit for bit.
+chunk equals the eager steps bit for bit.  The audio and vlm families
+(seamless-m4t-large-v2, pixtral-12b) add flash non-causal at Sq = Sk and
+Sq ≠ Sk with GQA 4 (D 64 and 128), on einsum-made cross k/v, and a
+reduced forward and prefill of each with the kernel against without.
 
 The pooled update's tests run ``optim.pool`` over qwen2-0.5b's 14-leaf
 bf16 pool at 2 layers: one launch per call against the same call routed
@@ -140,6 +143,63 @@ def test_flash_kernel_at_the_new_families_prefill(cuda_device, dtype, H, D):
     q, k, v = _qkv(cuda_device, 4, 1024, 1024, H, H, D, dtype)
     got = FA.flash_attention_cuda(q, k, v, causal=True)
     _close(got, FA.flash_attention_plain(q, k, v, causal=True), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("Sq,Sk", [(1024, 1024), (256, 1024), (1000, 1024)])
+@pytest.mark.parametrize("H,KV,D", [(16, 4, 64), (32, 8, 128)])
+def test_flash_kernel_non_causal_at_the_new_families_shapes(
+        cuda_device, dtype, Sq, Sk, H, KV, D):
+    """Non-causal attention, GQA 4: Sq = Sk as in the audio encoder, Sq <
+    Sk as in its cross-attention (256 decoder positions against 1024
+    frames), and a Sq off the 64-row tile."""
+    q, k, v = _qkv(cuda_device, 2, Sq, Sk, H, KV, D, dtype)
+    got = FA.flash_attention_cuda(q, k, v, causal=False)
+    _close(got, FA.flash_attention_plain(q, k, v, causal=False), dtype)
+
+
+@pytest.mark.cuda
+def test_flash_kernel_reads_cross_memory_projections(cuda_device):
+    """The cross-attention's k/v as the model makes them, ``memory @ wk``
+    through an einsum (whatever its strides), in bf16."""
+    mem = torch.randn(2, 1024, 256, device=cuda_device, dtype=torch.bfloat16)
+    wk, wv = (torch.randn(256, 4, 64, device=cuda_device,
+                          dtype=torch.bfloat16) / 16 for _ in range(2))
+    k = torch.einsum("bsd,dhk->bshk", mem, wk)
+    v = torch.einsum("bsd,dhk->bshk", mem, wv)
+    q = torch.randn(2, 256, 16, 64, device=cuda_device, dtype=torch.bfloat16)
+    got = FA.flash_attention_cuda(q, k, v, causal=False)
+    _close(got, FA.flash_attention_plain(q, k, v, causal=False),
+           torch.bfloat16)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["seamless-m4t-large-v2", "pixtral-12b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_audio_vlm_forward_flash_on_matches_off(cuda_device, arch, dtype):
+    """A reduced forward and prefill with the flash kernel against the
+    plain attention: one launch per attention (audio: encoder, decoder
+    self and cross), logits within the kernel tolerance."""
+    from repro_torch.models import batch_specs, forward_logits
+    cfg = get_arch(arch).reduced().with_(dtype=dtype)
+    params = init_params(cfg, 0, cuda_device)
+    gen = torch.Generator(cuda_device).manual_seed(0)
+    batch = {k: torch.randint(0, cfg.vocab, sp.shape, generator=gen,
+                              device=cuda_device) if sp.dtype == "int32"
+             else torch.randn(sp.shape, generator=gen, device=cuda_device)
+             for k, sp in batch_specs(cfg, 2, 128).items()}
+    on = cfg.with_(use_flash_attention=True)
+    per_pass = (cfg.enc_layers + 2 * cfg.n_layers if cfg.family == "audio"
+                else cfg.n_layers)
+    with torch.no_grad():
+        before = FA.launches
+        got = forward_logits(on, params, batch)[0]
+        last = prefill(on, params, batch)[0]
+        assert FA.launches == before + 2 * per_pass
+        _close(got, forward_logits(cfg, params, batch)[0],
+               getattr(torch, dtype))
+        _close(last, prefill(cfg, params, batch)[0], getattr(torch, dtype))
 
 
 @pytest.mark.cuda

@@ -65,7 +65,10 @@ def test_port_imports_with_jax_blocked():
             "from repro_torch.kernels.ops import ssd_chunk, sgd_momentum_step\n"
             "from repro_torch.kernels.ops import sgd_momentum_delayed\n"
             "from repro_torch.models.model import FAMILIES\n"
-            "assert FAMILIES == ('dense', 'ssm', 'hybrid', 'moe')\n"
+            "assert FAMILIES == ('dense', 'ssm', 'hybrid', 'moe', 'audio',"
+            " 'vlm')\n"
+            "import repro_torch.launch.train\n"
+            "from repro_torch.launch.train import main, MESH_FLAGS\n"
             "from repro_torch.models.layers import moe_ffn, moe_router\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m] is not None)\n")

@@ -89,13 +89,18 @@ def test_init_cache_and_specs_match_jax():
 
 
 def test_other_families_raise():
-    """dense, ssm, hybrid and moe are ported; audio and vlm raise."""
+    """Every family of the registry is ported (audio and vlm: their parity
+    with JAX is in tests/test_torch_audio_vlm.py); a family outside them
+    raises."""
+    assert TM.FAMILIES == ("dense", "ssm", "hybrid", "moe", "audio", "vlm")
     for arch in ("seamless-m4t-large-v2", "pixtral-12b"):
         cfg = t_get_arch(arch).reduced()
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.param_specs(cfg)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            TM.cache_specs(cfg, 1, 8)
+        assert TM.param_specs(cfg) and TM.cache_specs(cfg, 1, 8)
+    cfg = t_get_arch("qwen2-0.5b").reduced().with_(family="rnn")
+    with pytest.raises(ValueError, match="rnn"):
+        TM.param_specs(cfg)
+    with pytest.raises(ValueError, match="rnn"):
+        TM.cache_specs(cfg, 1, 8)
 
 
 @pytest.mark.parametrize("flash", [False, True])

@@ -103,3 +103,37 @@ def assert_tree_close(port_tree, jax_tree, **tol):
         assert tuple(got[path].shape) == w.shape, path
         np.testing.assert_allclose(f32(got[path]), np.asarray(w, np.float32),
                                    err_msg=path, **tol)
+
+
+def jax_run_inputs(jspec, adaptive=False):
+    """The JAX ``TrainerBackend`` run's initial params and its per-round
+    batches (each a dict of numpy arrays: tokens, and frames or patches for
+    the audio and vlm families), for the port's ``params_fn`` /
+    ``batch_fn`` hooks."""
+    from repro.api import TrainerBackend as JBackend
+    from repro.models import model as JM
+    from repro.runtime import compile_plan, make_batch_fn
+
+    job = jspec.objective
+    cfg = job.make_arch()
+    params = JM.init_params(cfg, jax.random.PRNGKey(jspec.seed))
+    masks, schedule = JBackend.masks_for(jspec, jspec.n_workers)
+    plan = compile_plan(schedule, job, rounds=min(jspec.T, masks.shape[0]),
+                        n_groups=jspec.n_workers, seed=jspec.seed,
+                        adaptive=adaptive)
+    batch_of = jax.jit(make_batch_fn(plan, cfg))
+    batches = [{k: np.asarray(v) for k, v in batch_of(jnp.asarray(key)).items()}
+               for key in plan.data_keys]
+    return params, batches
+
+
+def torch_batch(batch: dict) -> dict:
+    """A numpy batch as CPU tensors: int64 tokens, f32 modality inputs."""
+    return {k: torch.from_numpy(np.array(v)).long() if v.dtype.kind == "i"
+            else torch.from_numpy(np.array(v, np.float32))
+            for k, v in batch.items()}
+
+
+def rel_l2(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / max(np.linalg.norm(b), 1e-30))
