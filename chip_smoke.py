@@ -221,7 +221,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
     the kernel against its plain version in f32 at 4 layers (the phase-3
     tolerance) and in bf16 at 2 (3e-2), and ``run(ServeJob)`` refused;
     prints a ``{"new_families": ...}`` line;
-19. prints a ``{"kernels": [...]}`` line (each update kernel's
+19. the launch tier, after phase 18's memory is freed: four steps of the
+    main paths, each built by ``launch/dryrun.py``'s ``build_step`` —
+    qwen2-0.5b's training round (8 × 512, 4 workers, Adam, delay 1,
+    ``pallas_pooled``, one eager step), its prefill (4 × 1024, flash on)
+    and one decode step (ctx 1024, batch 4), and mamba2-370m's prefill (4
+    × 1024, the SSD kernel on) — traced on ``meta`` by ``dryrun.run_one``
+    and run on the card under the same ``launch/op_cost.py`` tally: (a)
+    the two tallies' dot flops and bytes equal exactly; (b) the estimated
+    peak within 15 % of ``torch.cuda.max_memory_allocated`` over the step
+    (from the memory allocated before its inputs were made); (c) the warm
+    step's time (CUDA events) at least its roofline bound, max(dot flops
+    at the bf16 peak, bytes at the HBM rate); (d) each kernel launched
+    (``fused_adam_delayed`` once per pool, flash once per layer, SSD once
+    per layer) tallied once per launch with its formula; prints each
+    step's counts, peaks, time, bound and share (bound / time) and a
+    ``{"launch_tier": ...}`` line;
+20. prints a ``{"kernels": [...]}`` line (each update kernel's
     ``launches`` from its pooled path; flash's and SSD's launches on
     phase 17's and 18's paths and ``fused_adam_delayed``'s on phase 18's
     under ``family_launches``; flash's times at phase 18's shapes under
@@ -256,7 +272,7 @@ from repro_torch.api import (ExperimentSpec, ServeJob,        # noqa: E402
                              run)
 from repro_torch.checkpoint import (AsyncSnapshotter,         # noqa: E402
                                     load_meta, restore)
-from repro_torch.configs import get_arch                      # noqa: E402
+from repro_torch.configs import InputShape, get_arch          # noqa: E402
 from repro_torch.distributed import (AsyncConfig,             # noqa: E402
                                      AsyncTrainer, OverloadPolicy,
                                      RetryPolicy, Server, ServeConfig,
@@ -269,7 +285,10 @@ from repro_torch.kernels import _build, ops                   # noqa: E402
 from repro_torch.kernels import async_update as AU            # noqa: E402
 from repro_torch.kernels import flash_attention as FA         # noqa: E402
 from repro_torch.kernels import ssd_chunk as SSD              # noqa: E402
-from repro_torch.kernels.ref import attention_mask            # noqa: E402
+from repro_torch.launch import dryrun, op_cost                # noqa: E402
+from repro_torch.launch.mesh import (HBM_BW, PEAK_FLOPS_BF16,  # noqa: E402
+                                     PEAK_FLOPS_F32)
+from repro_torch.launch.roofline import terms as roofline_terms  # noqa: E402
 from repro_torch.launch.profile_serve import (idle_share,  # noqa: E402
                                               model_batch, profiled)
 from repro_torch.core import replay                            # noqa: E402
@@ -287,8 +306,7 @@ from repro_torch.tree import (tree_leaves,                     # noqa: E402
                               tree_leaves_with_path, tree_map)
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
-PEAK_BYTES = 3.35e12
+PEAK_FLOPS = {torch.bfloat16: PEAK_FLOPS_BF16, torch.float32: PEAK_FLOPS_F32}
 
 TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2}     # tests/test_kernels.py
 
@@ -341,10 +359,6 @@ UPDATE_TOL = {"sgd": {torch.float32: (2e-4, 2e-4),
                       torch.bfloat16: (3e-2, 3e-2)},
               "adam": {torch.float32: (1e-5, 1e-6),
                        torch.bfloat16: (3e-2, 3e-2)}}
-#: f32 operations per element of each update kernel (its Pallas body)
-UPDATE_OPS = {"async_update": 2, "sgd_step": 2, "sgd_momentum_step": 4,
-              "sgd_momentum_delayed": 4, "fused_adam": 18,
-              "fused_adam_delayed": 18}
 UPDATE_LR = {"sgd": 0.01, "adam": 1e-3}
 #: the TPU kernel each update kernel replaces
 REPLACES = {"async_update": "src/repro/kernels/async_update.py:71",
@@ -451,18 +465,10 @@ def device_ms(fn, iters: int = 20) -> float:
 
 
 def flash_bound(q, k, causal, window):
-    """(bound_ms, bound_by): the least time the card could take for one
-    flash attention call on these inputs.  Operations: 2·D multiply-adds
-    for QKᵀ and for PV on every (query, key) pair the masks leave visible;
-    bytes: q, k, v read once and the output written once."""
-    B, Sq, H, D = q.shape
-    Sk = k.shape[1]
-    pairs = int(attention_mask(Sq, Sk, causal, window).sum())
-    flops = 4.0 * D * pairs * B * H
-    nbytes = 2 * (q.numel() + k.numel()) * q.element_size()   # q+o, k+v
-    t_ops = flops / PEAK_FLOPS[q.dtype] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """(bound_ms, bound_by) of one flash attention call on these inputs:
+    ``op_cost.flash_cost``'s operations at the peak of q's dtype."""
+    return op_cost.bound_ms(*op_cost.flash_cost(q, k, causal, window),
+                            PEAK_FLOPS[q.dtype])
 
 
 def phase_device() -> tuple:
@@ -745,15 +751,6 @@ def _skip_case(name, base, device):
         raise AssertionError(f"{name}: run flag 0 changed g")
 
 
-def _bytes_per_elem(name, pdt, gdt):
-    """Bytes one element moves: each input read once, each output written
-    once (p r/w; m and v f32 r/w; gbuf r/w; g read)."""
-    p, g = pdt.itemsize, gdt.itemsize
-    moments = 8 * (len(_state_keys(name)) - 1)
-    buf = 2 * g if _delayed(name) else 0
-    return 2 * p + moments + buf + g
-
-
 def phase_update_kernels(device) -> dict:
     """The six kernels against their plain versions over the matrix, then
     timed over one round's 14 leaves; returns the kernels-line entries."""
@@ -818,10 +815,10 @@ def phase_update_kernels(device) -> dict:
         e["plain_ms"] = time_ms(lambda: [_apply(name, "plain", t, scal)
                                          for t in state], iters=5)
         e["library_ms"] = _update_library_ms(name, state)
-        t_bytes = n_total * _bytes_per_elem(name, bf16, bf16) / PEAK_BYTES * 1e3
-        t_ops = n_total * UPDATE_OPS[name] / PEAK_FLOPS[torch.float32] * 1e3
-        e["bound_ms"], e["bound_by"] = ((t_ops, "operations") if t_ops > t_bytes
-                                        else (t_bytes, "bytes"))
+        e["bound_ms"], e["bound_by"] = op_cost.bound_ms(
+            n_total * op_cost.UPDATE_OPS[name],
+            n_total * op_cost.update_bytes_per_elem(name, 2, 2),
+            PEAK_FLOPS_F32)
         log(f"{name} over one round ({n_total:,} elements, {len(leaves)} "
             f"leaves): "
             f"kernel {e['ms']:.4f} ms, plain {e['plain_ms']:.4f} ms, library "
@@ -1040,19 +1037,9 @@ def _ssd_inputs(B, nc, c, H, P, N, dtype, device, seed=3):
 
 
 def ssd_bound(x, B_):
-    """(bound_ms, bound_by) of one SSD chunk call: bytes of x, dt, A, B, C
-    read once and y, states written once; operations 2·c·c·N (C Bᵀ) +
-    2·c·c·P (scores · x·dt) + 2·c·N·P (the state) per (batch·chunk, head)
-    cell, as the TPU kernel computes them, at the bf16 tensor-core peak."""
-    Bb, nc, c, H, P = x.shape
-    N = B_.shape[-1]
-    cells = Bb * nc * H
-    nbytes = (2 * x.numel() * x.element_size() + Bb * nc * c * H * 4 + H * 4
-              + 2 * B_.numel() * B_.element_size() + cells * N * P * 4)
-    flops = 2.0 * cells * (c * c * N + c * c * P + c * N * P)
-    t_ops = flops / PEAK_FLOPS[torch.bfloat16] * 1e3
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
+    """(bound_ms, bound_by) of one SSD chunk call: ``op_cost.ssd_cost``'s
+    operations at the bf16 tensor-core peak."""
+    return op_cost.bound_ms(*op_cost.ssd_cost(x, B_), PEAK_FLOPS_BF16)
 
 
 def phase_ssd_kernel(device) -> dict:
@@ -3205,9 +3192,9 @@ def _pool_kernel(device, pools) -> dict:
         if not torch.equal(t["gb"][sl], g):
             raise AssertionError(f"{name} over the pool: gbuf' != g")
     ms = time_ms(lambda: _apply(name, "cuda", t, scal), iters=5, warmup=1)
-    nbytes = n * _bytes_per_elem(name, torch.bfloat16, torch.bfloat16)
+    nbytes = n * op_cost.update_bytes_per_elem(name, 2, 2)
     del t, want, g_ends
-    return {"elements": n, "ms": ms, "bound_ms": nbytes / PEAK_BYTES * 1e3,
+    return {"elements": n, "ms": ms, "bound_ms": nbytes / HBM_BW * 1e3,
             "bound_by": "bytes", "max_abs_err_ends": worst}
 
 
@@ -3453,6 +3440,163 @@ def phase_new_families(device, card: str, entries: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 19: the launch tier (meta trace ≡ card tally, the step's roofline)
+# ---------------------------------------------------------------------------
+
+#: (label, arch, overrides, shape, update_impl, timed calls): the main
+#: paths' steps, as ``dryrun.build_step`` builds them
+LAUNCH_STEPS = (
+    ("train", "qwen2-0.5b", (("remat", "none"),),
+     InputShape("main_train", 512, 8, "train"), "pallas_pooled", 3),
+    ("prefill", "qwen2-0.5b", (("use_flash_attention", True),),
+     InputShape("main_prefill", 1024, 4, "prefill"), "reference", 5),
+    ("decode", "qwen2-0.5b", (),
+     InputShape("main_decode", 1024, 4, "decode"), "reference", 10),
+    ("ssm_prefill", "mamba2-370m", (("use_ssd_kernel", True),),
+     InputShape("ssm_prefill", 1024, 4, "prefill"), "reference", 5),
+)
+LAUNCH_WORKERS = 4
+#: the estimated peak's largest relative gap to the measured one
+LAUNCH_PEAK_TOL = 0.15
+
+
+def _launch_kernels_expected(label, cfg, shape, args) -> dict:
+    """{kernel: [launches, flops, bytes]} the step must tally: the pooled
+    update once per dtype pool, flash once per attention layer, SSD once
+    per Mamba2 layer, each with its formula at the step's shapes."""
+    meta = lambda *s, dt=torch.bfloat16: torch.empty(s, dtype=dt,
+                                                     device="meta")
+    B, S = shape.global_batch, shape.seq_len
+    out = {}
+
+    def add(name, n, flops, nbytes):
+        row = out.setdefault(name, [0, 0, 0])
+        for i, x in enumerate((n, n * flops, n * nbytes)):
+            row[i] += x
+    if label == "train":
+        for b in args[0]["pools"].values():
+            add("fused_adam_delayed", 1,
+                *op_cost.update_cost("fused_adam_delayed", b["p"], b["gbuf"]))
+    if cfg.use_flash_attention:
+        q = meta(B, S, cfg.n_heads, cfg.d_head)
+        k = meta(B, S, cfg.n_kv_heads, cfg.d_head)
+        add("flash_attention", cfg.n_layers,
+            *op_cost.flash_cost(q, k, True, cfg.sliding_window))
+    if cfg.use_ssd_kernel:
+        c = min(cfg.ssm_chunk, S)
+        x = meta(B, S // c, c, cfg.ssm_heads, cfg.ssm_head_dim)
+        add("ssd_chunk", cfg.n_layers,
+            *op_cost.ssd_cost(x, meta(B, S // c, c, cfg.ssm_state)))
+    return out
+
+
+def _launch_counts() -> dict:
+    return {"flash_attention": FA.launches, "ssd_chunk": SSD.launches,
+            **AU.launches}
+
+
+def _tally_diff(meta_cost, card_cost) -> str:
+    rows = [f"{k}: meta {meta_cost.ops.get(k)} card {card_cost.ops.get(k)}"
+            for k in sorted(set(meta_cost.ops) | set(card_cost.ops))
+            if meta_cost.ops.get(k) != card_cost.ops.get(k)]
+    return "; ".join(rows[:12])
+
+
+def _launch_step(device, label, arch, over, shape, impl, iters) -> dict:
+    """One step: traced on meta by the dry-run, then run on the card warm,
+    under the tally (gates a and d), for its peak (gate b) and timed
+    (gate c)."""
+    cfg = get_arch(arch).with_(**dict(over))
+    kw = dict(update_impl=impl, n_groups=LAUNCH_WORKERS)
+    rec = dryrun.run_one(cfg, shape, verbose=False, **kw)
+    if not rec["ok"]:
+        raise AssertionError(f"launch tier: {label} did not trace on meta: "
+                             f"{rec['error']}\n{rec['traceback']}")
+    meta = rec["op_cost"]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    fn, args = dryrun.build_step(cfg, shape, device, **kw)
+    fn(*args)                                       # warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn(*args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    ms = time_ms(lambda: fn(*args), iters=iters, warmup=1)
+    before = _launch_counts()
+    card = op_cost.analyze(fn, *args)
+    torch.cuda.synchronize()
+    launched = {k: n - before[k] for k, n in _launch_counts().items()
+                if n != before[k]}
+    # (a) the meta trace and the card's tally count the same step
+    if (card.dot_flops, card.hbm_bytes) != (meta["dot_flops"],
+                                            meta["hbm_bytes"]):
+        meta_fn, meta_args = dryrun.build_step(cfg, shape, "meta", **kw)
+        again = op_cost.analyze(meta_fn, *meta_args)
+        raise AssertionError(
+            f"launch tier: {label}: meta dot flops {meta['dot_flops']} bytes "
+            f"{meta['hbm_bytes']}, card {card.dot_flops} {card.hbm_bytes}; "
+            f"{_tally_diff(again, card)}")
+    # (d) each kernel launched is tallied once per launch, with its formula
+    want = _launch_kernels_expected(label, cfg, shape, args)
+    got = {k: list(v) for k, v in card.kernels.items()}
+    metak = {k: [v["launches"], v["flops"], v["bytes"]]
+             for k, v in meta["kernels"].items()}
+    if not (got == metak == want
+            and launched == {k: v[0] for k, v in want.items()}):
+        raise AssertionError(f"launch tier: {label}: kernels tallied {got}, "
+                             f"on meta {metak}, by formula {want}, launched "
+                             f"{launched}")
+    # (b) the estimated peak against the allocator's
+    est = rec["memory"]["peak_bytes_est"]
+    gap = abs(est - peak) / peak
+    if gap > LAUNCH_PEAK_TOL:
+        raise AssertionError(f"launch tier: {label}: estimated peak {est} "
+                             f"bytes, measured {peak} ({gap:.1%} apart)")
+    # (c) the card never beats the step's bound
+    t = roofline_terms(meta)
+    dom = max(t, key=t.get)
+    bound = t[dom] * 1e3
+    if ms < bound:
+        raise AssertionError(f"launch tier: {label}: {ms:.3f} ms beats its "
+                             f"bound {bound:.3f} ms: the count is wrong")
+    row = {"step": label, "arch": arch, "overrides": dict(over),
+           "shape": [shape.global_batch, shape.seq_len], "kind": shape.kind,
+           "update_impl": impl, "dot_flops": card.dot_flops,
+           "hbm_bytes": card.hbm_bytes, "n_ops": card.n_ops,
+           "peak_est_bytes": est, "peak_measured_bytes": peak,
+           "peak_gap": gap, "ms": ms, "bound_ms": bound,
+           "bound_by": {"compute": "operations", "memory": "bytes"}.get(dom,
+                                                                        dom),
+           "compute_ms": t["compute"] * 1e3, "memory_ms": t["memory"] * 1e3,
+           "share": bound / ms, "kernels": got, "trace_s": rec["trace_s"],
+           "top_bytes": card.top("bytes", 6)}
+    log(f"launch tier: {label} ({arch} {shape.global_batch} x "
+        f"{shape.seq_len}, {impl}): meta = card: {card.dot_flops:,} dot "
+        f"flops, {card.hbm_bytes:,} bytes, kernels {got}; peak est "
+        f"{est / 2**30:.3f} GiB, measured {peak / 2**30:.3f} GiB "
+        f"({gap:.1%}); warm {ms:.3f} ms against a bound of {bound:.3f} ms "
+        f"({row['bound_by']}; compute {row['compute_ms']:.3f}, memory "
+        f"{row['memory_ms']:.3f}): share {row['share']:.3f}; meta trace "
+        f"{rec['trace_s']} s")
+    del fn, args
+    torch.cuda.empty_cache()
+    return row
+
+
+def phase_launch_tier(device, card: str) -> dict:
+    """Phase 19: each of the main paths' steps traced on meta by the
+    dry-run and held to the same step on the card."""
+    t0 = time.perf_counter()
+    rows = [_launch_step(device, *step) for step in LAUNCH_STEPS]
+    out = {"card": card, "steps": rows,
+           "seconds": time.perf_counter() - t0}
+    log(f"launch tier: every gate passed in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     kind, card = phase_device()
@@ -3480,6 +3624,8 @@ def main() -> None:
     torch.cuda.empty_cache()
     new = phase_new_families(device, card, {
         "flash": flash, "fused_adam_delayed": updates["fused_adam_delayed"]})
+    torch.cuda.empty_cache()
+    launch = phase_launch_tier(device, card)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [flash] + [updates[k] for k in AU.KERNELS] + [ssd]
@@ -3491,6 +3637,7 @@ def main() -> None:
     print(json.dumps({"trainer_lanes": lanes}))
     print(json.dumps({"families": families}))
     print(json.dumps({"new_families": new}))
+    print(json.dumps({"launch_tier": launch}))
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys},
          **{k: e[k] for k in ("family_launches", "family_shapes",

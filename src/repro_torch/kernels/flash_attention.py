@@ -52,11 +52,12 @@ def flash_attention_plain(q, k, v, *, causal=True, window=None):
     """q: (B,Sq,H,D); k/v: (B,Sk,KV,D) → (B,Sq,H,D) in q.dtype.
 
     ``reference_attention`` with the kernel's empty-row rule: a query row
-    that sees no key is 0 (the JAX oracle would average v over it)."""
+    that sees no key is 0 (the JAX oracle would average v over it).  The
+    output is contiguous, as the kernel's is."""
     out = reference_attention(q, k, v, causal=causal, window=window)
     seen = attention_mask(q.shape[1], k.shape[1], causal, window,
                           q.device).any(dim=1)
-    return out * seen[None, :, None, None].to(out.dtype)
+    return (out * seen[None, :, None, None].to(out.dtype)).contiguous()
 
 
 def _check(q, k, v):

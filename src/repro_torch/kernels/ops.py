@@ -11,78 +11,80 @@ f32 tensor (``async_update.sgd_scalars`` / ``momentum_scalars`` /
 ``adam_scalars``).  The JAX ``ssd_chunk`` wrapper takes a ``use_kernel``
 argument that it ignores; this one has none: the model's ``use_ssd_kernel``
 decides whether :func:`ssd_chunk` is called at all.
+
+A ``meta`` tensor (the dry-run's trace, ``launch/dryrun.py``) takes the
+plain version too: there it allocates nothing and computes nothing.  Under
+an active cost tally (``launch/op_cost.py``) each call counts as one kernel
+launch with the kernel's own formula, whatever route it takes.
 """
 from __future__ import annotations
 
+from ..launch import op_cost as _cost
 from . import async_update as _au
 from . import flash_attention as _fa
 from . import ssd_chunk as _ssd
 
 
 def _route(name, t):
-    if t.device.type in ("cpu", "cuda"):
-        return t.device.type
+    """"cuda" (the kernel) for a CUDA tensor, "plain" (its plain version)
+    for a CPU or meta tensor; any other device raises."""
+    if t.device.type == "cuda":
+        return "cuda"
+    if t.device.type in ("cpu", "meta"):
+        return "plain"
     raise RuntimeError(f"{name} has no kernel for device {t.device}")
+
+
+def _launch(name, *args, **kw):
+    """Kernel ``name`` (``<name>_cuda`` or ``<name>_plain`` of its module) on
+    the route of ``args[0]``'s device; an active cost tally counts the call
+    as one launch of ``name`` (``op_cost.kernel_cost``)."""
+    mod = {"flash_attention": _fa, "ssd_chunk": _ssd}.get(name, _au)
+    fn = getattr(mod, f"{name}_{_route(name, args[0])}")
+    return _cost.counted(name, fn, *args, **kw)
 
 
 def flash_attention(q, k, v, *, causal=True, window=None):
     """q: (B,Sq,H,D); k/v: (B,Sk,KV,D) with H % KV == 0 → (B,Sq,H,D)."""
-    if _route("flash attention", q) == "cpu":
-        return _fa.flash_attention_plain(q, k, v, causal=causal, window=window)
-    return _fa.flash_attention_cuda(q, k, v, causal=causal, window=window)
+    return _launch("flash_attention", q, k, v, causal=causal, window=window)
 
 
 def async_update(p, gbuf, g, scal):
     """p −= eff·gbuf; gbuf ← g.  Returns (p, gbuf)."""
-    if _route("async_update", p) == "cpu":
-        return _au.async_update_plain(p, gbuf, g, scal)
-    return _au.async_update_cuda(p, gbuf, g, scal)
+    return _launch("async_update", p, gbuf, g, scal)
 
 
 def sgd_step(p, g, scal):
     """p −= eff·g.  Returns p."""
-    if _route("sgd_step", p) == "cpu":
-        return _au.sgd_step_plain(p, g, scal)
-    return _au.sgd_step_cuda(p, g, scal)
+    return _launch("sgd_step", p, g, scal)
 
 
 def sgd_momentum_step(p, m, g, scal, *, momentum):
     """m′ = μ·m + clip·g; p −= lr_eff·m′.  Returns (p, m)."""
-    if _route("sgd_momentum_step", p) == "cpu":
-        return _au.sgd_momentum_step_plain(p, m, g, scal, momentum=momentum)
-    return _au.sgd_momentum_step_cuda(p, m, g, scal, momentum=momentum)
+    return _launch("sgd_momentum_step", p, m, g, scal, momentum=momentum)
 
 
 def sgd_momentum_delayed(p, m, gbuf, g, scal, *, momentum):
     """The heavy-ball step on gbuf, then gbuf ← g.  Returns (p, m, gbuf)."""
-    if _route("sgd_momentum_delayed", p) == "cpu":
-        return _au.sgd_momentum_delayed_plain(p, m, gbuf, g, scal,
-                                              momentum=momentum)
-    return _au.sgd_momentum_delayed_cuda(p, m, gbuf, g, scal,
-                                         momentum=momentum)
+    return _launch("sgd_momentum_delayed", p, m, gbuf, g, scal,
+                   momentum=momentum)
 
 
 def fused_adam(p, m, v, g, scal, *, beta1=0.9, beta2=0.95, eps=1e-8):
     """One Adam step on clip·g.  Returns (p, m, v)."""
-    kw = dict(beta1=beta1, beta2=beta2, eps=eps)
-    if _route("fused_adam", p) == "cpu":
-        return _au.fused_adam_plain(p, m, v, g, scal, **kw)
-    return _au.fused_adam_cuda(p, m, v, g, scal, **kw)
+    return _launch("fused_adam", p, m, v, g, scal, beta1=beta1, beta2=beta2,
+                   eps=eps)
 
 
 def fused_adam_delayed(p, m, v, gbuf, g, scal, *, beta1=0.9, beta2=0.95,
                        eps=1e-8):
     """One Adam step on clip·gbuf, then gbuf ← g.  Returns (p, m, v, gbuf)."""
-    kw = dict(beta1=beta1, beta2=beta2, eps=eps)
-    if _route("fused_adam_delayed", p) == "cpu":
-        return _au.fused_adam_delayed_plain(p, m, v, gbuf, g, scal, **kw)
-    return _au.fused_adam_delayed_cuda(p, m, v, gbuf, g, scal, **kw)
+    return _launch("fused_adam_delayed", p, m, v, gbuf, g, scal, beta1=beta1,
+                   beta2=beta2, eps=eps)
 
 
 def ssd_chunk(x, dt, A, B_, C_):
     """Intra-chunk SSD.  x: (B,nc,c,H,P); dt: (B,nc,c,H) f32; A: (H,) f32;
     B_/C_: (B,nc,c,N) → (y (B,nc,c,H,P) in x.dtype, states (B,nc,H,N,P)
     f32)."""
-    if _route("ssd_chunk", x) == "cpu":
-        return _ssd.ssd_chunk_plain(x, dt, A, B_, C_)
-    return _ssd.ssd_chunk_cuda(x, dt, A, B_, C_)
+    return _launch("ssd_chunk", x, dt, A, B_, C_)

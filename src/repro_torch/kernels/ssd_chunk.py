@@ -86,7 +86,10 @@ def smem_bytes(c, P, N, tensor_cores=False):
 
 
 def ssd_chunk_plain(x, dt, A, B_, C_):
-    """The Pallas body in plain PyTorch, float32 throughout, y cast once."""
+    """The Pallas body in plain PyTorch, float32 throughout, y cast once.
+    Both outputs are contiguous, as the kernel's are, so what the model
+    does with them (a reshape copies a strided tensor) does not depend on
+    the route."""
     c = x.shape[2]
     xf, dtf = x.to(F32), dt.to(F32)
     Bf, Cf = B_.to(F32), C_.to(F32)
@@ -100,7 +103,7 @@ def ssd_chunk_plain(x, dt, A, B_, C_):
     y = torch.einsum("bkij,bkijh,bkjhp->bkihp", scores, L, xdt)
     decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)          # (B,nc,c,H)
     states = torch.einsum("bkjn,bkjh,bkjhp->bkhnp", Bf, decay_to_end, xdt)
-    return y.to(x.dtype), states
+    return y.to(x.dtype).contiguous(), states.contiguous()
 
 
 def _rows(t, inner: int):

@@ -189,7 +189,11 @@ def moe_router(x, w_router, top_k: int):
     w = w / (torch.sum(w, dim=-1, keepdim=True) + 1e-9)
     E = w_router.shape[-1]
     me = torch.mean(probs, dim=0)
-    fe = torch.mean(F.one_hot(ids[:, 0], E).to(F32), dim=0)
+    # the one-hot of each token's first expert, by a scatter: ``F.one_hot``
+    # takes another op path on each device (a host read of the ids on the
+    # CPU, a compare on ``meta``), which the dry-run's count must not see
+    first = torch.zeros((ids.shape[0], E), dtype=F32, device=ids.device)
+    fe = torch.mean(first.scatter_(1, ids[:, :1], 1.0), dim=0)
     return w, ids, E * torch.sum(me * fe)
 
 

@@ -138,5 +138,15 @@ def init_tree(specs: dict, seed: int, device="cpu") -> dict:
     return build(specs, "")
 
 
+def meta_tree(specs):
+    """A tree of ``meta`` tensors of the Specs' shapes and dtypes, with the
+    same paths (the counterpart of JAX's ``abstract_tree``): stand-ins a
+    step can be traced on with nothing allocated on any device."""
+    if isinstance(specs, Spec):
+        return torch.empty(specs.shape, dtype=torch_dtype(specs.dtype),
+                           device="meta")
+    return {k: meta_tree(v) for k, v in specs.items()}
+
+
 def count_params(specs: dict) -> int:
     return sum(int(np.prod(s.shape)) for _, s in _leaves(specs))

@@ -35,6 +35,11 @@ run flag 0 on NaN grads every pool and the count keep their bits; a
 pooled run launches once per round, within 5e-3 of the per-leaf curve,
 and its ``metrics="tap"`` rows equal the chunk transport's bit for bit.
 
+The launch tier's tests trace one reduced step on ``meta`` and tally the
+same step on the card under ``launch/op_cost.py``: a pooled training
+round and a hybrid prefill with flash and SSD on must count equal dot
+flops and bytes, each kernel once per launch.
+
 The theory tier has no kernel of its own: its replay runs torch ops as
 CUDA graph chunks.  Its card tests hold the graph route to the eager loop
 and a grid to solo replays bit for bit, and the card to the CPU within
@@ -49,13 +54,15 @@ torch = pytest.importorskip("torch")
 
 from repro_torch.api import (ExperimentSpec, SimulatorBackend,  # noqa: E402
                              TrainerBackend, TrainJob, run)
-from repro_torch.configs import get_arch                   # noqa: E402
+from repro_torch.configs import (InputShape, get_arch,     # noqa: E402
+                                 smoke_shape)
 from repro_torch.core import replay, replay_grid           # noqa: E402
 from repro_torch.distributed import SlotConfig, SlotServer  # noqa: E402
 from repro_torch.kernels import async_update as AU         # noqa: E402
 from repro_torch.kernels import flash_attention as FA      # noqa: E402
 from repro_torch.kernels import ops                        # noqa: E402
 from repro_torch.kernels import ssd_chunk as SSD           # noqa: E402
+from repro_torch.launch import dryrun, op_cost             # noqa: E402
 from repro_torch.models import init_params, prefill        # noqa: E402
 from repro_torch.objectives import (LogRegProblem,         # noqa: E402
                                     make_synthetic)
@@ -906,6 +913,55 @@ def test_replay_card_matches_cpu(cuda_device, stochastic):
 def test_simulator_refuses_an_objective_on_another_device(cuda_device):
     with pytest.raises(ValueError, match="live on cpu"):
         SimulatorBackend(cuda_device).run(_sim_spec(_sim_problem("cpu")))
+
+
+def _launch_tallies(cfg, shape, device, **kw):
+    """(meta tally, card tally, kernel launches during the card's) of one
+    ``dryrun.build_step`` step."""
+    meta_fn, meta_args = dryrun.build_step(cfg, shape, "meta", **kw)
+    meta = op_cost.analyze(meta_fn, *meta_args)
+    fn, args = dryrun.build_step(cfg, shape, device, **kw)
+    fn(*args)                                      # warm: builds the kernels
+    before = {"flash_attention": FA.launches, "ssd_chunk": SSD.launches,
+              **AU.launches}
+    card = op_cost.analyze(fn, *args)
+    torch.cuda.synchronize()
+    after = {"flash_attention": FA.launches, "ssd_chunk": SSD.launches,
+             **AU.launches}
+    return meta, card, {k: after[k] - before[k] for k in after
+                        if after[k] != before[k]}
+
+
+@pytest.mark.cuda
+def test_launch_tier_meta_tally_equals_card_train(cuda_device):
+    """A reduced pooled training round: the meta trace's dot flops, bytes
+    and kernel rows equal the card's tally; the update kernel is tallied
+    once per launch (one per dtype pool)."""
+    cfg = get_arch("qwen2-0.5b").reduced()
+    meta, card, launched = _launch_tallies(
+        cfg, smoke_shape("train"), cuda_device,
+        update_impl="pallas_pooled", n_groups=2)
+    assert (card.dot_flops, card.hbm_bytes) == (meta.dot_flops,
+                                                meta.hbm_bytes)
+    assert card.kernels == meta.kernels
+    assert launched == {"fused_adam_delayed":
+                        card.kernels["fused_adam_delayed"][0]} != {}
+
+
+@pytest.mark.cuda
+def test_launch_tier_meta_tally_equals_card_prefill_kernels(cuda_device):
+    """A reduced hybrid prefill with flash and SSD on: equal tallies, each
+    kernel tallied once per launch (flash per shared-attention insertion,
+    SSD per Mamba2 layer)."""
+    cfg = get_arch("zamba2-7b").reduced().with_(use_flash_attention=True,
+                                                use_ssd_kernel=True)
+    meta, card, launched = _launch_tallies(
+        cfg, InputShape("prefill", 64, 2, "prefill"), cuda_device)
+    assert (card.dot_flops, card.hbm_bytes) == (meta.dot_flops,
+                                                meta.hbm_bytes)
+    assert card.kernels == meta.kernels
+    assert launched == {k: v[0] for k, v in card.kernels.items()}
+    assert set(launched) == {"flash_attention", "ssd_chunk"}
 
 
 @pytest.mark.cuda

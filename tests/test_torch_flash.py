@@ -14,6 +14,7 @@ by tile, and is held to the Pallas kernel at the main path's widths before
 any card sees the kernel.
 """
 import math
+import types
 
 import numpy as np
 import pytest
@@ -89,8 +90,12 @@ def test_kernel_wrapper_rejects_cpu_tensors():
     (_, qt), (_, kt), (_, vt) = _inputs(1, 8, 8, 2, 2, 32, "float32")
     with pytest.raises(ValueError, match="CUDA"):
         FA.flash_attention_cuda(qt, kt, vt)
+    # meta (the dry-run's trace) takes the plain route: shapes, no values
+    out = ops.flash_attention(qt.to("meta"), kt.to("meta"), vt.to("meta"))
+    assert out.is_meta and out.shape == qt.shape
+    other = types.SimpleNamespace(device=torch.device("mps"))
     with pytest.raises(RuntimeError, match="no kernel"):
-        ops.flash_attention(qt.to("meta"), kt.to("meta"), vt.to("meta"))
+        ops.flash_attention(other, other, other)
 
 
 def test_cuda_request_without_cuda_raises(monkeypatch):

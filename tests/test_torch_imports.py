@@ -70,6 +70,12 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.launch.train\n"
             "from repro_torch.launch.train import main, MESH_FLAGS\n"
             "from repro_torch.models.layers import moe_ffn, moe_router\n"
+            "import repro_torch.launch.mesh, repro_torch.launch.op_cost\n"
+            "import repro_torch.launch.dryrun, repro_torch.launch.roofline\n"
+            "import repro_torch.launch.hillclimb\n"
+            "import repro_torch.distributed.sharding\n"
+            "from repro_torch.distributed.sharding import PSpec, Rules\n"
+            "from repro_torch.models.specs import meta_tree\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m] is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

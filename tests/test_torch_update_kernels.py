@@ -11,6 +11,8 @@ The buffer swap is bitwise.  Kernels and oracles are not paired with each
 other: the oracles cast Adam's step to the param dtype before subtracting,
 the kernels subtract in f32.
 """
+import types
+
 import numpy as np
 import pytest
 
@@ -212,9 +214,12 @@ def test_cpu_route_counts_no_launch_and_unknown_devices_raise():
     ops.fused_adam_delayed(x["p"], x["m"], x["v"], x["gb"], x["g"],
                            _adam_scal(1))
     assert AU.launches == before
+    # meta (the dry-run's trace) takes the plain route and computes nothing
     meta = torch.empty(4, device="meta")
+    assert ops.sgd_step(meta, meta, torch.empty(2, device="meta")) is meta
+    other = types.SimpleNamespace(device=torch.device("mps"))
     with pytest.raises(RuntimeError, match="no kernel for device"):
-        ops.sgd_step(meta, meta, meta)
+        ops.sgd_step(other, other, other)
     with pytest.raises(ValueError, match="CUDA"):
         AU.sgd_step_cuda(x["p"], x["g"], AU.sgd_scalars(0.1, 1.0, 1.0, "cpu"))
     with pytest.raises(ValueError, match="CUDA"):
