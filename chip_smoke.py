@@ -237,12 +237,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
     per layer) tallied once per launch with its formula; prints each
     step's counts, peaks, time, bound and share (bound / time) and a
     ``{"launch_tier": ...}`` line;
-20. prints a ``{"kernels": [...]}`` line (each update kernel's
+20. data-parallel training over ``torch.distributed``, after phase 19's
+    memory is freed: (a) the pooled training main path (qwen2-0.5b at
+    full width and depth, 8 × 512, 4 workers, Adam, delay 1, T 8) through
+    ``TrainerBackend(mesh=...)`` on a NCCL process group of one rank in
+    this process (``launch.mesh.init_process_group``: a file store), on
+    the params of the no-mesh trainer's run beside it: ``fused_adam_
+    delayed`` launched 8 times in each, curves and final state bit for
+    bit, each round's collectives (launches and operand bytes) equal to
+    the hand count, warm ms a round both ways, and a sparsified round
+    (``grad_density`` 0.5) timed both ways; (b) what a 2-rank round
+    gives the card, in this process: the main path's pool in the layout
+    of 2 shards, ``fused_adam_delayed`` on each rank's rows (``p`` a row
+    view of the whole pool) against its plain version and timed, and the
+    copy that views a 2-shard pool's params (``unpool_tree``) timed.  Two
+    ranks on the one card are not run: NCCL refuses two ranks on one
+    device, and gloo's all-gather of CUDA tensors ends the process with
+    SIGSEGV on the card's torch 2.11 (PERF.md); R ≥ 2 is held on
+    the CPU (``tests/test_torch_dp_*.py``).  Prints a
+    ``{"data_parallel": ...}`` line;
+21. prints a ``{"kernels": [...]}`` line (each update kernel's
     ``launches`` from its pooled path; flash's and SSD's launches on
     phase 17's and 18's paths and ``fused_adam_delayed``'s on phase 18's
     under ``family_launches``; flash's times at phase 18's shapes under
-    ``family_shapes`` and ``fused_adam_delayed``'s over phase 18's pools
-    under ``family_pools``) and, last, the ``{"ok": true, ...}`` line.
+    ``family_shapes``, ``fused_adam_delayed``'s over phase 18's pools
+    under ``family_pools`` and phase 20's launches and row times under
+    ``data_parallel``) and, last, the ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -2214,13 +2234,15 @@ BREAKER_T = 16
 POOLED = "pallas_pooled"
 
 
-def _lane_trainer(cfg, device, lr, impl=POOLED, groups=4, **async_kw):
+def _lane_trainer(cfg, device, lr, impl=POOLED, groups=4, mesh=None,
+                  **async_kw):
     """An ``AsyncTrainer`` built as ``TrainerBackend`` builds the main
-    path's (Adam, clip 1, delay 1)."""
+    path's (Adam, clip 1, delay 1), over ``mesh``'s ranks if one is
+    given."""
     tr = AsyncTrainer(cfg, opt=OptConfig(lr=lr, clip_norm=1.0,
                                          update_impl=impl),
                       async_cfg=AsyncConfig(delay_rounds=1, **async_kw),
-                      device=device)
+                      device=device, mesh=mesh)
     tr.n_groups = groups
     return tr
 
@@ -3597,6 +3619,204 @@ def phase_launch_tier(device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 20: data-parallel training over torch.distributed
+# ---------------------------------------------------------------------------
+#: the ranks whose rows (b) gives the update kernel
+DP_ROWS = 2
+
+
+def _dp_round_hand_count(cols: int, esize: int) -> dict:
+    """One ranked round's collectives on one bf16 pool at one rank: the
+    pool's reduce-scatter and its p all-gather (cols · esize bytes each),
+    the norm's per-pool norms (4 B), the loss's global Σ mask (4 B) and
+    its three shares (12 B)."""
+    return {"all_reduce": [2, 16], "all_gather": [2, cols * esize + 4],
+            "reduce_scatter": [1, cols * esize]}
+
+
+def _dp_one_rank(device, card: str, base) -> dict:
+    """(a) the pooled training main path at full width and depth through a
+    NCCL process group of one rank (in this process, a file store), on the
+    same params as the no-mesh trainer: curves and final state bit for
+    bit, the update kernel launched once per round, each round's
+    collectives equal to the hand count; warm ms a round, both."""
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import ProcessMesh, init_process_group
+
+    spec = _train_spec(update_impl=POOLED)
+    cfg = spec.objective.make_arch()
+    T, K = spec.T, spec.rounds_per_launch
+    same = lambda c, d: tree_map(torch.clone, base)
+
+    def timed(**kw):
+        stamps = {}
+        AU.reset_launches()
+        res = TrainerBackend(device, params_fn=same, on_step=lambda i, s, m:
+                             stamps.setdefault(i, time.perf_counter()),
+                             **kw).run(spec)
+        _check_curves(res, f"data-parallel (a) {kw or 'no mesh'}")
+        return (res, dict(AU.launches),
+                (stamps[2 * K - 1] - stamps[K - 1]) / K * 1e3)
+
+    want = {**dict.fromkeys(AU.KERNELS, 0), "fused_adam_delayed": T}
+    plain, plain_launched, plain_ms = timed()
+    init_process_group(device)
+    try:
+        mesh = ProcessMesh({"data": 1, "model": 1})
+        ranked, launched, ranked_ms = timed(mesh=mesh)
+        backend = dist.get_backend()
+        sparse = _dp_sparsified(device, cfg, base, mesh)
+    finally:
+        dist.destroy_process_group()
+    if plain_launched != want or launched != want:
+        raise AssertionError(f"data-parallel (a): update launches "
+                             f"{launched} (no mesh {plain_launched}), want "
+                             f"{want}")
+    diff = _first_difference(plain.x, ranked.x)
+    if diff is not None or not (
+            np.array_equal(plain.losses, ranked.losses)
+            and np.array_equal(plain.grad_norms, ranked.grad_norms)):
+        raise AssertionError(f"data-parallel (a): one NCCL rank differs from"
+                             f" the no-mesh trainer (first leaf {diff}; "
+                             f"losses {ranked.losses} / {plain.losses})")
+    p = ranked.x["pools"]["bfloat16"]["p"]
+    cols, esize = p.shape[1], p.element_size()
+    per_round = {k: [int(n), int(b)] for k, (n, b) in
+                 ranked.extra["collectives"].items()}
+    hand = _dp_round_hand_count(cols, esize)
+    if per_round != hand or ranked.extra["ranks"] != 1:
+        raise AssertionError(f"data-parallel (a): collectives a round "
+                             f"{per_round}, by hand {hand}")
+    out = {"backend": backend, "rounds": T,
+           "fused_adam_delayed_launches": launched["fused_adam_delayed"],
+           "pool_elements": cols, "bitwise_equal": True,
+           "collectives_per_round": per_round,
+           "collective_bytes_per_round": sum(b for _, b in
+                                             per_round.values()),
+           "round_ms_ranked": ranked_ms, "round_ms_no_mesh": plain_ms,
+           "sparsified": sparse}
+    log(f"data-parallel (a): {cfg.name} L={cfg.n_layers} pooled, T={T}, one "
+        f"{backend} rank: curves and final state bit-identical to the "
+        f"no-mesh trainer; fused_adam_delayed launches {T}; collectives a "
+        f"round {per_round} = {out['collective_bytes_per_round']:,} bytes "
+        f"(the hand count); warm {ranked_ms:.3f} ms a round against "
+        f"{plain_ms:.3f} ms without a mesh; sparsified at density 0.5: "
+        f"{sparse['round_ms_ranked']:.3f} ms a round against "
+        f"{sparse['round_ms_no_mesh']:.3f} ms, collectives a round "
+        f"{sparse['collectives_per_round']}")
+    return out
+
+
+def _dp_sparsified(device, cfg, base, mesh) -> dict:
+    """A sparsified round (``grad_density`` 0.5) on one rank against the
+    no-mesh trainer's, warm, on the same batch: over ranks the leaves are
+    all-reduced before the quantile (each leaf's threshold is over the
+    whole gradient), in place of the pooled reduce-scatter."""
+    from repro_torch.distributed import collectives as C
+
+    gen = torch.Generator(device).manual_seed(5)
+    batch = {"tokens": torch.randint(
+        0, cfg.vocab, (TRAIN_JOB["global_batch"], TRAIN_JOB["seq_len"]),
+        generator=gen, device=device)}
+    mask = torch.ones(TRAIN_SPEC["n_workers"], device=device)
+    out = {}
+    for label, kw in (("no_mesh", {}), ("ranked", {"mesh": mesh})):
+        tr = _lane_trainer(cfg, device, TRAIN_SPEC["stepsize"], **kw)
+        state = tr.init_state(params=tree_map(torch.clone, base))
+        step = tr.train_step_fn()
+
+        def one():
+            nonlocal state
+            state, _ = step(state, batch, mask, grad_density=0.5)
+        one()
+        before = C.snapshot()
+        out[f"round_ms_{label}"] = time_ms(one, iters=3, warmup=1)
+        if label == "ranked":
+            out["collectives_per_round"] = {
+                k: [n // 4, b // 4] for k, (n, b) in C.since(before).items()}
+        del state, step, tr
+        torch.cuda.empty_cache()
+    return out
+
+
+def _dp_rows(device, base) -> dict:
+    """(b) what a round of DP_ROWS ranks gives the card, in one process:
+    the main path's pool in the layout of DP_ROWS shards, the update kernel
+    on each rank's rows (p a row view of the whole pool, m, v and gbuf the
+    rank's own row) against its plain version and timed, and the copy that
+    views the params of such a pool (``unpool_tree``), timed."""
+    from repro_torch.optim.pool import unpool_tree
+
+    cfg = _train_spec(update_impl=POOLED).objective.make_arch()
+    lay = build_layout(param_specs(cfg), DP_ROWS)
+    cols = lay.cols["bfloat16"]
+    p = pool_tree(lay, base)["bfloat16"]
+    unpool_ms = time_ms(lambda: unpool_tree(lay, {"bfloat16": p}), iters=10)
+    unpool_bytes = 2 * p.numel() * p.element_size()
+    scal = _scalar_sets("fused_adam_delayed", device)[-1][1]
+    rtol, atol = UPDATE_TOL["adam"][torch.bfloat16]
+    worst, row_ms = 0.0, []
+    for r in range(DP_ROWS):
+        row = _update_inputs(cols, torch.bfloat16, device, seed=20 + r)
+        p[r].copy_(row.pop("p"))
+        state = {"p": p[r], **row}
+        keep = tree_map(torch.clone, state)
+        got = _apply("fused_adam_delayed", "cuda", state, scal)
+        torch.cuda.synchronize()
+        want = _apply("fused_adam_delayed", "plain",
+                      tree_map(torch.clone, keep), scal)
+        for key in ("p", "m", "v"):
+            err = (got[key].float() - want[key].float()).abs()
+            if int((err > atol + rtol * want[key].float().abs()).sum()) or \
+                    not torch.isfinite(got[key]).all():
+                raise AssertionError(f"data-parallel (b): the kernel on rank "
+                                     f"{r}'s rows, {key}, off its plain "
+                                     "version")
+            worst = max(worst, err.max().item())
+            del err
+        if not torch.equal(got["gb"], keep["g"]):
+            raise AssertionError(f"data-parallel (b): rank {r}'s gbuf' != g")
+        del want, keep
+        row_ms.append(time_ms(lambda: _apply("fused_adam_delayed", "cuda",
+                                             state, scal), iters=10))
+        del state, got
+    del p
+    torch.cuda.empty_cache()
+    bound = op_cost.bound_ms(
+        cols * op_cost.UPDATE_OPS["fused_adam_delayed"],
+        cols * op_cost.update_bytes_per_elem("fused_adam_delayed", 2, 2),
+        PEAK_FLOPS_F32)[0]
+    out = {"ranks": DP_ROWS, "row_elements": cols, "max_abs_err": worst,
+           "row_ms": row_ms, "row_bound_ms": bound,
+           "unpool_ms": unpool_ms, "unpool_bytes": unpool_bytes}
+    log(f"data-parallel (b): the main path's pool at {DP_ROWS} shards "
+        f"({cols:,} columns a row): fused_adam_delayed on each rank's rows "
+        f"against its plain version, max abs err {worst:.3e}; "
+        f"{', '.join(f'{t:.4f}' for t in row_ms)} ms a row (bound "
+        f"{bound:.4f} ms); the params view of the pool (unpool_tree) "
+        f"{unpool_ms:.3f} ms for {unpool_bytes:,} bytes")
+    return out
+
+
+def phase_data_parallel(device, card: str) -> dict:
+    """Phase 20: (a) one NCCL rank ≡ the no-mesh trainer at full width;
+    (b) the update kernel on the rows a 2-rank round gives it, and its
+    params view's copy."""
+    t0 = time.perf_counter()
+    cfg = _train_spec(update_impl=POOLED).objective.make_arch()
+    base = init_params(cfg, TRAIN_SPEC["seed"], device)
+    out = {"card": card, "one_rank": _dp_one_rank(device, card, base)}
+    torch.cuda.empty_cache()
+    out["two_rank_rows"] = _dp_rows(device, base)
+    del base
+    torch.cuda.empty_cache()
+    out["seconds"] = time.perf_counter() - t0
+    log(f"data-parallel: every gate passed in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     kind, card = phase_device()
@@ -3626,6 +3846,14 @@ def main() -> None:
         "flash": flash, "fused_adam_delayed": updates["fused_adam_delayed"]})
     torch.cuda.empty_cache()
     launch = phase_launch_tier(device, card)
+    torch.cuda.empty_cache()
+    data_parallel = phase_data_parallel(device, card)
+    updates["fused_adam_delayed"]["data_parallel"] = {
+        "launches_one_rank": data_parallel["one_rank"][
+            "fused_adam_delayed_launches"],
+        "row_elements": data_parallel["two_rank_rows"]["row_elements"],
+        "row_ms": data_parallel["two_rank_rows"]["row_ms"],
+        "row_bound_ms": data_parallel["two_rank_rows"]["row_bound_ms"]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [flash] + [updates[k] for k in AU.KERNELS] + [ssd]
@@ -3638,10 +3866,11 @@ def main() -> None:
     print(json.dumps({"families": families}))
     print(json.dumps({"new_families": new}))
     print(json.dumps({"launch_tier": launch}))
+    print(json.dumps({"data_parallel": data_parallel}))
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys},
          **{k: e[k] for k in ("family_launches", "family_shapes",
-                               "family_pools") if k in e}}
+                               "family_pools", "data_parallel") if k in e}}
         for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

@@ -38,6 +38,7 @@ from ..core import (delay_adaptive_stepsizes, replay, replay_grid,
                     round_masks)
 from ..core.trace import summarize
 from ..device import resolve_device, synchronize
+from ..distributed import collectives
 from ..kernels import async_update as update_kernels
 from ..kernels import flash_attention as flash_kernel
 from ..kernels import ssd_chunk as ssd_kernel
@@ -72,6 +73,16 @@ def _tree_index(tree, i: int):
     if not isinstance(tree, dict):
         return tree[i].clone()
     return {k: _tree_index(v, i) for k, v in tree.items()}
+
+
+def _mesh_extra(tr, coll: dict, rounds: int) -> dict:
+    """The mesh keys of a trainer run's ``extra``: the mesh's axis sizes,
+    the data ranks and each collective kind's ``[launches, bytes]`` a
+    round."""
+    return {"mesh": None if tr.mesh is None else dict(tr.mesh.shape),
+            "ranks": tr.ranks,
+            "collectives": {k: [n / max(rounds, 1), b / max(rounds, 1)]
+                            for k, (n, b) in coll.items()}}
 
 
 def _grid_score(grad_norms: np.ndarray) -> float:
@@ -205,12 +216,23 @@ class TrainerBackend:
     (``GuardConfig()``).  ``recorder`` traces the run (see
     :mod:`repro_torch.runtime.executor`).
 
-    ``RunResult.x`` is the final state; ``extra`` carries the JAX keys the
-    port can fill (``snapshots``, the offers, ``tripped_round``,
-    ``scenario``, ``plan_summary`` and ``obs`` among them; the grid lane
-    adds ``grid_lane`` and ``n_grid``) plus ``update_launches``, the
-    launches of each update kernel during the run, ``tap_waits`` and
-    ``device``."""
+    ``mesh`` (a bound ``launch.mesh.ProcessMesh``, model axis 1) and
+    ``rules`` (default ``DEFAULT_RULES``) run the trainer over the mesh's
+    data ranks, as the JAX backend's ``mesh`` / ``rules`` do: every rank
+    calls ``run`` with the same spec, and the worker groups default to
+    the data-axis product when the spec names none.  The grid lane runs
+    over the ranks too, and a snapshotter gathers the state at each
+    offer (rank 0 writes).
+
+    ``RunResult.x`` is the final state (this rank's, over ranks);
+    ``extra`` carries the JAX keys the port can fill (``snapshots``, the
+    offers, ``tripped_round``, ``scenario``, ``plan_summary`` and ``obs``
+    among them; the grid lane adds ``grid_lane`` and ``n_grid``) plus
+    ``update_launches``, the launches of each update kernel during the
+    run, ``tap_waits``, ``device``, ``mesh`` (its axis sizes, or None),
+    ``ranks`` and ``collectives``: each collective kind's launches and
+    operand bytes a round (``[launches, bytes]``, the run's totals over
+    its rounds; all zero without a mesh)."""
 
     name = "trainer"
     default_runtime = "scan"
@@ -222,8 +244,11 @@ class TrainerBackend:
                  metrics: Optional[str] = None,
                  params_fn: Optional[Callable] = None,
                  batch_fn: Optional[Callable] = None,
-                 snapshot=None, breaker=None, recorder=None):
+                 snapshot=None, breaker=None, recorder=None, mesh=None,
+                 rules=None):
         self.device = device
+        self.mesh = mesh
+        self.rules = rules
         self.on_step = on_step
         self.runtime = runtime
         self.rounds_per_launch = rounds_per_launch
@@ -284,9 +309,20 @@ class TrainerBackend:
         return self._run_single(spec, job, policy.gamma,
                                 adaptive=policy.kind == "delay_adaptive")
 
+    def state_shardings(self, spec: ExperimentSpec):
+        """The ranked trainer's ``state_shardings()`` for ``spec`` (what the
+        checkpointer takes to save or restore its state), or None without
+        a mesh."""
+        if self.mesh is None:
+            return None
+        tr, _, _ = self._make_trainer(spec, spec.objective, 1.0, False,
+                                      resolve_device(self.device))
+        return tr.state_shardings()
+
     def _make_trainer(self, spec: ExperimentSpec, job: TrainJob, lr: float,
                       adaptive: bool, device):
         from ..distributed import AsyncConfig, AsyncTrainer
+        from ..distributed.sharding import DEFAULT_RULES
         from ..faults import GuardConfig
         from ..optim import OptConfig
 
@@ -300,7 +336,8 @@ class TrainerBackend:
                                   microbatches=job.microbatches,
                                   guards=GuardConfig() if job.guards
                                   else None),
-            device=device)
+            device=device, mesh=self.mesh,
+            rules=self.rules if self.rules is not None else DEFAULT_RULES)
         n_groups = spec.n_workers or tr.n_groups
         tr.n_groups = n_groups
         if job.global_batch % n_groups:
@@ -340,6 +377,7 @@ class TrainerBackend:
         if runtime == "scan":           # durability / breaker: scan lanes
             kw = {"snapshot": self.snapshot, "breaker": self.breaker}
         before = dict(update_kernels.launches)
+        coll = collectives.snapshot()
         exec_res = execute(tr, plan, state, runtime=runtime,
                            rounds_per_launch=rounds_per_launch,
                            metrics=metrics, on_step=self.on_step,
@@ -375,7 +413,8 @@ class TrainerBackend:
                    "tripped_round": exec_res.stats.tripped_round,
                    "update_launches": update_launches,
                    "obs": _obs(self.recorder, rounds=rounds),
-                   "device": str(device)})
+                   "device": str(device),
+                   **_mesh_extra(tr, collectives.since(coll), rounds)})
 
     def _run_grid(self, spec: ExperimentSpec, job: TrainJob) -> RunResult:
         """Every grid γ on one trainer built at γ_base = gammas[0], over

@@ -10,6 +10,13 @@ disk, so a checkpoint written by either package restores in the other:
 * ``meta.json`` holds ``step``, the sorted ``keys``, the state file's
   ``state_sha256`` and ``state_nbytes``, and the caller's meta.
 
+A state split over data ranks (a ranked trainer's, with its
+``state_shardings()``) saves as the JAX checkpointer saves the same state
+on its mesh: each leaf gathered whole (a pooled m, v or gbuf as the
+``(R, cols)`` pool), written by rank 0 alone, the ranks meeting at a
+barrier after the write; :func:`restore` with ``shardings`` gives each rank
+its rows of every split leaf.
+
 Durability contract: :func:`save` is atomic at the file level — each file
 is written to a temp file in the target directory and ``os.replace``-d
 into place, the state first and the metadata last, so a crash mid-save
@@ -29,7 +36,7 @@ import numpy as np
 import torch
 
 from ..models.convert import _to_numpy
-from ..tree import tree_leaves_with_path, tree_map_with_path
+from ..tree import tree_leaves_with_path, tree_map, tree_map_with_path
 
 _BF16 = "__bf16__"
 
@@ -71,9 +78,23 @@ def _replace_into(path: str, name: str, write_fn) -> str:
 
 
 def save(path: str, state, step: int | None = None,
-         meta: dict | None = None) -> None:
+         meta: dict | None = None, shardings=None) -> None:
     """Write ``state`` (a tree of tensors on any device) to the directory
-    ``path``."""
+    ``path``.  With ``shardings`` (a matching tree of
+    ``distributed.sharding.NamedSharding``) every rank calls it: each leaf
+    is gathered whole, rank 0 writes, and the ranks return together."""
+    if shardings is None:
+        _write(path, state, step, meta)
+        return
+    import torch.distributed as dist
+
+    state = tree_map(lambda t, sh: sh.gather(t), state, shardings)
+    if dist.get_rank() == 0:
+        _write(path, state, step, meta)
+    dist.barrier()
+
+
+def _write(path: str, state, step, meta) -> None:
     os.makedirs(path, exist_ok=True)
     flat = _flatten(state)
     digest = {}
@@ -133,12 +154,15 @@ def verify(path: str) -> dict:
     return info
 
 
-def restore(path: str, like_state):
+def restore(path: str, like_state, shardings=None):
     """A tree shaped as ``like_state``, each leaf a new tensor on that
     leaf's device in its dtype (a stored leaf of another dtype is cast, as
-    the JAX package casts).  Shapes must match (``ValueError``); a
-    missing, truncated or digest-mismatched checkpoint, or one without a
-    leaf of ``like_state``, raises :class:`CheckpointError`."""
+    the JAX package casts).  With ``shardings`` (as in :func:`save`) the
+    file holds whole leaves and each rank keeps its block of each
+    (``like_state`` holds the blocks).  Shapes must match
+    (``ValueError``); a missing, truncated or digest-mismatched
+    checkpoint, or one without a leaf of ``like_state``, raises
+    :class:`CheckpointError`."""
     verify(path)
     state_path = os.path.join(path, "state.npz")
     try:
@@ -148,6 +172,9 @@ def restore(path: str, like_state):
         raise CheckpointError(
             f"{path}: state.npz failed to load ({e}) — corrupt "
             "checkpoint") from e
+
+    shards = {} if shardings is None else dict(
+        tree_leaves_with_path(shardings))
 
     def leaf(key, old):
         if _BF16 + key in files:
@@ -159,6 +186,8 @@ def restore(path: str, like_state):
             raise CheckpointError(
                 f"{path}: leaf {key} is absent from the checkpoint — the "
                 "saved state has a different structure")
+        if key in shards:
+            t = shards[key].local(t).clone()
         if tuple(t.shape) != tuple(old.shape):
             raise ValueError(
                 f"shape mismatch for {key}: {tuple(t.shape)} vs "

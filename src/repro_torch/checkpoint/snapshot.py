@@ -18,6 +18,13 @@ before the next chunk overwrites it, without making the host wait for it:
    the host arrays with :func:`repro_torch.checkpoint.save`, the ordinary
    atomic checkpoint.  By then the fetch has had a whole cadence to finish.
 
+Over data ranks (``shardings``: a ranked trainer's ``state_shardings()``;
+the plan executor sets it) every rank offers at the same boundaries:
+each leaf is gathered whole there (a pooled m, v or gbuf from its rows),
+rank 0 alone snapshots and writes the gathered state (the file the JAX
+checkpointer writes for it), and :meth:`drain` ends in a barrier, so no
+rank reads a snapshot rank 0 has yet to write.
+
 On the CPU the copy is a plain ``clone``.  A SIGKILL at any point loses at
 most the two pending snapshots; everything older is an atomically
 written, sha-verified directory that :meth:`AsyncSnapshotter.latest` finds
@@ -62,7 +69,8 @@ class AsyncSnapshotter:
     """
 
     def __init__(self, path: str, every: int, *, keep: int = 2,
-                 meta: Optional[dict] = None, recorder=None):
+                 meta: Optional[dict] = None, recorder=None,
+                 shardings=None):
         if every < 1:
             raise ValueError(f"snapshot cadence must be >= 1 (got {every})")
         if keep < 1:
@@ -77,6 +85,8 @@ class AsyncSnapshotter:
         self._buffers = [None, None]     # two (device, host) buffer pairs
         self._offers = 0
         self._side = None                # the fetch stream
+        #: the state's shardings over data ranks, or None on one process
+        self.shardings = shardings
 
     # ------------------------------------------------------------- schedule
     def due(self, round_i: int, total_rounds: int) -> bool:
@@ -103,7 +113,16 @@ class AsyncSnapshotter:
         Queues the device copy and the host fetch and returns; the previous
         pending snapshot is written to disk on the way out, so at most one
         is in flight.  ``meta`` is merged into the saved ``meta.json`` (the
-        slot server's host ledger rides there)."""
+        slot server's host ledger rides there).  Over ranks every rank
+        calls it; the leaves are gathered and rank 0 keeps the snapshot."""
+        if self.shardings is not None:
+            import torch.distributed as dist
+
+            state = tree_map(lambda t, sh: sh.gather(t), state,
+                             self.shardings)
+            if dist.get_rank() != 0:
+                self._offers += 1
+                return
         device = tree_leaves(state)[0].device
         with self._span("snapshot_copy", round=int(round_i)):
             if device.type == "cuda":
@@ -132,6 +151,9 @@ class AsyncSnapshotter:
         newest written round, or None when nothing was ever offered."""
         while self._pending:
             self._write_oldest()
+        if self.shardings is not None:
+            import torch.distributed as dist
+            dist.barrier()
         return self._written[-1][0] if self._written else None
 
     # ---------------------------------------------------------------- disk

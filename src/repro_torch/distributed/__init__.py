@@ -1,5 +1,6 @@
-"""Serving and training on one device.  ``admission`` is a verbatim copy of
-the JAX package's framework-free module (numpy only)."""
+"""Serving on one device; training on one device or over the data ranks of
+a process mesh (``collectives``, ``sharding``).  ``admission`` is a
+verbatim copy of the JAX package's framework-free module (numpy only)."""
 from .serve import Server, ServeConfig
 from .async_trainer import AsyncConfig, AsyncTrainer
 from .slot_serve import (SlotServer, SlotConfig, ServeResult,

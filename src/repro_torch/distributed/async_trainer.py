@@ -1,4 +1,5 @@
-"""AsGrad's buffered-asynchronous training round, on one device.
+"""AsGrad's buffered-asynchronous training round, on one device or over the
+data ranks of a process mesh.
 
 Counterpart of ``repro/distributed/async_trainer.py``.  The ``n`` AsGrad
 workers are the data groups of the global batch (group g owns examples
@@ -8,8 +9,8 @@ gradient applied at round q was computed at round q−1's params and waited
 in ONE delayed buffer ``gbuf``.  ``delay_rounds = 0`` is synchronous SGD
 (the paper's baseline).
 
-One device, no mesh: ``n_groups`` is 1 until the backend sets it to the
-spec's worker count, and nothing is sharded.  The round is eager PyTorch:
+Without a mesh, ``n_groups`` is 1 until the backend sets it to the spec's
+worker count, and nothing is sharded.  The round is eager PyTorch:
 forward and backward through ``models.loss_fn`` (autograd), then the
 server update through ``optim`` — with ``update_impl="pallas"`` one fused
 CUDA kernel per param leaf that updates the state in place.  No value is
@@ -46,6 +47,31 @@ whole server update is one kernel launch per dtype pool.
 ``cfg.remat == "full"`` (every ``ArchConfig``'s default) recomputes each
 layer's activations in the backward pass (:func:`repro_torch.models.
 model.forward_logits`), as JAX's ``jax.checkpoint`` over the layer scan.
+
+**Over ranks** (``mesh``: a ``launch.mesh.ProcessMesh`` whose data axes,
+pod × data, hold R ranks and whose model axis is 1), as the JAX trainer
+maps the paper onto a mesh: the AsGrad workers' examples are weighted
+from the global mask over the global batch (every rank draws the same
+batch), and rank r keeps its rows: ``[r·B/R, (r+1)·B/R)``, or with k
+microbatches its share of each, ``[i·B/k + r·B/(kR), i·B/k +
+(r+1)·B/(kR))`` (JAX splits the batch into microbatches first and shards
+each over the data axes).  Each rank computes its share of the
+participation-weighted loss and gradient (``models.loss_fn`` under the
+step's activation context: the CE over the global Σ mask, the MoE's
+groups), and the reported loss, CE and aux are the shares all-reduced,
+equal on every rank.  Then, on the pooled route, the rank pools its
+gradient share in JAX's ``(R, cols)`` layout, reduce-scatters it over the
+data group (in the grads' dtype) into its ZeRO row, runs the update
+kernel once per dtype pool on its row of p, m, v and gbuf (it keeps only
+that row of m, v and gbuf; ``p`` stays whole, since the forward reads
+every param), and all-gathers the ``p`` rows.  The per-leaf routes
+all-reduce each leaf's gradient and keep the state replicated.  With a
+sparsifier (``grad_density``) each leaf's quantile is over the whole
+gradient, so the leaves are all-reduced first and the pooled route takes
+its row of them.  The guards' raw norm and finite flag are global (the
+norm from the ranks' per-pool norms), so every rank takes the same skip
+decision with no host read.  Every collective is functional and counted
+(:mod:`repro_torch.distributed.collectives`).
 """
 from __future__ import annotations
 
@@ -63,8 +89,12 @@ from ..models.specs import Spec
 from ..optim import (OptConfig, adam_init, global_norm, make_delayed_apply,
                      make_optimizer, resolve_update_impl)
 from ..optim.pool import (build_layout, init_pools, pool_tree,
-                          pooled_delayed_apply, pooled_update, unpool_tree)
+                          pooled_delayed_apply, pooled_global_norm,
+                          pooled_update, unpool_tree)
 from ..tree import tree_map
+from . import collectives as C
+from .sharding import (DEFAULT_RULES, MODEL_AXIS_WAITS, NamedSharding,
+                       PSpec, Rules, pool_axes, pooled_pspec, sharded_trace)
 
 F32 = torch.float32
 
@@ -130,10 +160,13 @@ class AsyncConfig:
 
 
 class AsyncTrainer:
-    """(arch config × optimizer × delay) → a train step on ``device``."""
+    """(arch config × optimizer × delay) → a train step on ``device``;
+    with ``mesh`` (a bound ``launch.mesh.ProcessMesh``, model axis 1) the
+    step of this rank of its data axes."""
 
     def __init__(self, cfg: ArchConfig, opt: OptConfig = OptConfig(),
-                 async_cfg: AsyncConfig = AsyncConfig(), device="cuda"):
+                 async_cfg: AsyncConfig = AsyncConfig(), device="cuda", *,
+                 mesh=None, rules: Rules = DEFAULT_RULES):
         if async_cfg.guards is not None and \
                 not isinstance(async_cfg.guards, GuardConfig):
             raise TypeError("AsyncConfig.guards must be a GuardConfig, got "
@@ -144,33 +177,52 @@ class AsyncTrainer:
         self.opt = opt
         self.async_cfg = async_cfg
         self.device = resolve_device(device)
-        #: one device, no mesh: the backend sets the worker-group count
-        self.n_groups = 1
+        self.mesh = mesh
+        self.rules = rules
+        self.ranks, self.rank = 1, 0
+        if mesh is not None:
+            if not getattr(mesh, "bound", False):
+                raise TypeError("AsyncTrainer's mesh must be bound to the "
+                                "process group (launch.mesh.bind)")
+            if mesh.shape.get(rules.model_axis, 1) > 1:
+                raise NotImplementedError(MODEL_AXIS_WAITS)
+            self.data_axes = pool_axes(mesh, rules)
+            self.ranks = mesh.count(self.data_axes)
+            self.rank = mesh.my_index(self.data_axes)
+        #: the worker groups: the data-axis product (1 without a mesh),
+        #: until the backend sets the spec's worker count
+        self.n_groups = self.ranks
         self.update_impl = resolve_update_impl(opt.update_impl)
         #: pooled impls flatten the whole state into per-dtype pools once
-        #: here (one shard: one card has no mesh); the update is then one
-        #: kernel per dtype pool, not one per leaf
+        #: here, one row per rank; the update is then one kernel per dtype
+        #: pool (on this rank's row), not one per leaf
         self.pooled = self.update_impl.startswith("pallas_pooled")
         if self.pooled:
-            self.pool_layout = build_layout(M.param_specs(cfg), 1)
+            self.pool_layout = build_layout(M.param_specs(cfg), self.ranks)
         else:
             _, self._update = make_optimizer(opt)
             self._delayed_apply = make_delayed_apply(opt)
+
+    @property
+    def ranked(self) -> bool:
+        return self.mesh is not None
 
     # ------------------------------------------------------------------ state
     def _pooled_state_specs(self):
         """Pooled state as Specs: per dtype group one ``(n_shards, cols)``
         pool each for p (param dtype), m and v (f32) and, when delayed,
-        gbuf (param dtype)."""
+        gbuf (param dtype); over ranks m, v and gbuf are this rank's row,
+        ``(1, cols)``."""
         lay = self.pool_layout
-        pool = lambda dk, dtype: Spec((lay.n_shards, lay.cols[dk]),
-                                      (None, None), "zeros", dtype)
+        pool = lambda dk, dtype, n=lay.n_shards: Spec(
+            (n, lay.cols[dk]), (None, None), "zeros", dtype)
+        rows = 1 if self.ranked else lay.n_shards      # a rank's ZeRO row
         pools = {}
         for dk in lay.groups:
-            grp = {"p": pool(dk, dk), "m": pool(dk, "float32"),
-                   "v": pool(dk, "float32")}
+            grp = {"p": pool(dk, dk), "m": pool(dk, "float32", rows),
+                   "v": pool(dk, "float32", rows)}
             if self.async_cfg.delay_rounds > 0:
-                grp["gbuf"] = pool(dk, dk)
+                grp["gbuf"] = pool(dk, dk, rows)
             pools[dk] = grp
         return {"pools": pools,
                 "opt": {"count": Spec((), (), "zeros", "int32")},
@@ -210,7 +262,9 @@ class AsyncTrainer:
         zero = lambda: torch.zeros((), dtype=torch.int32, device=self.device)
         delayed = self.async_cfg.delay_rounds > 0
         if self.pooled:
-            state = {"pools": init_pools(self.pool_layout, params, delayed),
+            rows = 1 if self.ranked else None
+            state = {"pools": init_pools(self.pool_layout, params, delayed,
+                                         rows),
                      "opt": {"count": zero()}, "step": zero()}
         else:
             state = {"params": params, "opt": adam_init(params),
@@ -226,12 +280,32 @@ class AsyncTrainer:
     def params_of(self, state):
         """The params tree of a trainer state, whatever its layout: the
         tree itself, or on a pooled state views into the ``p`` pools (an
-        in-place update of the pools shows through them)."""
+        in-place update of the pools shows through them; over R > 1
+        ranks a copy, since each leaf is striped over the rows)."""
         if self.pooled:
             return unpool_tree(self.pool_layout,
                                {dk: b["p"] for dk, b in
                                 state["pools"].items()})
         return state["params"]
+
+    def state_shardings(self):
+        """One :class:`~repro_torch.distributed.sharding.NamedSharding` per
+        state leaf (the JAX trainer's ``state_shardings``): on the pooled
+        route m, v and gbuf are split by rows over the data axes
+        (``pooled_pspec``) and ``p`` is whole on every rank; everything
+        else is replicated (per-leaf ZeRO is not ported: ROADMAP.md queue
+        1, item 14b)."""
+        if not self.ranked:
+            raise ValueError("state_shardings needs a mesh")
+        out = tree_map(lambda spec: NamedSharding(
+            self.mesh, PSpec(*([None] * len(spec.shape)))),
+            self.state_specs())
+        rows = NamedSharding(self.mesh, pooled_pspec(self.mesh, self.rules))
+        for b in out.get("pools", {}).values():
+            for k in ("m", "v", "gbuf"):
+                if k in b:
+                    b[k] = rows
+        return out
 
     # ------------------------------------------------------------- train step
     def _example_weights(self, mask, batch_size: int):
@@ -241,6 +315,19 @@ class AsyncTrainer:
             raise ValueError(f"the {self.n_groups} groups must divide the "
                              f"batch of {batch_size}")
         return mask.repeat_interleave(batch_size // self.n_groups)
+
+    def _rank_rows(self, bsz: int, k: int, device) -> torch.Tensor:
+        """The global batch rows this rank holds, in order: its block of
+        each of the k microbatches (JAX shards each microbatch over the
+        data axes)."""
+        mb = bsz // k
+        if mb % self.ranks:
+            raise ValueError(f"the {self.ranks} data ranks must divide each "
+                             f"microbatch of {mb} rows")
+        per = mb // self.ranks
+        lo = self.rank * per
+        return torch.cat([torch.arange(i * mb + lo, i * mb + lo + per,
+                                       device=device) for i in range(k)])
 
     def _value_and_grad(self, params, batch, w):
         """(loss, parts, grads in the params' dtypes) by autograd, on
@@ -254,6 +341,18 @@ class AsyncTrainer:
             loss.backward()
         grads = tree_map(lambda p: p.grad, leaves)
         return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
+
+    def _grad_pools(self, grads, reduced: bool) -> dict:
+        """The fresh grads pooled: whole without a mesh; over ranks this
+        rank's row, reduce-scattered from the shares (or, once ``reduced``
+        to the global grads, taken from them)."""
+        pools = pool_tree(self.pool_layout, grads)
+        if not self.ranked:
+            return pools
+        if reduced:
+            return {dk: p.narrow(0, self.rank, 1) for dk, p in pools.items()}
+        group = self.mesh.group(self.data_axes)
+        return {dk: C.reduce_scatter(p, group) for dk, p in pools.items()}
 
     def train_step_fn(self):
         """``step(state, batch, mask, delay_scale=None, grad_density=None,
@@ -269,9 +368,15 @@ class AsyncTrainer:
         whole server update (consume the stale ``gbuf``, step params and
         moments, buffer the fresh grads) is one delayed-apply call, and
         round 0, whose buffer is empty, is gated to a zero step on the
-        device.  Every metric is a device scalar."""
+        device.  Every metric is a device scalar.  Over ranks ``batch`` and
+        ``mask`` are the global ones, the same on every rank (module
+        docstring)."""
         acfg = self.async_cfg
         fused = self.update_impl != "reference"
+        ranked = self.ranked
+        group = self.mesh.group(self.data_axes) if ranked else None
+        mesh_kw = {"mesh": self.mesh, "axes": self.data_axes} if ranked \
+            else {}
 
         def step(state, batch, mask, delay_scale=None, grad_density=None,
                  fault_gain=None):
@@ -279,6 +384,13 @@ class AsyncTrainer:
             bsz = batch["tokens"].shape[0]
             mask = mask.to(F32)
             w = self._example_weights(mask, bsz)
+            k = acfg.microbatches
+            k = k if k > 1 and bsz % k == 0 else 1
+            if ranked:
+                rows = self._rank_rows(bsz, k, w.device)
+                batch = {n: x.index_select(0, rows.to(x.device))
+                         for n, x in batch.items()}
+                w = w.index_select(0, rows)
             if fault_gain is not None:
                 # the gain scales the round's received contribution after
                 # the CE's weight normalisation (folded into the weights it
@@ -292,10 +404,9 @@ class AsyncTrainer:
                     (mask * gain).sum() / torch.clamp(n_part, min=1e-6),
                     1.0)
 
-            k = acfg.microbatches
-            if k > 1 and bsz % k == 0:
+            if k > 1:
                 # gradient accumulation over k microbatches, grads in f32
-                mb = bsz // k
+                mb = w.shape[0] // k
                 g32 = tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
                                                      device=p.device), params)
                 loss = aux = 0.0
@@ -310,20 +421,39 @@ class AsyncTrainer:
                 parts = {"ce": loss, "aux": aux}
             else:
                 loss, parts, grads = self._value_and_grad(params, batch, w)
+            if ranked:
+                # the shares summed: the loss of the whole batch, equal on
+                # every rank
+                red = C.all_reduce(torch.stack(
+                    [loss, parts["ce"], torch.as_tensor(
+                        parts["aux"], dtype=F32, device=self.device)]), group)
+                loss, parts = red[0], {"ce": red[1], "aux": red[2]}
             if fault_gain is not None:
                 # what the server receives is scaled, loss and grads alike,
                 # so the guard sees exactly what the step would apply
                 loss = loss * fault_c
                 parts = {n: v * fault_c for n, v in parts.items()}
                 grads = tree_map(lambda g: g * fault_c.to(g.dtype), grads)
+            # over ranks the per-leaf routes, and a sparsifier (a quantile
+            # over the whole leaf), need the global gradient leaves
+            reduced = ranked and (not self.pooled or grad_density is not None)
+            if reduced:
+                grads = tree_map(lambda g: C.all_reduce(g, group), grads)
             if grad_density is not None:
                 grads = tree_map(lambda g: sparsify(g, grad_density), grads)
+            if self.pooled:
+                # the fresh grads pooled once, after the fault gain and the
+                # sparsifier (a copy, as JAX's ``pool_tree`` is)
+                gpools = self._grad_pools(grads, reduced)
+                if ranked:
+                    del grads
 
             if acfg.guards is not None:
                 # the raw norm of the FRESH grads, before they can be
                 # buffered: the delayed apply's own norm is the stale one's
                 gd = acfg.guards
-                raw_norm = global_norm(grads)
+                raw_norm = pooled_global_norm(gpools, **mesh_kw) \
+                    if self.pooled and ranked else global_norm(grads)
                 finite = torch.isfinite(loss) & torch.isfinite(raw_norm)
                 bad = ~finite
                 if gd.spike_norm is not None:
@@ -357,14 +487,20 @@ class AsyncTrainer:
             kw = {"run": run} if acfg.guards is not None and fused else {}
 
             if self.pooled:
-                # the fresh grads pooled once, in JAX's order: after the
-                # fault gain, the sparsifier and the finite check
                 apply = pooled_delayed_apply if acfg.delay_rounds > 0 \
                     else pooled_update
+                pools = state["pools"]
+                if ranked:
+                    # this rank's row of every pool: p's row is a view of
+                    # the whole p, m / v / gbuf are the row itself
+                    pools = {dk: {**b, "p": b["p"].narrow(0, self.rank, 1)}
+                             for dk, b in pools.items()}
                 pools, count, gnorm = apply(
-                    pool_tree(self.pool_layout, grads), state["pools"],
-                    state["opt"]["count"], self.opt,
-                    lr_scale=lr_scale * gate, **kw)
+                    gpools, pools, state["opt"]["count"], self.opt,
+                    lr_scale=lr_scale * gate, **kw, **mesh_kw)
+                if ranked:
+                    pools = {dk: {**b, "p": C.all_gather(b["p"], group)}
+                             for dk, b in pools.items()}
                 new_state = {"pools": pools, "opt": {"count": count},
                              "step": state["step"] + 1}
             elif acfg.delay_rounds > 0:
@@ -398,4 +534,4 @@ class AsyncTrainer:
                        "skipped": skipped, "gscale": gscale}
             return new_state, metrics
 
-        return step
+        return sharded_trace(step, self.mesh, self.rules) if ranked else step

@@ -1,4 +1,5 @@
-"""Logical-axis sharding rules with divisibility fallback: the rule half.
+"""Logical-axis sharding rules with divisibility fallback, and their process
+half.
 
 Counterpart of ``repro/distributed/sharding.py``.  Every tensor of the
 system (params, optimizer state, caches, batches) carries logical axis
@@ -13,15 +14,30 @@ A partition spec is a :class:`PSpec`: a tuple with one entry per tensor dim
 ``jax.sharding.PartitionSpec`` holds.  A mesh is anything with ``.shape``
 (axis sizes by name) and ``.axis_names`` (``launch.mesh.Mesh``).
 
-The port runs on one device, so here the rules only count: the dry-run's
-analytic per-device state on the production H100 meshes
-(:func:`bytes_per_device`).  The half that needs a process group waits for
-multi-GPU (ROADMAP.md queue 1, item 14): ``activation_sharding``,
-``shard_activation``, ``sharded_trace`` and ``tree_shardings``.
-:func:`data_shard_count` is 1, since no activation context exists.
+The rules count everywhere: the dry-run's analytic per-device state on the
+production H100 meshes (:func:`bytes_per_device`).  The process half runs
+on a mesh bound to a process group (``launch.mesh.ProcessMesh``), one rank
+per device, where the data axes are data parallelism:
+
+* :class:`NamedSharding` (mesh + :class:`PSpec`, from
+  :func:`tree_shardings`) gives this rank's slice of a full tensor
+  (``local``) and reassembles a full tensor from the ranks' slices
+  (``gather``: a functional all-gather over the axes each dim names), the
+  counterpart of ``jax.sharding.NamedSharding`` for the checkpointer and
+  the trainer;
+* :class:`activation_sharding` / :func:`sharded_trace` put a mesh in
+  context for the model code: :func:`data_shard_count` is then the product
+  of its data axes (the MoE's dispatch groups) and :func:`data_context`
+  hands the model the data group for the loss's and the MoE's
+  collectives.  :func:`shard_activation` is the identity on a data-only
+  mesh, where each rank already holds its batch rows.
+
+What waits for the model axis (ROADMAP.md queue 1, item 14b): a mesh
+with ``model > 1`` runs nothing; :func:`shard_activation` raises on one.
 """
 from __future__ import annotations
 
+import contextvars
 import dataclasses
 import math
 
@@ -77,10 +93,93 @@ def auto_rules(cfg, model_axis_size: int = 16) -> Rules:
     return SEQ_PARALLEL_RULES
 
 
+# ---------------------------------------------------------------------------
+# activation context: the mesh the model code runs under
+# ---------------------------------------------------------------------------
+_ACT_CTX: contextvars.ContextVar = contextvars.ContextVar(
+    "repro_torch_activation_sharding", default=None)
+
+#: why a model axis larger than 1 is refused
+MODEL_AXIS_WAITS = ("tensor parallelism over the mesh's model axis is not "
+                    "ported yet (ROADMAP.md queue 1, item 14b); use a "
+                    "data-only mesh (model = 1)")
+
+
+class activation_sharding:
+    """Context manager putting ``mesh`` (a bound mesh) and ``rules`` in
+    context for the model code; outside it (one device, no mesh) every
+    helper below is inert."""
+
+    def __init__(self, mesh, rules=None):
+        self.mesh = mesh
+        self.rules = rules or DEFAULT_RULES
+
+    def __enter__(self):
+        self._tok = _ACT_CTX.set((self.mesh, self.rules))
+        return self
+
+    def __exit__(self, *exc):
+        _ACT_CTX.reset(self._tok)
+        return False
+
+
+def bound_to_context(fn):
+    """``fn`` bound to the activation context active now, for work that
+    runs later on another thread (a block recomputed in a CUDA backward
+    runs on autograd's thread, where the context variable is unset)."""
+    ctx = _ACT_CTX.get()
+
+    def run(*a, **k):
+        tok = _ACT_CTX.set(ctx)
+        try:
+            return fn(*a, **k)
+        finally:
+            _ACT_CTX.reset(tok)
+    return run
+
+
+def sharded_trace(fn, mesh, rules=None):
+    """Wrap a step function so the activation context holds while it
+    runs."""
+    def wrapped(*a, **k):
+        with activation_sharding(mesh, rules):
+            return fn(*a, **k)
+    return wrapped
+
+
+def shard_activation(x, axes):
+    """The activation constraint of the JAX package: the identity outside a
+    context and on a data-only mesh (each rank holds its batch rows, and
+    nothing else is sharded); a model axis larger than 1 raises."""
+    ctx = _ACT_CTX.get()
+    if ctx is None:
+        return x
+    mesh, rules = ctx
+    if _mesh_size(mesh, rules.model_axis) > 1:
+        raise NotImplementedError(MODEL_AXIS_WAITS)
+    return x
+
+
 def data_shard_count() -> int:
-    """Data-parallel shards of the active activation context: 1, since the
-    port has none yet (item 14)."""
-    return 1
+    """Number of data-parallel shards in the active activation context
+    (1 outside any context): the MoE's dispatch groups."""
+    ctx = _ACT_CTX.get()
+    if ctx is None:
+        return 1
+    mesh, rules = ctx
+    return math.prod(_mesh_size(mesh, a) for a in rules.data_axes)
+
+
+def data_context():
+    """``(process group, shards, this rank's shard)`` of the active
+    context's data axes flattened, or None outside a context.  The model
+    code reduces over the group what JAX reduces over the global batch."""
+    ctx = _ACT_CTX.get()
+    if ctx is None:
+        return None
+    mesh, rules = ctx
+    axes = pool_axes(mesh, rules)
+    return mesh.group(axes), mesh.count(axes), mesh.my_index(axes)
 
 
 def _mesh_size(mesh, name: str) -> int:
@@ -198,3 +297,69 @@ def bytes_per_device(spec_tree, mesh, rules: Rules = DEFAULT_RULES,
                 shards *= _mesh_size(mesh, a)
         total += math.prod(s.shape) * torch_dtype(s.dtype).itemsize // shards
     return total
+
+
+class NamedSharding:
+    """A tensor's layout over a mesh: ``spec`` names, per dim, the mesh
+    axes that dim is split over (row-major over the named axes, as JAX
+    splits it).  ``local`` takes a rank's block of a full tensor;
+    ``gather`` (on a bound mesh) reassembles the full tensor from every
+    rank's block, one functional all-gather per split dim."""
+
+    def __init__(self, mesh, spec: PSpec):
+        self.mesh = mesh
+        self.spec = spec
+
+    def _split(self, ndim: int) -> list:
+        entries = list(self.spec) + [None] * (ndim - len(self.spec))
+        return [() if e is None else (e if isinstance(e, tuple) else (e,))
+                for e in entries]
+
+    def shard_shape(self, shape) -> tuple:
+        """One rank's block shape of a tensor of ``shape``."""
+        out = []
+        for n, axes in zip(shape, self._split(len(shape))):
+            k = self.mesh.count(axes)
+            if n % k:
+                raise ValueError(f"{self.spec} splits a dim of {n} into "
+                                 f"{k} blocks")
+            out.append(n // k)
+        return tuple(out)
+
+    def local(self, full, rank=None):
+        """The block of ``full`` (a tensor or a numpy array) that ``rank``
+        holds (this process's rank on a bound mesh by default): a view, by
+        basic slicing."""
+        coords = self.mesh.coords if rank is None \
+            else self.mesh.coords_of(rank)
+        shape = self.shard_shape(full.shape)
+        idx = tuple(
+            slice(None) if not axes else slice(
+                self.mesh.index(axes, coords) * n,
+                (self.mesh.index(axes, coords) + 1) * n)
+            for n, axes in zip(shape, self._split(len(full.shape))))
+        return full[idx]
+
+    def gather(self, t):
+        """The full tensor from every rank's block ``t`` (this rank's)."""
+        from .collectives import all_gather
+
+        for d, axes in enumerate(self._split(t.dim())):
+            if self.mesh.count(axes) > 1:
+                t = all_gather(t, self.mesh.group(axes), dim=d)
+        return t
+
+    def stacked(self) -> "NamedSharding":
+        """The sharding of a stack of such tensors (a new leading dim,
+        whole on every rank: the grid lane's ``(n_grid, ...)`` states)."""
+        return NamedSharding(self.mesh, PSpec(None, *self.spec))
+
+    def __repr__(self):
+        return f"NamedSharding({self.mesh!r}, {self.spec!r})"
+
+
+def tree_shardings(spec_tree, mesh, rules: Rules = DEFAULT_RULES,
+                   zero: bool = False):
+    """Map a Spec tree → a :class:`NamedSharding` tree of the same paths."""
+    return tree_map(lambda p: NamedSharding(mesh, p),
+                    tree_pspecs(spec_tree, mesh, rules, zero))

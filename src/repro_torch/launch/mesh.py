@@ -1,20 +1,37 @@
-"""H100 constants and mesh descriptors for the launch tier.
+"""H100 constants and meshes: axis-size descriptors, and meshes bound to the
+processes of a ``torch.distributed`` group.
 
-Counterpart of ``repro/launch/mesh.py``.  The port has no SPMD partitioner,
-so a mesh here is a plain descriptor: a dict of axis sizes (``.shape``) and
-their names in order (``.axis_names``), the duck type the sharding rules
-read.  The production layout puts one 8-GPU NVLink node on the model axis.
+Counterpart of ``repro/launch/mesh.py``.  A :class:`Mesh` is a descriptor:
+a dict of axis sizes (``.shape``) and their names in order
+(``.axis_names``), the duck type the sharding rules read; the dry-run
+shards its analytic state over the production meshes with it.  A
+:class:`ProcessMesh` is the same descriptor bound to the initialised
+process group, one rank per device: ranks sit on the mesh row-major over
+its axes (the last axis fastest, as ``jax.make_mesh`` lays out devices),
+so rank ``r`` has the coordinates ``numpy.unravel_index(r, sizes)``.  It
+holds one process group per mesh axis and one for the data axes
+flattened (pod × data, the ZeRO domain of the pooled update), and knows
+this rank's coordinates.  A mesh whose device count differs from the
+world size is an error, as ``jax.make_mesh`` fails without the devices.
+
+What runs on a bound mesh: data parallelism over the data axes (the
+AsGrad trainer, :mod:`repro_torch.distributed.async_trainer`).  A mesh
+whose ``model`` axis is larger than 1 is described and bound, but nothing
+runs on it yet: the trainer and ``shard_activation`` refuse it
+(ROADMAP.md queue 1, item 14b).  The production layout puts one 8-GPU
+NVLink node on the model axis.
 
 The constants are one NVIDIA H100 SXM's, from NVIDIA's data sheet: dense
 rates at the 700 W power limit.  A card set below that limit runs slower
 under load, so a share of these peaks is quoted with the card's limit.
 
-Importing this module touches no CUDA state: :func:`make_host_mesh` asks
-for the device count only when it is called.
+Importing this module touches no CUDA state and no process group.
 """
 from __future__ import annotations
 
 import math
+import os
+import tempfile
 
 PEAK_FLOPS_BF16 = 989e12      # FLOP/s, tensor cores, dense
 PEAK_FLOPS_F32 = 67e12        # FLOP/s, CUDA cores
@@ -24,11 +41,127 @@ NVLINK_BW = 450e9             # B/s per direction per GPU (NVLink 4)
 
 
 class Mesh:
-    """Axis sizes by name: ``Mesh({"data": 32, "model": 8})``."""
+    """Axis sizes by name: ``Mesh({"data": 32, "model": 8})``.  A
+    descriptor, bound to no process."""
+
+    bound = False
 
     def __init__(self, shape: dict):
         self.shape = dict(shape)
         self.axis_names = tuple(shape)
+
+    def coords_of(self, rank: int) -> dict:
+        """The coordinates of ``rank`` on the mesh (row-major, the last
+        axis fastest)."""
+        coords = {}
+        for a in reversed(self.axis_names):
+            rank, coords[a] = divmod(rank, self.shape[a])
+        return {a: coords[a] for a in self.axis_names}
+
+    def count(self, axes) -> int:
+        """Devices along ``axes`` (an axis absent from the mesh counts 1)."""
+        return math.prod(self.shape.get(a, 1) for a in axes)
+
+    def index(self, axes, coords: dict) -> int:
+        """The row-major position of ``coords`` along ``axes`` flattened
+        (pod × data: ``pod · D + data``), the shard a dim sharded over
+        ``axes`` gives those coordinates."""
+        i = 0
+        for a in axes:
+            if a in self.shape:
+                i = i * self.shape[a] + coords[a]
+        return i
+
+    def __repr__(self):
+        return f"{type(self).__name__}({self.shape})"
+
+
+class ProcessMesh(Mesh):
+    """A mesh bound to the initialised default process group: this rank's
+    ``coords``, and a process group per axis and for the data axes
+    flattened (:meth:`group`).  Every rank builds it with the same shape,
+    in the same order relative to other group creations (each group is a
+    collective call on the whole world)."""
+
+    bound = True
+
+    def __init__(self, shape: dict):
+        import torch.distributed as dist
+
+        from ..distributed.sharding import DEFAULT_RULES
+
+        super().__init__(shape)
+        if not dist.is_initialized():
+            raise RuntimeError("a ProcessMesh needs an initialised process "
+                               "group (launch.mesh.init_process_group)")
+        world = dist.get_world_size()
+        n = mesh_devices(self)
+        if n != world:
+            raise ValueError(
+                f"mesh {self.shape} has {n} devices but the process group "
+                f"has {world} ranks")
+        self.rank = dist.get_rank()
+        self.world = world
+        self.coords = self.coords_of(self.rank)
+        self._groups: dict = {}
+        data = tuple(a for a in DEFAULT_RULES.data_axes if a in self.shape)
+        for axes in [(a,) for a in self.axis_names] + [data]:
+            if axes and axes not in self._groups:
+                self._groups[axes] = self._new_group(axes)
+
+    def _blocks(self, axes) -> list:
+        """The ranks of each group along ``axes``: ranks that differ only
+        in their coordinates on ``axes``, ordered by their position
+        there."""
+        blocks: dict = {}
+        for r in range(self.world):
+            c = self.coords_of(r)
+            key = tuple(c[a] for a in self.axis_names if a not in axes)
+            blocks.setdefault(key, []).append((self.index(axes, c), r))
+        return [[r for _, r in sorted(b)] for _, b in sorted(blocks.items())]
+
+    def _new_group(self, axes):
+        import torch.distributed as dist
+
+        blocks = self._blocks(axes)
+        if len(blocks) == 1:          # the whole world, in rank order
+            return dist.group.WORLD
+        group, _ = dist.new_subgroups_by_enumeration(blocks)
+        return group
+
+    def group(self, axes):
+        """The process group of this rank along ``axes`` (a tuple of axis
+        names; the data axes flattened is one of them)."""
+        axes = tuple(a for a in axes if a in self.shape)
+        if axes not in self._groups:
+            raise KeyError(f"no process group along {axes}; the mesh holds "
+                           f"{sorted(self._groups)}")
+        return self._groups[axes]
+
+    def my_index(self, axes) -> int:
+        """This rank's position along ``axes`` flattened."""
+        return self.index(axes, self.coords)
+
+
+def init_process_group(device) -> None:
+    """Initialise ``torch.distributed`` for ``device``: NCCL on a card,
+    gloo on the CPU.  Under ``torchrun`` (``RANK`` and ``WORLD_SIZE`` in
+    the environment) it joins the launcher's rendezvous, and a card process
+    takes card ``LOCAL_RANK``; otherwise it is a world of one, through a
+    file store in a fresh temporary directory."""
+    import torch
+    import torch.distributed as dist
+
+    dev = torch.device(device)
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    if "RANK" in os.environ and "WORLD_SIZE" in os.environ:
+        if dev.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        dist.init_process_group(backend, init_method="env://")
+        return
+    store = os.path.join(tempfile.mkdtemp(prefix="repro_torch_pg_"), "store")
+    dist.init_process_group(backend, init_method=f"file://{store}",
+                            rank=0, world_size=1)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
@@ -38,12 +171,15 @@ def make_production_mesh(*, multi_pod: bool = False) -> Mesh:
     return Mesh({"data": 32, "model": 8})
 
 
-def make_host_mesh() -> Mesh:
-    """Whatever this host has as (data=1, model=n): n visible cards, or 1
-    without CUDA."""
-    import torch
-    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    return Mesh({"data": 1, "model": max(n, 1)})
+def make_host_mesh(world: int | None = None) -> Mesh:
+    """Whatever this host runs, as (data=1, model=n): n is ``world`` (the
+    launcher's process count), else the process group's world size (one
+    rank per device), or 1 without a group."""
+    if world is None:
+        import torch.distributed as dist
+
+        world = dist.get_world_size() if dist.is_initialized() else 1
+    return Mesh({"data": 1, "model": world})
 
 
 def mesh_devices(mesh) -> int:

@@ -4,7 +4,9 @@
         [--arch qwen2-0.5b] [--n-layers N]
         [--update-impl pallas|pallas_pooled|reference] [--remat none|full]
         [--opt adam|sgd] [--delay-rounds 1] [--rounds 4] [--warmup 2]
-        [--trace-dir DIR] [--scenario SPEC] [--guards]
+        [--trace-dir DIR] [--scenario SPEC] [--guards] [--json-out PATH]
+    torchrun --nproc-per-node N -m repro_torch.launch.profile_train \\
+        --update-impl pallas_pooled --mesh data=N [...]
 
 Runs the training main path's configuration (qwen2-0.5b at full width,
 global batch 8 × 512 tokens, 4 AsGrad workers under the ``pure``
@@ -37,12 +39,21 @@ fit one card.
 lowered into the plan as ``TrainerBackend`` lowers them, and
 ``--guards`` arms the guard rails (``TrainJob(guards=True)``).
 
+``--mesh data=N[,pod=P]`` runs under ``torchrun``, one process per card
+(NCCL): the data-parallel trainer over the launcher's processes
+(``AsyncTrainer(mesh=...)``), every rank timing the same rounds; rank 0
+prints, and adds each collective kind's launches and operand bytes a
+round.  ``--json-out`` appends the run's numbers (ms a round, the loss
+curve, the mesh, the collectives) as one JSON line, so runs at several
+rank counts can be set side by side.
+
 ``--trace-dir`` also writes the profiler's Chrome trace there
 (``train.json``).  Needs a CUDA card.
 """
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import time
 
@@ -52,6 +63,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from ..api import ExperimentSpec, TrainerBackend, TrainJob
 from ..device import resolve_device
+from ..distributed import collectives
 from ..runtime import PlanExecutor, compile_plan
 
 TOP = 15                        # kernels listed
@@ -89,7 +101,7 @@ def _executor(tr, spec, n_groups, rounds):
     return PlanExecutor(tr, plan)
 
 
-def _report(prof, wall_s: float, rounds: int) -> None:
+def _report(prof, wall_s: float, rounds: int, print=print) -> None:
     rows = sorted((e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA),
                   key=lambda e: -e.self_device_time_total)
@@ -122,15 +134,39 @@ def main(argv=None) -> None:
     ap.add_argument("--trace-dir", default=None)
     ap.add_argument("--scenario", default=None)
     ap.add_argument("--guards", action="store_true")
+    ap.add_argument("--mesh", default=None, metavar="data=N[,pod=P]",
+                    help="under torchrun: the data-parallel trainer over the "
+                         "launcher's processes, one per card")
+    ap.add_argument("--json-out", default=None, metavar="PATH",
+                    help="append the run's numbers as one JSON line")
     args = ap.parse_args(argv)
+    mesh = None
+    if args.mesh:
+        import torch.distributed as dist
 
+        from .mesh import ProcessMesh, init_process_group
+        from .train import parse_mesh
+
+        init_process_group("cuda")
+        try:
+            mesh = ProcessMesh(parse_mesh(args.mesh).shape)
+            _run(args, mesh)
+        finally:
+            dist.destroy_process_group()
+    else:
+        _run(args, mesh)
+
+
+def _run(args, mesh) -> None:
+    lead = mesh is None or mesh.rank == 0
+    out = print if lead else (lambda *a, **k: None)
     device = resolve_device("cuda")
     spec = main_path_spec(args.update_impl, args.opt, args.delay_rounds,
                           T=args.warmup + args.rounds,
                           scenario=args.scenario, guards=args.guards,
                           remat=args.remat, arch=args.arch,
                           n_layers=args.n_layers)
-    tr, cfg, n_groups = TrainerBackend(device)._make_trainer(
+    tr, cfg, n_groups = TrainerBackend(device, mesh=mesh)._make_trainer(
         spec, spec.objective, spec.stepsize.gamma, False, device)
     state = tr.init_state(spec.seed)
     state = _executor(tr, spec, n_groups, args.warmup).run_scan(
@@ -144,22 +180,39 @@ def main(argv=None) -> None:
         state = res.state
         return time.perf_counter() - t0, res
 
+    before = collectives.snapshot()
     wall, res = timed()
-    print(f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} batch "
+    coll = {k: [n // args.rounds, b // args.rounds]
+            for k, (n, b) in collectives.since(before).items()}
+    ms = wall * 1e3 / args.rounds
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out(f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} batch "
           f"{spec.objective.global_batch}x{spec.objective.seq_len} "
           f"opt={args.opt} delay_rounds={args.delay_rounds} "
           f"update_impl={tr.update_impl} remat={cfg.remat} "
           f"guards={args.guards} scenario="
-          f"{args.scenario}: {wall * 1e3 / args.rounds:.3f} ms "
-          f"per round (warm, {args.rounds} rounds, one launch); loss "
-          f"{res.metrics['loss'][0]:.5f} -> {res.metrics['loss'][-1]:.5f}; "
-          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+          f"{args.scenario} mesh={None if mesh is None else mesh.shape}: "
+          f"{ms:.3f} ms per round (warm, {args.rounds} rounds, one launch); "
+          f"loss {res.metrics['loss'][0]:.5f} -> "
+          f"{res.metrics['loss'][-1]:.5f}; peak memory {peak:.2f} GiB"
+          + (f"; collectives a round {coll}" if mesh is not None else ""))
+    if args.json_out and lead:
+        with open(args.json_out, "a") as f:
+            f.write(json.dumps({
+                "arch": cfg.name, "n_layers": cfg.n_layers,
+                "update_impl": tr.update_impl,
+                "mesh": None if mesh is None else mesh.shape,
+                "ranks": tr.ranks, "ms_per_round": ms,
+                "losses": res.metrics["loss"].tolist(),
+                "grad_norms": res.metrics["grad_norm"].tolist(),
+                "collectives_per_round": coll, "peak_gib": peak,
+                "device": torch.cuda.get_device_name()}) + "\n")
 
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     with prof:
         wall, _ = timed()
-    _report(prof, wall, args.rounds)
-    if args.trace_dir:
+    _report(prof, wall, args.rounds, out)
+    if args.trace_dir and lead:
         os.makedirs(args.trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.trace_dir, "train.json"))
 

@@ -1,25 +1,38 @@
-"""Training launcher: --arch × --scheduler → the trainer backend, on one
-device.
+"""Training launcher: --arch × --scheduler × mesh → the trainer backend.
 
 Counterpart of ``repro/launch/train.py``, the production entry point: a
 thin CLI over ``repro_torch.api`` whose flags build one ``ExperimentSpec``
 + ``TrainJob`` and hand them to ``TrainerBackend``.  The flags, their
 names and their defaults are the JAX launcher's, plus ``--device`` (the
-card by default; ``--device cpu`` runs the kernels' plain versions).  The
-port runs on one device and has no mesh yet: ``--host-mesh``,
-``--multi-pod`` and ``--auto-rules`` are refused (ROADMAP.md queue 1,
-item 14).  ``--reduced`` gives the smoke-sized variant of the arch's
+card by default; ``--device cpu`` runs the kernels' plain versions) and
+``--mesh``.  ``--reduced`` gives the smoke-sized variant of the arch's
 family; every family trains (dense, moe, ssm, hybrid, audio, vlm).
+
+One process trains on one device with no mesh.  Under ``torchrun`` (one
+process per card, NCCL; gloo with ``--device cpu``) the processes are the
+ranks of a mesh: ``--mesh data=N[,pod=P]`` trains data-parallel over them
+(the AsGrad workers' batch rows split over the ranks, the pooled update
+ZeRO-sharded); ``--host-mesh`` is the JAX law, (data=1, model=world
+size), which trains on one rank; ``--multi-pod``, or no mesh flag on
+several ranks, is the production mesh, which needs 512 (256) processes.
+A mesh whose model axis is larger than 1 (``--host-mesh`` on several
+ranks, the production meshes) is refused with exit 2: tensor parallelism
+waits for ROADMAP.md queue 1, item 14b.  ``--auto-rules`` picks the
+arch's rules on the mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --reduced --device cpu --steps 20 --scheduler shuffled
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch qwen2-0.5b --reduced --mesh data=2 --n-groups 4 \\
+      --update-impl pallas_pooled --steps 8
 """
 from __future__ import annotations
 
 import argparse
+import os
 
-#: flags of the JAX launcher that need a mesh, which the port lacks
-MESH_FLAGS = ("host_mesh", "multi_pod", "auto_rules")
+#: the flags that pick the mesh and its rules
+MESH_FLAGS = ("host_mesh", "multi_pod", "mesh", "auto_rules")
 
 
 def parser() -> argparse.ArgumentParser:
@@ -38,7 +51,8 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--wait-b", type=int, default=1)
     ap.add_argument("--pattern", default="poisson")
     ap.add_argument("--n-groups", type=int, default=0,
-                    help="worker groups (0 = one group)")
+                    help="worker groups (0 = the data-axis size, one "
+                         "without a mesh)")
     ap.add_argument("--lr", type=float, default=3e-3)
     ap.add_argument("--delay-rounds", type=int, default=1)
     ap.add_argument("--microbatches", type=int, default=1)
@@ -81,12 +95,18 @@ def parser() -> argparse.ArgumentParser:
                          "the run")
     ap.add_argument("--sync", action="store_true")
     ap.add_argument("--host-mesh", action="store_true",
-                    help="refused: the port runs on one device (mesh: "
-                         "ROADMAP.md queue 1, item 14)")
+                    help="this host's mesh, (data=1, model=world size): "
+                         "trains on one rank; several ranks make a model "
+                         "axis, refused (ROADMAP.md queue 1, item 14b)")
     ap.add_argument("--multi-pod", action="store_true",
-                    help="refused, as --host-mesh")
+                    help="the production multi-pod mesh (pod 2 x data 32 "
+                         "x model 8): needs 512 processes")
+    ap.add_argument("--mesh", default=None, metavar="data=N[,pod=P]",
+                    help="a data-parallel mesh over the launcher's "
+                         "processes (torchrun): its device count must be "
+                         "the world size")
     ap.add_argument("--auto-rules", action="store_true",
-                    help="refused, as --host-mesh")
+                    help="per-arch sharding rules on the mesh")
     ap.add_argument("--ckpt", default=None)
     ap.add_argument("--ckpt-every", type=int, default=0)
     ap.add_argument("--snapshot-every", type=int, default=0,
@@ -112,18 +132,86 @@ def parser() -> argparse.ArgumentParser:
     return ap
 
 
+def parse_mesh(text: str):
+    """``data=N[,pod=P]`` → a Mesh (pod, data, model) with model 1."""
+    from .mesh import Mesh
+
+    try:
+        sizes = {k: int(v) for k, v in
+                 (item.split("=") for item in text.split(","))}
+    except ValueError:
+        sizes = {}
+    if "data" not in sizes or set(sizes) - {"pod", "data"}:
+        raise ValueError(f"--mesh {text!r}: want data=N[,pod=P]")
+    return Mesh({**({"pod": sizes["pod"]} if "pod" in sizes else {}),
+                 "data": sizes["data"], "model": 1})
+
+
+def choose_mesh(args, ap, world: int):
+    """The mesh the flags and the launcher's world size ask for, or None
+    (one process, no flag); exits 2 (``ap.error``) on a mesh whose device
+    count is not the world size, or whose model axis is larger than 1."""
+    from ..distributed.sharding import MODEL_AXIS_WAITS
+    from .mesh import make_host_mesh, make_production_mesh, mesh_devices
+
+    flag = next((f"--{f.replace('_', '-')}" for f in MESH_FLAGS[:3]
+                 if getattr(args, f)), None)
+    if args.host_mesh:
+        mesh = make_host_mesh(world)
+    elif args.multi_pod:
+        mesh = make_production_mesh(multi_pod=True)
+    elif args.mesh:
+        try:
+            mesh = parse_mesh(args.mesh)
+        except ValueError as e:
+            ap.error(str(e))
+    elif world > 1:
+        flag, mesh = "the production mesh", make_production_mesh()
+    else:
+        mesh = None
+    if mesh is None:
+        if args.auto_rules:
+            ap.error("--auto-rules picks the sharding rules of a mesh: pass "
+                     "--host-mesh or --mesh")
+        return None
+    n, model = mesh_devices(mesh), mesh.shape.get("model", 1)
+    waits = f"a model axis of {model}: {MODEL_AXIS_WAITS}"
+    if n != world:
+        ap.error(f"{flag} {mesh.shape} needs {n} processes, but the launcher "
+                 f"started {world} (torchrun --nproc-per-node ...)"
+                 + (f"; and it has {waits}" if model > 1 else ""))
+    if model > 1:
+        ap.error(f"{flag} {mesh.shape} has {waits}")
+    return mesh
+
+
 def main(argv=None):
     ap = parser()
     args = ap.parse_args(argv)
-    for flag in MESH_FLAGS:
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')} needs a device mesh; the "
-                     "PyTorch port trains on one device (--device) and has "
-                     "no mesh yet: ROADMAP.md queue 1, item 14 (multi-GPU)")
+    mesh = choose_mesh(args, ap, int(os.environ.get("WORLD_SIZE", "1")))
+    if mesh is None:
+        return _train(args, ap, None)
+    import torch.distributed as dist
 
+    from .mesh import ProcessMesh, init_process_group
+
+    init_process_group(args.device)
+    try:
+        return _train(args, ap, ProcessMesh(mesh.shape))
+    finally:
+        dist.destroy_process_group()
+
+
+def _train(args, ap, mesh):
+    """One run of the backend on ``mesh`` (a bound mesh, or None); only
+    rank 0 prints."""
     from ..api import ExperimentSpec, TrainerBackend, TrainJob
+    from ..distributed.sharding import DEFAULT_RULES, auto_rules
     from ..models import n_params
     from .. import checkpoint
+
+    lead = mesh is None or mesh.rank == 0
+    out = print if lead else (lambda *a, **k: None)
 
     job = TrainJob(
         arch=args.arch, reduced=args.reduced,
@@ -145,7 +233,7 @@ def main(argv=None):
         rounds_per_launch=args.rounds_per_launch, metrics=args.metrics,
         scenario=args.scenario)
 
-    print(f"arch={cfg.name} family={cfg.family} "
+    out(f"arch={cfg.name} family={cfg.family} "
           f"params={n_params(cfg)/1e6:.1f}M device={args.device} "
           f"groups={args.n_groups or 'auto'} "
           f"scheduler={args.scheduler} b={args.wait_b} "
@@ -153,17 +241,18 @@ def main(argv=None):
           f"update_impl={args.update_impl} runtime={args.runtime}"
           + (f" K={args.rounds_per_launch} metrics={args.metrics}"
              if args.runtime == "scan" else "")
-          + (f" scenario={args.scenario!r}" if args.scenario else ""))
+          + (f" scenario={args.scenario!r}" if args.scenario else "")
+          + (f" mesh={mesh.shape}" if mesh is not None else ""))
 
     if (args.runtime == "scan" and args.ckpt and args.ckpt_every
             and args.ckpt_every % args.rounds_per_launch):
-        print(f"warning: --ckpt-every={args.ckpt_every} is not a multiple "
+        out(f"warning: --ckpt-every={args.ckpt_every} is not a multiple "
               f"of --rounds-per-launch={args.rounds_per_launch}; scan "
               f"checkpoints hold the END-of-chunk state, so off-boundary "
               f"saves are mislabelled — align the two for exact resume")
     if (args.runtime == "scan" and args.metrics != "chunk"
             and args.ckpt and args.ckpt_every):
-        print(f"warning: --metrics={args.metrics} never materialises "
+        out(f"warning: --metrics={args.metrics} never materialises "
               f"mid-run state on host, so --ckpt-every barriers cannot "
               f"fire; use --snapshot-every for barrier-free periodic "
               f"checkpoints on this transport")
@@ -179,14 +268,14 @@ def main(argv=None):
 
     def on_step(i, state, m):
         if i % max(args.steps // 10, 1) == 0 or i == args.steps - 1:
-            print(f"step {i:5d} loss={m['loss']:.4f} "
+            out(f"step {i:5d} loss={m['loss']:.4f} "
                   f"|g|={m['grad_norm']:.3f} "
                   f"part={m['participation']:.2f}", flush=True)
         # the tap transport streams values only (state is None there)
         if state is not None and args.ckpt and args.ckpt_every \
                 and (i + 1) % args.ckpt_every == 0:
             checkpoint.save(args.ckpt, state, step=i + 1,
-                            meta={"arch": cfg.name})
+                            meta={"arch": cfg.name}, shardings=shardings)
 
     recorder = None
     if args.trace_out or args.metrics_out or args.obs_summary:
@@ -196,13 +285,18 @@ def main(argv=None):
     # only the scan runtime honours --metrics; eager keeps its per-round
     # callbacks (the executor rejects on_step solely for scan + "none")
     strip_on_step = args.metrics == "none" and args.runtime == "scan"
+    rules = None
+    if mesh is not None:
+        rules = auto_rules(cfg, mesh.shape.get("model", 1)) \
+            if args.auto_rules else DEFAULT_RULES
     backend = TrainerBackend(
         device=args.device, on_step=None if strip_on_step else on_step,
-        snapshot=snapshot, recorder=recorder)
+        snapshot=snapshot, recorder=recorder, mesh=mesh, rules=rules)
+    shardings = backend.state_shardings(spec)
     res = backend.run(spec)
     final = "n/a" if res.losses is None else f"{res.losses[-1]:.4f}"
     tripped = res.extra.get("tripped_round")
-    print(f"done in {res.seconds:.1f}s  final loss={final}  "
+    out(f"done in {res.seconds:.1f}s  final loss={final}  "
           f"tau_max={res.trace['tau_max']}  "
           f"launches={res.extra['launches']} "
           f"host_syncs={res.extra['host_syncs']} "
@@ -213,23 +307,23 @@ def main(argv=None):
              if tripped is not None else ""))
     if recorder is not None:
         if args.trace_out:
-            print("chrome trace:", recorder.export_chrome(args.trace_out))
+            out("chrome trace:", recorder.export_chrome(args.trace_out))
         if args.metrics_out:
-            print("metrics log:", recorder.export_metrics(args.metrics_out))
+            out("metrics log:", recorder.export_metrics(args.metrics_out))
         if args.obs_summary:
             from ..obs import render_summary
-            print(render_summary(res.extra["obs"], trace=res.trace))
+            out(render_summary(res.extra["obs"], trace=res.trace))
     if args.tau_report:
         from ..scenarios import render_report, tau_report
-        print(render_report(tau_report(
+        out(render_report(tau_report(
             res.schedule, args.scheduler,
             concurrency=spec.make_scheduler(
                 res.extra["n_groups"]).concurrency(),
             scenario_spec=args.scenario or "")))
     if args.ckpt:
         checkpoint.save(args.ckpt, res.x, step=args.steps,
-                        meta={"arch": cfg.name})
-        print("final checkpoint:", args.ckpt)
+                        meta={"arch": cfg.name}, shardings=shardings)
+        out("final checkpoint:", args.ckpt)
     return res
 
 

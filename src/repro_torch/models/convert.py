@@ -70,8 +70,19 @@ def state_to_numpy(state: dict) -> dict:
     return params_to_numpy(state)
 
 
-def state_from_numpy(tree: dict, device="cuda") -> dict:
+def state_from_numpy(tree: dict, device="cuda", shardings=None) -> dict:
     """numpy (for instance a JAX trainer state through ``np.asarray``) → an
-    ``AsyncTrainer`` state on ``device``; round trips are bitwise."""
+    ``AsyncTrainer`` state on ``device``; round trips are bitwise.  With
+    ``shardings`` (a ranked trainer's ``state_shardings()``) each leaf is
+    this rank's block: a JAX pooled state's ``(R, cols)`` m, v and gbuf
+    become rank r's row."""
     _check_state(tree)
+    if shardings is not None:
+        tree = _blocks(tree, shardings)
     return params_from_numpy(tree, device)
+
+
+def _blocks(tree: dict, shardings: dict) -> dict:
+    return {k: _blocks(v, shardings[k]) if isinstance(v, dict)
+            else np.array(shardings[k].local(np.asarray(v)))
+            for k, v in tree.items()}

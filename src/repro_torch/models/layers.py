@@ -179,10 +179,9 @@ def _top_k(x, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def moe_router(x, w_router, top_k: int):
-    """Returns (weights (T,k) f32, ids (T,k) int64, aux load-balance loss):
-    f32 router logits, softmax, the top k renormalised, and the Switch aux
-    loss E · Σ_e (share of tokens whose first expert is e) · (mean prob e)."""
+def _route(x, w_router, top_k: int):
+    """The router: (weights (T,k) f32, ids (T,k) int64, mean prob per
+    expert (E,), share of tokens whose first expert is e (E,))."""
     logits = x.to(F32) @ w_router.to(F32)
     probs = torch.softmax(logits, dim=-1)
     w, ids = _top_k(probs, top_k)
@@ -194,7 +193,43 @@ def moe_router(x, w_router, top_k: int):
     # CPU, a compare on ``meta``), which the dry-run's count must not see
     first = torch.zeros((ids.shape[0], E), dtype=F32, device=ids.device)
     fe = torch.mean(first.scatter_(1, ids[:, :1], 1.0), dim=0)
-    return w, ids, E * torch.sum(me * fe)
+    return w, ids, me, fe
+
+
+def moe_router(x, w_router, top_k: int):
+    """Returns (weights (T,k) f32, ids (T,k) int64, aux load-balance loss):
+    f32 router logits, softmax, the top k renormalised, and the Switch aux
+    loss E · Σ_e (share of tokens whose first expert is e) · (mean prob e)."""
+    w, ids, me, fe = _route(x, w_router, top_k)
+    return w, ids, w_router.shape[-1] * torch.sum(me * fe)
+
+
+def _dispatch(xt, weights, ids, w_gate, w_up, w_down, top_k, C):
+    """One dispatch group: each expert takes its top C tokens of ``xt``
+    (T, d) by routing weight, and the outputs combine in expert order."""
+    T, d = xt.shape
+    E = w_gate.shape[0]
+    w_full = torch.zeros((T, E), dtype=F32, device=xt.device)
+    w_full.scatter_(1, ids, weights)                           # (T, E)
+    gate_w, token_idx = _top_k(w_full.t(), C)                   # (E, C)
+    x_e = xt[token_idx]                                        # (E, C, d)
+    g = einsum("ecd,edf->ecf", x_e, w_gate)
+    u = einsum("ecd,edf->ecf", x_e, w_up)
+    h = F.silu(g.to(F32)).to(xt.dtype) * u
+    y_e = einsum("ecf,efd->ecd", h, w_down)
+    y_e = y_e * gate_w[..., None].to(y_e.dtype)
+    # pick[e, t]: the c at which expert e took token t, or C (a zero row)
+    pick = torch.full((E, T), C, dtype=torch.int64, device=xt.device)
+    pick.scatter_(1, token_idx, torch.arange(
+        C, device=xt.device).expand(E, C).contiguous())
+    experts = torch.sort(ids, dim=-1).values                   # (T, k)
+    rows = experts * (C + 1) + torch.gather(pick.t(), 1, experts)
+    y_pad = torch.cat([y_e, y_e.new_zeros((E, 1, d))], dim=1)
+    parts = y_pad.reshape(E * (C + 1), d)[rows]                # (T, k, d)
+    y = torch.zeros((T, d), dtype=y_e.dtype, device=xt.device)
+    for j in range(top_k):
+        y = y + parts[:, j]
+    return y
 
 
 def moe_ffn(x, w_router, w_gate, w_up, w_down, top_k: int,
@@ -204,7 +239,7 @@ def moe_ffn(x, w_router, w_gate, w_up, w_down, top_k: int,
     x: (B,S,d); expert weights (E,d,f) / (E,f,d).  Each expert takes the
     top C tokens by routing weight, C = min(ceil(T·k/E·cf), T); a routed
     token beyond an expert's capacity is dropped there (its residual passes
-    through).  One device: one dispatch group.  Returns (y (B,S,d), aux).
+    through).  Returns (y (B,S,d), aux).
 
     The combine is the JAX scatter-add without atomics: a token's ≤ k
     expert outputs are gathered through the inverse of the dispatch and
@@ -212,36 +247,47 @@ def moe_ffn(x, w_router, w_gate, w_up, w_down, top_k: int,
     so the result is deterministic (a captured graph replays it bit for
     bit).  Tokens an expert picks at routing weight 0 add exactly 0 in
     JAX; they add nothing here.  Every shape follows from x's, so no value
-    is read on the host."""
+    is read on the host.
+
+    Under a data-parallel context (``distributed.sharding.data_context``,
+    R ranks, each holding its rows of the batch) the dispatch is JAX's
+    group-local one: JAX views the T tokens as G = R groups of T/R, and
+    rank r's rows are group r, so each rank dispatches its own tokens with
+    C from T/R.  The aux loss is over all T tokens: the first-expert
+    shares are all-reduced (they carry no gradient), and the rank returns
+    its share E · Σ_e (mean prob_e over its tokens / R) · (global share
+    e), whose sum over the ranks is JAX's aux with JAX's gradient.  Where
+    JAX falls back to one group (T/R < E), the ranks gather the layer's
+    tokens (a differentiable all-gather whose backward reduce-scatters),
+    each dispatches all T as one group, keeps its rows, and returns aux /
+    R as its share."""
+    from ..distributed.sharding import data_context
+
     B, S, d = x.shape
     E = w_gate.shape[0]
     T = B * S
+    ctx = data_context()
+    if ctx is not None and ctx[1] > 1 and T < E:
+        from ..distributed.collectives import all_gather_rows
+
+        group, R, r = ctx
+        xt = all_gather_rows(x.reshape(T, d), group)            # (R·T, d)
+        weights, ids, aux = moe_router(xt, w_router, top_k)
+        C = min(int(math.ceil(R * T * top_k / E * capacity_factor)), R * T)
+        y = _dispatch(xt, weights, ids, w_gate, w_up, w_down, top_k, C)
+        return y[r * T:(r + 1) * T].reshape(B, S, d), aux / R
     xt = x.reshape(T, d)
-    weights, ids, aux = moe_router(xt, w_router, top_k)
+    weights, ids, me, fe = _route(xt, w_router, top_k)
+    if ctx is None:
+        aux = E * torch.sum(me * fe)
+    else:
+        from ..distributed.collectives import all_reduce
+
+        group, R, _ = ctx
+        aux = E * torch.sum((me / R) * (all_reduce(fe, group) / R))
     C = min(int(math.ceil(T * top_k / E * capacity_factor)), T)
-    w_full = torch.zeros((T, E), dtype=F32, device=x.device)
-    w_full.scatter_(1, ids, weights)                           # (T, E)
-    gate_w, token_idx = _top_k(w_full.t(), C)                   # (E, C)
-    x_e = xt[token_idx]                                        # (E, C, d)
-    g = einsum("ecd,edf->ecf", x_e, w_gate)
-    u = einsum("ecd,edf->ecf", x_e, w_up)
-    h = F.silu(g.to(F32)).to(x.dtype) * u
-    y_e = einsum("ecf,efd->ecd", h, w_down)
-    y_e = y_e * gate_w[..., None].to(y_e.dtype)
-    # pick[e, t]: the c at which expert e took token t, or C (a zero row)
-    pick = torch.full((E, T), C, dtype=torch.int64, device=x.device)
-    pick.scatter_(1, token_idx, torch.arange(
-        C, device=x.device).expand(E, C).contiguous())
-    experts = torch.sort(ids, dim=-1).values                   # (T, k)
-    rows = experts * (C + 1) + torch.gather(pick.t(), 1, experts)
-    y_pad = torch.cat([y_e, y_e.new_zeros((E, 1, d))], dim=1)
-    parts = y_pad.reshape(E * (C + 1), d)[rows]                # (T, k, d)
-    y = torch.zeros((T, d), dtype=y_e.dtype, device=x.device)
-    for j in range(top_k):
-        y = y + parts[:, j]
+    y = _dispatch(xt, weights, ids, w_gate, w_up, w_down, top_k, C)
     return y.reshape(B, S, d), aux
-
-
 # ---------------------------------------------------------------------------
 # Mamba2 (state-space duality, chunked)
 # ---------------------------------------------------------------------------
@@ -364,12 +410,15 @@ def conv1d_decode(conv_state, x_t, w, b=None):
 # losses
 # ---------------------------------------------------------------------------
 
-def softmax_xent(logits, labels, mask=None):
-    """Token-level cross entropy, f32 accumulation.  logits (..., V)."""
+def softmax_xent(logits, labels, mask=None, mask_total=None):
+    """Token-level cross entropy, f32 accumulation.  logits (..., V).
+    ``mask_total`` replaces Σ mask in the denominator (the global count of
+    a batch whose rows are split over ranks)."""
     logits = logits.to(F32)
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - ll
     if mask is not None:
-        return torch.sum(nll * mask) / (torch.sum(mask) + 1e-6)
+        total = torch.sum(mask) if mask_total is None else mask_total
+        return torch.sum(nll * mask) / (total + 1e-6)
     return torch.mean(nll)

@@ -16,8 +16,12 @@ projected by ``projector`` into the first positions).  Params are a nested
 dict of tensors with the JAX tree's paths and its stacked-over-layers
 layout (``blocks/attn/wq`` is ``(L, d, H, Dh)``); a Python loop over
 layers takes the place of ``jax.lax.scan`` (of the two nested scans, for
-the hybrid).  One device, no mesh: ``_shard_act`` has no counterpart, and
-the MoE dispatches in one group.
+the hybrid).  ``_shard_act``'s call sites go through
+``distributed.sharding.shard_activation``, the identity outside a mesh and
+on a data-only one.  Under a data-parallel context (the trainer's ranked
+step) each rank holds its rows of the batch: :func:`loss_fn` returns the
+rank's share of the loss, and the MoE dispatches in JAX's groups
+(``layers.moe_ffn``).
 
 The SSM decode cache holds per-layer conv and SSD states
 (``{"ssm": {"conv", "ssd"}}``, the JAX layout) and no positions buffer.
@@ -328,17 +332,31 @@ def _unembed(cfg, params, h):
     return L.einsum("bsd,dv->bsv", h, params["lm_head"])
 
 
+def _shard_act(x, axes=None):
+    """The JAX package's activation constraint, named as there
+    (``distributed.sharding.shard_activation``)."""
+    from ..distributed.sharding import shard_activation
+    if axes is None:
+        axes = ("batch", "seq", "act_embed") if x.dim() == 3 else \
+            ("batch",) + (None,) * (x.dim() - 1)
+    return shard_activation(x, axes)
+
+
 def _runner(cfg):
     """``run(fn, *args)``: ``fn(*args)``, inside
     ``torch.utils.checkpoint.checkpoint(use_reentrant=False)`` under
     autograd with ``cfg.remat == "full"``: only the block's inputs are
     kept, and the backward pass recomputes the rest, as JAX's ``_scan(...,
-    remat)`` does with ``jax.checkpoint``."""
+    remat)`` does with ``jax.checkpoint``.  The recomputation runs under
+    the forward's activation context (a CUDA backward runs on autograd's
+    own thread, where the context variable is unset), so a ranked block
+    repeats its collectives there."""
+    from ..distributed.sharding import bound_to_context
     remat = cfg.remat == "full" and torch.is_grad_enabled()
 
     def run(fn, *args):
-        return (checkpoint(fn, *args, use_reentrant=False) if remat
-                else fn(*args))
+        return (checkpoint(bound_to_context(fn), *args, use_reentrant=False)
+                if remat else fn(*args))
     return run
 
 
@@ -445,7 +463,7 @@ def _embed_input(cfg, params, batch):
                              "break there too)")
         dt = torch.promote_types(patches.dtype, h.dtype)   # jnp.concatenate
         h = torch.cat([patches.to(dt), h[:, P:].to(dt)], dim=1)
-    return h, memory
+    return _shard_act(h), memory
 
 
 def forward_logits(cfg: ArchConfig, params, batch, window=None):
@@ -462,7 +480,8 @@ def forward_logits(cfg: ArchConfig, params, batch, window=None):
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     h, aux = _decoder_stack(cfg, params, h, positions, window, memory)
     h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _unembed(cfg, params, h), aux
+    logits = _unembed(cfg, params, h)
+    return _shard_act(logits, ("batch", "seq", "vocab")), aux
 
 
 def loss_fn(cfg: ArchConfig, params, batch, example_weights=None,
@@ -472,15 +491,29 @@ def loss_fn(cfg: ArchConfig, params, batch, example_weights=None,
     worker-participation mask (see ``distributed.async_trainer``).
     Returns (loss, {"ce", "aux"}).
 
+    Under a data-parallel context (``distributed.sharding.data_context``)
+    ``batch`` holds this rank's rows, and every value returned is the
+    rank's share: the CE's numerator over its rows divided by the global
+    Σ mask (all-reduced over the data group, no gradient), and the MoE's
+    aux share (``layers.moe_ffn``).  The shares sum over the ranks to the
+    JAX loss on the whole batch, and so do their gradients.
+
     With ``cfg.remat == "full"`` the backward pass recomputes each
     layer's activations (see :func:`forward_logits`)."""
+    from ..distributed.sharding import data_context
+
     logits, aux = forward_logits(cfg, params, batch, window=window)
     labels = batch["tokens"][:, 1:]
     lg = logits[:, :-1]
     mask = torch.ones(labels.shape, dtype=torch.float32, device=lg.device)
     if example_weights is not None:
         mask = mask * example_weights[:, None]
-    ce = L.softmax_xent(lg, labels, mask)
+    total = None
+    ctx = data_context()
+    if ctx is not None:
+        from ..distributed.collectives import all_reduce
+        total = all_reduce(torch.sum(mask), ctx[0])
+    ce = L.softmax_xent(lg, labels, mask, mask_total=total)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
     return ce + aux_coeff * aux, {"ce": ce, "aux": aux}
 

@@ -13,12 +13,16 @@ Layout (the JAX package's, array-equal to it).  A pool is an
 ``(n_shards, cols)`` buffer: leaf ``l``, padded to ``n_shards · width_l``
 elements and chunked row-major, owns the column band
 ``[col_l, col_l + width_l)`` of every row, so row ``r`` holds shard ``r``
-of every leaf.  One card has no mesh and no ``shard_map``: the trainer
-builds its layout with ``n_shards=1``, where a leaf's band is one
-contiguous run of the pool and :func:`unpool_tree` returns views into it
-(the model computes on the pool's own storage, and a round copies no
-params).  ``n_shards`` stays so the layout equals JAX's for any shard
-count; with more than one shard :func:`unpool_tree` copies.
+of every leaf.  Without a mesh the trainer builds its layout with
+``n_shards=1``, where a leaf's band is one contiguous run of the pool and
+:func:`unpool_tree` returns views into it (the model computes on the
+pool's own storage, and a round copies no params).  On a data-parallel
+mesh of R ranks (the counterpart of JAX's ``shard_map`` over the data
+axes) the layout has R shards, rank r owns row r of every pool (ZeRO: it
+keeps only that row of m, v and gbuf), the update kernels run on the row,
+and the global norm is the ranks' per-pool norms gathered
+(:func:`pooled_global_norm` with ``mesh``); with more than one shard
+:func:`unpool_tree` copies.
 
 Padding invariant: :func:`pool_tree` zero-fills pad columns and every
 kernel keeps zeros there (moments start at 0, weight decay multiplies a 0
@@ -169,50 +173,66 @@ def unpool_tree(layout: PoolLayout, pools: dict):
     return _unflatten(layout.treedef, leaves)
 
 
-def pool_zeros(layout: PoolLayout, dtype=None, device="cuda") -> dict:
-    """Zero pools (moments / delayed buffer init) on ``device``."""
+def pool_zeros(layout: PoolLayout, dtype=None, device="cuda",
+               rows=None) -> dict:
+    """Zero pools (moments / delayed buffer init) on ``device``: ``rows``
+    rows (a rank's one, on a mesh), ``n_shards`` by default."""
+    n = layout.n_shards if rows is None else rows
     return {dk: torch.zeros(
-        (layout.n_shards, layout.cols[dk]),
+        (n, layout.cols[dk]),
         dtype=_torch_dtype(_dtype_key(dtype) if dtype is not None else dk),
         device=device) for dk in layout.groups}
 
 
-def init_pools(layout: PoolLayout, params, delayed: bool = True) -> dict:
+def init_pools(layout: PoolLayout, params, delayed: bool = True,
+               rows=None) -> dict:
     """Fresh pooled optimizer state from a params tree, on its device: per
     dtype group ``{"p", "m", "v"}`` (+ a zero ``"gbuf"`` when
-    ``delayed``), the JAX package's schema."""
+    ``delayed``, in the params' dtype: the grads it buffers have it), the
+    JAX package's schema.  ``rows`` gives m, v and gbuf that many rows (1:
+    a rank's ZeRO row); ``p`` is always whole."""
     device = tree_leaves(params)[0].device
     p_pools = pool_tree(layout, params)
-    m_pools = pool_zeros(layout, "float32", device)
-    v_pools = pool_zeros(layout, "float32", device)
-    b_pools = pool_zeros(layout, device=device) if delayed else None
+    m_pools = pool_zeros(layout, "float32", device, rows)
+    v_pools = pool_zeros(layout, "float32", device, rows)
     pools = {}
     for dk in layout.groups:
-        grp = {"p": p_pools[dk], "m": m_pools[dk], "v": v_pools[dk]}
-        if b_pools is not None:
-            grp["gbuf"] = b_pools[dk]
+        p = p_pools[dk]
+        grp = {"p": p, "m": m_pools[dk], "v": v_pools[dk]}
+        if delayed:
+            grp["gbuf"] = p.new_zeros(m_pools[dk].shape)
         pools[dk] = grp
     return pools
 
 
-def pooled_global_norm(pools: dict) -> torch.Tensor:
+def pooled_global_norm(pools: dict, mesh=None, axes=()) -> torch.Tensor:
     """Global L2 norm over pool buffers, accumulated in f32: one reduction
-    per pool (exact, because pad columns hold zeros)."""
-    return global_norm(pools)
+    per pool (exact, because pad columns hold zeros).  With a bound
+    ``mesh`` the pools are this rank's rows: every rank's per-pool norms
+    are all-gathered over ``axes`` and the norm taken over them all, the
+    same value on every rank (at one rank, bit for bit the mesh-free
+    norm)."""
+    if mesh is None:
+        return global_norm(pools)
+    from ..distributed.collectives import all_gather
+
+    norms = torch.stack([torch.linalg.vector_norm(p, dtype=F32)
+                         for p in tree_leaves(pools)])
+    return torch.linalg.vector_norm(all_gather(norms, mesh.group(axes)))
 
 
 # ---------------------------------------------------------------------------
 # the fused pooled apply
 # ---------------------------------------------------------------------------
 def _apply_groups(grad_pools, pools, count, cfg: OptConfig, lr_scale, *,
-                  delayed: bool, run):
+                  delayed: bool, run, mesh, axes):
     """Shared body of :func:`pooled_update` / :func:`pooled_delayed_apply`:
     one kernel launch per dtype pool, in place."""
     if cfg.name not in ("adam", "sgd"):
         raise ValueError(cfg.name)
     source = ({dk: pools[dk]["gbuf"] for dk in pools} if delayed
               else grad_pools)
-    gnorm = pooled_global_norm(source)
+    gnorm = pooled_global_norm(source, mesh, axes)
     clip = clip_scale_from_norm(gnorm, cfg.clip_norm)
     opt = {"count": count}
     count = _tick(opt, run)
@@ -247,20 +267,22 @@ def _apply_groups(grad_pools, pools, count, cfg: OptConfig, lr_scale, *,
 
 
 def pooled_update(grad_pools, pools, count, cfg: OptConfig, lr_scale=1.0, *,
-                  run=None):
+                  run=None, mesh=None, axes=()):
     """Synchronous pooled server update (``delay_rounds == 0``): pools ←
     step(pools; clip·grad_pools), one kernel per dtype pool, in place.
 
     ``pools`` is ``{dtype: {"p", "m", "v"}}`` and ``count`` the int32
     step count, ticked in place by ``run`` (the guard rails' device flag;
     ``None`` is the unguarded 1).  Returns ``(pools, count, gnorm)`` with
-    ``gnorm`` the pre-clip norm of the applied gradient."""
+    ``gnorm`` the pre-clip norm of the applied gradient.  With a bound
+    ``mesh`` and its data ``axes`` the pools are this rank's rows, as
+    under JAX's ``shard_map`` (:func:`pooled_global_norm`)."""
     return _apply_groups(grad_pools, pools, count, cfg, lr_scale,
-                         delayed=False, run=run)
+                         delayed=False, run=run, mesh=mesh, axes=axes)
 
 
 def pooled_delayed_apply(grad_pools, pools, count, cfg: OptConfig,
-                         lr_scale=1.0, *, run=None):
+                         lr_scale=1.0, *, run=None, mesh=None, axes=()):
     """The delayed server update (eq. 2) over pooled state, one kernel per
     dtype pool, in place:
 
@@ -270,6 +292,7 @@ def pooled_delayed_apply(grad_pools, pools, count, cfg: OptConfig,
     ``pools`` is ``{dtype: {"p", "m", "v", "gbuf"}}``.  At ``run`` 0 every
     kernel writes nothing and ``count`` stays.  Returns
     ``(pools, count, gnorm)``; ``gnorm`` is the pre-clip norm of the
-    applied (stale) gradient."""
+    applied (stale) gradient.  ``mesh`` and ``axes`` as in
+    :func:`pooled_update`."""
     return _apply_groups(grad_pools, pools, count, cfg, lr_scale,
-                         delayed=True, run=run)
+                         delayed=True, run=run, mesh=mesh, axes=axes)

@@ -58,6 +58,18 @@ keep-density (a host number) and its per-worker fault gains (a device
 row) to the step.  A density forces the explicit-scale step, as in the
 JAX executor.
 
+Over data ranks (a trainer with a bound mesh) every rank runs the same
+rounds on the same global batches (``make_batch_fn`` draws the whole
+batch on each, from the same seed on the same device type; the trainer's
+step keeps the rank's rows), and the metric rows are the all-reduced
+values, equal on every rank.  Scan, eager, tap and the grid lane run so
+(a grid point's slice of a ranked state holds the rank's rows); under
+``"tap"`` only rank 0 hands rows to ``on_step``, and with a breaker every
+rank drains its ring at each chunk boundary, so the ranks decide to stop
+at the same boundary.  A snapshotter gets the trainer's state shardings
+(:class:`~repro_torch.checkpoint.AsyncSnapshotter` gathers, rank 0
+writes).
+
 ``recorder`` (a :class:`repro_torch.obs.Recorder`) traces the run at host
 boundaries that exist anyway, and never adds a device sync: ``launch``
 spans around the enqueue of each chunk (or eager round), ``host_sync``
@@ -301,6 +313,9 @@ class PlanExecutor:
         self._grid = (None if plan.grid_scales is None else
                       torch.as_tensor(plan.grid_scales, device=self.device))
         self._tap_sink = None         # the running tap's host consumer
+        #: this process's rank among the trainer's data ranks (0 without)
+        self.rank = getattr(trainer, "rank", 0)
+        self.ranked = getattr(trainer, "mesh", None) is not None
 
     def _round(self, state, q: int, *, batch=None, scale=None):
         """Round q: its batch, its mask, its scale (adaptive or sparsified
@@ -340,10 +355,18 @@ class PlanExecutor:
 
     def _attach_obs(self, snapshot) -> None:
         """Give the snapshotter this run's recorder (its finalise spans come
-        a cadence after the offer, inside the snapshotter)."""
-        if self.recorder is not None and snapshot is not None and \
+        a cadence after the offer, inside the snapshotter) and, over ranks,
+        the state's shardings (its offers gather the state)."""
+        if snapshot is None:
+            return
+        if self.recorder is not None and \
                 getattr(snapshot, "recorder", None) is None:
             snapshot.recorder = self.recorder
+        if self.ranked and snapshot.shardings is None:
+            shardings = self.trainer.state_shardings()
+            if self.plan.grid_scales is not None:     # the stacked states
+                shardings = tree_map(lambda sh: sh.stacked(), shardings)
+            snapshot.shardings = shardings
 
     def _record(self, stats: ExecStats, rounds: int, all_ms: np.ndarray,
                 lo: int) -> None:
@@ -452,7 +475,7 @@ class PlanExecutor:
                 if breaker.tripped and rec is not None:
                     rec.instant("breaker_trip", lane="faults",
                                 round=breaker.tripped_round)
-            if on_step is not None:
+            if on_step is not None and self.rank == 0:
                 on_step(i, None, _row_dict(row))
 
         k = max(int(rounds_per_launch), 1)
@@ -461,6 +484,8 @@ class PlanExecutor:
         self._tap_sink = sink
         try:
             for lo, hi in _chunk_bounds(self.plan.rounds, k, start_round):
+                if breaker is not None and self.ranked:
+                    ring.drain()     # every rank sees the same rows here
                 ring.poll()
                 if breaker is not None and breaker.tripped:
                     break                # stop launching; the queue drains

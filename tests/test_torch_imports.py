@@ -75,6 +75,12 @@ def test_port_imports_with_jax_blocked():
             "import repro_torch.launch.hillclimb\n"
             "import repro_torch.distributed.sharding\n"
             "from repro_torch.distributed.sharding import PSpec, Rules\n"
+            "from repro_torch.distributed.sharding import (NamedSharding,\n"
+            "    activation_sharding, data_context, tree_shardings)\n"
+            "from repro_torch.distributed.collectives import all_gather_rows\n"
+            "from repro_torch.launch.mesh import ProcessMesh\n"
+            "from repro_torch.launch.train import choose_mesh\n"
+            "from repro_torch.models.convert import state_from_numpy\n"
             "from repro_torch.models.specs import meta_tree\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m] is not None)\n")
