@@ -256,13 +256,38 @@ Phases, each of which fails the run (non-zero exit, no result line):
     SIGSEGV on the card's torch 2.11 (PERF.md); R ≥ 2 is held on
     the CPU (``tests/test_torch_dp_*.py``).  Prints a
     ``{"data_parallel": ...}`` line;
-21. prints a ``{"kernels": [...]}`` line (each update kernel's
+21. tensor parallelism over the model axis, after phase 20's memory is
+    freed, on the one card (two ranks cannot share it, as in phase 20):
+    the ranks run as threads of this process (``models.tp.ThreadRanks``),
+    each driving the port's own entry points (``forward_logits``,
+    ``prefill``, ``decode_step``) on its blocks of every leaf
+    (``NamedSharding.local``) under its own ``TP``, whose operators
+    combine the ranks' tensors where the collectives would (a sum, a
+    max, a concatenation): (a) qwen2-0.5b at full width and depth (24
+    layers) at model 2 (head-parallel, flash on 7 heads a rank) and at
+    model 4 (its 14 heads do not divide: attention gathered, the ring
+    split on ctx and decoded by the distributed softmax), and (b)
+    deepseek-moe-16b at full width, 4 of its 28 layers, at model 2 (32
+    experts a rank): the logits of 4 × 1024 tokens in f32 within 1e-4
+    relative L2 of the unsharded model's on every rank (flash launched
+    model × layers times), in bf16 at 2 layers within 3e-2, and each
+    rank's first token and 8 greedy decode steps equal to the unsharded
+    ``Server``'s; (c) flash at the ranks' local shapes ((4, 1024, 7, 64)
+    on (4, 1024, 1, 64), GQA 7; (4, 1024, 8, 128) MHA) against its plain
+    version in f32 and bf16, timed with its bound and SDPA as a
+    yardstick; (d) ``fused_adam_delayed`` on rank 0's block of each of
+    qwen2-0.5b's 14 leaves (the per-leaf route at model 2) against its
+    plain version, its launches counted (one a block), timed against its
+    bytes bound; prints a ``{"tensor_parallel": ...}`` line;
+22. prints a ``{"kernels": [...]}`` line (each update kernel's
     ``launches`` from its pooled path; flash's and SSD's launches on
     phase 17's and 18's paths and ``fused_adam_delayed``'s on phase 18's
     under ``family_launches``; flash's times at phase 18's shapes under
     ``family_shapes``, ``fused_adam_delayed``'s over phase 18's pools
-    under ``family_pools`` and phase 20's launches and row times under
-    ``data_parallel``) and, last, the ``{"ok": true, ...}`` line.
+    under ``family_pools``, phase 20's launches and row times under
+    ``data_parallel`` and phase 21's launches, local-shape times and
+    block times under ``tensor_parallel``) and, last, the ``{"ok":
+    true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -313,6 +338,7 @@ from repro_torch.launch.profile_serve import (idle_share,  # noqa: E402
                                               model_batch, profiled)
 from repro_torch.core import replay                            # noqa: E402
 from repro_torch.models import init_params, param_specs, prefill  # noqa: E402
+from repro_torch.models.model import forward_logits            # noqa: E402
 from repro_torch.models.specs import (DEVICE_DRAW_MIN, Spec,  # noqa: E402
                                       materialize)
 from repro_torch.objectives import (LogRegProblem,            # noqa: E402
@@ -3817,6 +3843,288 @@ def phase_data_parallel(device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 21: tensor parallelism over the model axis, decomposed on one card
+# ---------------------------------------------------------------------------
+#: (arch, depth: None for the config's own, model axis) of the split ≡
+#: unsharded cells: qwen2-0.5b head-parallel at model 2; at model 4 its 14
+#: heads do not divide, so its attention leaves are gathered and its ring
+#: is split on ctx; deepseek-moe-16b expert-parallel at model 2
+TP_CELLS = (("qwen2-0.5b", None, 2), ("qwen2-0.5b", None, 4),
+            ("deepseek-moe-16b", 4, 2))
+TP_M = 2                       # the model axis of (c) and (d)
+TP_SHAPE = dict(batch=4, prompt_len=1024, steps=8, seed=0)
+TP_F32_TOL = 1e-4              # relative L2 of the logits, f32
+TP_BF16_LAYERS = 2
+#: flash at the rank's heads at model 2: (label, B, Sq, Sk, H, KV, D,
+#: causal, window)
+TP_FLASH_SHAPES = (
+    ("qwen2-0.5b at model 2", 4, 1024, 1024, 7, 1, 64, True, None),
+    ("deepseek-moe-16b at model 2", 4, 1024, 1024, 8, 8, 128, True, None))
+TP_REDUCED = False             # True rehearses the phase at reduced size
+
+
+def _tp_cfg(arch, layers, **kw):
+    cfg = get_arch(arch)
+    cfg = cfg.reduced() if TP_REDUCED else cfg
+    if layers is not None:
+        kw["n_layers"] = layers
+    return cfg.with_(use_flash_attention=True, remat="none", **kw)
+
+
+def _tp_blocks(cfg, params, M) -> list:
+    """Each rank's blocks of ``params`` (views) at a model axis of ``M``,
+    the split ``logical_pspec`` gives."""
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.launch.mesh import Mesh
+
+    sh = tree_shardings(param_specs(cfg), Mesh({"model": M}))
+    return [tree_map(lambda t, s, r=r: s.local(t, rank=r), params, sh)
+            for r in range(M)]
+
+
+def _rel_l2(a, b) -> float:
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def _tp_forward(cfg, blocks, tokens, M) -> list:
+    """Every rank's whole logits of the prompt: ``forward_logits`` on the
+    rank's blocks under its ``TP`` (the ranks as threads, their operators
+    combining the ranks' tensors)."""
+    from repro_torch.models.tp import ThreadRanks
+
+    return ThreadRanks(cfg, M).run(lambda tp: forward_logits(
+        cfg, blocks[tp.rank], {"tokens": tokens}, tp=tp)[0])
+
+
+def _tp_greedy(cfg, blocks, tokens, T, ctx, M) -> list:
+    """Every rank's greedy tokens: ``prefill`` then ``T`` ``decode_step``
+    calls on the rank's blocks of the params and of the cache."""
+    from repro_torch.models.model import decode_step
+    from repro_torch.models.tp import ThreadRanks
+
+    S = tokens.shape[1]
+
+    def rank(tp):
+        params = blocks[tp.rank]
+        last, cache = prefill(cfg, params, {"tokens": tokens}, ctx_len=ctx,
+                              tp=tp)
+        toks = [last.argmax(-1)]
+        for i in range(T):
+            lg, cache = decode_step(cfg, params, cache, toks[-1], S + i, ctx,
+                                    tp=tp)
+            toks.append(lg.argmax(-1))
+        return torch.stack(toks, 1).cpu().numpy()
+
+    return ThreadRanks(cfg, M).run(rank)
+
+
+def _tp_cell(device, arch, layers, M) -> dict:
+    """(a)/(b): the split ≡ the unsharded model for one arch at a model
+    axis of ``M``, through the port's own entry points and ``TP`` layers
+    on each rank's blocks: f32 logits of the whole prompt at the cell's
+    depth, bf16 at TP_BF16_LAYERS, and greedy tokens of prefill and
+    decode against the unsharded server's (f32)."""
+    from repro_torch.models.tp import TP, ThreadRanks, cache_split
+
+    B, S, T = TP_SHAPE["batch"], TP_SHAPE["prompt_len"], TP_SHAPE["steps"]
+    cfg = _tp_cfg(arch, layers)
+    base = init_params(cfg, TP_SHAPE["seed"], device)
+    gen = torch.Generator(device).manual_seed(TP_SHAPE["seed"] + 11)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device=device)
+    ctx = -(-(S + T + 1) // 8) * 8     # divides over 4 ranks: ctx splits
+    heads = TP(cfg, None, M, 0, None).heads_split()
+    out = {"arch": arch, "n_layers": cfg.n_layers, "model_axis": M,
+           "batch": B, "prompt_len": S,
+           "attention": "heads" if heads else "gathered",
+           "ring_split": {None: "none", 1: "ctx", 2: "kv_heads"}[
+               cache_split(cfg, M, B, ctx)["ring"]]}
+    with torch.no_grad():
+        # f32 at the cell's depth
+        cfg32 = cfg.with_(dtype="float32")
+        params = tree_map(lambda t: t.float(), base)
+        blocks = _tp_blocks(cfg32, params, M)
+        want = forward_logits(cfg32, params, {"tokens": tokens})[0]
+        FA.launches = 0
+        with _dtypes_seen(FA, "flash_attention_cuda") as seen:
+            got = _tp_forward(cfg32, blocks, tokens, M)
+        out["flash_launches_split"] = FA.launches
+        out["flash_routes_split"] = sorted(
+            {FA.route(getattr(torch, d[0])) for d in seen})
+        if FA.launches != M * cfg.n_layers:
+            raise AssertionError(f"tensor parallel: {arch} at model {M}: "
+                                 f"the split launched flash {FA.launches} "
+                                 f"times, want {M * cfg.n_layers}")
+        errs = [_rel_l2(g, want) for g in got]
+        out["f32_logits_rel_l2"] = max(errs)
+        if not (max(errs) <= TP_F32_TOL
+                and all(torch.isfinite(g).all() for g in got)):
+            raise AssertionError(f"tensor parallel: {arch} at model {M}: "
+                                 f"f32 logits of the ranks {errs} from the "
+                                 f"unsharded model's (tol {TP_F32_TOL})")
+        del got, want
+        # greedy tokens of prefill and decode, f32: each rank against the
+        # unsharded server
+        split_toks = _tp_greedy(cfg32, blocks, tokens, T, ctx, M)
+        last, cache = prefill(cfg32, params, {"tokens": tokens}, ctx_len=ctx)
+        first = last.argmax(-1)
+        served = Server(cfg32, ServeConfig(batch=B, ctx_len=ctx),
+                        device=device).generate(
+            params, first.cpu().numpy(), T, start_pos=S, cache=cache)
+        whole_toks = np.concatenate([first.cpu().numpy()[:, None], served], 1)
+        del cache, params, blocks
+        torch.cuda.empty_cache()
+        for r, toks in enumerate(split_toks):
+            if not np.array_equal(toks, whole_toks):
+                raise AssertionError(
+                    f"tensor parallel: {arch} at model {M}: rank {r}'s "
+                    f"greedy tokens {toks.tolist()} != the server's "
+                    f"{whole_toks.tolist()}")
+        out["greedy_tokens_equal"] = T + 1
+        # bf16 at TP_BF16_LAYERS
+        cfg16 = cfg.with_(n_layers=TP_BF16_LAYERS, dtype="bfloat16")
+        params = _cut_depth(base, cfg16)
+        blocks = _tp_blocks(cfg16, params, M)
+        want = forward_logits(cfg16, params, {"tokens": tokens})[0]
+        FA.launches = 0
+        with _dtypes_seen(FA, "flash_attention_cuda") as seen:
+            got = _tp_forward(cfg16, blocks, tokens, M)[0]
+        out["flash_launches_split_bf16"] = FA.launches
+        out["flash_routes_split_bf16"] = sorted(
+            {FA.route(getattr(torch, d[0])) for d in seen})
+        err = _rel_l2(got, want)
+        out["bf16_logits_rel_l2"] = err
+        if cfg.family == "moe":
+            # an ulp between the two sums moves the MoE's routing (as in
+            # phase 17), so its whole-model bf16 logits are reported and
+            # each block is gated on the same input instead
+            out["bf16_blocks_rel_l2"] = err = _tp_blocks_bf16(
+                cfg16, params, blocks, tokens, M)
+        if not (err <= TOL[torch.bfloat16] and torch.isfinite(got).all()):
+            raise AssertionError(f"tensor parallel: {arch} at model {M}: "
+                                 f"bf16 at {TP_BF16_LAYERS} layers "
+                                 f"{err:.3e} from the unsharded model (tol "
+                                 f"{TOL[torch.bfloat16]})")
+        del got, want, params, blocks, base
+    torch.cuda.empty_cache()
+    log(f"tensor parallel: {arch} L={cfg.n_layers} over {M} ranks "
+        f"(attention {out['attention']}, ring split on "
+        f"{out['ring_split']}) ≡ unsharded: f32 logits of {B} x {S} rel L2 "
+        f"{out['f32_logits_rel_l2']:.3e} (worst rank), bf16 at "
+        f"{TP_BF16_LAYERS} layers {out['bf16_logits_rel_l2']:.3e}"
+        + (f" (blocks on the same input {out['bf16_blocks_rel_l2']:.3e})"
+           if "bf16_blocks_rel_l2" in out else "")
+        + f"; {T + 1} greedy tokens of prefill and decode equal on every "
+        f"rank; flash launched {out['flash_launches_split']} times on the "
+        f"ranks' heads ({out['flash_routes_split']}, bf16 "
+        f"{out['flash_routes_split_bf16']})")
+    return out
+
+
+def _tp_blocks_bf16(cfg, params, blocks, tokens, M) -> float:
+    """The largest relative L2 gap, over the first layer's attention block
+    and MoE block each fed the unsharded model's input, between the
+    ranks' ``TP`` blocks and the unsharded block (bf16)."""
+    from repro_torch.models import model as MM
+    from repro_torch.models.tp import ThreadRanks
+
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    h = MM._embed(cfg, params, tokens)
+    P = MM._layer(params["blocks"], 0)
+    want = MM._apply_attn(cfg, P["attn"], h, positions=positions)
+    want_moe = MM._apply_moe(cfg, P["moe"], want)[0]
+
+    def rank(tp):
+        b = MM._layer(blocks[tp.rank]["blocks"], 0)
+        return (MM._apply_attn(cfg, b["attn"], h, positions=positions,
+                               tp=tp),
+                MM._apply_moe(cfg, b["moe"], want, tp)[0])
+
+    outs = ThreadRanks(cfg, M).run(rank)
+    return max(max(_rel_l2(a, want), _rel_l2(m, want_moe))
+               for a, m in outs)
+
+
+def _tp_update_blocks(device) -> dict:
+    """(d) fused_adam_delayed on rank 0's block of each qwen2-0.5b leaf
+    (the per-leaf route at model 2) against its plain version, its
+    launches counted over that comparison, then each block timed as
+    device time with its bytes bound."""
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.launch.mesh import Mesh
+
+    cfg = _tp_cfg("qwen2-0.5b", None)
+    sh = tree_shardings(param_specs(cfg), Mesh({"model": TP_M}))
+    specs = tree_leaves(param_specs(cfg))
+    numels = [int(np.prod(psh.shard_shape(s.shape)))
+              for s, psh in zip(specs, tree_leaves(sh))]
+    scal = _scalar_sets("fused_adam_delayed", device)[-1][1]
+    rtol, atol = UPDATE_TOL["adam"][torch.bfloat16]
+    worst = 0.0
+    AU.reset_launches()
+    for i, numel in enumerate(numels):
+        state = _update_inputs(numel, torch.bfloat16, device, seed=40 + i)
+        keep = tree_map(torch.clone, state)
+        got = _apply("fused_adam_delayed", "cuda", state, scal)
+        want = _apply("fused_adam_delayed", "plain", keep, scal)
+        for key in ("p", "m", "v"):
+            err = (got[key].float() - want[key].float()).abs()
+            if int((err > atol + rtol * want[key].float().abs()).sum()):
+                raise AssertionError(f"tensor parallel (d): the kernel on a "
+                                     f"block of leaf {i}, {key}, off its "
+                                     "plain version")
+            worst = max(worst, err.max().item())
+        del state, keep, got, want
+    launched = AU.launches["fused_adam_delayed"]
+    if launched != len(specs):
+        raise AssertionError(f"tensor parallel (d): {launched} launches over "
+                             f"{len(specs)} blocks, want one a block")
+    ms, bound = 0.0, 0.0
+    for i, numel in enumerate(numels):
+        state = _update_inputs(numel, torch.bfloat16, device, seed=40 + i)
+        ms += device_ms(lambda: _apply("fused_adam_delayed", "cuda", state,
+                                       scal), iters=10)
+        bound += op_cost.bound_ms(
+            numel * op_cost.UPDATE_OPS["fused_adam_delayed"],
+            numel * op_cost.update_bytes_per_elem("fused_adam_delayed", 2, 2),
+            PEAK_FLOPS_F32)[0]
+        del state
+    torch.cuda.empty_cache()
+    n = sum(numels)
+    out = {"leaves": len(specs), "launches": launched, "block_elements": n,
+           "max_abs_err": worst, "ms": ms, "bound_ms": bound,
+           "bound_by": "bytes"}
+    log(f"tensor parallel (d): fused_adam_delayed on rank 0's block of each "
+        f"of {len(specs)} qwen2-0.5b leaves ({n:,} elements): {launched} "
+        f"launches, max abs err {worst:.3e}; {ms:.4f} ms device time over "
+        f"the blocks against a bytes bound of {bound:.4f} ms")
+    return out
+
+
+def phase_tensor_parallel(device, card: str) -> dict:
+    """Phase 21: the model axis on one card.  Two ranks cannot share the
+    card (NCCL refuses; gloo's all-gather of CUDA tensors faults), so the
+    ranks run as threads of this process (``models.tp.ThreadRanks``):
+    each drives the port's entry points (``forward_logits``, ``prefill``,
+    ``decode_step``) on its blocks (``NamedSharding.local``) under its own
+    ``TP``, whose operators combine the ranks' tensors where the
+    collectives would.  Against the unsharded model: (a) qwen2-0.5b at
+    full width and depth, at model 2 (head-parallel) and 4 (attention
+    gathered, ring split on ctx), (b) deepseek-moe-16b at full width, 4
+    of its 28 layers, at model 2; (c) flash at the ranks' local head
+    shapes; (d) the update kernel on a rank's blocks."""
+    t0 = time.perf_counter()
+    cells = [_tp_cell(device, *cell) for cell in TP_CELLS]
+    flash = _flash_rows(device, TP_FLASH_SHAPES, "tensor parallel (c)")
+    update = _tp_update_blocks(device)
+    out = {"card": card, "cells": cells, "flash_local": flash,
+           "fused_adam_delayed_blocks": update,
+           "seconds": time.perf_counter() - t0}
+    log(f"tensor parallel: every gate passed in {out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     kind, card = phase_device()
@@ -3848,6 +4156,19 @@ def main() -> None:
     launch = phase_launch_tier(device, card)
     torch.cuda.empty_cache()
     data_parallel = phase_data_parallel(device, card)
+    torch.cuda.empty_cache()
+    tensor_parallel = phase_tensor_parallel(device, card)
+    flash["tensor_parallel"] = {
+        "launches_split": {f"{c['arch']}@model{c['model_axis']}":
+                           c["flash_launches_split"]
+                           for c in tensor_parallel["cells"]},
+        "local_shapes": [{k: r[k] for k in ("arch", "shape", "ms",
+                                             "plain_ms", "bound_ms",
+                                             "sdpa_ms")}
+                         for r in tensor_parallel["flash_local"]]}
+    updates["fused_adam_delayed"]["tensor_parallel"] = {
+        k: tensor_parallel["fused_adam_delayed_blocks"][k]
+        for k in ("leaves", "launches", "block_elements", "ms", "bound_ms")}
     updates["fused_adam_delayed"]["data_parallel"] = {
         "launches_one_rank": data_parallel["one_rank"][
             "fused_adam_delayed_launches"],
@@ -3867,10 +4188,12 @@ def main() -> None:
     print(json.dumps({"new_families": new}))
     print(json.dumps({"launch_tier": launch}))
     print(json.dumps({"data_parallel": data_parallel}))
+    print(json.dumps({"tensor_parallel": tensor_parallel}))
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys},
          **{k: e[k] for k in ("family_launches", "family_shapes",
-                               "family_pools", "data_parallel") if k in e}}
+                               "family_pools", "data_parallel",
+                               "tensor_parallel") if k in e}}
         for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

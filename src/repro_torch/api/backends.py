@@ -216,9 +216,10 @@ class TrainerBackend:
     (``GuardConfig()``).  ``recorder`` traces the run (see
     :mod:`repro_torch.runtime.executor`).
 
-    ``mesh`` (a bound ``launch.mesh.ProcessMesh``, model axis 1) and
-    ``rules`` (default ``DEFAULT_RULES``) run the trainer over the mesh's
-    data ranks, as the JAX backend's ``mesh`` / ``rules`` do: every rank
+    ``mesh`` (a bound ``launch.mesh.ProcessMesh``) and ``rules`` (default
+    ``DEFAULT_RULES``) run the trainer over the mesh's data ranks, and
+    tensor-parallel over its model axis for the dense and MoE families,
+    as the JAX backend's ``mesh`` / ``rules`` do: every rank
     calls ``run`` with the same spec, and the worker groups default to
     the data-axis product when the spec names none.  The grid lane runs
     over the ranks too, and a snapshotter gathers the state at each
@@ -502,13 +503,26 @@ class ServeBackend:
     ``scenario`` is read by the slot lane only, as in the JAX package.  The
     slot lane: see :meth:`_run_slots`.  The audio and vlm families raise
     ``NotImplementedError`` on both lanes before any parameter is made: a
-    ``ServeJob`` has no modality inputs to give their prefill."""
+    ``ServeJob`` has no modality inputs to give their prefill.
+
+    ``mesh`` (a bound ``launch.mesh.ProcessMesh``) and ``rules`` serve the
+    lock-step lane over the mesh, as the JAX ``Server`` does: every rank
+    calls ``run`` with the same spec, the prompts' rows split over the data
+    axes, the dense and MoE families run tensor-parallel over the model
+    axis (``distributed.Server``), and every rank returns the whole token
+    matrix; ``extra`` adds ``mesh`` (its axis sizes) and ``collectives``
+    (each kind's ``[launches, bytes]`` over the run).  A family that does
+    not run tensor-parallel, and the slot lane over a mesh, raise
+    ``NotImplementedError`` naming ROADMAP.md item 14b before any
+    parameter is made."""
 
     name = "serve"
 
-    def __init__(self, device="cuda", recorder=None):
+    def __init__(self, device="cuda", recorder=None, mesh=None, rules=None):
         self.device = device
         self.recorder = recorder
+        self.mesh = mesh
+        self.rules = rules
 
     def run(self, spec: ExperimentSpec) -> RunResult:
         from ..distributed import Server, ServeConfig
@@ -529,6 +543,14 @@ class ServeBackend:
                 "prompt, which a ServeJob does not carry.  Serve it at the "
                 "model level: repro_torch.models.prefill with the modality "
                 "input, then Server.generate from that cache")
+        if self.mesh is not None:
+            from ..distributed.sharding import check_model_axis
+
+            check_model_axis(job.make_arch(), self.mesh, self.rules)
+            if job.n_slots:
+                raise NotImplementedError(
+                    "the slot lane over a mesh waits for ROADMAP.md queue "
+                    "1, item 14b; serve the lock-step lane (n_slots=None)")
         if job.n_slots:
             return self._run_slots(spec)
         rec = self.recorder
@@ -537,22 +559,33 @@ class ServeBackend:
         device = resolve_device(self.device)
         t0 = time.time()
         launches0 = flash_kernel.launches, ssd_kernel.launches
+        coll = collectives.snapshot()
         cfg = job.make_arch()
-        params = init_params(cfg, spec.seed, device)
         ctx = job.prompt_len + spec.T
         server = Server(cfg, ServeConfig(batch=job.batch, ctx_len=ctx,
                                          temperature=job.temperature,
-                                         seed=spec.seed), device=device)
+                                         seed=spec.seed), device=device,
+                        mesh=self.mesh, rules=self.rules)
+        params = init_params(cfg, spec.seed, device,
+                             shardings=server.param_shardings())
         prompts = np.random.default_rng(spec.seed).integers(
             0, cfg.vocab, (job.batch, job.prompt_len)).astype(np.int32)
         tokens = torch.as_tensor(prompts, dtype=torch.int64, device=device)
+        run_prefill = prefill
+        if self.mesh is not None:
+            from ..distributed.sharding import sharded_trace
+
+            tokens = server.batch_sharding().local(tokens)
+            run_prefill = sharded_trace(prefill, self.mesh, self.rules)
 
         synchronize(device)
         t_pre = time.time()
         with span("prefill", batch=job.batch, plen=job.prompt_len):
-            last, cache = prefill(cfg, params, {"tokens": tokens},
-                                  ctx_len=ctx)
+            last, cache = run_prefill(cfg, params, {"tokens": tokens},
+                                      ctx_len=ctx)
             toks = torch.argmax(last, dim=-1)
+            if self.mesh is not None:
+                toks = server.batch_sharding().gather(toks)
             finite = bool(torch.isfinite(last).all())  # syncs the prefill
         t_dec = time.time()
         with span("decode", steps=spec.T - 1):
@@ -573,7 +606,10 @@ class ServeBackend:
                    "logits_finite": finite,
                    "flash_launches": flash_kernel.launches - launches0[0],
                    "ssd_launches": ssd_kernel.launches - launches0[1],
-                   "obs": _obs(rec, rounds=spec.T)})
+                   "obs": _obs(rec, rounds=spec.T),
+                   **({} if self.mesh is None else {
+                       "mesh": dict(self.mesh.shape),
+                       "collectives": collectives.since(coll)})})
 
     def _run_slots(self, spec: ExperimentSpec) -> RunResult:
         """Continuous batching: ``n_requests`` requests through ``n_slots``

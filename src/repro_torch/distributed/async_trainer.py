@@ -72,10 +72,25 @@ its row of them.  The guards' raw norm and finite flag are global (the
 norm from the ranks' per-pool norms), so every rank takes the same skip
 decision with no host read.  Every collective is functional and counted
 (:mod:`repro_torch.distributed.collectives`).
+
+**Over the model axis** (a mesh whose ``model`` axis holds M > 1 ranks;
+the dense and MoE families) the forward and backward are
+tensor-parallel (:mod:`repro_torch.models.tp`): the model ranks of a data
+group hold the same batch rows and compute on their blocks of the params.
+On the per-leaf routes every leaf of the state (params, m, v, gbuf) is the
+rank's block under the rules (``state_shardings``), the data ranks keep
+it replicated, the update kernels run on the blocks, and the global clip
+norm sums the split leaves' squares over the model group and counts the
+whole ones once; the sparsifier takes each leaf's quantile over the whole
+leaf (gathered).  On the pooled route the pools stay replicated over the
+model axis, as JAX's ``pooled_pspec`` says: the forward reads the rank's
+blocks as views of the whole params, and the fresh grads of the split
+leaves are all-gathered over the model group before they are pooled.
 """
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import numpy as np
@@ -93,8 +108,9 @@ from ..optim.pool import (build_layout, init_pools, pool_tree,
                           pooled_update, unpool_tree)
 from ..tree import tree_map
 from . import collectives as C
-from .sharding import (DEFAULT_RULES, MODEL_AXIS_WAITS, NamedSharding,
-                       PSpec, Rules, pool_axes, pooled_pspec, sharded_trace)
+from .sharding import (DEFAULT_RULES, NamedSharding, PSpec, Rules,
+                       check_model_axis, pool_axes, pooled_pspec,
+                       sharded_trace, tree_shardings)
 
 F32 = torch.float32
 
@@ -161,8 +177,8 @@ class AsyncConfig:
 
 class AsyncTrainer:
     """(arch config × optimizer × delay) → a train step on ``device``;
-    with ``mesh`` (a bound ``launch.mesh.ProcessMesh``, model axis 1) the
-    step of this rank of its data axes."""
+    with ``mesh`` (a bound ``launch.mesh.ProcessMesh``) the step of this
+    rank of its data and model axes."""
 
     def __init__(self, cfg: ArchConfig, opt: OptConfig = OptConfig(),
                  async_cfg: AsyncConfig = AsyncConfig(), device="cuda", *,
@@ -179,16 +195,27 @@ class AsyncTrainer:
         self.device = resolve_device(device)
         self.mesh = mesh
         self.rules = rules
-        self.ranks, self.rank = 1, 0
+        self.ranks, self.rank, self.model = 1, 0, 1
         if mesh is not None:
             if not getattr(mesh, "bound", False):
                 raise TypeError("AsyncTrainer's mesh must be bound to the "
                                 "process group (launch.mesh.bind)")
-            if mesh.shape.get(rules.model_axis, 1) > 1:
-                raise NotImplementedError(MODEL_AXIS_WAITS)
+            check_model_axis(cfg, mesh, rules)
             self.data_axes = pool_axes(mesh, rules)
             self.ranks = mesh.count(self.data_axes)
             self.rank = mesh.my_index(self.data_axes)
+            self.model = mesh.count((rules.model_axis,))
+        if self.model > 1:
+            #: each param leaf's layout over the model axis
+            self.param_shardings = tree_shardings(M.param_specs(cfg), mesh,
+                                                  rules)
+            self._norm = functools.partial(
+                global_norm, group=mesh.group((rules.model_axis,)),
+                split=tree_map(lambda sh: any(e is not None
+                                              for e in sh.spec),
+                               self.param_shardings))
+        else:
+            self._norm = global_norm
         #: the worker groups: the data-axis product (1 without a mesh),
         #: until the backend sets the spec's worker count
         self.n_groups = self.ranks
@@ -257,8 +284,15 @@ class AsyncTrainer:
     def init_state(self, seed: int = 0, params=None):
         """A fresh state; ``params`` (a tree on the trainer's device)
         replaces the port's own init from ``seed``."""
+        blocks = self.model > 1 and not self.pooled
         if params is None:
-            params = M.init_params(self.cfg, seed, self.device)
+            params = M.init_params(
+                self.cfg, seed, self.device,
+                shardings=self.param_shardings if blocks else None)
+        elif blocks:
+            # the rank's block of each whole leaf
+            params = tree_map(lambda t, sh: sh.local(t).clone(), params,
+                              self.param_shardings)
         zero = lambda: torch.zeros((), dtype=torch.int32, device=self.device)
         delayed = self.async_cfg.delay_rounds > 0
         if self.pooled:
@@ -292,14 +326,21 @@ class AsyncTrainer:
         """One :class:`~repro_torch.distributed.sharding.NamedSharding` per
         state leaf (the JAX trainer's ``state_shardings``): on the pooled
         route m, v and gbuf are split by rows over the data axes
-        (``pooled_pspec``) and ``p`` is whole on every rank; everything
-        else is replicated (per-leaf ZeRO is not ported: ROADMAP.md queue
-        1, item 14b)."""
+        (``pooled_pspec``) and ``p`` is whole on every rank; on the
+        per-leaf routes params, m, v and gbuf are split over the model
+        axis by the rules; everything else is replicated (per-leaf ZeRO
+        over the data axes is not ported: ROADMAP.md queue 1, item
+        14b)."""
         if not self.ranked:
             raise ValueError("state_shardings needs a mesh")
         out = tree_map(lambda spec: NamedSharding(
             self.mesh, PSpec(*([None] * len(spec.shape)))),
             self.state_specs())
+        if self.model > 1 and not self.pooled:
+            out["params"] = out["opt"]["m"] = out["opt"]["v"] = \
+                self.param_shardings
+            if "gbuf" in out:
+                out["gbuf"] = self.param_shardings
         rows = NamedSharding(self.mesh, pooled_pspec(self.mesh, self.rules))
         for b in out.get("pools", {}).values():
             for k in ("m", "v", "gbuf"):
@@ -378,9 +419,16 @@ class AsyncTrainer:
         mesh_kw = {"mesh": self.mesh, "axes": self.data_axes} if ranked \
             else {}
 
+        model = self.model > 1
+        psh = self.param_shardings if model else None
+
         def step(state, batch, mask, delay_scale=None, grad_density=None,
                  fault_gain=None):
             params = self.params_of(state)
+            # what the forward reads: the rank's blocks (views of the
+            # whole params on the pooled route)
+            fwd = tree_map(lambda t, sh: sh.local(t), params, psh) \
+                if model and self.pooled else params
             bsz = batch["tokens"].shape[0]
             mask = mask.to(F32)
             w = self._example_weights(mask, bsz)
@@ -408,19 +456,22 @@ class AsyncTrainer:
                 # gradient accumulation over k microbatches, grads in f32
                 mb = w.shape[0] // k
                 g32 = tree_map(lambda p: torch.zeros(p.shape, dtype=F32,
-                                                     device=p.device), params)
+                                                     device=p.device), fwd)
                 loss = aux = 0.0
                 for i in range(k):
                     sl = slice(i * mb, (i + 1) * mb)
                     l, parts_i, g = self._value_and_grad(
-                        params, {n: x[sl] for n, x in batch.items()}, w[sl])
+                        fwd, {n: x[sl] for n, x in batch.items()}, w[sl])
                     g32 = tree_map(lambda a, x: a + x.to(F32) / k, g32, g)
                     loss = loss + l / k
                     aux = aux + parts_i["aux"] / k
-                grads = tree_map(lambda g, p: g.to(p.dtype), g32, params)
+                grads = tree_map(lambda g, p: g.to(p.dtype), g32, fwd)
                 parts = {"ce": loss, "aux": aux}
             else:
-                loss, parts, grads = self._value_and_grad(params, batch, w)
+                loss, parts, grads = self._value_and_grad(fwd, batch, w)
+            if model and self.pooled:
+                # the pool is whole over the model axis: so are its grads
+                grads = tree_map(lambda g, sh: sh.gather(g), grads, psh)
             if ranked:
                 # the shares summed: the loss of the whole batch, equal on
                 # every rank
@@ -439,7 +490,13 @@ class AsyncTrainer:
             reduced = ranked and (not self.pooled or grad_density is not None)
             if reduced:
                 grads = tree_map(lambda g: C.all_reduce(g, group), grads)
-            if grad_density is not None:
+            if grad_density is not None and model and not self.pooled:
+                # the quantile over the whole leaf, then the rank's block
+                grads = tree_map(
+                    lambda g, sh: sh.local(sparsify(sh.gather(g),
+                                                    grad_density)).contiguous(),
+                    grads, psh)
+            elif grad_density is not None:
                 grads = tree_map(lambda g: sparsify(g, grad_density), grads)
             if self.pooled:
                 # the fresh grads pooled once, after the fault gain and the
@@ -453,7 +510,7 @@ class AsyncTrainer:
                 # buffered: the delayed apply's own norm is the stale one's
                 gd = acfg.guards
                 raw_norm = pooled_global_norm(gpools, **mesh_kw) \
-                    if self.pooled and ranked else global_norm(grads)
+                    if self.pooled and ranked else self._norm(grads)
                 finite = torch.isfinite(loss) & torch.isfinite(raw_norm)
                 bad = ~finite
                 if gd.spike_norm is not None:
@@ -485,6 +542,8 @@ class AsyncTrainer:
                 # participation-weighted mean health scales this round's γ
                 gate = gate * gscale
             kw = {"run": run} if acfg.guards is not None and fused else {}
+            if not self.pooled:
+                kw["norm_fn"] = self._norm
 
             if self.pooled:
                 apply = pooled_delayed_apply if acfg.delay_rounds > 0 \

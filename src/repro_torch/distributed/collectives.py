@@ -1,4 +1,5 @@
-"""The data-parallel trainer's collectives: functional, counted.
+"""The port's collectives, functional and counted: the data-parallel
+trainer's, and the tensor-parallel operators over the mesh's model axis.
 
 Every collective of the port goes through this module and through
 ``torch.distributed._functional_collectives``, whose ops dispatch as
@@ -65,10 +66,11 @@ def _call(name: str, *args) -> torch.Tensor:
     return _funcol().wait_tensor(out)
 
 
-def all_reduce(t: torch.Tensor, group) -> torch.Tensor:
-    """Σ over ``group`` of ``t`` (a new tensor; ``t`` is not changed)."""
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """Σ (or the ``op``, ``"max"``) over ``group`` of ``t`` (a new tensor;
+    ``t`` is not changed)."""
     _note("all_reduce", t)
-    return _call("all_reduce", t.contiguous(), "sum", group)
+    return _call("all_reduce", t.contiguous(), op, group)
 
 
 def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
@@ -103,3 +105,89 @@ def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
     """:func:`all_gather` along dim 0, differentiable: the gradient of a
     loss summed over the ranks reaches each rank's own rows."""
     return _GatherRows.apply(t, group)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism over the model axis (Megatron's f and g operators)
+#
+# Every model rank holds the same replicated activations and the loss is
+# the same on each, so a leaf's gradient is what the rank's own backward
+# gives, once these operators sit where replicated compute meets
+# rank-partial compute (each rank's heads, ff columns, experts or vocab
+# rows):
+#
+# * copy-to-model on every tensor entering a rank-partial region (the
+#   normed input of a column-parallel projection, the routing weights
+#   entering the rank's experts, a replicated leaf read there such as a
+#   QK-norm weight): identity forward, all-reduce backward, since each
+#   rank's region gives only its part of that tensor's gradient;
+# * reduce-from-model on a rank-partial output (a row-parallel projection,
+#   the experts' combine, the vocab-parallel lookups and sums):
+#   all-reduce forward, identity backward;
+# * gather-from-model on a leaf that the rules split on a dim no layer
+#   computes on in parallel (a norm weight on ``embed``, the router on
+#   ``experts``, qwen2's attention at a model axis that its 14 heads do
+#   not divide): all-gather forward.  Its backward depends on the
+#   consumer.  Compute that every rank repeats identically gives each
+#   rank the whole gradient, so the backward keeps the rank's block
+#   (``partial=False``); a reduce-scatter there would multiply the
+#   gradient by the model axis.  Rank-partial compute (a gathered key
+#   projection whose heads each rank reads only in part) gives each rank
+#   a part, so the backward reduce-scatters (``partial=True``).
+# ---------------------------------------------------------------------------
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce(g, ctx.group), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group):
+        return all_reduce(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim, partial, rank):
+        ctx.group, ctx.dim, ctx.partial = group, dim, partial
+        ctx.rank, ctx.n = rank, t.shape[dim]
+        return all_gather(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        if ctx.partial:
+            return reduce_scatter(g, ctx.group, ctx.dim), None, None, None, \
+                None
+        return g.narrow(ctx.dim, ctx.rank * ctx.n, ctx.n), None, None, \
+            None, None
+
+
+def copy_to_model(t: torch.Tensor, group) -> torch.Tensor:
+    """Identity forward; the backward all-reduces the gradient over
+    ``group`` (a tensor entering a rank-partial region)."""
+    return _CopyToModel.apply(t, group)
+
+
+def reduce_from_model(t: torch.Tensor, group) -> torch.Tensor:
+    """Σ over ``group`` forward; identity backward (a rank-partial
+    output)."""
+    return _ReduceFromModel.apply(t, group)
+
+
+def gather_from_model(t: torch.Tensor, group, dim: int, rank: int,
+                      partial: bool = False) -> torch.Tensor:
+    """The ranks' blocks of a leaf concatenated along ``dim``; the backward
+    keeps block ``rank`` of the gradient, or reduce-scatters it when the
+    consumer is rank-partial (``partial``)."""
+    return _GatherFromModel.apply(t, group, dim, partial, rank)

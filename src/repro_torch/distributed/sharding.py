@@ -27,13 +27,20 @@ per device, where the data axes are data parallelism:
   the trainer;
 * :class:`activation_sharding` / :func:`sharded_trace` put a mesh in
   context for the model code: :func:`data_shard_count` is then the product
-  of its data axes (the MoE's dispatch groups) and :func:`data_context`
+  of its data axes (the MoE's dispatch groups), :func:`data_context`
   hands the model the data group for the loss's and the MoE's
-  collectives.  :func:`shard_activation` is the identity on a data-only
-  mesh, where each rank already holds its batch rows.
+  collectives, and :func:`model_context` the model group, over which the
+  dense and MoE families run tensor-parallel (``models/tp.py``: each rank
+  holds the block of every leaf that :func:`logical_pspec` gives it, and
+  the layers compute Megatron-style where the rules' split is a Megatron
+  split).  :func:`shard_activation` is the identity on every mesh: an
+  activation's layout is whatever the tensor-parallel layers produce.
+  ``SEQ_PARALLEL_RULES``' ``"seq"`` is a layout lever of the JAX package
+  that the port's layers do not act on (no activation carries it).
 
-What waits for the model axis (ROADMAP.md queue 1, item 14b): a mesh
-with ``model > 1`` runs nothing; :func:`shard_activation` raises on one.
+What waits for ROADMAP.md queue 1, item 14b: the ssm, hybrid, audio and
+vlm families on a model axis larger than 1 (:func:`check_model_axis`
+refuses them).
 """
 from __future__ import annotations
 
@@ -99,10 +106,26 @@ def auto_rules(cfg, model_axis_size: int = 16) -> Rules:
 _ACT_CTX: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_activation_sharding", default=None)
 
-#: why a model axis larger than 1 is refused
-MODEL_AXIS_WAITS = ("tensor parallelism over the mesh's model axis is not "
-                    "ported yet (ROADMAP.md queue 1, item 14b); use a "
-                    "data-only mesh (model = 1)")
+#: the families that run tensor-parallel over a model axis larger than 1
+TP_FAMILIES = ("dense", "moe")
+
+
+def model_axis_waits(family: str, model: int) -> str:
+    """Why a family is refused on a model axis of ``model``."""
+    return (f"the {family!r} family on a model axis of {model}: tensor "
+            "parallelism over the mesh's model axis runs the dense and moe "
+            "families only; the others wait for ROADMAP.md queue 1, item "
+            "14b (use a data-only mesh, model = 1)")
+
+
+def check_model_axis(cfg, mesh, rules=None) -> None:
+    """Raise ``NotImplementedError`` naming ROADMAP.md item 14b when
+    ``mesh``'s model axis is larger than 1 and ``cfg``'s family does not
+    run tensor-parallel."""
+    rules = rules or DEFAULT_RULES
+    model = _mesh_size(mesh, rules.model_axis) if mesh is not None else 1
+    if model > 1 and cfg.family not in TP_FAMILIES:
+        raise NotImplementedError(model_axis_waits(cfg.family, model))
 
 
 class activation_sharding:
@@ -148,15 +171,9 @@ def sharded_trace(fn, mesh, rules=None):
 
 
 def shard_activation(x, axes):
-    """The activation constraint of the JAX package: the identity outside a
-    context and on a data-only mesh (each rank holds its batch rows, and
-    nothing else is sharded); a model axis larger than 1 raises."""
-    ctx = _ACT_CTX.get()
-    if ctx is None:
-        return x
-    mesh, rules = ctx
-    if _mesh_size(mesh, rules.model_axis) > 1:
-        raise NotImplementedError(MODEL_AXIS_WAITS)
+    """The activation constraint of the JAX package: the identity, in a
+    context or not.  Each rank holds its batch rows, and over the model
+    axis the tensor-parallel layers produce their own layout."""
     return x
 
 
@@ -180,6 +197,30 @@ def data_context():
     mesh, rules = ctx
     axes = pool_axes(mesh, rules)
     return mesh.group(axes), mesh.count(axes), mesh.my_index(axes)
+
+
+def model_axis_size() -> int:
+    """The active context's model axis size (1 outside any context)."""
+    ctx = _ACT_CTX.get()
+    return 1 if ctx is None else _mesh_size(ctx[0], ctx[1].model_axis)
+
+
+def model_context():
+    """``(process group, size, this rank's index)`` of the active context's
+    model axis (a bound mesh), or None outside a context and on a model
+    axis of 1."""
+    n = model_axis_size()
+    if n == 1:
+        return None
+    mesh, rules = _ACT_CTX.get()
+    axes = (rules.model_axis,)
+    return mesh.group(axes), n, mesh.my_index(axes)
+
+
+def active_rules():
+    """The rules of the active context (``DEFAULT_RULES`` outside one)."""
+    ctx = _ACT_CTX.get()
+    return DEFAULT_RULES if ctx is None else ctx[1]
 
 
 def _mesh_size(mesh, name: str) -> int:

@@ -15,10 +15,12 @@ differs: ``trace_s`` for ``lower_s`` (no ``compile_s``), ``op_cost`` for
 ``HBM_BYTES``) and ``sharded_state_bytes``, the analytic per-device state
 under the sharding rules on both production H100 meshes.
 
-The traced program is the one the port runs: one card (mesh ``h100x1``,
-``n_devices`` 1) at the shape's global batch.  The production meshes
-have a model axis of 8, and tensor parallelism waits for ROADMAP.md
-queue 1, item 14b: ``--multi-pod`` and ``--both-meshes`` are refused.
+The traced program is one card's (mesh ``h100x1``, ``n_devices`` 1) at
+the shape's global batch.  The dense and MoE families run
+tensor-parallel over a model axis on bound meshes (``models/tp.py``), but
+the dry-run traces no process group: tracing a rank of the production
+meshes (model axis 8) waits for ROADMAP.md queue 1, item 14b, so
+``--multi-pod`` and ``--both-meshes`` are refused.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape decode_32k
@@ -231,10 +233,10 @@ def main(argv=None):
     args = ap.parse_args(argv)
     for flag in ("multi_pod", "both_meshes"):
         if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')} traces the production "
-                     "meshes, whose model axis of 8 the port does not run "
-                     "yet: ROADMAP.md queue 1, item 14b (tensor "
-                     "parallelism); the port traces the step of one card")
+            ap.error(f"--{flag.replace('_', '-')} traces a rank of the "
+                     "production meshes (model axis 8), which the dry-run "
+                     "does not do yet: ROADMAP.md queue 1, item 14b; the "
+                     "port traces the step of one card")
 
     os.makedirs(args.out, exist_ok=True)
     archs = [args.arch] if args.arch else sorted(ARCHS)

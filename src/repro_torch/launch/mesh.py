@@ -15,11 +15,14 @@ this rank's coordinates.  A mesh whose device count differs from the
 world size is an error, as ``jax.make_mesh`` fails without the devices.
 
 What runs on a bound mesh: data parallelism over the data axes (the
-AsGrad trainer, :mod:`repro_torch.distributed.async_trainer`).  A mesh
-whose ``model`` axis is larger than 1 is described and bound, but nothing
-runs on it yet: the trainer and ``shard_activation`` refuse it
-(ROADMAP.md queue 1, item 14b).  The production layout puts one 8-GPU
-NVLink node on the model axis.
+AsGrad trainer, :mod:`repro_torch.distributed.async_trainer`) and, for
+the dense and MoE families, tensor parallelism over the ``model`` axis
+(:mod:`repro_torch.models.tp`; the trainer and the lock-step ``Server``),
+each rank holding its blocks of the params, the cache and the optimizer
+state; :func:`make_host_mesh` (data 1, model = the world) runs them.  The
+other families on a model axis larger than 1 wait for ROADMAP.md queue
+1, item 14b.  The production layout puts one 8-GPU NVLink node on the
+model axis.
 
 The constants are one NVIDIA H100 SXM's, from NVIDIA's data sheet: dense
 rates at the 700 W power limit.  A card set below that limit runs slower

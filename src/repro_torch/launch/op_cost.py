@@ -20,7 +20,10 @@ counts can be held to each other.  :class:`Cost` keeps ``hlo_cost``'s keys:
   allocations (``empty*``, ``scalar_tensor``).  The port runs eagerly, so this is eager
   traffic: what its step moves, not what a fused program would;
 * ``collective_bytes`` / ``collective_breakdown`` — operand bytes of the
-  ``_c10d_functional`` collectives (0 on one card);
+  ``_c10d_functional`` collectives (0 on one card): the data-parallel
+  trainer's and the tensor-parallel operators' (``distributed/
+  collectives.py``; the all-reduce of a max included), those their
+  backward passes run too;
 * ``n_while`` / ``unknown_trip_loops`` — 0: an eager trace unrolls every
   loop, so no trip count is guessed;
 

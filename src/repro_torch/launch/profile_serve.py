@@ -4,6 +4,9 @@
         [--arch qwen2-0.5b|mamba2-370m|zamba2-7b|deepseek-moe-16b|
                 seamless-m4t-large-v2|pixtral-12b] \
         [--no-flash] [--no-ssd] [--slots N] [--trace-dir DIR]
+    torchrun --nproc-per-node N -m repro_torch.launch.profile_serve \
+        --arch deepseek-moe-16b --mesh data=1,model=N [--n-layers L]
+        [--f32] [--json-out PATH]
 
 Runs a serving main path's configuration at full width (a batch of 4
 prompts of 1024 tokens, greedy decode): qwen2-0.5b (the default) or
@@ -35,6 +38,20 @@ chunk replays' device span (CUDA events around each replay) per decode
 step, host waits per chunk, occupancy, the device time by kernel and the
 idle share over the serve.
 
+``--mesh data=D[,pod=P][,model=M]`` serves the lock-step lane under
+``torchrun``, one process per card (NCCL): the prompts' rows over the data
+axes, the dense and MoE families tensor-parallel over the model axis
+(``Server(mesh=...)``, each rank holding its blocks of the params and the
+cache), every rank timing the same work; rank 0 prints, with each
+collective kind's launches and operand bytes of a prefill and of a decode
+step.  ``--json-out`` appends the timed numbers as one JSON line, with
+the timed serve's greedy tokens (the first token of the prefill and the
+``STEPS`` decoded ones), so runs on several meshes can be held to one
+another.  ``--n-layers`` cuts the lock-step lane's depth; ``--f32`` runs
+it with f32 params and activations, where a mesh's greedy tokens equal
+one card's (in bf16 an ulp between the two summation orders can move the
+MoE's routing and so a token).
+
 ``--trace-dir`` also writes the profiler's Chrome traces there
 (``prefill.json``, ``decode.json``, or ``slots.json``).  Needs a CUDA
 card.
@@ -43,6 +60,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import json
 import os
 import time
 
@@ -54,8 +72,9 @@ from torch.profiler import ProfilerActivity, profile
 from ..configs import get_arch
 from ..device import resolve_device
 from ..distributed import Server, ServeConfig, SlotConfig, SlotServer
-from ..distributed import draw_arrivals
+from ..distributed import collectives, draw_arrivals
 from ..models import batch_specs, init_params, prefill
+from ..tree import tree_map
 
 ARCHS = ("qwen2-0.5b", "mamba2-370m", "zamba2-7b", "deepseek-moe-16b",
          "seamless-m4t-large-v2", "pixtral-12b")
@@ -145,55 +164,126 @@ def main(argv=None) -> None:
     ap.add_argument("--slots", type=int, default=None, metavar="N",
                     help="profile the slot lane with N slots")
     ap.add_argument("--trace-dir", default=None)
+    ap.add_argument("--mesh", default=None,
+                    metavar="data=D[,pod=P][,model=M]",
+                    help="under torchrun: serve over the launcher's "
+                         "processes, one per card")
+    ap.add_argument("--json-out", default=None, metavar="PATH",
+                    help="append the timed numbers and the greedy tokens "
+                         "as one JSON line")
+    ap.add_argument("--n-layers", type=int, default=None,
+                    help="cut the depth (lock-step lane)")
+    ap.add_argument("--f32", action="store_true",
+                    help="f32 params and activations (lock-step lane)")
     args = ap.parse_args(argv)
+    if args.mesh and args.slots:
+        ap.error("the slot lane over a mesh waits for ROADMAP.md queue 1, "
+                 "item 14b (omit --slots or --mesh)")
+    if not args.mesh:
+        return _serve(args, ap, None)
+    import torch.distributed as dist
 
+    from .mesh import ProcessMesh, init_process_group
+    from .train import parse_mesh
+
+    mesh = parse_mesh(args.mesh)
+    init_process_group("cuda")
+    try:
+        _serve(args, ap, ProcessMesh(mesh.shape))
+    finally:
+        dist.destroy_process_group()
+
+
+def _serve(args, ap, mesh) -> None:
+    from ..distributed.sharding import sharded_trace
+
+    lead = mesh is None or mesh.rank == 0
+    out = print if lead else (lambda *a, **k: None)
     device = resolve_device("cuda")
     cfg = get_arch(args.arch).with_(use_flash_attention=not args.no_flash,
                                     use_ssd_kernel=not args.no_ssd)
+    if args.n_layers:
+        cfg = cfg.with_(n_layers=args.n_layers)
+    if args.f32:
+        cfg = cfg.with_(dtype="float32")
     if args.slots and cfg.family in ("audio", "vlm"):
         ap.error(f"the slot lane serves token-only prompts; {args.arch} "
                  "runs at the model level only (omit --slots)")
-    params = init_params(cfg, SEED, device)
+    server = None
+    if not args.slots:
+        batch = model_batch(cfg, BATCH, PROMPT_LEN, SEED, device)
+        plen = batch["tokens"].shape[1]    # audio: PROMPT_LEN // dec_ratio
+        ctx = plen + STEPS + 1
+        server = Server(cfg, ServeConfig(batch=BATCH, ctx_len=ctx),
+                        device=device, mesh=mesh)
+    params = init_params(cfg, SEED, device,
+                         shardings=server and server.param_shardings())
+    if args.f32:
+        params = tree_map(lambda t: t.float(), params)
     if args.slots:
         _profile_slots(cfg, params, args.slots, device, args.trace_dir)
         return
-    batch = model_batch(cfg, BATCH, PROMPT_LEN, SEED, device)
-    plen = batch["tokens"].shape[1]        # audio: PROMPT_LEN // dec_ratio
-    ctx = plen + STEPS + 1
-    server = Server(cfg, ServeConfig(batch=BATCH, ctx_len=ctx),
-                    device=device)
+    run_prefill = prefill
+    if mesh is not None:
+        rows = server.batch_sharding()
+        batch = {k: rows.local(v) for k, v in batch.items()}
+        run_prefill = sharded_trace(prefill, mesh, server.rules)
 
     def serve(pre_ctx=None, dec_ctx=None):
         """One prefill and ``STEPS`` decode steps, each under its own
-        context; returns (prefill seconds, decode seconds)."""
+        context; returns (prefill seconds, decode seconds, the greedy
+        tokens (B, 1 + STEPS))."""
         with pre_ctx or contextlib.nullcontext():
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            last, cache = prefill(cfg, params, batch, ctx_len=ctx)
+            last, cache = run_prefill(cfg, params, batch, ctx_len=ctx)
             first = torch.argmax(last, dim=-1)
+            if mesh is not None:
+                first = server.batch_sharding().gather(first)
             torch.cuda.synchronize()
             t1 = time.perf_counter()
         with dec_ctx or contextlib.nullcontext():
             t2 = time.perf_counter()
-            server.generate(params, first.cpu().numpy(), STEPS,
-                            start_pos=plen, cache=cache)
+            toks = server.generate(params, first.cpu().numpy(), STEPS,
+                                   start_pos=plen, cache=cache)
             t3 = time.perf_counter()
-        return t1 - t0, t3 - t2
+        return t1 - t0, t3 - t2, np.concatenate(
+            [first.cpu().numpy()[:, None], toks], 1)
 
     serve()                                                 # warm-up
-    pre_s, dec_s = serve()
+    before = collectives.snapshot()
+    pre_s, dec_s, tokens = serve()
+    coll = collectives.since(before)
     kernel = _switches(cfg)
     inputs = " ".join(f"{k}={tuple(v.shape)}" for k, v in batch.items())
-    print(f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} {inputs} {kernel}: "
-          f"prefill {pre_s * 1e3:.3f} ms, decode {dec_s / STEPS * 1e3:.3f}"
-          f" ms/step = {BATCH * STEPS / dec_s:.1f} tok/s")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    out(f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} {inputs} {kernel}"
+        + (f" mesh={mesh.shape}" if mesh is not None else "") + ": "
+        f"prefill {pre_s * 1e3:.3f} ms, decode {dec_s / STEPS * 1e3:.3f}"
+        f" ms/step = {BATCH * STEPS / dec_s:.1f} tok/s; peak memory "
+        f"{peak:.2f} GiB"
+        + (f"; collectives of a prefill and {STEPS} steps {coll}"
+           if mesh is not None else ""))
+    if args.json_out and lead:
+        with open(args.json_out, "a") as f:
+            f.write(json.dumps({
+                "arch": cfg.name, "n_layers": cfg.n_layers,
+                "mesh": None if mesh is None else mesh.shape,
+                "batch": BATCH, "prompt_len": plen,
+                "prefill_ms": pre_s * 1e3,
+                "decode_ms_per_step": dec_s / STEPS * 1e3,
+                "dtype": cfg.dtype, "collectives": coll, "peak_gib": peak,
+                "tokens": tokens.tolist(),
+                "device": torch.cuda.get_device_name()}) + "\n")
 
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     p_pre, p_dec = profile(activities=acts), profile(activities=acts)
-    pre_s, dec_s = serve(p_pre, p_dec)
-    _report("prefill (profiled)", kernel_times(p_pre), pre_s)
-    _report(f"decode, {STEPS} steps (profiled)", kernel_times(p_dec), dec_s)
-    if args.trace_dir:
+    pre_s, dec_s, _ = serve(p_pre, p_dec)
+    if lead:
+        _report("prefill (profiled)", kernel_times(p_pre), pre_s)
+        _report(f"decode, {STEPS} steps (profiled)", kernel_times(p_dec),
+                dec_s)
+    if args.trace_dir and lead:
         os.makedirs(args.trace_dir, exist_ok=True)
         p_pre.export_chrome_trace(os.path.join(args.trace_dir, "prefill.json"))
         p_dec.export_chrome_trace(os.path.join(args.trace_dir, "decode.json"))

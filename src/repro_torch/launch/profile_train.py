@@ -6,7 +6,7 @@
         [--opt adam|sgd] [--delay-rounds 1] [--rounds 4] [--warmup 2]
         [--trace-dir DIR] [--scenario SPEC] [--guards] [--json-out PATH]
     torchrun --nproc-per-node N -m repro_torch.launch.profile_train \\
-        --update-impl pallas_pooled --mesh data=N [...]
+        --update-impl pallas_pooled --mesh data=N[,model=M] [...]
 
 Runs the training main path's configuration (qwen2-0.5b at full width,
 global batch 8 × 512 tokens, 4 AsGrad workers under the ``pure``
@@ -39,8 +39,9 @@ fit one card.
 lowered into the plan as ``TrainerBackend`` lowers them, and
 ``--guards`` arms the guard rails (``TrainJob(guards=True)``).
 
-``--mesh data=N[,pod=P]`` runs under ``torchrun``, one process per card
-(NCCL): the data-parallel trainer over the launcher's processes
+``--mesh data=N[,pod=P][,model=M]`` runs under ``torchrun``, one process
+per card (NCCL): the trainer over the launcher's processes, data-parallel
+over the data axes and tensor-parallel over the model axis
 (``AsyncTrainer(mesh=...)``), every rank timing the same rounds; rank 0
 prints, and adds each collective kind's launches and operand bytes a
 round.  ``--json-out`` appends the run's numbers (ms a round, the loss
@@ -134,9 +135,10 @@ def main(argv=None) -> None:
     ap.add_argument("--trace-dir", default=None)
     ap.add_argument("--scenario", default=None)
     ap.add_argument("--guards", action="store_true")
-    ap.add_argument("--mesh", default=None, metavar="data=N[,pod=P]",
-                    help="under torchrun: the data-parallel trainer over the "
-                         "launcher's processes, one per card")
+    ap.add_argument("--mesh", default=None,
+                    metavar="data=N[,pod=P][,model=M]",
+                    help="under torchrun: the trainer over the launcher's "
+                         "processes, one per card")
     ap.add_argument("--json-out", default=None, metavar="PATH",
                     help="append the run's numbers as one JSON line")
     args = ap.parse_args(argv)

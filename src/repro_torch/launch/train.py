@@ -10,21 +10,24 @@ family; every family trains (dense, moe, ssm, hybrid, audio, vlm).
 
 One process trains on one device with no mesh.  Under ``torchrun`` (one
 process per card, NCCL; gloo with ``--device cpu``) the processes are the
-ranks of a mesh: ``--mesh data=N[,pod=P]`` trains data-parallel over them
-(the AsGrad workers' batch rows split over the ranks, the pooled update
-ZeRO-sharded); ``--host-mesh`` is the JAX law, (data=1, model=world
-size), which trains on one rank; ``--multi-pod``, or no mesh flag on
-several ranks, is the production mesh, which needs 512 (256) processes.
-A mesh whose model axis is larger than 1 (``--host-mesh`` on several
-ranks, the production meshes) is refused with exit 2: tensor parallelism
-waits for ROADMAP.md queue 1, item 14b.  ``--auto-rules`` picks the
-arch's rules on the mesh.
+ranks of a mesh: ``--mesh data=N[,pod=P][,model=M]`` trains data-parallel
+over the data axes (the AsGrad workers' batch rows split over them, the
+pooled update ZeRO-sharded) and, for the dense and MoE families,
+tensor-parallel over the model axis; ``--host-mesh`` is the JAX law,
+(data=1, model=world size); ``--multi-pod``, or no mesh flag on several
+ranks, is the production mesh, which needs 512 (256) processes.  A family
+that does not run tensor-parallel (ssm, hybrid, audio, vlm) on a model
+axis larger than 1 is refused with exit 2 naming ROADMAP.md queue 1, item
+14b, before any process group starts.  ``--auto-rules`` picks the arch's
+rules on the mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --reduced --device cpu --steps 20 --scheduler shuffled
   torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
       --arch qwen2-0.5b --reduced --mesh data=2 --n-groups 4 \\
       --update-impl pallas_pooled --steps 8
+  torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
+      --arch deepseek-moe-16b --reduced --mesh data=2,model=2 --steps 8
 """
 from __future__ import annotations
 
@@ -96,15 +99,18 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--sync", action="store_true")
     ap.add_argument("--host-mesh", action="store_true",
                     help="this host's mesh, (data=1, model=world size): "
-                         "trains on one rank; several ranks make a model "
-                         "axis, refused (ROADMAP.md queue 1, item 14b)")
+                         "several ranks train tensor-parallel (dense and "
+                         "moe; the other families wait for ROADMAP.md "
+                         "queue 1, item 14b)")
     ap.add_argument("--multi-pod", action="store_true",
                     help="the production multi-pod mesh (pod 2 x data 32 "
                          "x model 8): needs 512 processes")
-    ap.add_argument("--mesh", default=None, metavar="data=N[,pod=P]",
-                    help="a data-parallel mesh over the launcher's "
-                         "processes (torchrun): its device count must be "
-                         "the world size")
+    ap.add_argument("--mesh", default=None,
+                    metavar="data=N[,pod=P][,model=M]",
+                    help="a mesh over the launcher's processes (torchrun): "
+                         "data-parallel over data and pod, tensor-parallel "
+                         "over model; its device count must be the world "
+                         "size")
     ap.add_argument("--auto-rules", action="store_true",
                     help="per-arch sharding rules on the mesh")
     ap.add_argument("--ckpt", default=None)
@@ -133,7 +139,8 @@ def parser() -> argparse.ArgumentParser:
 
 
 def parse_mesh(text: str):
-    """``data=N[,pod=P]`` → a Mesh (pod, data, model) with model 1."""
+    """``data=N[,pod=P][,model=M]`` → a Mesh (pod, data, model), model 1
+    unless given."""
     from .mesh import Mesh
 
     try:
@@ -141,17 +148,20 @@ def parse_mesh(text: str):
                  (item.split("=") for item in text.split(","))}
     except ValueError:
         sizes = {}
-    if "data" not in sizes or set(sizes) - {"pod", "data"}:
-        raise ValueError(f"--mesh {text!r}: want data=N[,pod=P]")
+    if "data" not in sizes or set(sizes) - {"pod", "data", "model"} \
+            or min(sizes.values()) < 1:
+        raise ValueError(f"--mesh {text!r}: want data=N[,pod=P][,model=M]")
     return Mesh({**({"pod": sizes["pod"]} if "pod" in sizes else {}),
-                 "data": sizes["data"], "model": 1})
+                 "data": sizes["data"], "model": sizes.get("model", 1)})
 
 
 def choose_mesh(args, ap, world: int):
     """The mesh the flags and the launcher's world size ask for, or None
     (one process, no flag); exits 2 (``ap.error``) on a mesh whose device
-    count is not the world size, or whose model axis is larger than 1."""
-    from ..distributed.sharding import MODEL_AXIS_WAITS
+    count is not the world size, or whose model axis is larger than 1 for
+    a family that does not run tensor-parallel."""
+    from ..configs import get_arch
+    from ..distributed.sharding import TP_FAMILIES, model_axis_waits
     from .mesh import make_host_mesh, make_production_mesh, mesh_devices
 
     flag = next((f"--{f.replace('_', '-')}" for f in MESH_FLAGS[:3]
@@ -175,13 +185,15 @@ def choose_mesh(args, ap, world: int):
                      "--host-mesh or --mesh")
         return None
     n, model = mesh_devices(mesh), mesh.shape.get("model", 1)
-    waits = f"a model axis of {model}: {MODEL_AXIS_WAITS}"
+    family = get_arch(args.arch).family
+    waits = model > 1 and family not in TP_FAMILIES
     if n != world:
         ap.error(f"{flag} {mesh.shape} needs {n} processes, but the launcher "
                  f"started {world} (torchrun --nproc-per-node ...)"
-                 + (f"; and it has {waits}" if model > 1 else ""))
-    if model > 1:
-        ap.error(f"{flag} {mesh.shape} has {waits}")
+                 + (f"; and {model_axis_waits(family, model)}" if waits
+                    else ""))
+    if waits:
+        ap.error(f"{flag} {mesh.shape}: {model_axis_waits(family, model)}")
     return mesh
 
 

@@ -1,5 +1,6 @@
 """Carry weights and trainer states between the port and numpy (and so the
-JAX package).
+JAX package), whole or as a rank's blocks (:func:`params_blocks`,
+:func:`state_from_numpy` with shardings).
 
 Trees are nested dicts keyed exactly as the JAX param tree.  bf16 leaves
 cross as a ``uint16`` view of their bits, the way the JAX checkpointer
@@ -80,6 +81,15 @@ def state_from_numpy(tree: dict, device="cuda", shardings=None) -> dict:
     if shardings is not None:
         tree = _blocks(tree, shardings)
     return params_from_numpy(tree, device)
+
+
+def params_blocks(tree: dict, shardings: dict, device="cuda") -> dict:
+    """A rank's blocks of a whole param tree given as numpy (a JAX param
+    tree through ``np.asarray``, bf16 as uint16 bits or a ``bfloat16``
+    dtype): ``shardings`` is ``distributed.sharding.tree_shardings(
+    param_specs(cfg), mesh, rules)`` on a bound mesh, each leaf's block
+    is ``NamedSharding.local`` of the whole leaf, on ``device``."""
+    return params_from_numpy(_blocks(tree, shardings), device)
 
 
 def _blocks(tree: dict, shardings: dict) -> dict:

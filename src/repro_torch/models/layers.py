@@ -156,6 +156,32 @@ def decode_attention(q, k_cache, v_cache, cache_positions, pos,
     return out.reshape(B, Sq, H, D).to(v_cache.dtype)
 
 
+def decode_attention_ctx(q, k_block, v_block, pos_block, pos,
+                         window: Optional[int], amax, total):
+    """:func:`decode_attention` (lock-step) on a rank's block of the ring's
+    slots, the cache split over the model axis on ``ctx``: the rank's
+    scores, their max over every rank (``amax``, an all-reduce of the
+    max), Σ exp over every rank (``total``, an all-reduce of the sum),
+    then the rank's share of the probability-weighted sum, which
+    ``total`` sums.  q holds every head; the result too, on every rank."""
+    valid = (pos_block >= 0) & (pos_block <= pos)
+    if window is not None:
+        valid &= pos_block > pos - window
+    bias = torch.where(valid, 0.0, NEG_INF).to(F32)
+    B, Sq, H, D = q.shape
+    KV = k_block.shape[2]
+    qr = q.reshape(B, Sq, KV, H // KV, D)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qr.to(F32),
+                          k_block.to(F32)) / math.sqrt(D) + bias
+    m = amax(torch.amax(scores, dim=-1, keepdim=True))
+    p = torch.exp(scores - m)
+    l = total(torch.sum(p, dim=-1, keepdim=True))
+    probs = (p / l).to(v_block.dtype)
+    out = total(torch.einsum("bkgqs,bskd->bqkgd", probs.to(F32),
+                             v_block.to(F32)))
+    return out.reshape(B, Sq, H, D).to(v_block.dtype)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------
@@ -204,28 +230,47 @@ def moe_router(x, w_router, top_k: int):
     return w, ids, w_router.shape[-1] * torch.sum(me * fe)
 
 
-def _dispatch(xt, weights, ids, w_gate, w_up, w_down, top_k, C):
+def _dispatch(xt, weights, ids, w_gate, w_up, w_down, top_k, C, E=None,
+              e0: int = 0):
     """One dispatch group: each expert takes its top C tokens of ``xt``
-    (T, d) by routing weight, and the outputs combine in expert order."""
+    (T, d) by routing weight, and the outputs combine in expert order.
+
+    ``w_gate`` / ``w_up`` / ``w_down`` may hold a block of the ``E``
+    experts, those from ``e0`` on (a rank's, under tensor parallelism):
+    the routing is over all ``E``, each token's outputs from the block's
+    experts are summed in ascending expert order, and the other experts'
+    add nothing."""
     T, d = xt.shape
-    E = w_gate.shape[0]
+    El = w_gate.shape[0]
+    E = El if E is None else E
     w_full = torch.zeros((T, E), dtype=F32, device=xt.device)
     w_full.scatter_(1, ids, weights)                           # (T, E)
     gate_w, token_idx = _top_k(w_full.t(), C)                   # (E, C)
-    x_e = xt[token_idx]                                        # (E, C, d)
+    if El != E:
+        gate_w, token_idx = gate_w[e0:e0 + El], token_idx[e0:e0 + El]
+    x_e = xt[token_idx]                                        # (El, C, d)
     g = einsum("ecd,edf->ecf", x_e, w_gate)
     u = einsum("ecd,edf->ecf", x_e, w_up)
     h = F.silu(g.to(F32)).to(xt.dtype) * u
     y_e = einsum("ecf,efd->ecd", h, w_down)
     y_e = y_e * gate_w[..., None].to(y_e.dtype)
     # pick[e, t]: the c at which expert e took token t, or C (a zero row)
-    pick = torch.full((E, T), C, dtype=torch.int64, device=xt.device)
+    pick = torch.full((El, T), C, dtype=torch.int64, device=xt.device)
     pick.scatter_(1, token_idx, torch.arange(
-        C, device=xt.device).expand(E, C).contiguous())
+        C, device=xt.device).expand(El, C).contiguous())
     experts = torch.sort(ids, dim=-1).values                   # (T, k)
-    rows = experts * (C + 1) + torch.gather(pick.t(), 1, experts)
-    y_pad = torch.cat([y_e, y_e.new_zeros((E, 1, d))], dim=1)
-    parts = y_pad.reshape(E * (C + 1), d)[rows]                # (T, k, d)
+    y_pad = torch.cat([y_e, y_e.new_zeros((El, 1, d))], dim=1)
+    if El == E:
+        rows = experts * (C + 1) + torch.gather(pick.t(), 1, experts)
+        parts = y_pad.reshape(E * (C + 1), d)[rows]            # (T, k, d)
+    else:
+        # another block's expert reads the zero row after the block's
+        le = (experts - e0).clamp(0, El - 1)
+        rows = le * (C + 1) + torch.gather(pick.t(), 1, le)
+        rows = torch.where((experts >= e0) & (experts < e0 + El), rows,
+                           El * (C + 1))
+        parts = torch.cat([y_pad.reshape(El * (C + 1), d),
+                           y_e.new_zeros((1, d))])[rows]
     y = torch.zeros((T, d), dtype=y_e.dtype, device=xt.device)
     for j in range(top_k):
         y = y + parts[:, j]
@@ -233,7 +278,8 @@ def _dispatch(xt, weights, ids, w_gate, w_up, w_down, top_k, C):
 
 
 def moe_ffn(x, w_router, w_gate, w_up, w_down, top_k: int,
-            capacity_factor: float = 1.25):
+            capacity_factor: float = 1.25, *, first_expert: int = 0,
+            enter=None):
     """Fine-grained top-k MoE over flattened tokens, as the JAX package's.
 
     x: (B,S,d); expert weights (E,d,f) / (E,f,d).  Each expert takes the
@@ -260,12 +306,21 @@ def moe_ffn(x, w_router, w_gate, w_up, w_down, top_k: int,
     JAX falls back to one group (T/R < E), the ranks gather the layer's
     tokens (a differentiable all-gather whose backward reduce-scatters),
     each dispatches all T as one group, keeps its rows, and returns aux /
-    R as its share."""
+    R as its share.
+
+    Expert parallelism (a rank of the model axis): the expert weights are
+    the block of experts from ``first_expert`` on, the router is whole,
+    and the routing, replicated, is over all its experts; ``enter`` (the
+    copy-to-model operator) takes the tokens and the routing weights into
+    the rank's experts.  y is then the rank's part of the combine, to be
+    summed over the model ranks; aux is whole."""
     from ..distributed.sharding import data_context
 
     B, S, d = x.shape
-    E = w_gate.shape[0]
+    E = w_router.shape[-1]
     T = B * S
+    enter = enter or (lambda t: t)
+    experts = dict(E=E, e0=first_expert)
     ctx = data_context()
     if ctx is not None and ctx[1] > 1 and T < E:
         from ..distributed.collectives import all_gather_rows
@@ -274,7 +329,8 @@ def moe_ffn(x, w_router, w_gate, w_up, w_down, top_k: int,
         xt = all_gather_rows(x.reshape(T, d), group)            # (R·T, d)
         weights, ids, aux = moe_router(xt, w_router, top_k)
         C = min(int(math.ceil(R * T * top_k / E * capacity_factor)), R * T)
-        y = _dispatch(xt, weights, ids, w_gate, w_up, w_down, top_k, C)
+        y = _dispatch(enter(xt), enter(weights), ids, w_gate, w_up, w_down,
+                      top_k, C, **experts)
         return y[r * T:(r + 1) * T].reshape(B, S, d), aux / R
     xt = x.reshape(T, d)
     weights, ids, me, fe = _route(xt, w_router, top_k)
@@ -286,7 +342,8 @@ def moe_ffn(x, w_router, w_gate, w_up, w_down, top_k: int,
         group, R, _ = ctx
         aux = E * torch.sum((me / R) * (all_reduce(fe, group) / R))
     C = min(int(math.ceil(T * top_k / E * capacity_factor)), T)
-    y = _dispatch(xt, weights, ids, w_gate, w_up, w_down, top_k, C)
+    y = _dispatch(enter(xt), enter(weights), ids, w_gate, w_up, w_down,
+                  top_k, C, **experts)
     return y.reshape(B, S, d), aux
 # ---------------------------------------------------------------------------
 # Mamba2 (state-space duality, chunked)
@@ -418,7 +475,30 @@ def softmax_xent(logits, labels, mask=None, mask_total=None):
     logz = torch.logsumexp(logits, dim=-1)
     ll = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - ll
+    return _masked_mean(nll, mask, mask_total)
+
+
+def _masked_mean(nll, mask, mask_total):
     if mask is not None:
         total = torch.sum(mask) if mask_total is None else mask_total
         return torch.sum(nll * mask) / (total + 1e-6)
     return torch.mean(nll)
+
+
+def vocab_parallel_xent(logits, labels, mask=None, mask_total=None, *,
+                        first: int, amax, total):
+    """:func:`softmax_xent` on a rank's block of the vocabulary (the rows
+    from ``first`` on, the logits split over the model axis): the max
+    over every rank (``amax``, an all-reduce of the max, no gradient), Σ
+    exp and the target's logit each summed over the ranks (``total``, an
+    all-reduce of the sum whose backward is the identity)."""
+    logits = logits.to(F32)
+    Vl = logits.shape[-1]
+    m = amax(torch.amax(logits.detach(), dim=-1))
+    se = total(torch.sum(torch.exp(logits - m[..., None]), dim=-1))
+    t = labels.long() - first
+    mine = (t >= 0) & (t < Vl)
+    ll = torch.gather(logits, -1, t.clamp(0, Vl - 1)[..., None])[..., 0]
+    ll = total(torch.where(mine, ll, 0.0))
+    nll = torch.log(se) + m - ll
+    return _masked_mean(nll, mask, mask_total)

@@ -17,11 +17,14 @@ dict of tensors with the JAX tree's paths and its stacked-over-layers
 layout (``blocks/attn/wq`` is ``(L, d, H, Dh)``); a Python loop over
 layers takes the place of ``jax.lax.scan`` (of the two nested scans, for
 the hybrid).  ``_shard_act``'s call sites go through
-``distributed.sharding.shard_activation``, the identity outside a mesh and
-on a data-only one.  Under a data-parallel context (the trainer's ranked
-step) each rank holds its rows of the batch: :func:`loss_fn` returns the
-rank's share of the loss, and the MoE dispatches in JAX's groups
-(``layers.moe_ffn``).
+``distributed.sharding.shard_activation``, the identity.  Under a
+data-parallel context (the trainer's ranked step) each rank holds its rows
+of the batch: :func:`loss_fn` returns the rank's share of the loss, and
+the MoE dispatches in JAX's groups (``layers.moe_ffn``).  Under a model
+axis larger than 1 (``distributed.sharding.model_context``) the dense and
+MoE families run tensor-parallel on the rank's blocks of the params and
+the cache (:mod:`repro_torch.models.tp`); the other families raise
+``NotImplementedError`` naming ROADMAP.md item 14b.
 
 The SSM decode cache holds per-layer conv and SSD states
 (``{"ssm": {"conv", "ssd"}}``, the JAX layout) and no positions buffer.
@@ -55,9 +58,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
-from ..kernels import ops
 from . import layers as L
 from .specs import Spec, count_params, init_tree, torch_dtype
+from .tp import TP, attn_local, decode_local
 
 F32 = torch.float32
 FAMILIES = ("dense", "ssm", "hybrid", "moe", "audio", "vlm")
@@ -196,10 +199,14 @@ def _groups(cfg: ArchConfig) -> tuple:
     return g, k, cfg.n_layers - g * k
 
 
-def init_params(cfg: ArchConfig, seed: int, device="cuda") -> dict:
+def init_params(cfg: ArchConfig, seed: int, device="cuda",
+                shardings=None) -> dict:
     """Random params from ``seed`` (the port's own streams, see
-    ``specs.init_tree``), placed on ``device``."""
-    return init_tree(param_specs(cfg), seed, resolve_device(device))
+    ``specs.init_tree``), placed on ``device``.  With ``shardings`` (a
+    tree of ``distributed.sharding.NamedSharding``) each leaf is this
+    rank's block of the whole leaf, taken as soon as it is drawn."""
+    return init_tree(param_specs(cfg), seed, resolve_device(device),
+                     shardings=shardings)
 
 
 def n_params(cfg: ArchConfig) -> int:
@@ -224,50 +231,42 @@ def _layer(tree: dict, i: int) -> dict:
 # block applications
 # ============================================================================
 
-def _qkv(cfg, p, x, src=None):
-    """q from ``x``; k and v from ``src`` (a cross-attention memory) or,
-    without one, from ``x``."""
-    src = x if src is None else src
-    q = L.einsum("bsd,dhk->bshk", x, p["wq"])
-    k = L.einsum("bsd,dhk->bshk", src, p["wk"])
-    v = L.einsum("bsd,dhk->bshk", src, p["wv"])
-    if cfg.qkv_bias:
-        q, k, v = q + p["bq"], k + p["bk"], v + p["bv"]
-    if cfg.qk_norm:
-        q = L.rms_norm(q, p["q_norm"], cfg.norm_eps)
-        k = L.rms_norm(k, p["k_norm"], cfg.norm_eps)
-    return q, k, v
+def _tp_of(cfg, tp):
+    """``tp``, or the active context's (``models.tp.TP.active``): an entry
+    point resolves it once and hands it to every layer."""
+    return TP.active(cfg) if tp is None else tp
 
 
 def _apply_attn(cfg, p, h, *, causal=True, positions=None, kv_h=None,
-                window=None, return_kv=False):
+                window=None, return_kv=False, tp=None):
     """Pre-norm attention block.  ``kv_h``: a cross-attention memory, the
     source of k and v (un-normed; no RoPE, never causal); otherwise
-    self-attention, with RoPE at ``positions`` when they are given."""
+    self-attention, with RoPE at ``positions`` when they are given.  With
+    ``tp`` (a ``models.tp.TP``) the rank's heads of it."""
+    if tp is not None:
+        return tp.attn(p, h, positions=positions, window=window,
+                       return_kv=return_kv)
     x = L.rms_norm(h, p["norm"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, p, x, kv_h)
-    if kv_h is None and positions is not None:
-        q = L.rope(q, positions, cfg.rope_theta)
-        k = L.rope(k, positions, cfg.rope_theta)
-    causal = causal and kv_h is None
-    if cfg.use_flash_attention:
-        o = ops.flash_attention(q, k, v, causal=causal, window=window)
-    else:
-        o = L.attention(q, k, v, causal=causal, window=window)
-    out = h + L.einsum("bshk,hkd->bsd", o, p["wo"])
+    o, k, v = attn_local(cfg, p, x, 0, positions=positions, window=window,
+                         causal=causal, src=kv_h)
+    out = h + o
     if return_kv:
         return out, (k, v)
     return out
 
 
-def _apply_mlp(cfg, p, h):
+def _apply_mlp(cfg, p, h, tp=None):
+    if tp is not None:
+        return tp.mlp(p, h)
     x = L.rms_norm(h, p["norm"], cfg.norm_eps)
     return h + L.swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
 
 
-def _apply_moe(cfg, p, h):
+def _apply_moe(cfg, p, h, tp=None):
     """Pre-norm MoE block (the shared experts read the same norm) →
     (h', aux)."""
+    if tp is not None:
+        return tp.moe(p, h)
     x = L.rms_norm(h, p["norm"], cfg.norm_eps)
     y, aux = L.moe_ffn(x, p["router"], p["w_gate"], p["w_up"], p["w_down"],
                        cfg.top_k, cfg.capacity_factor)
@@ -322,11 +321,23 @@ def _apply_mamba(cfg, p, h, return_state=False):
 # forward / prefill
 # ============================================================================
 
-def _embed(cfg, params, tokens):
+def _embed(cfg, params, tokens, tp=None):
+    if tp is not None:
+        return tp.embed(params["embed"], tokens)
     return params["embed"][tokens].to(torch_dtype(cfg.dtype))
 
 
-def _unembed(cfg, params, h):
+def _final_norm(cfg, params, h, tp=None):
+    w = params["final_norm"] if tp is None else \
+        tp.whole(params["final_norm"], tp.plan["final_norm"])
+    return L.rms_norm(h, w, cfg.norm_eps)
+
+
+def _unembed(cfg, params, h, tp=None):
+    """The logits of ``h``, whole over the vocabulary (gathered over the
+    model ranks under tensor parallelism)."""
+    if tp is not None:
+        return tp.full_logits(params, h)
     if cfg.tie_embeddings:
         return L.einsum("bsd,vd->bsv", h, params["embed"])
     return L.einsum("bsd,dv->bsv", h, params["lm_head"])
@@ -360,7 +371,8 @@ def _runner(cfg):
     return run
 
 
-def _decoder_stack(cfg, params, h, positions, window, memory=None):
+def _decoder_stack(cfg, params, h, positions, window, memory=None,
+                   tp=None):
     """Every layer of the family over the sequence → (h, aux).  ``memory``:
     the audio encoder's output, which each decoder layer cross-attends to.
 
@@ -391,8 +403,8 @@ def _decoder_stack(cfg, params, h, positions, window, memory=None):
     if cfg.family == "moe":
         def block(p, x):
             x = _apply_attn(cfg, p["attn"], x, positions=positions,
-                            window=window)
-            return _apply_moe(cfg, p["moe"], x)
+                            window=window, tp=tp)
+            return _apply_moe(cfg, p["moe"], x, tp)
 
         aux = torch.zeros((), dtype=F32, device=h.device)
         for i in range(cfg.n_layers):
@@ -413,8 +425,9 @@ def _decoder_stack(cfg, params, h, positions, window, memory=None):
     def block(p, x):
         if cfg.family == "ssm":
             return mamba(p["mamba"], x)
-        x = _apply_attn(cfg, p["attn"], x, positions=positions, window=window)
-        return _apply_mlp(cfg, p["mlp"], x)
+        x = _apply_attn(cfg, p["attn"], x, positions=positions, window=window,
+                        tp=tp)
+        return _apply_mlp(cfg, p["mlp"], x, tp)
 
     for i in range(cfg.n_layers):
         h = run(block, _layer(blocks, i), h)
@@ -439,7 +452,7 @@ def _encoder_stack(cfg, params, frames):
     return L.rms_norm(h, params["enc_norm"], cfg.norm_eps)
 
 
-def _embed_input(cfg, params, batch):
+def _embed_input(cfg, params, batch, tp=None):
     """The input embedding of training and prefill → (h, cross-attention
     memory or None).  audio: the encoder over ``batch["frames"]`` gives
     the memory.  vlm: ``batch["patches"]`` (B, P, vision_dim) through
@@ -451,7 +464,7 @@ def _embed_input(cfg, params, batch):
     if cfg.family == "audio":
         memory = _encoder_stack(cfg, params, batch["frames"])
     tokens = batch["tokens"]
-    h = _embed(cfg, params, tokens)
+    h = _embed(cfg, params, tokens, tp)
     if cfg.family == "vlm":
         patches = L.einsum("bpv,vd->bpd",
                            batch["patches"].to(torch_dtype(cfg.dtype)),
@@ -466,26 +479,35 @@ def _embed_input(cfg, params, batch):
     return _shard_act(h), memory
 
 
-def forward_logits(cfg: ArchConfig, params, batch, window=None):
+def forward_logits(cfg: ArchConfig, params, batch, window=None, *,
+                   tp=None):
     """Full-sequence forward → (logits (B,S,V), aux loss: the MoE's
     load-balance term averaged over layers, 0.0 for the other families).
     ``batch`` holds ``tokens`` (B,S), plus ``frames`` (audio) or
     ``patches`` (vlm).  ``cfg.remat == "full"`` recomputes each block in
-    the backward pass (see :func:`_decoder_stack`)."""
+    the backward pass (see :func:`_decoder_stack`).  ``tp``: the
+    ``models.tp.TP`` to run on (default: the active context's); the
+    logits come back whole on every model rank."""
     _require_family(cfg)
+    tp = _tp_of(cfg, tp)
     if window is None:
         window = cfg.sliding_window
-    tokens = batch["tokens"]
-    h, memory = _embed_input(cfg, params, batch)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h, aux = _decoder_stack(cfg, params, h, positions, window, memory)
-    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    logits = _unembed(cfg, params, h)
+    h, aux = _final_hidden(cfg, params, batch, window, tp)
+    logits = _unembed(cfg, params, h, tp)
     return _shard_act(logits, ("batch", "seq", "vocab")), aux
 
 
+def _final_hidden(cfg, params, batch, window, tp):
+    """The final-normed hidden states of the whole sequence, and aux."""
+    tokens = batch["tokens"]
+    h, memory = _embed_input(cfg, params, batch, tp)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    h, aux = _decoder_stack(cfg, params, h, positions, window, memory, tp)
+    return _final_norm(cfg, params, h, tp), aux
+
+
 def loss_fn(cfg: ArchConfig, params, batch, example_weights=None,
-            aux_coeff: float = 0.01, window=None):
+            aux_coeff: float = 0.01, window=None, *, tp=None):
     """Next-token CE plus ``aux_coeff`` × the MoE aux loss (0 for the other
     families).  ``example_weights`` (B,) carries the AsGrad
     worker-participation mask (see ``distributed.async_trainer``).
@@ -498,11 +520,23 @@ def loss_fn(cfg: ArchConfig, params, batch, example_weights=None,
     aux share (``layers.moe_ffn``).  The shares sum over the ranks to the
     JAX loss on the whole batch, and so do their gradients.
 
+    Under tensor parallelism (``tp``, default the active context's) the
+    logits stay split over the vocabulary and the cross entropy is
+    vocab-parallel (``layers.vocab_parallel_xent``); every model rank
+    returns the same values.
+
     With ``cfg.remat == "full"`` the backward pass recomputes each
     layer's activations (see :func:`forward_logits`)."""
     from ..distributed.sharding import data_context
 
-    logits, aux = forward_logits(cfg, params, batch, window=window)
+    tp = _tp_of(cfg, tp)
+    if tp is None:
+        logits, aux = forward_logits(cfg, params, batch, window=window)
+    else:
+        h, aux = _final_hidden(cfg, params, batch,
+                               cfg.sliding_window if window is None
+                               else window, tp)
+        logits, vp = tp.logits(params, h)
     labels = batch["tokens"][:, 1:]
     lg = logits[:, :-1]
     mask = torch.ones(labels.shape, dtype=torch.float32, device=lg.device)
@@ -513,7 +547,8 @@ def loss_fn(cfg: ArchConfig, params, batch, example_weights=None,
     if ctx is not None:
         from ..distributed.collectives import all_reduce
         total = all_reduce(torch.sum(mask), ctx[0])
-    ce = L.softmax_xent(lg, labels, mask, mask_total=total)
+    ce = L.softmax_xent(lg, labels, mask, mask_total=total) if tp is None \
+        else tp.xent(lg, vp, labels, mask, total)
     aux = torch.as_tensor(aux, dtype=torch.float32, device=ce.device)
     return ce + aux_coeff * aux, {"ce": ce, "aux": aux}
 
@@ -544,7 +579,8 @@ def _mamba_with_state(cfg, p, h, convs, ssds):
     return h
 
 
-def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None):
+def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None,
+            *, tp=None):
     """Process the prompt, return (last-token logits (B,V), decode cache).
 
     The cache matches ``cache_specs(cfg, B, ctx_len)``; ctx_len defaults to
@@ -554,14 +590,17 @@ def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None):
     ``min(ssm_chunk, S)``, must divide its length.  The audio cache's
     ``cross_k`` / ``cross_v`` are each decoder layer's ``memory @ wk`` and
     ``memory @ wv`` over the encoder's output (un-normed, no bias: JAX's
-    prefill computes them so), with the frames' length."""
+    prefill computes them so), with the frames' length.  ``tp``: the
+    ``models.tp.TP`` to run on (default: the active context's); the cache
+    is then the rank's block of it."""
     _require_family(cfg)
+    tp = _tp_of(cfg, tp)
     window = cfg.sliding_window
     tokens = batch["tokens"]
     S = tokens.shape[1]
     ctx = ctx_len or S
     W = min(cfg.sliding_window or ctx, ctx)
-    h, memory = _embed_input(cfg, params, batch)
+    h, memory = _embed_input(cfg, params, batch, tp)
     if cfg.family in ("ssm", "hybrid") and S < cfg.ssm_conv - 1:
         raise ValueError(f"an SSM prompt needs at least ssm_conv - 1 = "
                          f"{cfg.ssm_conv - 1} tokens, got {S}")
@@ -600,9 +639,9 @@ def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None):
         for i in range(cfg.n_layers):
             p = _layer(params["blocks"], i)
             h, (kk, vv) = _apply_attn(cfg, p["attn"], h, positions=positions,
-                                      window=window, return_kv=True)
+                                      window=window, return_kv=True, tp=tp)
             if cfg.family == "moe":
-                h, _ = _apply_moe(cfg, p["moe"], h)
+                h, _ = _apply_moe(cfg, p["moe"], h, tp)
             elif cfg.family == "audio":
                 cks.append(L.einsum("bsd,dhk->bshk", memory,
                                     p["cross"]["wk"]))
@@ -611,16 +650,23 @@ def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None):
                 h = _apply_attn(cfg, p["cross"], h, kv_h=memory)
                 h = _apply_mlp(cfg, p["mlp"], h)
             else:
-                h = _apply_mlp(cfg, p["mlp"], h)
+                h = _apply_mlp(cfg, p["mlp"], h, tp)
             ks.append(kk)
             vs.append(vv)
         kc, vc, posbuf = _ring_from_seq(torch.stack(ks), torch.stack(vs), W)
+        if tp is not None:
+            # k / v hold the rank's kv heads, or all of them: a ring split
+            # on ctx keeps the rank's block of the slots
+            split = tp.cache_split(tokens.shape[0], ctx)
+            if split["ring"] == 1:
+                kc, vc = tp.block(kc, 2), tp.block(vc, 2)
+            posbuf = tp.block(posbuf, split["positions"]).clone()
         cache = {"self": {"k": kc, "v": vc}, "positions": posbuf}
         if cfg.family == "audio":
             cache["cross_k"] = torch.stack(cks)
             cache["cross_v"] = torch.stack(cvs)
-    h = L.rms_norm(h[:, -1:], params["final_norm"], cfg.norm_eps)
-    return _unembed(cfg, params, h)[:, 0], cache
+    h = _final_norm(cfg, params, h[:, -1:], tp)
+    return _unembed(cfg, params, h, tp)[:, 0], cache
 
 
 # ============================================================================
@@ -681,34 +727,14 @@ def cache_specs(cfg: ArchConfig, batch: int, ctx_len: int, *,
 
 
 def init_cache(cfg: ArchConfig, batch: int, ctx_len: int, device="cuda", *,
-               ragged: bool = False) -> dict:
+               ragged: bool = False, shardings=None) -> dict:
+    """An empty cache; with ``shardings`` (``distributed.sharding.
+    tree_shardings`` of :func:`cache_specs`) this rank's block of it."""
     tree = init_tree(cache_specs(cfg, batch, ctx_len, ragged=ragged), 0,
-                     resolve_device(device))
+                     resolve_device(device), shardings=shardings)
     if "positions" in tree:
         tree["positions"] -= 1             # −1 = empty slot
     return tree
-
-
-def _decode_attn(cfg, p, h, kc, vc, cache_positions, pos, window, slot,
-                 rows=None):
-    """One-token attention; writes this token's k/v into ring slot ``slot``
-    of ``kc`` / ``vc`` in place, then attends.  Lock-step: ``pos`` and
-    ``slot`` are ints.  Ragged: ``pos`` and ``slot`` are (B,) tensors and
-    ``rows`` is ``arange(B)``, so each row writes its own slot."""
-    x = L.rms_norm(h, p["norm"], cfg.norm_eps)
-    q, k, v = _qkv(cfg, p, x)
-    posv = pos[:, None] if rows is not None else torch.full(
-        (1,), pos, device=h.device)
-    q = L.rope(q, posv, cfg.rope_theta)
-    k = L.rope(k, posv, cfg.rope_theta)
-    if rows is not None:
-        kc[rows, slot] = k[:, 0]
-        vc[rows, slot] = v[:, 0]
-    else:
-        kc[:, slot] = k[:, 0]
-        vc[:, slot] = v[:, 0]
-    o = L.decode_attention(q, kc, vc, cache_positions, pos, window=window)
-    return h + L.einsum("bshk,hkd->bsd", o, p["wo"])
 
 
 def _decode_cross(cfg, p, h, ck, cv):
@@ -739,7 +765,8 @@ def _decode_mamba(cfg, p, h, conv_state, ssd_state):
     return out, conv_state, ssd_state
 
 
-def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int):
+def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int,
+                *, tp=None):
     """serve_step: ONE new token per sequence against the cache.
 
     tokens: (B,) integer tensor; pos: the current absolute position, shared
@@ -751,28 +778,46 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int):
     moe, hybrid, audio), and each Mamba2 layer's conv and SSD states (ssm,
     hybrid), are written, and the same dict is returned; audio's cross k/v
     are read only.  The ragged path reads no
-    tensor value on the host, so a CUDA graph can capture it.  Returns
-    (logits (B, V), cache)."""
+    tensor value on the host, so a CUDA graph can capture it.  ``tp``: the
+    ``models.tp.TP`` to run on (default: the active context's), lock-step
+    only, on the rank's blocks of the params and the cache: the positions
+    buffer's slot is written where the rank holds it.  Returns (logits
+    (B, V), cache)."""
     _require_family(cfg)
     ragged = isinstance(pos, torch.Tensor) and pos.dim() == 1
+    tp = _tp_of(cfg, tp)
+    if tp is not None and ragged:
+        raise NotImplementedError(
+            "the ragged decode (the slot lane) over a model axis waits for "
+            "ROADMAP.md queue 1, item 14b")
     if not ragged:
         pos = int(pos)
-    h = _embed(cfg, params, tokens[:, None])            # (B,1,d)
+    h = _embed(cfg, params, tokens[:, None], tp)        # (B,1,d)
     if "positions" in cache:
         W = min(cfg.sliding_window or ctx_len, ctx_len)
         cpos = cache["positions"]
-        rows = None
+        rows = split = cpos_all = None
         if ragged:
             rows = torch.arange(tokens.shape[0], device=tokens.device)
             slot = (pos % W).long()
             cpos[rows, slot] = pos.to(cpos.dtype)
+        elif tp is not None:
+            slot = pos % W
+            split, cpos_all = tp.decode_positions(cpos, pos, slot,
+                                                  tokens.shape[0], ctx_len)
         else:
             slot = pos % W
             cpos[slot] = pos
 
         def attn(p, x, kc, vc):
-            return _decode_attn(cfg, p, x, kc, vc, cpos, pos,
-                                cfg.sliding_window, slot, rows)
+            """One-token attention; writes this token's k/v into ring slot
+            ``slot`` of ``kc`` / ``vc`` in place, then attends."""
+            if tp is not None:
+                return tp.decode_attn(p, x, kc, vc, cpos, cpos_all, pos,
+                                      slot, split, cfg.sliding_window)
+            x_n = L.rms_norm(x, p["norm"], cfg.norm_eps)
+            return x + decode_local(cfg, p, x_n, kc, vc, cpos, pos, slot,
+                                    cfg.sliding_window, rows)
 
     def mamba(p, x, states, i):
         x, states["conv"][i], states["ssd"][i] = _decode_mamba(
@@ -800,14 +845,14 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int):
             p = _layer(params["blocks"], i)
             h = attn(p["attn"], h, ring["k"][i], ring["v"][i])
             if cfg.family == "moe":
-                h, _ = _apply_moe(cfg, p["moe"], h)
+                h, _ = _apply_moe(cfg, p["moe"], h, tp)
                 continue
             if cfg.family == "audio":
                 h = _decode_cross(cfg, p["cross"], h, cache["cross_k"][i],
                                   cache["cross_v"][i])
-            h = _apply_mlp(cfg, p["mlp"], h)
-    h = L.rms_norm(h, params["final_norm"], cfg.norm_eps)
-    return _unembed(cfg, params, h)[:, 0], cache
+            h = _apply_mlp(cfg, p["mlp"], h, tp)
+    h = _final_norm(cfg, params, h, tp)
+    return _unembed(cfg, params, h, tp)[:, 0], cache
 
 
 # ============================================================================

@@ -2,8 +2,9 @@
 
 Counterpart of ``repro/models/specs.py``.  Every parameter is declared once
 as a :class:`Spec`; ``init_tree`` materialises a nested dict of tensors with
-the same paths as the JAX tree.  The logical axes are kept for parity with
-the JAX specs; the port runs on one device and shards nothing.
+the same paths as the JAX tree.  The logical axes are what the sharding
+rules read (``distributed.sharding``): with ``shardings`` a tree holds a
+rank's block of every leaf.
 
 Random streams: each leaf draws from its own ``torch.Generator`` seeded
 from ``(seed, crc32(path))`` (see :func:`leaf_seed`), so a leaf's values do
@@ -118,24 +119,31 @@ def leaf_seed(seed: int, path: str) -> int:
     return int(np.random.SeedSequence(words).generate_state(1)[0])
 
 
-def init_tree(specs: dict, seed: int, device="cpu") -> dict:
-    """Materialise a nested dict of Specs; leaf streams are keyed by path."""
-    def build(tree, prefix):
+def init_tree(specs: dict, seed: int, device="cpu", shardings=None) -> dict:
+    """Materialise a nested dict of Specs; leaf streams are keyed by path.
+    With ``shardings`` (a matching tree of ``distributed.sharding.
+    NamedSharding``) each leaf is drawn whole and this rank's block of it
+    kept (a copy), so a rank's blocks are those of the whole tree."""
+    def draw(v, path):
+        if (torch.device(device).type == "cuda"
+                and v.init in ("normal", "fan_in", "embed")
+                and math.prod(v.shape) > DEVICE_DRAW_MIN):
+            return materialize_on(v, leaf_seed(seed, path), device)
+        gen = torch.Generator().manual_seed(leaf_seed(seed, path))
+        return materialize(v, gen, device)
+
+    def build(tree, sh, prefix):
         out = {}
         for k, v in tree.items():
             path = f"{prefix}[{k!r}]"
             if isinstance(v, Spec):
-                if (torch.device(device).type == "cuda"
-                        and v.init in ("normal", "fan_in", "embed")
-                        and math.prod(v.shape) > DEVICE_DRAW_MIN):
-                    out[k] = materialize_on(v, leaf_seed(seed, path), device)
-                    continue
-                gen = torch.Generator().manual_seed(leaf_seed(seed, path))
-                out[k] = materialize(v, gen, device)
+                out[k] = draw(v, path)
+                if sh is not None:
+                    out[k] = sh[k].local(out[k]).clone()
             else:
-                out[k] = build(v, path)
+                out[k] = build(v, None if sh is None else sh[k], path)
         return out
-    return build(specs, "")
+    return build(specs, shardings, "")
 
 
 def meta_tree(specs):

@@ -75,16 +75,29 @@ class OptConfig:
     update_impl: str = "reference"
 
 
-def global_norm(tree) -> torch.Tensor:
-    """√Σ‖leaf‖², accumulated in f32 on the leaves' device."""
+def global_norm(tree, split=None, group=None) -> torch.Tensor:
+    """√Σ‖leaf‖², accumulated in f32 on the leaves' device.
+
+    With ``split`` (a matching tree of bools) the tree holds a rank's
+    blocks of a tree split over the model axis: the squares of the split
+    leaves are summed over ``group`` (the model group), the other leaves,
+    whole on every rank, counted once."""
     leaves = tree_leaves(tree)
     norms = torch.stack([torch.linalg.vector_norm(l, dtype=F32)
                          for l in leaves])
-    return torch.linalg.vector_norm(norms)
+    if split is None:
+        return torch.linalg.vector_norm(norms)
+    from ..distributed.collectives import all_reduce
+
+    mask = torch.tensor(tree_leaves(split), device=norms.device)
+    sq = norms * norms
+    return torch.sqrt(all_reduce(torch.sum(torch.where(mask, sq, 0.0)),
+                                 group)
+                      + torch.sum(torch.where(mask, 0.0, sq)))
 
 
-def clip_by_global_norm(tree, max_norm: float):
-    norm = global_norm(tree)
+def clip_by_global_norm(tree, max_norm: float, norm_fn=global_norm):
+    norm = norm_fn(tree)
     scale = clip_scale_from_norm(norm, max_norm)
     return tree_map(lambda g: (g.to(F32) * scale).to(g.dtype), tree), norm
 
@@ -97,10 +110,11 @@ def clip_scale_from_norm(norm, max_norm: Optional[float]) -> torch.Tensor:
     return torch.clamp(max_norm / (norm + 1e-12), max=1.0).to(F32)
 
 
-def clip_scale_by_global_norm(tree, max_norm: Optional[float]):
+def clip_scale_by_global_norm(tree, max_norm: Optional[float],
+                              norm_fn=global_norm):
     """(scale, norm) without materialising the scaled tree: the fused route
     folds ``scale`` into the kernels' scalars."""
-    norm = global_norm(tree)
+    norm = norm_fn(tree)
     return clip_scale_from_norm(norm, max_norm), norm
 
 
@@ -119,11 +133,15 @@ def _unzip(out, n: int):
     return tuple(tree_map(lambda t, i=i: t[i], out) for i in range(n))
 
 
-def adam_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0):
+def adam_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0,
+                norm_fn=global_norm):
+    """``norm_fn``, here and in every update below, takes the global norm
+    of the gradient tree (a rank's blocks: :func:`global_norm` with
+    ``split``)."""
     if cfg.clip_norm:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm_fn)
     else:
-        gnorm = global_norm(grads)
+        gnorm = norm_fn(grads)
     count = opt_state["count"] + 1
     b1, b2 = cfg.beta1, cfg.beta2
     c = count.to(F32)
@@ -146,11 +164,12 @@ def adam_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0):
     return newp, {"m": m, "v": v, "count": count}, gnorm
 
 
-def sgd_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0):
+def sgd_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0,
+               norm_fn=global_norm):
     if cfg.clip_norm:
-        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+        grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm, norm_fn)
     else:
-        gnorm = global_norm(grads)
+        gnorm = norm_fn(grads)
     if cfg.momentum:
         m = tree_map(lambda mo, g: cfg.momentum * mo + g.to(F32),
                      opt_state["m"], grads)
@@ -196,11 +215,12 @@ def _leaf_map(fn, *trees):
 
 
 def fused_adam_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0,
-                      run=None):
+                      run=None, norm_fn=global_norm):
     """``adam_update`` semantics, one ``fused_adam`` launch per leaf: the
     clip factor, bias corrections, weight decay and ``run`` ride the scalar
     block."""
-    clip_scale, gnorm = clip_scale_by_global_norm(grads, cfg.clip_norm)
+    clip_scale, gnorm = clip_scale_by_global_norm(grads, cfg.clip_norm,
+                                                  norm_fn)
     scal = _adam_scal(cfg, clip_scale, _tick(opt_state, run), lr_scale, run)
     kw = dict(beta1=cfg.beta1, beta2=cfg.beta2, eps=cfg.eps)
     _leaf_map(lambda p, g, m, v: ops.fused_adam(p, m, v, g, scal, **kw),
@@ -209,11 +229,12 @@ def fused_adam_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0,
 
 
 def fused_sgd_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0,
-                     run=None):
+                     run=None, norm_fn=global_norm):
     """SGD through the swap-free ``sgd_step`` kernel, one launch per leaf;
     with ``cfg.momentum`` the f32 momentum buffer rides the same pass
     (``sgd_momentum_step``)."""
-    clip_scale, gnorm = clip_scale_by_global_norm(grads, cfg.clip_norm)
+    clip_scale, gnorm = clip_scale_by_global_norm(grads, cfg.clip_norm,
+                                                  norm_fn)
     count = _tick(opt_state, run)
     run = _run(run)
     if cfg.momentum:
@@ -232,24 +253,25 @@ def fused_sgd_update(grads, opt_state, params, cfg: OptConfig, lr_scale=1.0,
 # delayed-buffer apply: the AsGrad server update (eq. 2) as ONE operation
 # --------------------------------------------------------------------------
 def reference_delayed_apply(grads, gbuf, opt_state, params, cfg: OptConfig,
-                            lr_scale=1.0):
+                            lr_scale=1.0, norm_fn=global_norm):
     """Apply the STALE buffer, store the fresh grads.
 
     Returns (new_params, new_gbuf, new_opt_state, gnorm) where ``gnorm`` is
     the pre-clip norm of the APPLIED (stale) gradient."""
     update = adam_update if cfg.name == "adam" else sgd_update
     newp, new_opt, gnorm = update(gbuf, opt_state, params, cfg,
-                                  lr_scale=lr_scale)
+                                  lr_scale=lr_scale, norm_fn=norm_fn)
     return newp, grads, new_opt, gnorm
 
 
 def fused_delayed_apply(grads, gbuf, opt_state, params, cfg: OptConfig,
-                        lr_scale=1.0, run=None):
+                        lr_scale=1.0, run=None, norm_fn=global_norm):
     """Per leaf, ONE kernel consumes the stale buffer, steps the params
     (and the moments for Adam, the momentum for heavy-ball SGD) and writes
     the fresh gradient into the buffer, all in place; at ``run`` 0 every
     kernel writes nothing."""
-    clip_scale, gnorm = clip_scale_by_global_norm(gbuf, cfg.clip_norm)
+    clip_scale, gnorm = clip_scale_by_global_norm(gbuf, cfg.clip_norm,
+                                                  norm_fn)
     count = _tick(opt_state, run)
     if cfg.name == "adam":
         scal = _adam_scal(cfg, clip_scale, count, lr_scale, run)

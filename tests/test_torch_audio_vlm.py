@@ -363,16 +363,18 @@ def test_train_cli_runs_on_the_cpu(arch, capsys):
                                   "--auto-rules"])
 def test_train_cli_refuses_mesh_flags(flag, capsys, monkeypatch):
     """What the port cannot run is refused with exit 2, naming the flag:
-    the host mesh of a launch of two ranks (a model axis of 2) and the
-    multi-pod mesh (512 processes, a model axis of 8) name ROADMAP.md
-    queue 1, item 14b; ``--auto-rules`` without a mesh asks for one.  The
-    host mesh of one process trains (``tests/test_torch_dp_cli.py``)."""
+    the audio family on the host mesh of a launch of two ranks (a model
+    axis of 2) and on the multi-pod mesh (512 processes, a model axis of
+    8) names ROADMAP.md queue 1, item 14b, since tensor parallelism runs
+    the dense and MoE families only; ``--auto-rules`` without a mesh asks
+    for one.  The host mesh of one process trains, and of two ranks trains
+    the dense family (``tests/test_torch_dp_cli.py``)."""
     if flag == "--host-mesh":
         monkeypatch.setenv("WORLD_SIZE", "2")
         monkeypatch.setenv("RANK", "0")
     with pytest.raises(SystemExit) as e:
-        launch_train.main(["--arch", "qwen2-0.5b", "--reduced", "--device",
-                           "cpu", flag])
+        launch_train.main(["--arch", "seamless-m4t-large-v2", "--reduced",
+                           "--device", "cpu", flag])
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert flag in err

@@ -2,15 +2,17 @@
 
 ``--host-mesh`` on one process trains on the host mesh (data 1, model 1),
 through a process group of one; under a launcher of two ranks
-(``WORLD_SIZE`` 2) it is (data 1, model 2), refused with exit 2 naming
-ROADMAP.md; ``--multi-pod``, and no mesh flag at all on several ranks (the
-production mesh), fail with the world-size message, as the JAX launcher
-fails without the devices; ``--mesh`` takes data and pod sizes only;
-``--auto-rules`` needs a mesh.  The ranked run
-of the CLI (``--mesh data=2``) is driven on two spawned gloo ranks: its
-curve equals one process's within the bf16 trainer tolerance, rtol 5e-3
-(the ranks sum bf16 gradient shares), rank 0 alone prints, and its
-checkpoint holds the JAX layout's ``(2, cols)`` pools.
+(``WORLD_SIZE`` 2) it is (data 1, model 2), which trains the dense family
+tensor-parallel and refuses an ssm arch with exit 2 naming ROADMAP.md
+before any process group starts; ``--multi-pod``, and no mesh flag at all
+on several ranks (the production mesh), fail with the world-size message,
+as the JAX launcher fails without the devices; ``--mesh`` takes data, pod
+and model sizes only; ``--auto-rules`` needs a mesh.  The ranked runs of
+the CLI (``--mesh data=2``, and ``--host-mesh`` on two ranks) are driven
+on two spawned gloo ranks: each curve equals one process's within the
+bf16 trainer tolerance, rtol 5e-3 (the ranks sum bf16 gradient shares,
+or bf16 partial sums over the model ranks), rank 0 alone prints, and the
+data-parallel checkpoint holds the JAX layout's ``(2, cols)`` pools.
 """
 import os
 
@@ -40,13 +42,14 @@ def test_host_mesh_on_one_rank_trains(capsys):
 
 
 @pytest.mark.parametrize("flags,words", [
-    (["--host-mesh"], ["--host-mesh", "model axis of 2", "ROADMAP.md",
-                       "item 14b"]),
+    (["--arch", "mamba2-370m", "--host-mesh"],
+     ["--host-mesh", "model axis of 2", "ROADMAP.md", "item 14b"]),
     (["--multi-pod"], ["--multi-pod", "needs 512 processes",
                        "started 2"]),
     ([], ["the production mesh", "needs 256 processes", "started 2"]),
     (["--mesh", "data=4"], ["--mesh", "needs 4 processes", "started 2"]),
-    (["--mesh", "data=1,model=2"], ["--mesh", "want data=N[,pod=P]"]),
+    (["--mesh", "data=1,expert=2"],
+     ["--mesh", "want data=N[,pod=P][,model=M]"]),
 ])
 def test_two_ranks_refuse_what_they_cannot_run(flags, words, monkeypatch,
                                                capsys):
@@ -66,15 +69,15 @@ def test_auto_rules_needs_a_mesh(capsys):
     assert "--auto-rules" in capsys.readouterr().err
 
 
-def _cli_ranks(rank, world, out_dir):
+def _cli_ranks(rank, world, out_dir, flags=("--mesh", "data=2")):
     import contextlib
     import io
 
     from repro_torch.launch.mesh import ProcessMesh
 
     ap = launch_train.parser()
-    args = ap.parse_args(ARGS + ["--mesh", "data=2", "--ckpt",
-                                 os.path.join(out_dir, "ckpt")])
+    args = ap.parse_args(ARGS + list(flags) + [
+        "--ckpt", os.path.join(out_dir, "ckpt")])
     mesh = launch_train.choose_mesh(args, ap, world)
     buf = io.StringIO()
     with contextlib.redirect_stdout(buf):
@@ -101,3 +104,21 @@ def test_cli_trains_on_two_ranks(tmp_path):
     for k in ("m", "v"):
         assert state[f"['pools']['bfloat16']['{k}']"].shape == p.shape
     assert state["__bf16__['pools']['bfloat16']['gbuf']"].shape == p.shape
+
+
+def test_host_mesh_on_two_ranks_trains_tensor_parallel(tmp_path):
+    """``--host-mesh`` under two ranks: (data 1, model 2), the dense
+    family tensor-parallel; its checkpoint holds one process's pools."""
+    started = D.start(_cli_ranks, 2, tmp_path, ("--host-mesh",))
+    one = launch_train.main(ARGS)
+    out = D.join(started)
+    for r in (0, 1):
+        np.testing.assert_allclose(np.load(os.path.join(
+            out, f"losses{r}.npy")), one.losses, rtol=5e-3)
+    with open(os.path.join(out, "out0.txt")) as f:
+        assert "mesh={'data': 1, 'model': 2}" in f.read()
+    with open(os.path.join(out, "out1.txt")) as f:
+        assert f.read() == ""
+    state = np.load(os.path.join(out, "ckpt", "state.npz"))
+    assert state["__bf16__['pools']['bfloat16']['p']"].shape == tuple(
+        one.x["pools"]["bfloat16"]["p"].shape)

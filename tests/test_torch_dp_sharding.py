@@ -6,7 +6,9 @@ each rank's ``local`` block (every rank's coordinates, no process group
 needed) has ``shard_shape``, and the blocks put back where the spec
 places them rebuild the full tensor exactly.  ``gather`` over real ranks
 is held in ``tests/test_torch_dp_ranks.py``.  Also: the activation
-context's counts and its refusal of a model axis, and the mesh's rank
+context's counts, ``shard_activation`` the identity over a model axis and
+a family that does not run tensor-parallel refused there, and the mesh's
+rank
 layout (row-major, the last axis fastest, as ``jax.make_mesh``).
 """
 import math
@@ -76,9 +78,15 @@ def test_activation_context_counts_and_refuses_a_model_axis():
         assert TS.data_shard_count() == 8
         assert TS.shard_activation(x, ("batch", "seq", None)) is x
     with TS.activation_sharding(Mesh({"data": 2, "model": 2})):
+        # the identity over a model axis too; a family that does not run
+        # tensor-parallel is refused there
+        assert TS.shard_activation(x, ("batch", "seq", None)) is x
+        assert TS.model_axis_size() == 2
+        cfg = get_arch("mamba2-370m").reduced()
         with pytest.raises(NotImplementedError, match="item 14b"):
-            TS.shard_activation(x, ("batch", "seq", None))
-    assert TS.data_shard_count() == 1
+            M.forward_logits(cfg, {}, {"tokens": torch.zeros(
+                (1, 4), dtype=torch.long)})
+    assert TS.data_shard_count() == 1 and TS.model_axis_size() == 1
 
 
 def test_jax_pooled_state_carries_to_each_rank_row():

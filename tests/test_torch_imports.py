@@ -82,6 +82,16 @@ def test_port_imports_with_jax_blocked():
             "from repro_torch.launch.train import choose_mesh\n"
             "from repro_torch.models.convert import state_from_numpy\n"
             "from repro_torch.models.specs import meta_tree\n"
+            "import repro_torch.models.tp\n"
+            "from repro_torch.models.tp import (TP, ThreadRanks, attn_local,\n"
+            "    decode_local, plan)\n"
+            "from repro_torch.models.convert import params_blocks\n"
+            "from repro_torch.distributed.collectives import (\n"
+            "    copy_to_model, reduce_from_model, gather_from_model)\n"
+            "from repro_torch.distributed.sharding import (model_context,\n"
+            "    check_model_axis, TP_FAMILIES)\n"
+            "from repro_torch.models.layers import (vocab_parallel_xent,\n"
+            "    decode_attention_ctx)\n"
             "assert not any(m == 'jax' or m.startswith(('jax.', 'repro.'))\n"
             "               for m in sys.modules if sys.modules[m] is not None)\n")
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))

@@ -134,14 +134,14 @@ def spawn(fn, world: int, tmp_path, *args, timeout: float = 240.0) -> str:
 # the port's side of a case
 # ---------------------------------------------------------------------------
 
-def port_trainer(name, mesh, device="cpu"):
+def port_trainer(name, mesh, device="cpu", opt="adam", lr=LR):
     from repro_torch.configs import get_arch
     from repro_torch.distributed import AsyncConfig, AsyncTrainer
     from repro_torch.optim import OptConfig
 
     arch, impl, mb, dtype, B, S, groups, T = CASES[name]
     cfg = get_arch(arch).reduced().with_(remat="none", dtype=dtype)
-    tr = AsyncTrainer(cfg, OptConfig(lr=LR, clip_norm=1.0,
+    tr = AsyncTrainer(cfg, OptConfig(name=opt, lr=lr, clip_norm=1.0,
                                      update_impl=impl),
                       AsyncConfig(delay_rounds=1, microbatches=mb),
                       device=device, mesh=mesh)
@@ -159,19 +159,23 @@ def gathered(tr, state):
     return tree_map(lambda t, sh: sh.gather(t), state, tr.state_shardings())
 
 
-def port_case(name, mesh, params, device="cpu"):
+def port_case(name, mesh, params, device="cpu", opt="adam", rounds=None,
+              lr=LR):
     """(losses, round-0 grads, final state, initial state) of case
     ``name`` on ``mesh`` (or none), the trees as numpy (bf16 as uint16
-    bits)."""
+    bits); ``opt``, ``rounds`` and ``lr`` in place of the case's Adam, its
+    rounds and :data:`LR`."""
     import torch
 
     from repro_torch.models.convert import params_to_numpy
     from repro_torch.optim.pool import unpool_tree
+    from repro_torch.tree import tree_map
 
     arch, impl, mb, dtype, B, S, groups, T = CASES[name]
-    tr = port_trainer(name, mesh, device)
+    T = rounds or T
+    tr = port_trainer(name, mesh, device, opt, lr)
     state = tr.init_state(params=params)
-    first = params_to_numpy(gathered(tr, state))
+    first = params_to_numpy(tree_map(torch.clone, gathered(tr, state)))
     step = tr.train_step_fn()
     losses, grads = [], None
     for q in range(T):
@@ -181,10 +185,13 @@ def port_case(name, mesh, params, device="cpu"):
             device))
         losses.append(float(m["loss"]))
         if q == 0:
+            # copies: one process's gbuf is updated in place by the
+            # rounds that follow
             full = gathered(tr, state)
-            grads = params_to_numpy(unpool_tree(tr.pool_layout, {
-                dk: b["gbuf"] for dk, b in full["pools"].items()})
-                if tr.pooled else full["gbuf"])
+            grads = params_to_numpy(tree_map(torch.clone, unpool_tree(
+                tr.pool_layout, {dk: b["gbuf"] for dk, b in
+                                 full["pools"].items()})
+                if tr.pooled else full["gbuf"]))
     return (np.asarray(losses), grads, params_to_numpy(gathered(tr, state)),
             first)
 
