@@ -279,15 +279,32 @@ Phases, each of which fails the run (non-zero exit, no result line):
     qwen2-0.5b's 14 leaves (the per-leaf route at model 2) against its
     plain version, its launches counted (one a block), timed against its
     bytes bound; prints a ``{"tensor_parallel": ...}`` line;
-22. prints a ``{"kernels": [...]}`` line (each update kernel's
+22. the model axis for the ssm, hybrid, audio and vlm families, as phase
+    21 (the ranks as threads through the entry points, the SSD and flash
+    kernels on each rank's heads): mamba2-370m at full width and depth
+    at model 2 and 4 (16 / 8 SSM heads a rank), zamba2-7b at full width,
+    15 of its 81 layers (two groups of six and the three-layer tail), at
+    model 2, seamless-m4t-large-v2 (4 encoder and 4 decoder layers) and
+    pixtral-12b (4 layers) at full width at model 2, on 4 × 1024 inputs
+    (frames, patches): the f32 logits within 1e-4 relative L2 of the
+    unsharded model's on every rank, SSD and flash launched model ×
+    their layers times (counted from 0 around the split), bf16 at 2
+    layers within 3e-2, each rank's 9 greedy tokens of prefill and
+    decode equal to the unsharded ``Server``'s; then SSD at the ranks'
+    local shapes ((4, 8, 128, 16, 64) N 128, (4, 8, 128, 56, 64) N 64)
+    and flash at theirs ((4, 1024, 16, 112), (4, 1024, 8, 64) non-causal,
+    (4, 1024, 16 / 4, 128)) against their plain versions, timed with
+    their bounds and (flash) SDPA; prints a ``{"tensor_parallel_families":
+    ...}`` line;
+23. prints a ``{"kernels": [...]}`` line (each update kernel's
     ``launches`` from its pooled path; flash's and SSD's launches on
     phase 17's and 18's paths and ``fused_adam_delayed``'s on phase 18's
     under ``family_launches``; flash's times at phase 18's shapes under
     ``family_shapes``, ``fused_adam_delayed``'s over phase 18's pools
     under ``family_pools``, phase 20's launches and row times under
-    ``data_parallel`` and phase 21's launches, local-shape times and
-    block times under ``tensor_parallel``) and, last, the ``{"ok":
-    true, ...}`` line.
+    ``data_parallel`` and phases 21's and 22's launches, local-shape
+    times and block times under ``tensor_parallel``) and, last, the
+    ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
 
@@ -2817,31 +2834,43 @@ def _flash_rows(device, shapes, tag) -> list:
     return rows
 
 
+def _ssd_rows(device, shapes, tag) -> list:
+    """SSD at each of ``shapes`` ((label, B, nc, c, H, P, N)) against its
+    plain version (f32 and bf16), then bf16 timed on the device with its
+    plain version and its bound."""
+    rows = []
+    for label, *shape in shapes:
+        for dtype in (torch.float32, torch.bfloat16):
+            args = _ssd_inputs(*shape, dtype, device)
+            (y, st), (wy, wst) = (SSD.ssd_chunk_cuda(*args),
+                                  SSD.ssd_chunk_plain(*args))
+            (ey, by), (es, bs) = (_compare(y, wy, SSD_TOL[dtype]),
+                                  _compare(st, wst, SSD_TOL[dtype]))
+            log(f"{tag}: ssd {label} {str(dtype)[6:]}: max_abs_err y "
+                f"{ey:.3e} states {es:.3e} (tol {SSD_TOL[dtype]:g}) "
+                f"bad={by + bs}")
+            if by or bs:
+                raise AssertionError(f"ssd disagrees with its plain version "
+                                     f"at {label}'s shape {dtype}")
+            del y, st, wy, wst
+        row = {"kernel": "ssd_chunk", "arch": label, "shape": shape,
+               "max_abs_err": max(ey, es),
+               "ms": device_ms(lambda: SSD.ssd_chunk_cuda(*args)),
+               "plain_ms": device_ms(lambda: SSD.ssd_chunk_plain(*args),
+                                     iters=5),
+               "sdpa_ms": None}
+        row["bound_ms"], row["bound_by"] = ssd_bound(args[0], args[3])
+        rows.append(row)
+        del args
+    return rows
+
+
 def _family_kernel_rows(device) -> list:
     """Flash at each family's prefill shape and SSD at zamba2-7b's: each
     against its plain version (f32 and bf16), then bf16 timed on the
     device with its plain version, its bound and (flash) SDPA."""
-    rows = _flash_rows(device, FAMILY_FLASH_SHAPES, "families")
-    label, *shape = FAMILY_SSD_SHAPE
-    for dtype in (torch.float32, torch.bfloat16):
-        args = _ssd_inputs(*shape, dtype, device)
-        (y, st), (wy, wst) = SSD.ssd_chunk_cuda(*args), SSD.ssd_chunk_plain(*args)
-        (ey, by), (es, bs) = (_compare(y, wy, SSD_TOL[dtype]),
-                              _compare(st, wst, SSD_TOL[dtype]))
-        log(f"families: ssd {label} {str(dtype)[6:]}: max_abs_err y {ey:.3e} "
-            f"states {es:.3e} (tol {SSD_TOL[dtype]:g}) bad={by + bs}")
-        if by or bs:
-            raise AssertionError(f"ssd disagrees with its plain version at "
-                                 f"{label}'s shape {dtype}")
-        del y, st, wy, wst
-    row = {"kernel": "ssd_chunk", "arch": label, "shape": shape,
-           "max_abs_err": max(ey, es),
-           "ms": device_ms(lambda: SSD.ssd_chunk_cuda(*args)),
-           "plain_ms": device_ms(lambda: SSD.ssd_chunk_plain(*args), iters=5),
-           "sdpa_ms": None}
-    row["bound_ms"], row["bound_by"] = ssd_bound(args[0], args[3])
-    rows.append(row)
-    del args
+    rows = (_flash_rows(device, FAMILY_FLASH_SHAPES, "families")
+            + _ssd_rows(device, (FAMILY_SSD_SHAPE,), "families"))
     for r in rows:
         log(f"families: {r['kernel']} at {r['arch']}'s shape {r['shape']} "
             f"bf16: device time per call: kernel {r['ms']:.4f} ms, plain "
@@ -3897,18 +3926,18 @@ def _tp_forward(cfg, blocks, tokens, M) -> list:
         cfg, blocks[tp.rank], {"tokens": tokens}, tp=tp)[0])
 
 
-def _tp_greedy(cfg, blocks, tokens, T, ctx, M) -> list:
-    """Every rank's greedy tokens: ``prefill`` then ``T`` ``decode_step``
-    calls on the rank's blocks of the params and of the cache."""
+def _tp_greedy(cfg, blocks, batch, T, ctx, M) -> list:
+    """Every rank's greedy tokens: ``prefill`` of ``batch`` (tokens, and
+    frames or patches) then ``T`` ``decode_step`` calls on the rank's
+    blocks of the params and of the cache."""
     from repro_torch.models.model import decode_step
     from repro_torch.models.tp import ThreadRanks
 
-    S = tokens.shape[1]
+    S = batch["tokens"].shape[1]
 
     def rank(tp):
         params = blocks[tp.rank]
-        last, cache = prefill(cfg, params, {"tokens": tokens}, ctx_len=ctx,
-                              tp=tp)
+        last, cache = prefill(cfg, params, batch, ctx_len=ctx, tp=tp)
         toks = [last.argmax(-1)]
         for i in range(T):
             lg, cache = decode_step(cfg, params, cache, toks[-1], S + i, ctx,
@@ -3966,7 +3995,8 @@ def _tp_cell(device, arch, layers, M) -> dict:
         del got, want
         # greedy tokens of prefill and decode, f32: each rank against the
         # unsharded server
-        split_toks = _tp_greedy(cfg32, blocks, tokens, T, ctx, M)
+        split_toks = _tp_greedy(cfg32, blocks, {"tokens": tokens}, T, ctx,
+                                M)
         last, cache = prefill(cfg32, params, {"tokens": tokens}, ctx_len=ctx)
         first = last.argmax(-1)
         served = Server(cfg32, ServeConfig(batch=B, ctx_len=ctx),
@@ -4125,6 +4155,164 @@ def phase_tensor_parallel(device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 22: the model axis for the ssm, hybrid, audio and vlm families
+# ---------------------------------------------------------------------------
+#: (arch, arch overrides, model axis) of the split ≡ unsharded cells:
+#: mamba2-370m at full depth; zamba2-7b at two groups of six and its
+#: three-layer tail; seamless and pixtral with their depth cut
+TPF_CELLS = (("mamba2-370m", (), 2), ("mamba2-370m", (), 4),
+             ("zamba2-7b", (("n_layers", 15),), 2),
+             ("seamless-m4t-large-v2", (("n_layers", 4), ("enc_layers", 4)),
+              2),
+             ("pixtral-12b", (("n_layers", 4),), 2))
+#: the bf16 gate's 2 layers (the hybrid's shared block before each, the
+#: audio encoder cut too)
+TPF_BF16_CUT = {"zamba2-7b": (("n_layers", 2), ("attn_every", 1)),
+                "seamless-m4t-large-v2": (("n_layers", 2),
+                                          ("enc_layers", 2))}
+#: SSD at the ranks' local shapes at model 2: (label, B, nc, c, H, P, N)
+TPF_SSD_SHAPES = (("mamba2-370m at model 2", 4, 8, 128, 16, 64, 128),
+                  ("zamba2-7b at model 2", 4, 8, 128, 56, 64, 64))
+#: flash at the ranks' local shapes at model 2: (label, B, Sq, Sk, H, KV,
+#: D, causal, window)
+TPF_FLASH_SHAPES = (
+    ("zamba2-7b at model 2", 4, 1024, 1024, 16, 16, 112, True, None),
+    ("seamless-m4t-large-v2/encoder at model 2", 4, 1024, 1024, 8, 8, 64,
+     False, None),
+    ("pixtral-12b at model 2", 4, 1024, 1024, 16, 4, 128, True, None))
+
+
+def _split_counts(cfg) -> dict:
+    """Flash and SSD launches of one forward of ``cfg``: one flash per
+    attention block (the hybrid's insertions; the audio encoder's, the
+    decoder's self- and cross-attention), one SSD per Mamba2 layer."""
+    flash = {"ssm": 0, "hybrid": cfg.n_layers // max(cfg.attn_every, 1),
+             "audio": cfg.enc_layers + 2 * cfg.n_layers}.get(
+        cfg.family, cfg.n_layers)
+    ssd = cfg.n_layers if cfg.family in ("ssm", "hybrid") else 0
+    return {"flash": flash, "ssd": ssd}
+
+
+def _tpf_split_forward(label, cfg, blocks, batch, M) -> tuple:
+    """Every rank's logits of ``batch`` through ``forward_logits`` on its
+    blocks, with both kernels' counts set to 0 before and read after:
+    each must be ``M`` × the forward's (:func:`_split_counts`), on the
+    route of ``cfg``'s dtype.  Returns (logits, launches, routes)."""
+    from repro_torch.models.tp import ThreadRanks
+
+    FA.launches = SSD.launches = 0
+    with _dtypes_seen(FA, "flash_attention_cuda") as fseen, \
+            _dtypes_seen(SSD, "ssd_chunk_cuda") as sseen:
+        got = ThreadRanks(cfg, M).run(lambda tp: forward_logits(
+            cfg, blocks[tp.rank], batch, tp=tp)[0])
+    launched = {"flash": FA.launches, "ssd": SSD.launches}
+    want = {k: M * v for k, v in _split_counts(cfg).items()}
+    if launched != want:
+        raise AssertionError(f"{label}: the split launched {launched}, "
+                             f"want {want}")
+    routes = _routes(fseen, sseen)
+    return got, launched, routes
+
+
+def _tpf_cell(device, arch, over, M) -> dict:
+    """One cell: the split ≡ the unsharded model at a model axis of
+    ``M`` through the entry points on each rank's blocks, f32 logits at
+    the cell's depth (kernels counted), greedy tokens against the
+    unsharded ``Server``, bf16 at 2 layers."""
+    B, S, T = TP_SHAPE["batch"], TP_SHAPE["prompt_len"], TP_SHAPE["steps"]
+    cfg = _tp_cfg(arch, None, use_ssd_kernel=True, **dict(over))
+    base = init_params(cfg, TP_SHAPE["seed"], device)
+    batch = model_batch(cfg, B, S, TP_SHAPE["seed"] + 11, device)
+    S_tok = batch["tokens"].shape[1]
+    ctx = -(-(S_tok + T + 1) // 8) * 8
+    label = f"tensor parallel families: {arch} at model {M}"
+    out = {"arch": arch, "n_layers": cfg.n_layers, "model_axis": M,
+           "inputs": {k: list(v.shape) for k, v in batch.items()}}
+    with torch.no_grad():
+        cfg32 = cfg.with_(dtype="float32")
+        params = tree_map(lambda t: t.float(), base)
+        blocks = _tp_blocks(cfg32, params, M)
+        want = forward_logits(cfg32, params, batch)[0]
+        got, out["launches_split"], out["routes_split"] = \
+            _tpf_split_forward(label, cfg32, blocks, batch, M)
+        errs = [_rel_l2(g, want) for g in got]
+        out["f32_logits_rel_l2"] = max(errs)
+        if not (max(errs) <= TP_F32_TOL
+                and all(torch.isfinite(g).all() for g in got)):
+            raise AssertionError(f"{label}: f32 logits of the ranks {errs} "
+                                 f"from the unsharded model's (tol "
+                                 f"{TP_F32_TOL})")
+        del got, want
+        split_toks = _tp_greedy(cfg32, blocks, batch, T, ctx, M)
+        last, cache = prefill(cfg32, params, batch, ctx_len=ctx)
+        first = last.argmax(-1)
+        served = Server(cfg32, ServeConfig(batch=B, ctx_len=ctx),
+                        device=device).generate(
+            params, first.cpu().numpy(), T, start_pos=S_tok, cache=cache)
+        whole_toks = np.concatenate([first.cpu().numpy()[:, None], served], 1)
+        del cache, params, blocks
+        torch.cuda.empty_cache()
+        for r, toks in enumerate(split_toks):
+            if not np.array_equal(toks, whole_toks):
+                raise AssertionError(
+                    f"{label}: rank {r}'s greedy tokens {toks.tolist()} != "
+                    f"the server's {whole_toks.tolist()}")
+        out["greedy_tokens_equal"] = T + 1
+        cut = dict(TPF_BF16_CUT.get(arch, (("n_layers", TP_BF16_LAYERS),)))
+        cfg16 = cfg.with_(dtype="bfloat16", **cut)
+        params = _cut_depth(base, cfg16)
+        blocks = _tp_blocks(cfg16, params, M)
+        want = forward_logits(cfg16, params, batch)[0]
+        got, out["launches_split_bf16"], out["routes_split_bf16"] = \
+            _tpf_split_forward(label + " (bf16)", cfg16, blocks, batch, M)
+        err = max(_rel_l2(g, want) for g in got)
+        out["bf16_logits_rel_l2"] = err
+        if not (err <= TOL[torch.bfloat16]
+                and all(torch.isfinite(g).all() for g in got)):
+            raise AssertionError(f"{label}: bf16 at 2 layers {err:.3e} from "
+                                 f"the unsharded model (tol "
+                                 f"{TOL[torch.bfloat16]})")
+        for name, n in out["launches_split_bf16"].items():
+            if n and out["routes_split_bf16"][name] != ["tensor_cores"]:
+                raise AssertionError(f"{label}: bf16 {name} routes "
+                                     f"{out['routes_split_bf16'][name]}")
+        del got, want, params, blocks, base
+    torch.cuda.empty_cache()
+    log(f"{label}: L={cfg.n_layers} inputs {out['inputs']} ≡ unsharded: "
+        f"f32 logits rel L2 {out['f32_logits_rel_l2']:.3e} (worst rank), "
+        f"bf16 at 2 layers {err:.3e}; {T + 1} greedy tokens equal on every "
+        f"rank; launched on the ranks' heads {out['launches_split']} "
+        f"({out['routes_split']}), bf16 {out['launches_split_bf16']} "
+        f"({out['routes_split_bf16']})")
+    return out
+
+
+def phase_tp_families(device, card: str) -> dict:
+    """Phase 22: the model axis for the ssm, hybrid, audio and vlm
+    families on one card, the ranks as threads (as phase 21): the cells of
+    ``TPF_CELLS``, then SSD and flash at the ranks' local shapes."""
+    t0 = time.perf_counter()
+    cells = []
+    for cell in TPF_CELLS:
+        cells.append(_tpf_cell(device, *cell))
+        torch.cuda.empty_cache()
+    tag = "tensor parallel families (local shapes)"
+    rows = (_flash_rows(device, TPF_FLASH_SHAPES, tag)
+            + _ssd_rows(device, TPF_SSD_SHAPES, tag))
+    for r in rows:
+        log(f"{tag}: {r['kernel']} at {r['arch']}'s shape {r['shape']} "
+            f"bf16: device time per call: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, sdpa {r['sdpa_ms']}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    torch.cuda.empty_cache()
+    out = {"card": card, "cells": cells, "local_shapes": rows,
+           "seconds": time.perf_counter() - t0}
+    log(f"tensor parallel families: every gate passed in "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
     kind, card = phase_device()
@@ -4158,14 +4346,26 @@ def main() -> None:
     data_parallel = phase_data_parallel(device, card)
     torch.cuda.empty_cache()
     tensor_parallel = phase_tensor_parallel(device, card)
+    torch.cuda.empty_cache()
+    tp_families = phase_tp_families(device, card)
+    local = lambda rows, kernel: [
+        {k: r[k] for k in ("arch", "shape", "ms", "plain_ms", "bound_ms",
+                           "sdpa_ms")} for r in rows if r["kernel"] == kernel]
+    split = lambda kernel: {
+        f"{c['arch']}@model{c['model_axis']}": c["launches_split"][kernel]
+        for c in tp_families["cells"] if c["launches_split"][kernel]}
     flash["tensor_parallel"] = {
-        "launches_split": {f"{c['arch']}@model{c['model_axis']}":
-                           c["flash_launches_split"]
-                           for c in tensor_parallel["cells"]},
-        "local_shapes": [{k: r[k] for k in ("arch", "shape", "ms",
-                                             "plain_ms", "bound_ms",
-                                             "sdpa_ms")}
-                         for r in tensor_parallel["flash_local"]]}
+        "launches_split": {**{f"{c['arch']}@model{c['model_axis']}":
+                              c["flash_launches_split"]
+                              for c in tensor_parallel["cells"]},
+                           **split("flash")},
+        "local_shapes": (local(tensor_parallel["flash_local"],
+                               "flash_attention")
+                         + local(tp_families["local_shapes"],
+                                 "flash_attention"))}
+    ssd["tensor_parallel"] = {
+        "launches_split": split("ssd"),
+        "local_shapes": local(tp_families["local_shapes"], "ssd_chunk")}
     updates["fused_adam_delayed"]["tensor_parallel"] = {
         k: tensor_parallel["fused_adam_delayed_blocks"][k]
         for k in ("leaves", "launches", "block_elements", "ms", "bound_ms")}
@@ -4189,6 +4389,7 @@ def main() -> None:
     print(json.dumps({"launch_tier": launch}))
     print(json.dumps({"data_parallel": data_parallel}))
     print(json.dumps({"tensor_parallel": tensor_parallel}))
+    print(json.dumps({"tensor_parallel_families": tp_families}))
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys},
          **{k: e[k] for k in ("family_launches", "family_shapes",

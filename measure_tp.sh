@@ -1,15 +1,23 @@
 #!/bin/bash
-# Tensor-parallel measurements on four cards, one process per card (NCCL):
-# qwen2-0.5b's pooled training round with no mesh and on (data 1, model 2),
-# (data 2, model 2), (data 1, model 4); deepseek-moe-16b at full depth on
-# the per-leaf route at (data 1, model 4), with remat none then full; and
-# deepseek-moe-16b served with no mesh and at model 2 and 4, at full depth
-# in bf16 (timed), then at 4 layers in f32, whose greedy tokens on each
-# mesh must equal the no-mesh run's (the script exits 1 when they do not;
-# in bf16 an ulp between the summation orders can move the MoE's routing,
-# so the full-depth runs' tokens are compared and reported only).
-#   bash measure_tp.sh [OUT_DIR] [serve]   # from the repository root
-# With "serve" only the serving runs are made.  Each run's log goes to
+# Tensor-parallel measurements on four cards, one process per card (NCCL).
+# The dense and MoE set: qwen2-0.5b's pooled training round with no mesh
+# and on (data 1, model 2), (data 2, model 2), (data 1, model 4);
+# deepseek-moe-16b at full depth on the per-leaf route at (data 1, model
+# 4), with remat none then full; and deepseek-moe-16b served with no mesh
+# and at model 2 and 4, at full depth in bf16 (timed), then at 4 layers in
+# f32.  The ssm and hybrid set ("families"): mamba2-370m (full depth) and
+# zamba2-7b (13 of its 81 layers: two groups of six and a one-layer tail)
+# trained pooled with no mesh and on the same three meshes; both served
+# 4 x 1024 with no mesh and at model 2 and 4 in bf16 (timed; zamba2-7b
+# at the same 13 layers), then in f32 at 4 layers (mamba2-370m) and 7
+# (zamba2-7b: one group and a one-layer tail).  Every f32 serve's greedy
+# tokens on a mesh must equal the no-mesh run's (the script exits 1 when
+# they do not, or when a run exits non-zero; in bf16 an ulp between the
+# summation orders can move a greedy pick or the MoE's routing, so the
+# bf16 runs' tokens are compared and reported only).
+#   bash measure_tp.sh [OUT_DIR] [serve|families]   # from the repository root
+# With "serve" only the dense and MoE set's serving runs are made; with
+# "families" only the ssm and hybrid set.  Each run's log goes to
 # OUT_DIR/runN.log and its numbers to OUT_DIR/{train,serve}.jsonl
 # (OUT_DIR defaults to build/tp4).
 export PYTHONPATH=src
@@ -18,16 +26,32 @@ mkdir -p $OUT
 nvidia-smi --query-gpu=name,power.limit --format=csv,noheader
 python -c 'import sys, torch; print(sys.version, torch.__version__, torch.version.cuda)'
 T=$OUT/train.jsonl; S=$OUT/serve.jsonl
-n=0
+n=0; failed=0
 run() {
   n=$((n + 1)); local p=$1; shift
   echo "== [$n] nproc $p: $*"
   local t0=$SECONDS
   torchrun --standalone --nproc-per-node $p -m "$@" > $OUT/run$n.log 2>&1
-  echo "rc=$? in $((SECONDS - t0)) s"; grep -E "ms per round|prefill .* ms|Error|error" $OUT/run$n.log | head -5
+  local rc=$?
+  [ $rc = 0 ] || failed=$((failed + 1))
+  echo "rc=$rc in $((SECONDS - t0)) s"; grep -E "ms per round|prefill .* ms|Error|error" $OUT/run$n.log | head -5
 }
 PT=repro_torch.launch.profile_train; PS=repro_torch.launch.profile_serve
-if [ "$2" != serve ]; then
+if [ "$2" = families ]; then
+  for A in "--arch mamba2-370m" "--arch zamba2-7b --n-layers 13 --rounds 2 --warmup 1"; do
+    run 1 $PT $A --update-impl pallas_pooled --json-out $T
+    run 2 $PT $A --update-impl pallas_pooled --mesh data=1,model=2 --json-out $T
+    run 4 $PT $A --update-impl pallas_pooled --mesh data=2,model=2 --json-out $T
+    run 4 $PT $A --update-impl pallas_pooled --mesh data=1,model=4 --json-out $T
+  done
+  for A in "--arch mamba2-370m" "--arch zamba2-7b --n-layers 13" \
+           "--arch mamba2-370m --n-layers 4 --f32" "--arch zamba2-7b --n-layers 7 --f32"; do
+    run 1 $PS $A --json-out $S
+    run 2 $PS $A --mesh data=1,model=2 --json-out $S
+    run 4 $PS $A --mesh data=1,model=4 --json-out $S
+  done
+fi
+if [ "$2" != serve ] && [ "$2" != families ]; then
   run 1 $PT --update-impl pallas_pooled --json-out $T
   run 2 $PT --update-impl pallas_pooled --mesh data=1,model=2 --json-out $T
   run 4 $PT --update-impl pallas_pooled --mesh data=2,model=2 --json-out $T
@@ -35,17 +59,21 @@ if [ "$2" != serve ]; then
   run 4 $PT --arch deepseek-moe-16b --update-impl pallas --mesh data=1,model=4 --rounds 2 --warmup 1 --json-out $T
   run 4 $PT --arch deepseek-moe-16b --update-impl pallas --remat full --mesh data=1,model=4 --rounds 2 --warmup 1 --json-out $T
 fi
-run 1 $PS --arch deepseek-moe-16b --json-out $S
-run 2 $PS --arch deepseek-moe-16b --mesh data=1,model=2 --json-out $S
-run 4 $PS --arch deepseek-moe-16b --mesh data=1,model=4 --json-out $S
-F32="--arch deepseek-moe-16b --n-layers 4 --f32 --json-out $S"
-run 1 $PS $F32
-run 2 $PS $F32 --mesh data=1,model=2
-run 4 $PS $F32 --mesh data=1,model=4
-python - "$S" <<'PY'
+if [ "$2" != families ]; then
+  run 1 $PS --arch deepseek-moe-16b --json-out $S
+  run 2 $PS --arch deepseek-moe-16b --mesh data=1,model=2 --json-out $S
+  run 4 $PS --arch deepseek-moe-16b --mesh data=1,model=4 --json-out $S
+  F32="--arch deepseek-moe-16b --n-layers 4 --f32 --json-out $S"
+  run 1 $PS $F32
+  run 2 $PS $F32 --mesh data=1,model=2
+  run 4 $PS $F32 --mesh data=1,model=4
+fi
+python - "$S" "$failed" <<'PY'
 import json, sys
 runs = [json.loads(line) for line in open(sys.argv[1])]
-bad = 0
+bad = int(sys.argv[2])
+if bad:
+    print(f"{bad} run(s) exited non-zero")
 for r in runs:
     if r["mesh"] is None:
         continue

@@ -508,13 +508,12 @@ class ServeBackend:
     ``mesh`` (a bound ``launch.mesh.ProcessMesh``) and ``rules`` serve the
     lock-step lane over the mesh, as the JAX ``Server`` does: every rank
     calls ``run`` with the same spec, the prompts' rows split over the data
-    axes, the dense and MoE families run tensor-parallel over the model
-    axis (``distributed.Server``), and every rank returns the whole token
-    matrix; ``extra`` adds ``mesh`` (its axis sizes) and ``collectives``
-    (each kind's ``[launches, bytes]`` over the run).  A family that does
-    not run tensor-parallel, and the slot lane over a mesh, raise
-    ``NotImplementedError`` naming ROADMAP.md item 14b before any
-    parameter is made."""
+    axes, the dense, ssm, hybrid and MoE families run tensor-parallel over
+    the model axis (``distributed.Server``), and every rank returns the
+    whole token matrix; ``extra`` adds ``mesh`` (its axis sizes) and
+    ``collectives`` (each kind's ``[launches, bytes]`` over the run).  The
+    slot lane over a mesh raises ``NotImplementedError`` naming
+    ROADMAP.md item 14b before any parameter is made."""
 
     name = "serve"
 
@@ -543,14 +542,10 @@ class ServeBackend:
                 "prompt, which a ServeJob does not carry.  Serve it at the "
                 "model level: repro_torch.models.prefill with the modality "
                 "input, then Server.generate from that cache")
-        if self.mesh is not None:
-            from ..distributed.sharding import check_model_axis
-
-            check_model_axis(job.make_arch(), self.mesh, self.rules)
-            if job.n_slots:
-                raise NotImplementedError(
-                    "the slot lane over a mesh waits for ROADMAP.md queue "
-                    "1, item 14b; serve the lock-step lane (n_slots=None)")
+        if self.mesh is not None and job.n_slots:
+            raise NotImplementedError(
+                "the slot lane over a mesh waits for ROADMAP.md queue 1, "
+                "item 14b; serve the lock-step lane (n_slots=None)")
         if job.n_slots:
             return self._run_slots(spec)
         rec = self.recorder

@@ -74,11 +74,14 @@ decision with no host read.  Every collective is functional and counted
 (:mod:`repro_torch.distributed.collectives`).
 
 **Over the model axis** (a mesh whose ``model`` axis holds M > 1 ranks;
-the dense and MoE families) the forward and backward are
-tensor-parallel (:mod:`repro_torch.models.tp`): the model ranks of a data
-group hold the same batch rows and compute on their blocks of the params.
-On the per-leaf routes every leaf of the state (params, m, v, gbuf) is the
-rank's block under the rules (``state_shardings``), the data ranks keep
+every family) the forward and backward are tensor-parallel
+(:mod:`repro_torch.models.tp`): the model ranks of a data group hold the
+same batch rows and compute on their blocks of the params.  A leaf that
+several layers read (the hybrid's shared attention and MLP, used by every
+group) sums its gradient over its uses, each already through its
+operator's rule, before the update.  On the per-leaf routes every leaf of
+the state (params, m, v, gbuf) is the rank's block under the rules
+(``state_shardings``), the data ranks keep
 it replicated, the update kernels run on the blocks, and the global clip
 norm sums the split leaves' squares over the model group and counts the
 whole ones once; the sparsifier takes each leaf's quantile over the whole
@@ -109,8 +112,8 @@ from ..optim.pool import (build_layout, init_pools, pool_tree,
 from ..tree import tree_map
 from . import collectives as C
 from .sharding import (DEFAULT_RULES, NamedSharding, PSpec, Rules,
-                       check_model_axis, pool_axes, pooled_pspec,
-                       sharded_trace, tree_shardings)
+                       check_model_axis, local_specs, pool_axes,
+                       pooled_pspec, sharded_trace, tree_shardings)
 
 F32 = torch.float32
 
@@ -280,6 +283,16 @@ class AsyncTrainer:
             specs["guard"] = {"health": Spec((self.n_groups,), (None,),
                                              "zeros", "float32")}
         return specs
+
+    def local_state_specs(self):
+        """The state this rank holds, as Specs: :meth:`state_specs` with
+        each per-leaf route's model-split leaf its block (the pooled
+        route's specs are already the rank's: p whole, its row of m, v and
+        gbuf)."""
+        specs = self.state_specs()
+        if not self.ranked or self.pooled:
+            return specs
+        return local_specs(specs, self.state_shardings())
 
     def init_state(self, seed: int = 0, params=None):
         """A fresh state; ``params`` (a tree on the trainer's device)

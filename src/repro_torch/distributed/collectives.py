@@ -14,7 +14,11 @@ since the counters were last set (:func:`reset`), as the kernels'
 
 A collective runs on whatever device its tensor lies on, through the
 group's backend (NCCL for CUDA tensors, gloo for CPU tensors); nothing
-here copies a tensor to the host or picks another backend.
+here copies a tensor to the host or picks another backend.  Over a
+:class:`TracedGroup` (``launch.mesh.TracedMesh``: one rank of a mesh
+traced with no process group, as the dry-run traces the production
+meshes on ``meta``) a collective returns its output's shape and counts
+its operand bytes in the active ``launch/op_cost.py`` tally.
 """
 from __future__ import annotations
 
@@ -46,6 +50,21 @@ def since(before: dict) -> dict:
             for k in KINDS}
 
 
+class TracedGroup:
+    """A stand-in for the process group of ``size`` ranks along some mesh
+    axes, bound to no process: a collective over it returns a tensor of
+    its output's shape and dtype on the operand's device (the operand
+    itself, repeated or its first block: the values mean nothing off
+    ``meta``), counted as the collective
+    (``launch.op_cost.stand_in_collective``)."""
+
+    def __init__(self, size: int):
+        self.size = size
+
+    def __repr__(self):
+        return f"TracedGroup({self.size})"
+
+
 def _note(kind: str, t: torch.Tensor) -> None:
     launches[kind] += 1
     nbytes[kind] += t.numel() * t.element_size()
@@ -70,12 +89,16 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """Σ (or the ``op``, ``"max"``) over ``group`` of ``t`` (a new tensor;
     ``t`` is not changed)."""
     _note("all_reduce", t)
+    if isinstance(group, TracedGroup):
+        return _stand_in("all_reduce", t, group)
     return _call("all_reduce", t.contiguous(), op, group)
 
 
 def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The ranks' ``t`` concatenated along ``dim`` in group order."""
     _note("all_gather", t)
+    if isinstance(group, TracedGroup):
+        return _stand_in("all_gather", t, group, dim)
     return _call("all_gather_tensor", t.contiguous(), dim, group)
 
 
@@ -83,8 +106,16 @@ def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Σ over ``group`` of ``t``, of which this rank keeps its block along
     ``dim`` (its group position's)."""
     _note("reduce_scatter", t)
+    if isinstance(group, TracedGroup):
+        return _stand_in("reduce_scatter", t, group, dim)
     return _call("reduce_scatter_tensor", t.contiguous(), "sum", dim,
                  group)
+
+
+def _stand_in(kind: str, t: torch.Tensor, group: TracedGroup,
+              dim: int = 0) -> torch.Tensor:
+    from ..launch.op_cost import stand_in_collective
+    return stand_in_collective(kind, t.contiguous(), group.size, dim)
 
 
 class _GatherRows(torch.autograd.Function):

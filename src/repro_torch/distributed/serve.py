@@ -4,10 +4,11 @@ Counterpart of ``repro/distributed/serve.py``.  PyTorch runs eagerly, so
 there is no compiled step to cache; the cache the JAX package donates to
 each step is updated in place here.  On a mesh (a bound
 ``launch.mesh.ProcessMesh``, with the JAX ``Server``'s ``rules``) the
-batch rows split over the data axes and the dense and MoE families run
-tensor-parallel over the model axis (``models/tp.py``): each rank decodes
-on its blocks of the params and the cache, the logits come whole over the
-vocabulary, and the tokens come back whole on every rank.  The cache is
+batch rows split over the data axes and every family runs tensor-parallel
+over the model axis (``models/tp.py``): each rank decodes on its blocks of
+the params and the cache (the ssm family's conv and SSD states, the
+hybrid's ring too), the logits come whole over the vocabulary, and the
+tokens come back whole on every rank.  The cache is
 whatever ``models.init_cache`` / ``prefill`` make for the family: ring k/v
 caches with a positions buffer (dense, vlm, moe; audio adds the cross k/v
 of its encoder memory, so it decodes from a prefilled cache), conv and

@@ -29,18 +29,18 @@ per device, where the data axes are data parallelism:
   context for the model code: :func:`data_shard_count` is then the product
   of its data axes (the MoE's dispatch groups), :func:`data_context`
   hands the model the data group for the loss's and the MoE's
-  collectives, and :func:`model_context` the model group, over which the
-  dense and MoE families run tensor-parallel (``models/tp.py``: each rank
-  holds the block of every leaf that :func:`logical_pspec` gives it, and
-  the layers compute Megatron-style where the rules' split is a Megatron
+  collectives, and :func:`model_context` the model group, over which
+  every family runs tensor-parallel (``models/tp.py``: each rank holds
+  the block of every leaf that :func:`logical_pspec` gives it, and the
+  layers compute Megatron-style where the rules' split is a Megatron
   split).  :func:`shard_activation` is the identity on every mesh: an
   activation's layout is whatever the tensor-parallel layers produce.
   ``SEQ_PARALLEL_RULES``' ``"seq"`` is a layout lever of the JAX package
   that the port's layers do not act on (no activation carries it).
 
-What waits for ROADMAP.md queue 1, item 14b: the ssm, hybrid, audio and
-vlm families on a model axis larger than 1 (:func:`check_model_axis`
-refuses them).
+What waits for ROADMAP.md queue 1, item 14b: the slot lane over a mesh
+(the ragged decode on a model axis raises) and per-leaf ZeRO over the
+data axes (``zero_pspec`` counts in the analytic bytes only).
 """
 from __future__ import annotations
 
@@ -106,16 +106,16 @@ def auto_rules(cfg, model_axis_size: int = 16) -> Rules:
 _ACT_CTX: contextvars.ContextVar = contextvars.ContextVar(
     "repro_torch_activation_sharding", default=None)
 
-#: the families that run tensor-parallel over a model axis larger than 1
-TP_FAMILIES = ("dense", "moe")
+#: the families that run tensor-parallel over a model axis larger than 1:
+#: all six
+TP_FAMILIES = ("dense", "ssm", "hybrid", "moe", "audio", "vlm")
 
 
 def model_axis_waits(family: str, model: int) -> str:
     """Why a family is refused on a model axis of ``model``."""
     return (f"the {family!r} family on a model axis of {model}: tensor "
-            "parallelism over the mesh's model axis runs the dense and moe "
-            "families only; the others wait for ROADMAP.md queue 1, item "
-            "14b (use a data-only mesh, model = 1)")
+            f"parallelism runs the families {TP_FAMILIES} only (use a "
+            "data-only mesh, model = 1)")
 
 
 def check_model_axis(cfg, mesh, rules=None) -> None:
@@ -404,3 +404,10 @@ def tree_shardings(spec_tree, mesh, rules: Rules = DEFAULT_RULES,
     """Map a Spec tree → a :class:`NamedSharding` tree of the same paths."""
     return tree_map(lambda p: NamedSharding(mesh, p),
                     tree_pspecs(spec_tree, mesh, rules, zero))
+
+
+def local_specs(spec_tree, shardings):
+    """The Specs of one rank's blocks of a Spec tree: each leaf's shape its
+    ``shardings`` leaf's ``shard_shape``."""
+    return tree_map(lambda s, sh: dataclasses.replace(
+        s, shape=sh.shard_shape(s.shape)), spec_tree, shardings)

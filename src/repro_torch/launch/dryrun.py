@@ -15,16 +15,27 @@ differs: ``trace_s`` for ``lower_s`` (no ``compile_s``), ``op_cost`` for
 ``HBM_BYTES``) and ``sharded_state_bytes``, the analytic per-device state
 under the sharding rules on both production H100 meshes.
 
-The traced program is one card's (mesh ``h100x1``, ``n_devices`` 1) at
-the shape's global batch.  The dense and MoE families run
-tensor-parallel over a model axis on bound meshes (``models/tp.py``), but
-the dry-run traces no process group: tracing a rank of the production
-meshes (model axis 8) waits for ROADMAP.md queue 1, item 14b, so
-``--multi-pod`` and ``--both-meshes`` are refused.
+By default the traced program is one card's (mesh ``h100x1``,
+``n_devices`` 1) at the shape's global batch.  ``--both-meshes`` traces
+instead the step of one rank (rank 0) of each production mesh, ``32x8``
+(data 32 × model 8, 256 cards) and ``2x32x8`` (pod 2 × data 32 × model 8,
+512 cards), and ``--multi-pod`` of the second alone: the rank holds its
+blocks of the params, the cache and the optimizer state at model 8 and
+the data axes' share of the global batch (the trainer takes its rows of
+the global batch; prefill and decode are handed the rank's rows), and
+runs the model under the mesh's ``TP`` (``models/tp.py``) and the
+trainer's data-parallel round.  No process group is made: the mesh is a
+``launch.mesh.TracedMesh``, whose collectives return their outputs'
+shapes on ``meta`` and count their operand bytes
+(``op_cost.collective_bytes``).  Per-leaf ZeRO over the data axes is not
+ported (ROADMAP.md item 14b), so a rank's traced state keeps every
+model-split leaf whole over the data axes, while ``analytic_state_bytes``
+counts the rules with ZeRO, as the JAX dry-run does.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape decode_32k
   python -m repro_torch.launch.dryrun --all [--out experiments/dryrun]
+  python -m repro_torch.launch.dryrun --all --both-meshes
 """
 from __future__ import annotations
 
@@ -40,12 +51,14 @@ from ..configs import ARCHS, SHAPES, get_arch
 from ..configs.base import ArchConfig, InputShape
 from ..distributed.async_trainer import AsyncConfig, AsyncTrainer
 from ..distributed.sharding import (DEFAULT_RULES, Rules, auto_rules,
-                                    bytes_per_device)
+                                    bytes_per_device, local_specs,
+                                    sharded_trace, tree_shardings)
 from ..models import model as M
-from ..models.specs import init_tree, meta_tree
+from ..models.specs import Spec, init_tree, meta_tree
 from ..optim import OptConfig
 from . import op_cost
-from .mesh import HBM_BYTES, Mesh, make_production_mesh
+from .mesh import (HBM_BYTES, Mesh, TracedMesh, make_production_mesh,
+                   mesh_devices)
 
 LONG_WINDOW = 8192   # SWA engaged for full-attention archs on long_500k
 #: the traced program's mesh: one card
@@ -54,6 +67,9 @@ HOST = Mesh({"data": 1, "model": 1})
 #: the production meshes the analytic state is sharded over
 PRODUCTION = {"h100x256": make_production_mesh(),
               "h100x512": make_production_mesh(multi_pod=True)}
+#: the production meshes a rank is traced on, by their records' names
+RANK_MESHES = {"32x8": PRODUCTION["h100x256"],
+               "2x32x8": PRODUCTION["h100x512"]}
 
 
 def arch_for_shape(cfg: ArchConfig, shape: InputShape) -> ArchConfig:
@@ -65,11 +81,14 @@ def arch_for_shape(cfg: ArchConfig, shape: InputShape) -> ArchConfig:
 
 
 def _trainer(cfg, device, update_impl="reference", microbatches=1,
-             n_groups=1) -> AsyncTrainer:
+             n_groups=1, mesh=None, rules=DEFAULT_RULES) -> AsyncTrainer:
+    """The train step's trainer; on a (traced) mesh its worker groups are
+    the data shards, the JAX trainer's default."""
     tr = AsyncTrainer(cfg, OptConfig(update_impl=update_impl),
                       AsyncConfig(delay_rounds=1, microbatches=microbatches),
-                      device=device)
-    tr.n_groups = n_groups
+                      device=device, mesh=mesh, rules=rules)
+    if mesh is None:
+        tr.n_groups = n_groups
     return tr
 
 
@@ -91,7 +110,8 @@ def _batch(cfg, shape: InputShape, device, seed):
 
 
 def input_specs(cfg: ArchConfig, shape: InputShape, device="meta", *,
-                trainer: AsyncTrainer = None, seed: int = 0) -> dict:
+                trainer: AsyncTrainer = None, seed: int = 0, mesh=None,
+                rules: Rules = DEFAULT_RULES) -> dict:
     """The step's inputs by name, for ``shape``'s global batch: train
     ``state`` (``trainer``'s), ``batch`` and the ``(n_groups,)`` ``mask``;
     prefill ``params`` and ``batch``; decode ``params``, ``cache`` and
@@ -99,49 +119,67 @@ def input_specs(cfg: ArchConfig, shape: InputShape, device="meta", *,
     (:func:`models.specs.meta_tree`, where JAX takes
     ``ShapeDtypeStruct`` stand-ins); on a real device they are made from ``seed``:
     the trainer's initial state or the params, random tokens (and modality
-    inputs), a fresh cache."""
+    inputs), a fresh cache.  With ``mesh`` (a ``TracedMesh``, on ``meta``)
+    they are its rank's: the trainer's local state, the blocks of the
+    params and the cache, the rank's rows of a prefill or decode batch
+    (the trainer takes its rows of the global batch itself)."""
     device = torch.device(device)
     meta = device.type == "meta"
     B, S = shape.global_batch, shape.seq_len
+
+    def local(specs):
+        if mesh is None:
+            return specs
+        return local_specs(specs, tree_shardings(specs, mesh, rules))
+
     if shape.kind == "train":
-        return {"state": (meta_tree(trainer.state_specs()) if meta
+        return {"state": (meta_tree(trainer.local_state_specs()) if meta
                           else trainer.init_state(seed)),
                 "batch": _batch(cfg, shape, device, seed),
                 "mask": torch.ones((trainer.n_groups,), dtype=torch.float32,
                                    device=device)}
-    params = (meta_tree(M.param_specs(cfg)) if meta
+    params = (meta_tree(local(M.param_specs(cfg))) if meta
               else M.init_params(cfg, seed, device))
     if shape.kind == "prefill":
-        return {"params": params, "batch": _batch(cfg, shape, device, seed)}
+        batch = meta_tree(local(M.batch_specs(cfg, B, S))) \
+            if mesh is not None else _batch(cfg, shape, device, seed)
+        return {"params": params, "batch": batch}
     if meta:
         return {"params": params,
-                "cache": meta_tree(M.cache_specs(cfg, B, S)),
-                "tokens": torch.empty((B,), dtype=torch.int32,
-                                      device=device)}
+                "cache": meta_tree(local(M.cache_specs(cfg, B, S))),
+                "tokens": meta_tree(local(Spec((B,), ("batch",), "zeros",
+                                               "int32")))}
     return {"params": params, "cache": M.init_cache(cfg, B, S, device),
             "tokens": _tokens(cfg, (B,), device, seed)}
 
 
 def build_step(cfg: ArchConfig, shape: InputShape, device="meta", *,
                update_impl: str = "reference", microbatches: int = 1,
-               n_groups: int = 1, seed: int = 0):
+               n_groups: int = 1, seed: int = 0, mesh=None,
+               rules: Rules = DEFAULT_RULES):
     """→ (step fn, its positional args from :func:`input_specs`): the
     port's train step (``AsyncTrainer.train_step_fn`` at delay 1), prefill
-    or one lock-step decode step at the cache's last position."""
+    or one lock-step decode step at the cache's last position.  With
+    ``mesh`` (a ``TracedMesh``) the step of its rank, under the mesh's
+    context."""
     S = shape.seq_len
     if shape.kind == "train":
-        tr = _trainer(cfg, device, update_impl, microbatches, n_groups)
-        x = input_specs(cfg, shape, device, trainer=tr, seed=seed)
+        tr = _trainer(cfg, device, update_impl, microbatches, n_groups, mesh,
+                      rules)
+        x = input_specs(cfg, shape, device, trainer=tr, seed=seed,
+                        mesh=mesh, rules=rules)
         return tr.train_step_fn(), (x["state"], x["batch"], x["mask"])
-    x = input_specs(cfg, shape, device, seed=seed)
+    x = input_specs(cfg, shape, device, seed=seed, mesh=mesh, rules=rules)
+    wrap = (lambda f: f) if mesh is None else \
+        (lambda f: sharded_trace(f, mesh, rules))
     if shape.kind == "prefill":
         def prefill(params, batch):
             return M.prefill(cfg, params, batch, ctx_len=S)
-        return prefill, (x["params"], x["batch"])
+        return wrap(prefill), (x["params"], x["batch"])
 
     def decode(params, cache, tokens):
         return M.decode_step(cfg, params, cache, tokens, S - 1, S)
-    return decode, (x["params"], x["cache"], x["tokens"])
+    return wrap(decode), (x["params"], x["cache"], x["tokens"])
 
 
 def state_bytes(cfg: ArchConfig, shape: InputShape, mesh,
@@ -165,31 +203,37 @@ def state_bytes(cfg: ArchConfig, shape: InputShape, mesh,
 
 def run_one(arch, shape, *, rules: Rules = DEFAULT_RULES,
             verbose: bool = True, microbatches: int = 1, auto: bool = False,
-            update_impl: str = "reference", n_groups: int = 1) -> dict:
+            update_impl: str = "reference", n_groups: int = 1,
+            mesh: str = MESH_NAME) -> dict:
     """Trace and cost one (arch × shape) step on ``meta`` → its record.
     ``arch`` is a registry name or an ``ArchConfig`` (a reduced one, say);
-    ``shape`` a name of ``SHAPES`` or an ``InputShape``."""
+    ``shape`` a name of ``SHAPES`` or an ``InputShape``; ``mesh`` is
+    ``"h100x1"`` (one card) or a name of :data:`RANK_MESHES` (rank 0 of
+    that mesh, its worker groups the data shards)."""
     shape = SHAPES[shape] if isinstance(shape, str) else shape
     cfg = arch_for_shape(get_arch(arch) if isinstance(arch, str) else arch,
                          shape)
     if auto:
         rules = auto_rules(cfg, PRODUCTION["h100x256"].shape["model"])
+    whole = RANK_MESHES.get(mesh, HOST)
     rec = {
-        "arch": cfg.name, "shape": shape.name, "mesh": MESH_NAME,
-        "n_devices": 1, "family": cfg.family, "kind": shape.kind,
-        "sliding_window": cfg.sliding_window, "update_impl": update_impl,
-        "ok": False,
+        "arch": cfg.name, "shape": shape.name, "mesh": mesh,
+        "n_devices": mesh_devices(whole), "family": cfg.family,
+        "kind": shape.kind, "sliding_window": cfg.sliding_window,
+        "update_impl": update_impl, "ok": False,
     }
     try:
         t0 = time.perf_counter()
-        fn, args = build_step(cfg, shape, "meta", update_impl=update_impl,
-                              microbatches=microbatches, n_groups=n_groups)
+        fn, args = build_step(
+            cfg, shape, "meta", update_impl=update_impl,
+            microbatches=microbatches, n_groups=n_groups, rules=rules,
+            mesh=TracedMesh(whole.shape) if mesh in RANK_MESHES else None)
         cost = op_cost.analyze(fn, *args)
         rec["trace_s"] = round(time.perf_counter() - t0, 2)
         rec["memory"] = {"argument_bytes": cost.argument_bytes,
                          "peak_bytes_est": cost.peak_live_bytes}
         rec["fits"] = cost.peak_live_bytes <= HBM_BYTES
-        rec["analytic_state_bytes"] = state_bytes(cfg, shape, HOST, rules)
+        rec["analytic_state_bytes"] = state_bytes(cfg, shape, whole, rules)
         rec["sharded_state_bytes"] = {
             name: state_bytes(cfg, shape, mesh, rules)
             for name, mesh in PRODUCTION.items()}
@@ -203,11 +247,13 @@ def run_one(arch, shape, *, rules: Rules = DEFAULT_RULES,
             oc = rec["op_cost"]
             extra = (f"peak={rec['memory']['peak_bytes_est'] / 1e9:.2f}GB "
                      f"fits={rec['fits']} flops={oc['dot_flops']:.3g} "
-                     f"bytes={oc['hbm_bytes']:.3g} trace={rec['trace_s']}s")
+                     f"bytes={oc['hbm_bytes']:.3g} "
+                     f"coll={oc['collective_bytes']:.3g} "
+                     f"trace={rec['trace_s']}s")
         else:
             extra = rec["error"][:160]
         print(f"[{'OK ' if rec['ok'] else 'FAIL'}] {rec['arch']:24s} "
-              f"{shape.name:12s} {MESH_NAME:8s} {extra}", flush=True)
+              f"{shape.name:12s} {mesh:8s} {extra}", flush=True)
     return rec
 
 
@@ -216,38 +262,36 @@ def main(argv=None):
     ap.add_argument("--arch", default=None)
     ap.add_argument("--shape", default=None, choices=list(SHAPES))
     ap.add_argument("--multi-pod", action="store_true",
-                    help="refused: the port traces one card")
+                    help="trace rank 0 of the multi-pod mesh (pod 2 x "
+                         "data 32 x model 8) instead of one card")
     ap.add_argument("--all", action="store_true",
-                    help="every (arch × shape) on h100x1")
+                    help="every (arch × shape)")
     ap.add_argument("--both-meshes", action="store_true",
-                    help="refused: the port traces one card")
+                    help="trace rank 0 of both production meshes (32x8, "
+                         "2x32x8) instead of one card")
     ap.add_argument("--out", default="experiments/dryrun")
     ap.add_argument("--auto-rules", action="store_true",
-                    help="per-arch sharding rules (the analytic sharded "
-                         "state bytes only: the traced step is one card's)")
+                    help="per-arch sharding rules (on one card: the "
+                         "analytic sharded state bytes only)")
     ap.add_argument("--update-impl", default="reference",
                     choices=["reference", "pallas", "pallas_pooled"],
                     help="the train step's server update (the kernels "
                          "count once per launch with their formulas)")
     ap.add_argument("--suffix", default="")
     args = ap.parse_args(argv)
-    for flag in ("multi_pod", "both_meshes"):
-        if getattr(args, flag):
-            ap.error(f"--{flag.replace('_', '-')} traces a rank of the "
-                     "production meshes (model axis 8), which the dry-run "
-                     "does not do yet: ROADMAP.md queue 1, item 14b; the "
-                     "port traces the step of one card")
+    meshes = (list(RANK_MESHES) if args.both_meshes else
+              ["2x32x8"] if args.multi_pod else [MESH_NAME])
 
     os.makedirs(args.out, exist_ok=True)
     archs = [args.arch] if args.arch else sorted(ARCHS)
     shapes = [args.shape] if args.shape else list(SHAPES)
-    combos = [(a, s) for a in archs for s in shapes]
+    combos = [(a, s, m) for a in archs for s in shapes for m in meshes]
     n_ok = 0
-    for a, s in combos:
+    for a, s, m in combos:
         rec = run_one(a, s, auto=args.auto_rules,
-                      update_impl=args.update_impl)
+                      update_impl=args.update_impl, mesh=m)
         n_ok += rec["ok"]
-        tag = f"{a}_{s}_{MESH_NAME}{args.suffix}.json"
+        tag = f"{a}_{s}_{m}{args.suffix}.json"
         with open(os.path.join(args.out, tag), "w") as f:
             json.dump(rec, f, indent=1)
     print(f"\n{n_ok}/{len(combos)} combinations traced OK")

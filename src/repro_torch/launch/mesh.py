@@ -16,13 +16,14 @@ world size is an error, as ``jax.make_mesh`` fails without the devices.
 
 What runs on a bound mesh: data parallelism over the data axes (the
 AsGrad trainer, :mod:`repro_torch.distributed.async_trainer`) and, for
-the dense and MoE families, tensor parallelism over the ``model`` axis
+every family, tensor parallelism over the ``model`` axis
 (:mod:`repro_torch.models.tp`; the trainer and the lock-step ``Server``),
 each rank holding its blocks of the params, the cache and the optimizer
-state; :func:`make_host_mesh` (data 1, model = the world) runs them.  The
-other families on a model axis larger than 1 wait for ROADMAP.md queue
-1, item 14b.  The production layout puts one 8-GPU NVLink node on the
-model axis.
+state; :func:`make_host_mesh` (data 1, model = the world) runs them.  A
+:class:`TracedMesh` is one rank of a mesh bound to no process group, its
+collectives stand-ins that count their bytes: the dry-run traces a rank
+of the production meshes with it.  The production layout puts one 8-GPU
+NVLink node on the model axis.
 
 The constants are one NVIDIA H100 SXM's, from NVIDIA's data sheet: dense
 rates at the 700 W power limit.  A card set below that limit runs slower
@@ -143,6 +144,31 @@ class ProcessMesh(Mesh):
 
     def my_index(self, axes) -> int:
         """This rank's position along ``axes`` flattened."""
+        return self.index(axes, self.coords)
+
+
+class TracedMesh(Mesh):
+    """Rank ``rank`` of a mesh of ``shape``, bound to no process group: its
+    coordinates, and per axis a stand-in group
+    (``distributed.collectives.TracedGroup``) whose collectives return
+    their outputs' shapes and count their operand bytes in the active
+    ``launch/op_cost.py`` tally.  The model code and the trainer run on it
+    as on a :class:`ProcessMesh`, so one rank's step of a mesh of any size
+    can be traced on ``meta`` by one process."""
+
+    bound = True
+
+    def __init__(self, shape: dict, rank: int = 0):
+        super().__init__(shape)
+        self.rank = rank
+        self.world = mesh_devices(self)
+        self.coords = self.coords_of(rank)
+
+    def group(self, axes):
+        from ..distributed.collectives import TracedGroup
+        return TracedGroup(self.count(axes))
+
+    def my_index(self, axes) -> int:
         return self.index(axes, self.coords)
 
 

@@ -23,7 +23,10 @@ counts can be held to each other.  :class:`Cost` keeps ``hlo_cost``'s keys:
   ``_c10d_functional`` collectives (0 on one card): the data-parallel
   trainer's and the tensor-parallel operators' (``distributed/
   collectives.py``; the all-reduce of a max included), those their
-  backward passes run too;
+  backward passes run too.  A rank traced with no process group
+  (``launch.mesh.TracedMesh``, the dry-run's production meshes) runs each
+  collective as a stand-in (:func:`stand_in_collective`), counted as the
+  ``_c10d_functional`` op itself is;
 * ``n_while`` / ``unknown_trip_loops`` — 0: an eager trace unrolls every
   loop, so no trip count is guessed;
 
@@ -301,6 +304,50 @@ class _Tally(TorchDispatchMode):
         cost.hbm_bytes += nbytes
         cost.n_ops += 1
         _add(cost.ops, f"{func.namespace}.{packet.__name__}", flops, nbytes)
+
+
+#: a stand-in collective's kind → the ``_c10d_functional`` op it counts as
+_FUNCOL_OPS = {"all_reduce": "all_reduce",
+               "all_gather": "all_gather_into_tensor",
+               "reduce_scatter": "reduce_scatter_tensor"}
+
+
+def stand_in_collective(kind: str, t: torch.Tensor, n: int,
+                        dim: int = 0) -> torch.Tensor:
+    """Collective ``kind`` of ``distributed.collectives`` over ``n`` ranks
+    of the contiguous ``t``, with no process group: a new tensor of the
+    output's shape (``t`` itself for an all-reduce, ``n`` copies along
+    ``dim`` for an all-gather, its first ``1/n`` along ``dim`` for a
+    reduce-scatter; only its shape means something), counted in the
+    active tally as the ``_c10d_functional`` op: its operand's bytes under
+    ``collective_bytes``, operand and result under ``hbm_bytes``.  The
+    copy that makes the output is not counted."""
+    tally = active()
+    if tally is not None:
+        tally._suspended += 1
+    try:
+        if kind == "all_reduce":
+            out = t.clone()
+        elif kind == "all_gather":
+            out = torch.cat([t] * n, dim)
+        else:
+            out = t.narrow(dim, 0, t.shape[dim] // n).clone()
+    finally:
+        if tally is not None:
+            tally._suspended -= 1
+    if tally is not None and not tally._suspended:
+        tally._track(out)
+        cost = tally.cost
+        coll = _nbytes(t)
+        nbytes = coll + _nbytes(out)
+        cost.collective_bytes += coll
+        name = _COLLECTIVES[_FUNCOL_OPS[kind]]
+        cost.collective_breakdown[name] = \
+            cost.collective_breakdown.get(name, 0) + coll
+        cost.hbm_bytes += nbytes
+        cost.n_ops += 1
+        _add(cost.ops, f"_c10d_functional.{_FUNCOL_OPS[kind]}", 0, nbytes)
+    return out
 
 
 def active():

@@ -1,8 +1,10 @@
 """Roofline analysis from the dry-run's records, with H100 constants.
 
 Counterpart of ``repro/launch/roofline.py``.  For each (arch × shape) traced
-on one card (``*_h100x1.json``), the three roofline terms come from the
-traced op count (``op_cost``: one card's program):
+on one card (``*_h100x1.json``) or as rank 0 of a production mesh
+(``--mesh 32x8`` / ``2x32x8``: the dry-run's ``--both-meshes`` records),
+the three roofline terms come from the traced op count (``op_cost``: one
+card's program):
 
     compute_term    = dot_flops / PEAK_FLOPS_BF16          [s]
     memory_term     = hbm_bytes / HBM_BW                   [s]
@@ -15,6 +17,7 @@ ratio: what the step computes beyond the algorithm (recompute under
 ``remat``, attention, replicated work).
 
 Usage: python -m repro_torch.launch.roofline [--dir experiments/dryrun]
+       [--mesh h100x1|32x8|2x32x8]
 """
 from __future__ import annotations
 
@@ -120,7 +123,8 @@ def render_markdown(rows: list) -> str:
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.roofline")
     ap.add_argument("--dir", default="experiments/dryrun")
-    ap.add_argument("--mesh", default="h100x1", choices=["h100x1"])
+    ap.add_argument("--mesh", default="h100x1",
+                    choices=["h100x1", "32x8", "2x32x8"])
     ap.add_argument("--json-out", default=None)
     args = ap.parse_args(argv)
     rows = load_table(args.dir, args.mesh)

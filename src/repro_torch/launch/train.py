@@ -12,14 +12,12 @@ One process trains on one device with no mesh.  Under ``torchrun`` (one
 process per card, NCCL; gloo with ``--device cpu``) the processes are the
 ranks of a mesh: ``--mesh data=N[,pod=P][,model=M]`` trains data-parallel
 over the data axes (the AsGrad workers' batch rows split over them, the
-pooled update ZeRO-sharded) and, for the dense and MoE families,
-tensor-parallel over the model axis; ``--host-mesh`` is the JAX law,
-(data=1, model=world size); ``--multi-pod``, or no mesh flag on several
-ranks, is the production mesh, which needs 512 (256) processes.  A family
-that does not run tensor-parallel (ssm, hybrid, audio, vlm) on a model
-axis larger than 1 is refused with exit 2 naming ROADMAP.md queue 1, item
-14b, before any process group starts.  ``--auto-rules`` picks the arch's
-rules on the mesh.
+pooled update ZeRO-sharded) and tensor-parallel over the model axis, every
+family; ``--host-mesh`` is the JAX law, (data=1, model=world size);
+``--multi-pod``, or no mesh flag on several ranks, is the production mesh,
+which needs 512 (256) processes: a mesh whose device count is not the
+world size exits 2 before any process group starts.  ``--auto-rules``
+picks the arch's rules on the mesh.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen2-0.5b \\
       --reduced --device cpu --steps 20 --scheduler shuffled
@@ -28,6 +26,8 @@ rules on the mesh.
       --update-impl pallas_pooled --steps 8
   torchrun --nproc-per-node 4 -m repro_torch.launch.train \\
       --arch deepseek-moe-16b --reduced --mesh data=2,model=2 --steps 8
+  torchrun --nproc-per-node 2 -m repro_torch.launch.train \\
+      --arch mamba2-370m --reduced --device cpu --host-mesh --steps 8
 """
 from __future__ import annotations
 
@@ -99,9 +99,7 @@ def parser() -> argparse.ArgumentParser:
     ap.add_argument("--sync", action="store_true")
     ap.add_argument("--host-mesh", action="store_true",
                     help="this host's mesh, (data=1, model=world size): "
-                         "several ranks train tensor-parallel (dense and "
-                         "moe; the other families wait for ROADMAP.md "
-                         "queue 1, item 14b)")
+                         "several ranks train tensor-parallel")
     ap.add_argument("--multi-pod", action="store_true",
                     help="the production multi-pod mesh (pod 2 x data 32 "
                          "x model 8): needs 512 processes")
@@ -158,10 +156,7 @@ def parse_mesh(text: str):
 def choose_mesh(args, ap, world: int):
     """The mesh the flags and the launcher's world size ask for, or None
     (one process, no flag); exits 2 (``ap.error``) on a mesh whose device
-    count is not the world size, or whose model axis is larger than 1 for
-    a family that does not run tensor-parallel."""
-    from ..configs import get_arch
-    from ..distributed.sharding import TP_FAMILIES, model_axis_waits
+    count is not the world size."""
     from .mesh import make_host_mesh, make_production_mesh, mesh_devices
 
     flag = next((f"--{f.replace('_', '-')}" for f in MESH_FLAGS[:3]
@@ -184,16 +179,10 @@ def choose_mesh(args, ap, world: int):
             ap.error("--auto-rules picks the sharding rules of a mesh: pass "
                      "--host-mesh or --mesh")
         return None
-    n, model = mesh_devices(mesh), mesh.shape.get("model", 1)
-    family = get_arch(args.arch).family
-    waits = model > 1 and family not in TP_FAMILIES
+    n = mesh_devices(mesh)
     if n != world:
         ap.error(f"{flag} {mesh.shape} needs {n} processes, but the launcher "
-                 f"started {world} (torchrun --nproc-per-node ...)"
-                 + (f"; and {model_axis_waits(family, model)}" if waits
-                    else ""))
-    if waits:
-        ap.error(f"{flag} {mesh.shape}: {model_axis_waits(family, model)}")
+                 f"started {world} (torchrun --nproc-per-node ...)")
     return mesh
 
 

@@ -4,7 +4,10 @@ PyTorch.
 Counterpart of ``repro/models/layers.py`` (norm, RoPE, GQA attention,
 one-token decode attention, SwiGLU, the capacity-dispatched MoE, Mamba2's
 chunked SSD scan and its one-token step, the depthwise causal conv, the
-token cross entropy).
+gated norm, the token cross entropy).  The Mamba2 parts run on whatever
+heads and columns they are given: a rank of the model axis hands them its
+own (``models/tp.py``), and the gated norm then sums its squares over the
+ranks.
 Activations follow the JAX package's dtype rules:
 
 * JAX promotes mixed operands (bf16 params × f32 activations → f32); torch
@@ -44,6 +47,22 @@ def rms_norm(x, weight, eps: float = 1e-5):
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * weight.to(F32)).to(x.dtype)
+
+
+def gated_rms_norm(y, z, weight, eps: float = 1e-5, total=None,
+                   width: Optional[int] = None):
+    """Mamba2's gated norm: ``rms_norm(y · silu(z), weight)`` over the whole
+    ``d_inner``, silu in f32 with one cast to y's dtype, as in the JAX
+    package.  Split over ranks, ``y`` / ``z`` / ``weight`` are a rank's
+    columns of ``width`` in all: the rank's Σ(y·silu(z))² in f32 is summed
+    over the ranks by ``total`` (an all-reduce), then divided by
+    ``width``.  Without ``total`` the whole width is here."""
+    g = y * F.silu(z.to(F32)).to(y.dtype)
+    if total is None:
+        return rms_norm(g, weight, eps)
+    g32 = g.to(F32)
+    var = total(torch.sum(g32 * g32, dim=-1, keepdim=True)) / width
+    return (g32 * torch.rsqrt(var + eps) * weight.to(F32)).to(g.dtype)
 
 
 def rope(x, positions, theta: float = 1e4):

@@ -21,10 +21,10 @@ the hybrid).  ``_shard_act``'s call sites go through
 data-parallel context (the trainer's ranked step) each rank holds its rows
 of the batch: :func:`loss_fn` returns the rank's share of the loss, and
 the MoE dispatches in JAX's groups (``layers.moe_ffn``).  Under a model
-axis larger than 1 (``distributed.sharding.model_context``) the dense and
-MoE families run tensor-parallel on the rank's blocks of the params and
-the cache (:mod:`repro_torch.models.tp`); the other families raise
-``NotImplementedError`` naming ROADMAP.md item 14b.
+axis larger than 1 (``distributed.sharding.model_context``) every family
+runs tensor-parallel on the rank's blocks of the params and the cache
+(:mod:`repro_torch.models.tp`); only the ragged decode (the slot lane)
+there raises ``NotImplementedError`` naming ROADMAP.md item 14b.
 
 The SSM decode cache holds per-layer conv and SSD states
 (``{"ssm": {"conv", "ssd"}}``, the JAX layout) and no positions buffer.
@@ -53,14 +53,14 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from ..configs.base import ArchConfig
 from ..device import resolve_device
 from . import layers as L
 from .specs import Spec, count_params, init_tree, torch_dtype
-from .tp import TP, attn_local, decode_local
+from .tp import TP, attn_local, cross_decode_local, decode_local, \
+    mamba_local, mamba_project, mamba_step_dt, mamba_step_local
 
 F32 = torch.float32
 FAMILIES = ("dense", "ssm", "hybrid", "moe", "audio", "vlm")
@@ -237,6 +237,11 @@ def _tp_of(cfg, tp):
     return TP.active(cfg) if tp is None else tp
 
 
+def _leaf(params, name, tp):
+    """Top-level leaf ``name``, whole (gathered under ``tp``)."""
+    return params[name] if tp is None else tp.leaf(params, name)
+
+
 def _apply_attn(cfg, p, h, *, causal=True, positions=None, kv_h=None,
                 window=None, return_kv=False, tp=None):
     """Pre-norm attention block.  ``kv_h``: a cross-attention memory, the
@@ -245,7 +250,7 @@ def _apply_attn(cfg, p, h, *, causal=True, positions=None, kv_h=None,
     ``tp`` (a ``models.tp.TP``) the rank's heads of it."""
     if tp is not None:
         return tp.attn(p, h, positions=positions, window=window,
-                       return_kv=return_kv)
+                       return_kv=return_kv, causal=causal, src=kv_h)
     x = L.rms_norm(h, p["norm"], cfg.norm_eps)
     o, k, v = attn_local(cfg, p, x, 0, positions=positions, window=window,
                          causal=causal, src=kv_h)
@@ -276,43 +281,18 @@ def _apply_moe(cfg, p, h, tp=None):
     return h + y, aux
 
 
-def _mamba_inner(p, x_n):
-    """Projections of a normalised input (B,S,d) → (z, x, B, C, dt)."""
-    z = L.einsum("bsd,de->bse", x_n, p["in_z"])
-    xi = L.einsum("bsd,de->bse", x_n, p["in_x"])
-    Bp = L.einsum("bsd,dn->bsn", x_n, p["in_B"])
-    Cp = L.einsum("bsd,dn->bsn", x_n, p["in_C"])
-    dt = L.einsum("bsd,dh->bsh", x_n, p["in_dt"])
-    return z, xi, Bp, Cp, dt
-
-
-def _gated_out(cfg, p, h, y, z):
-    """y (B,S,d_inner) gated by silu(z), normalised, projected, added to h;
-    silu in f32 with one cast, as in the JAX package."""
-    y = L.rms_norm(y * F.silu(z.to(F32)).to(h.dtype), p["gate_norm"],
-                   cfg.norm_eps)
-    return h + L.einsum("bse,ed->bsd", y, p["out_proj"])
-
-
-def _apply_mamba(cfg, p, h, return_state=False):
+def _apply_mamba(cfg, p, h, return_state=False, tp=None):
     """Mamba2 block over a sequence.  With ``return_state`` also returns
-    (conv state: the last K−1 pre-conv inputs, final SSD state)."""
-    B, S, _ = h.shape
-    di, N, Hs, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
+    (conv state: the last K−1 pre-conv inputs, final SSD state); with
+    ``tp`` the rank's SSM heads of it (the conv state whole, the SSD
+    state the rank's heads')."""
+    if tp is not None:
+        return tp.mamba(p, h, return_state)
     x_n = L.rms_norm(h, p["norm"], cfg.norm_eps)
-    z, xi, Bp, Cp, dt = _mamba_inner(p, x_n)
-    conv_in = torch.cat([xi, Bp, Cp], dim=-1)
-    conv_out = L.causal_conv1d(conv_in, p["conv_w"], p["conv_b"])
-    xi, Bp, Cp = torch.split(conv_out, [di, N, N], dim=-1)
-    dt = F.softplus(dt.to(F32) + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    xh = xi.reshape(B, S, Hs, P)
-    y, hT = L.ssd_chunked(xh, dt, A, Bp, Cp, chunk=min(cfg.ssm_chunk, S),
-                          use_kernel=cfg.use_ssd_kernel)
-    y = y + xh.to(F32) * p["D"][None, None, :, None]
-    out = _gated_out(cfg, p, h, y.reshape(B, S, di).to(h.dtype), z)
+    out, conv_in, hT = mamba_local(cfg, p, x_n, p["conv_w"], p["conv_b"])
+    out = h + out
     if return_state:
-        K = cfg.ssm_conv
+        S, K = h.shape[1], cfg.ssm_conv
         return out, (conv_in[:, S - (K - 1):, :], hT)
     return out
 
@@ -328,9 +308,7 @@ def _embed(cfg, params, tokens, tp=None):
 
 
 def _final_norm(cfg, params, h, tp=None):
-    w = params["final_norm"] if tp is None else \
-        tp.whole(params["final_norm"], tp.plan["final_norm"])
-    return L.rms_norm(h, w, cfg.norm_eps)
+    return L.rms_norm(h, _leaf(params, "final_norm", tp), cfg.norm_eps)
 
 
 def _unembed(cfg, params, h, tp=None):
@@ -382,7 +360,7 @@ def _decoder_stack(cfg, params, h, positions, window, memory=None,
     run = _runner(cfg)
 
     def mamba(p, x):
-        return _apply_mamba(cfg, p, x)
+        return _apply_mamba(cfg, p, x, tp=tp)
 
     blocks = params["blocks"]
     if cfg.family == "hybrid":
@@ -390,8 +368,9 @@ def _decoder_stack(cfg, params, h, positions, window, memory=None,
         sa, sm = params["shared_attn"], params["shared_mlp"]
 
         def shared(x):
-            x = _apply_attn(cfg, sa, x, positions=positions, window=window)
-            return _apply_mlp(cfg, sm, x)
+            x = _apply_attn(cfg, sa, x, positions=positions, window=window,
+                            tp=tp)
+            return _apply_mlp(cfg, sm, x, tp)
 
         for i in range(g * k):
             if i % k == 0:
@@ -414,9 +393,9 @@ def _decoder_stack(cfg, params, h, positions, window, memory=None,
     if cfg.family == "audio":
         def block(p, x, mem):
             x = _apply_attn(cfg, p["attn"], x, positions=positions,
-                            window=window)
-            x = _apply_attn(cfg, p["cross"], x, kv_h=mem)
-            return _apply_mlp(cfg, p["mlp"], x)
+                            window=window, tp=tp)
+            x = _apply_attn(cfg, p["cross"], x, kv_h=mem, tp=tp)
+            return _apply_mlp(cfg, p["mlp"], x, tp)
 
         for i in range(cfg.n_layers):
             h = run(block, _layer(blocks, i), h, memory)
@@ -434,22 +413,23 @@ def _decoder_stack(cfg, params, h, positions, window, memory=None,
     return h, 0.0
 
 
-def _encoder_stack(cfg, params, frames):
+def _encoder_stack(cfg, params, frames, tp=None):
     """The audio encoder over stubbed frame embeddings (B, S, frontend_dim):
     ``frontend_proj``, bidirectional self-attention blocks with RoPE (remat
     as in :func:`_decoder_stack`), then ``enc_norm``."""
     h = L.einsum("bsf,fd->bsd", frames.to(torch_dtype(cfg.dtype)),
-                 params["frontend_proj"])
+                 _leaf(params, "frontend_proj", tp))
     positions = torch.arange(h.shape[1], device=h.device)
     run = _runner(cfg)
 
     def block(p, x):
-        x = _apply_attn(cfg, p["attn"], x, causal=False, positions=positions)
-        return _apply_mlp(cfg, p["mlp"], x)
+        x = _apply_attn(cfg, p["attn"], x, causal=False, positions=positions,
+                        tp=tp)
+        return _apply_mlp(cfg, p["mlp"], x, tp)
 
     for i in range(cfg.enc_layers):
         h = run(block, _layer(params["enc_blocks"], i), h)
-    return L.rms_norm(h, params["enc_norm"], cfg.norm_eps)
+    return L.rms_norm(h, _leaf(params, "enc_norm", tp), cfg.norm_eps)
 
 
 def _embed_input(cfg, params, batch, tp=None):
@@ -462,13 +442,13 @@ def _embed_input(cfg, params, batch, tp=None):
     the sequence), so such a prompt is refused here."""
     memory = None
     if cfg.family == "audio":
-        memory = _encoder_stack(cfg, params, batch["frames"])
+        memory = _encoder_stack(cfg, params, batch["frames"], tp)
     tokens = batch["tokens"]
     h = _embed(cfg, params, tokens, tp)
     if cfg.family == "vlm":
         patches = L.einsum("bpv,vd->bpd",
                            batch["patches"].to(torch_dtype(cfg.dtype)),
-                           params["projector"])
+                           _leaf(params, "projector", tp))
         P, S = patches.shape[1], tokens.shape[1]
         if 1 < S < P:
             raise ValueError(f"a vlm prompt of {S} tokens is shorter than "
@@ -569,11 +549,13 @@ def _ring_from_seq(k_seq, v_seq, W: int):
     return kc, vc, positions
 
 
-def _mamba_with_state(cfg, p, h, convs, ssds):
+def _mamba_with_state(cfg, p, h, convs, ssds, tp=None, split=None):
     """One Mamba2 layer over the prompt; appends its conv state (copied
-    out of the layer's full conv input, which is then freed) and SSD
-    state."""
-    h, (cs, ss) = _apply_mamba(cfg, p, h, return_state=True)
+    out of the layer's full conv input, which is then freed; under ``tp``
+    the rank's block of it, ``split["conv"]``) and SSD state."""
+    h, (cs, ss) = _apply_mamba(cfg, p, h, return_state=True, tp=tp)
+    if tp is not None:
+        cs = tp.block(cs, split["conv"])
     convs.append(cs.clone())
     ssds.append(ss)
     return h
@@ -604,67 +586,72 @@ def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None,
     if cfg.family in ("ssm", "hybrid") and S < cfg.ssm_conv - 1:
         raise ValueError(f"an SSM prompt needs at least ssm_conv - 1 = "
                          f"{cfg.ssm_conv - 1} tokens, got {S}")
+    split = None if tp is None else tp.cache_split(tokens.shape[0], ctx)
     positions = torch.arange(S, device=tokens.device)
-    ks, vs, convs, ssds = [], [], [], []
+    ks, vs, convs, ssds, cks, cvs = [], [], [], [], [], []
+
+    def mamba(p, x):
+        return _mamba_with_state(cfg, p, x, convs, ssds, tp, split)
+
+    def attn(p, x):
+        x, (kk, vv) = _apply_attn(cfg, p, x, positions=positions,
+                                  window=window, return_kv=True, tp=tp)
+        ks.append(kk)
+        vs.append(vv)
+        return x
+
+    cache = {}
     if cfg.family == "ssm":
         for i in range(cfg.n_layers):
-            p = _layer(params["blocks"], i)
-            h = _mamba_with_state(cfg, p["mamba"], h, convs, ssds)
-        cache = {"ssm": {"conv": torch.stack(convs), "ssd": torch.stack(ssds)}}
+            h = mamba(_layer(params["blocks"], i)["mamba"], h)
     elif cfg.family == "hybrid":
         g, k, rem = _groups(cfg)
         sa, sm = params["shared_attn"], params["shared_mlp"]
         for i in range(g * k):
             if i % k == 0:
-                h, (kk, vv) = _apply_attn(cfg, sa, h, positions=positions,
-                                          window=window, return_kv=True)
-                h = _apply_mlp(cfg, sm, h)
-                ks.append(kk)
-                vs.append(vv)
-            h = _mamba_with_state(cfg, _layer(params["blocks"]["mamba"], i),
-                                  h, convs, ssds)
-        cache = {"ssm": {"conv": torch.stack(convs), "ssd": torch.stack(ssds)}}
+                h = _apply_mlp(cfg, sm, attn(sa, h), tp)
+            h = mamba(_layer(params["blocks"]["mamba"], i), h)
         if rem:
+            cache["ssm"] = {"conv": torch.stack(convs),
+                            "ssd": torch.stack(ssds)}
             convs, ssds = [], []
             for i in range(rem):
-                h = _mamba_with_state(cfg, _layer(params["tail"]["mamba"], i),
-                                      h, convs, ssds)
+                h = mamba(_layer(params["tail"]["mamba"], i), h)
             cache["ssm_tail"] = {"conv": torch.stack(convs),
                                  "ssd": torch.stack(ssds)}
-        kc, vc, posbuf = _ring_from_seq(torch.stack(ks), torch.stack(vs), W)
-        cache["attn"] = {"k": kc, "v": vc}
-        cache["positions"] = posbuf
     else:
-        cks, cvs = [], []
         for i in range(cfg.n_layers):
             p = _layer(params["blocks"], i)
-            h, (kk, vv) = _apply_attn(cfg, p["attn"], h, positions=positions,
-                                      window=window, return_kv=True, tp=tp)
+            h = attn(p["attn"], h)
             if cfg.family == "moe":
                 h, _ = _apply_moe(cfg, p["moe"], h, tp)
-            elif cfg.family == "audio":
-                cks.append(L.einsum("bsd,dhk->bshk", memory,
-                                    p["cross"]["wk"]))
-                cvs.append(L.einsum("bsd,dhk->bshk", memory,
-                                    p["cross"]["wv"]))
-                h = _apply_attn(cfg, p["cross"], h, kv_h=memory)
-                h = _apply_mlp(cfg, p["mlp"], h)
-            else:
-                h = _apply_mlp(cfg, p["mlp"], h, tp)
-            ks.append(kk)
-            vs.append(vv)
+                continue
+            if cfg.family == "audio":
+                if tp is None:
+                    ck = L.einsum("bsd,dhk->bshk", memory, p["cross"]["wk"])
+                    cv = L.einsum("bsd,dhk->bshk", memory, p["cross"]["wv"])
+                else:
+                    ck, cv = tp.cross_kv(p["cross"], memory, split["cross"])
+                cks.append(ck)
+                cvs.append(cv)
+                h = _apply_attn(cfg, p["cross"], h, kv_h=memory, tp=tp)
+            h = _apply_mlp(cfg, p["mlp"], h, tp)
+    if convs and "ssm" not in cache:
+        cache["ssm"] = {"conv": torch.stack(convs), "ssd": torch.stack(ssds)}
+    if ks:
         kc, vc, posbuf = _ring_from_seq(torch.stack(ks), torch.stack(vs), W)
         if tp is not None:
             # k / v hold the rank's kv heads, or all of them: a ring split
             # on ctx keeps the rank's block of the slots
-            split = tp.cache_split(tokens.shape[0], ctx)
             if split["ring"] == 1:
                 kc, vc = tp.block(kc, 2), tp.block(vc, 2)
             posbuf = tp.block(posbuf, split["positions"]).clone()
-        cache = {"self": {"k": kc, "v": vc}, "positions": posbuf}
-        if cfg.family == "audio":
-            cache["cross_k"] = torch.stack(cks)
-            cache["cross_v"] = torch.stack(cvs)
+        cache["self" if cfg.family != "hybrid" else "attn"] = {"k": kc,
+                                                               "v": vc}
+        cache["positions"] = posbuf
+    if cfg.family == "audio":
+        cache["cross_k"] = torch.stack(cks)
+        cache["cross_v"] = torch.stack(cvs)
     h = _final_norm(cfg, params, h[:, -1:], tp)
     return _unembed(cfg, params, h, tp)[:, 0], cache
 
@@ -738,31 +725,24 @@ def init_cache(cfg: ArchConfig, batch: int, ctx_len: int, device="cuda", *,
 
 
 def _decode_cross(cfg, p, h, ck, cv):
-    """One-token cross-attention to the cached memory k/v: no bias, no
-    QK-norm, no RoPE on q, as in the JAX package."""
+    """One-token cross-attention to the cached memory k/v (rank 0 of one
+    of ``models.tp.cross_decode_local``)."""
     x = L.rms_norm(h, p["norm"], cfg.norm_eps)
-    q = L.einsum("bsd,dhk->bshk", x, p["wq"])
-    o = L.attention(q, ck, cv, causal=False)
-    return h + L.einsum("bshk,hkd->bsd", o, p["wo"])
+    return h + cross_decode_local(cfg, p, x, ck, cv, 0)
 
 
 def _decode_mamba(cfg, p, h, conv_state, ssd_state):
     """One-token Mamba2 block → (h', conv state', SSD state')."""
-    B = h.shape[0]
-    di, N, Hs, P = cfg.d_inner, cfg.ssm_state, cfg.ssm_heads, cfg.ssm_head_dim
     x_n = L.rms_norm(h, p["norm"], cfg.norm_eps)
-    z, xi, Bp, Cp, dt = _mamba_inner(p, x_n)
+    z, xi, Bp, Cp, dt = mamba_project(p, x_n)
     conv_in = torch.cat([xi, Bp, Cp], dim=-1)[:, 0]           # (B, conv_dim)
     y_conv, conv_state = L.conv1d_decode(conv_state, conv_in, p["conv_w"],
                                          p["conv_b"])
-    xi, Bp, Cp = torch.split(y_conv, [di, N, N], dim=-1)
-    dt = F.softplus(dt[:, 0].to(F32) + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
-    xh = xi.reshape(B, Hs, P)
-    y, ssd_state = L.ssd_decode_step(ssd_state, xh, dt, A, Bp, Cp)
-    y = y + xh.to(F32) * p["D"][None, :, None]
-    out = _gated_out(cfg, p, h, y.reshape(B, 1, di).to(h.dtype), z)
-    return out, conv_state, ssd_state
+    del xi, Bp, Cp                  # read by the conv, not by the SSD step
+    dt = mamba_step_dt(p, dt)
+    out, ssd_state = mamba_step_local(cfg, p, y_conv, dt, z, ssd_state,
+                                      h.dtype)
+    return h + out, conv_state, ssd_state
 
 
 def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int,
@@ -781,30 +761,34 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int,
     tensor value on the host, so a CUDA graph can capture it.  ``tp``: the
     ``models.tp.TP`` to run on (default: the active context's), lock-step
     only, on the rank's blocks of the params and the cache: the positions
-    buffer's slot is written where the rank holds it.  Returns (logits
-    (B, V), cache)."""
+    buffer's slot is written where the rank holds it, and each rank writes
+    back its block of every conv state.  The ragged decode over a model
+    axis raises ``NotImplementedError`` (ROADMAP.md item 14b) before any
+    collective.  Returns (logits (B, V), cache)."""
+    from ..distributed.sharding import model_axis_size
+
     _require_family(cfg)
     ragged = isinstance(pos, torch.Tensor) and pos.dim() == 1
-    tp = _tp_of(cfg, tp)
-    if tp is not None and ragged:
+    if ragged and (tp is not None or model_axis_size() > 1):
         raise NotImplementedError(
             "the ragged decode (the slot lane) over a model axis waits for "
             "ROADMAP.md queue 1, item 14b")
+    tp = _tp_of(cfg, tp)
     if not ragged:
         pos = int(pos)
+    split = None if tp is None else tp.cache_split(tokens.shape[0], ctx_len)
     h = _embed(cfg, params, tokens[:, None], tp)        # (B,1,d)
     if "positions" in cache:
         W = min(cfg.sliding_window or ctx_len, ctx_len)
         cpos = cache["positions"]
-        rows = split = cpos_all = None
+        rows = cpos_all = None
         if ragged:
             rows = torch.arange(tokens.shape[0], device=tokens.device)
             slot = (pos % W).long()
             cpos[rows, slot] = pos.to(cpos.dtype)
         elif tp is not None:
             slot = pos % W
-            split, cpos_all = tp.decode_positions(cpos, pos, slot,
-                                                  tokens.shape[0], ctx_len)
+            cpos_all = tp.decode_positions(cpos, pos, slot, split)
         else:
             slot = pos % W
             cpos[slot] = pos
@@ -820,8 +804,12 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int,
                                     cfg.sliding_window, rows)
 
     def mamba(p, x, states, i):
-        x, states["conv"][i], states["ssd"][i] = _decode_mamba(
-            cfg, p, x, states["conv"][i], states["ssd"][i])
+        if tp is None:
+            x, states["conv"][i], states["ssd"][i] = _decode_mamba(
+                cfg, p, x, states["conv"][i], states["ssd"][i])
+        else:
+            x, states["conv"][i], states["ssd"][i] = tp.decode_mamba(
+                p, x, states["conv"][i], states["ssd"][i], split)
         return x
 
     if cfg.family == "ssm":
@@ -834,7 +822,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int,
             if i % k == 0:
                 h = attn(params["shared_attn"], h, ring["k"][i // k],
                          ring["v"][i // k])
-                h = _apply_mlp(cfg, params["shared_mlp"], h)
+                h = _apply_mlp(cfg, params["shared_mlp"], h, tp)
             h = mamba(_layer(params["blocks"]["mamba"], i), h, cache["ssm"], i)
         for i in range(rem):
             h = mamba(_layer(params["tail"]["mamba"], i), h,
@@ -848,8 +836,10 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int,
                 h, _ = _apply_moe(cfg, p["moe"], h, tp)
                 continue
             if cfg.family == "audio":
-                h = _decode_cross(cfg, p["cross"], h, cache["cross_k"][i],
-                                  cache["cross_v"][i])
+                ck, cv = cache["cross_k"][i], cache["cross_v"][i]
+                h = _decode_cross(cfg, p["cross"], h, ck, cv) if tp is None \
+                    else tp.decode_cross(p["cross"], h, ck, cv,
+                                         split["cross"])
             h = _apply_mlp(cfg, p["mlp"], h, tp)
     h = _final_norm(cfg, params, h, tp)
     return _unembed(cfg, params, h, tp)[:, 0], cache

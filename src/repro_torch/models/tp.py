@@ -1,47 +1,69 @@
-"""Tensor parallelism over the mesh's model axis, for the dense and MoE
-families.
+"""Tensor parallelism over the mesh's model axis, for all six families.
 
 The JAX package shards over the model axis by layout alone: every leaf
 carries the ``PartitionSpec`` of ``logical_pspec`` and GSPMD inserts the
 collectives.  The port computes the same function with explicit tensor
 parallelism over the model group.  Each rank holds exactly the block of
 every param and cache leaf that ``distributed.sharding.logical_pspec``
-gives it (:func:`plan` reads those splits), and the layers compute
-Megatron-style where the rules' split is a Megatron split:
+gives it (:func:`plan` and :func:`cache_split` read those splits), and the
+layers compute Megatron-style where the rules' split is a Megatron split:
 
 * attention on each rank's heads when the rules split ``wq`` / ``wo`` on
   ``heads``: q column-split, k and v on the rank's kv heads (split on
   ``kv_heads``, or projected whole and the rank's kv heads taken), ``wo``
-  row-split, the output summed over the ranks;
+  row-split, the output summed over the ranks; the same for the audio
+  encoder's bidirectional attention and the decoder's cross-attention,
+  whose k and v come from the encoder memory (the ``cross_k`` /
+  ``cross_v`` cache on the rank's kv heads);
 * the MLP column-split on ``ff`` (``w_gate``, ``w_up``) and row-split
   (``w_down``);
 * the experts expert-parallel on ``experts``: the routing replicated, each
   rank running its E/M experts, the combine summed over the ranks
   (``layers.moe_ffn``);
+* the Mamba2 mixer on each rank's SSM heads when the rules split
+  ``d_inner`` and ``ssm_heads`` (:data:`MAMBA_MEGATRON`): ``in_z`` /
+  ``in_x`` column-split on ``d_inner``, ``in_dt``, ``A_log``, ``D`` and
+  ``dt_bias`` on the rank's heads, the SSD scan on them (the kernel on
+  the rank-local shape), the gated norm over the whole ``d_inner`` with
+  each rank's Σy² all-reduced (``layers.gated_rms_norm``), ``out_proj``
+  row-split and its output summed; ``in_B`` / ``in_C`` (``state`` wants
+  no model axis) whole on every rank, and so is their compute;
 * a vocab-parallel embedding and unembedding on ``vocab``, with the
   vocab-parallel cross entropy (``layers.vocab_parallel_xent``).
 
 Where the rules pick another dim (a norm weight on ``embed``, the router
-on ``experts``, qwen2-0.5b's attention at a model axis its 14 heads do not
-divide), the leaf is gathered on use over the model group and the compute
-through it is replicated.  ``distributed.collectives`` holds the operators
-and the rule for a gathered leaf's gradient.
+on ``experts``, ``frontend_proj`` / ``projector`` on ``embed``, qwen2-0.5b's
+attention at a model axis its 14 heads do not divide, seamless's
+unembedding where its 256206 words do not divide), the leaf is gathered on
+use over the model group and the compute through it is replicated.
+``conv_w`` / ``conv_b`` are split contiguously over ``[x, B, C]``, which
+does not line up with the heads: they are gathered on use and each rank
+takes its x columns and all of B and C (:func:`conv_columns`); their
+gradient reduce-scatters (the x columns are one rank's, the B / C ones
+partial sums over the ranks' heads).  ``distributed.collectives`` holds
+the operators and the rule for a gathered leaf's gradient.
 
 The rank-local parts (:func:`attn_local`, :func:`decode_local`,
-:func:`embed_local`, :func:`kv_for_heads`, and the layers' ``moe_ffn`` /
-``swiglu`` / ``vocab_parallel_xent`` on blocks) run no collective:
-:class:`TP` runs them between its collectives, and the unsharded model
-runs the same attention parts as rank 0 of one.  :class:`ThreadRanks`
-runs the ranks as threads of one process whose operators combine the
-ranks' tensors themselves, so the decomposition can be checked on one
-device through the product path's own layers.
+:func:`cross_decode_local`, :func:`embed_local`, :func:`kv_for_heads`,
+:func:`mamba_local`, :func:`mamba_step_local`, and the layers'
+``moe_ffn`` / ``swiglu`` / ``vocab_parallel_xent`` on blocks) run no
+collective: :class:`TP` runs them between its collectives, and the
+unsharded model runs the same attention and Mamba2 parts as rank 0 of
+one.  :class:`ThreadRanks` runs
+the ranks as threads of one process whose operators combine the ranks'
+tensors themselves, so the decomposition can be checked on one device
+through the product path's own layers.
 
 Decode: a ring cache the rules split on ``kv_heads`` decodes on each
 rank's heads; one split on ``ctx`` (qwen2-0.5b at model 4: two kv heads)
 runs every head over the rank's block of the slots, with the
-distributed softmax of ``layers.decode_attention_ctx``; the logits of
-prefill and decode are gathered whole over the vocabulary, so a greedy
-pick is the first maximal index of the whole row on every rank.
+distributed softmax of ``layers.decode_attention_ctx``.  The SSD state is
+split on ``ssm_heads``, in line with the heads; the conv state, split
+like ``conv_w``, is gathered, shifted by the new column (the rank's x
+columns gathered), and the rank writes its block of it back, so each rank
+holds the rules' block after every step.  The logits of prefill and
+decode are gathered whole over the vocabulary, so a greedy pick is the
+first maximal index of the whole row on every rank.
 """
 from __future__ import annotations
 
@@ -50,14 +72,25 @@ import threading
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from ..kernels import ops
 from . import layers as L
 from .specs import torch_dtype
 
+F32 = torch.float32
+
 #: the dim of each attention leaf (per layer) that a Megatron split takes
 ATTN_MEGATRON = {"wq": 1, "bq": 0, "wo": 0, "wk": 1, "wv": 1, "bk": 0,
                  "bv": 0}
+#: the dim of each Mamba2 leaf (per layer) that a split on the rank's SSM
+#: heads takes: the d_inner columns of z's and x's projections and of the
+#: gate norm, the d_inner rows of ``out_proj``, the heads of dt's
+#: projection and of A, D and dt's bias
+MAMBA_MEGATRON = {"in_z": 1, "in_x": 1, "in_dt": 1, "A_log": 0, "D": 0,
+                  "dt_bias": 0, "gate_norm": 0, "out_proj": 0}
+#: the param subtrees stacked over layers (a leaf's ``layers`` dim dropped)
+STACKED = ("blocks", "enc_blocks", "tail")
 
 
 def _split_dim(spec, mesh, rules) -> Optional[int]:
@@ -72,8 +105,13 @@ def _split_dim(spec, mesh, rules) -> Optional[int]:
 def plan(cfg, M: int, rules=None) -> dict:
     """The model-axis split dim of every param leaf of ``cfg`` at a model
     axis of ``M`` (None: whole on every rank), per layer: a stacked
-    leaf's ``layers`` dim is dropped.  ``{"embed", "final_norm",
-    "lm_head", "attn": {...}, "mlp" | "moe": {...}}``."""
+    leaf's ``layers`` dim is dropped.  Keyed by the kind of block, each
+    kind's layers having one shape: ``{"embed", "final_norm", "lm_head",
+    "attn", "mlp", "moe", "mamba", "cross", ...}`` (the hybrid's
+    ``shared_attn`` / ``shared_mlp`` and the audio encoder's blocks under
+    ``attn`` / ``mlp``, the hybrid's tail under ``mamba``), plus the
+    unstacked leaves by name (``frontend_proj``, ``enc_norm``,
+    ``projector``)."""
     from ..distributed.sharding import DEFAULT_RULES
     from ..launch.mesh import Mesh
     from .model import param_specs
@@ -91,16 +129,24 @@ def plan(cfg, M: int, rules=None) -> dict:
                 out[k] = d - 1 if stacked and d is not None else d
         return out
 
-    specs = param_specs(cfg)
-    out = walk({k: v for k, v in specs.items() if k != "blocks"}, False)
-    out.update(walk(specs["blocks"], True))
+    out = {}
+    for k, v in param_specs(cfg).items():
+        if k in STACKED:
+            out.update(walk(v, True))
+        elif k.startswith("shared_"):
+            out[k[len("shared_"):]] = walk(v, False)
+        else:
+            out.update(walk({k: v}, False))
     return out
 
 
 def cache_split(cfg, M: int, batch: int, ctx_len: int, rules=None) -> dict:
     """The model-axis split dim of the lock-step cache's leaves, per
-    layer for the ring: ``{"ring": 2 (kv_heads) | 1 (ctx) | None,
-    "positions": 0 | None}``."""
+    layer, for those the family's cache holds: the ring ``{"ring": 2
+    (kv_heads) | 1 (ctx) | None, "positions": 0 | None}``, the audio
+    cross k/v (``"cross"``, as the ring), the Mamba2 states (``"conv"``:
+    2, its ``[x, B, C]`` columns, or None; ``"ssd"``: 1, the SSM heads, or
+    None)."""
     from ..distributed.sharding import DEFAULT_RULES
     from ..launch.mesh import Mesh
     from .model import cache_specs
@@ -108,9 +154,22 @@ def cache_split(cfg, M: int, batch: int, ctx_len: int, rules=None) -> dict:
     rules = rules or DEFAULT_RULES
     mesh = Mesh({rules.model_axis: M})
     specs = cache_specs(cfg, batch, ctx_len)
-    ring = _split_dim(specs["self"]["k"], mesh, rules)
-    return {"ring": None if ring is None else ring - 1,
-            "positions": _split_dim(specs["positions"], mesh, rules)}
+
+    def layer(spec):
+        d = _split_dim(spec, mesh, rules)
+        return None if d is None else d - 1
+
+    out = {}
+    ring = specs.get("self", specs.get("attn"))
+    if ring is not None:
+        out["ring"] = layer(ring["k"])
+        out["positions"] = _split_dim(specs["positions"], mesh, rules)
+    if "cross_k" in specs:
+        out["cross"] = layer(specs["cross_k"])
+    if "ssm" in specs:
+        out["conv"] = layer(specs["ssm"]["conv"])
+        out["ssd"] = layer(specs["ssm"]["ssd"])
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +274,97 @@ def decode_local(cfg, p, x, kc, vc, cache_positions, pos, slot, window,
     return L.einsum("bshk,hkd->bsd", o, p["wo"])
 
 
+def cross_decode_local(cfg, p, x, ck, cv, rank: int):
+    """One-token cross-attention of the normed ``x`` through the rank's
+    ``wq`` / ``wo`` (its heads, or all of them) to the cached memory k/v
+    of the same heads (or all of them) → its part of the block's output
+    (B, 1, d); no bias, no QK-norm, no RoPE on q, as in the JAX
+    package."""
+    q = L.einsum("bsd,dhk->bshk", x, p["wq"])
+    hq = q.shape[2]
+    o = L.attention(q, kv_for_heads(ck, cfg.n_heads, cfg.n_kv_heads, hq,
+                                    rank),
+                    kv_for_heads(cv, cfg.n_heads, cfg.n_kv_heads, hq, rank),
+                    causal=False)
+    return L.einsum("bshk,hkd->bsd", o, p["wo"])
+
+
+def mamba_project(p, x):
+    """Projections of the normed input ``x`` (B, S, d) through the rank's
+    Mamba2 leaves ``p`` → (z, x, B, C, dt): z, x and dt on the rank's
+    columns and heads, B and C whole."""
+    z = L.einsum("bsd,de->bse", x, p["in_z"])
+    xi = L.einsum("bsd,de->bse", x, p["in_x"])
+    Bp = L.einsum("bsd,dn->bsn", x, p["in_B"])
+    Cp = L.einsum("bsd,dn->bsn", x, p["in_C"])
+    dt = L.einsum("bsd,dh->bsh", x, p["in_dt"])
+    return z, xi, Bp, Cp, dt
+
+
+def conv_columns(t, d_inner: int, rank: int, n: int):
+    """The columns of a whole conv leaf or state (last dim ``[x, B, C]``,
+    ``d_inner`` x columns) that a rank's heads read: its ``n`` x columns
+    from ``rank · n`` on, then all of B and C."""
+    return torch.cat([t[..., rank * n:(rank + 1) * n], t[..., d_inner:]],
+                     dim=-1)
+
+
+def mamba_local(cfg, p, x, conv_w, conv_b, sumsq=None):
+    """A rank's Mamba2 mixer over the sequence on its SSM heads → (out,
+    conv input, final SSD state): ``out`` (B, S, d) is its part of the
+    block's output, to be summed over the ranks when the heads are split
+    (else the whole output); the conv input is its pre-conv ``[x, B, C]``
+    columns (the decode's conv state comes from their last K−1 rows); the
+    SSD state is its heads'.  ``p`` holds the rank's leaves (the whole
+    ``in_B`` / ``in_C``), ``conv_w`` / ``conv_b`` the conv columns it reads
+    (:func:`conv_columns`), ``sumsq`` sums the gated norm's squares over
+    the ranks (None: the whole ``d_inner`` is here).  The SSD scan runs
+    the kernel on the rank's heads with ``use_ssd_kernel``.  With no model
+    axis this is the whole mixer (rank 0 of one)."""
+    B, S, _ = x.shape
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    z, xi, Bp, Cp, dt = mamba_project(p, x)
+    dl = xi.shape[-1]
+    conv_in = torch.cat([xi, Bp, Cp], dim=-1)
+    conv_out = L.causal_conv1d(conv_in, conv_w, conv_b)
+    xi, Bp, Cp = torch.split(conv_out, [dl, N, N], dim=-1)
+    dt = F.softplus(dt.to(F32) + p["dt_bias"])
+    A = -torch.exp(p["A_log"])
+    xh = xi.reshape(B, S, dl // P, P)
+    y, hT = L.ssd_chunked(xh, dt, A, Bp, Cp, chunk=min(cfg.ssm_chunk, S),
+                          use_kernel=cfg.use_ssd_kernel)
+    y = y + xh.to(F32) * p["D"][None, None, :, None]
+    y = L.gated_rms_norm(y.reshape(B, S, dl).to(x.dtype), z, p["gate_norm"],
+                         cfg.norm_eps, sumsq, cfg.d_inner)
+    return L.einsum("bse,ed->bsd", y, p["out_proj"]), conv_in, hT
+
+
+def mamba_step_dt(p, dt):
+    """The one-token step sizes of dt's projection (B, 1, heads):
+    softplus(dt + dt_bias) in f32, (B, heads)."""
+    return F.softplus(dt[:, 0].to(F32) + p["dt_bias"])
+
+
+def mamba_step_local(cfg, p, y_conv, dt, z, ssd_state, dtype, sumsq=None):
+    """A rank's one-token SSD step on its heads and its gated output, from
+    its columns of the conv output ``y_conv`` (B, x columns + 2N) → (its
+    part of the block's output (B, 1, d), the SSD state′); ``dt``
+    (:func:`mamba_step_dt`) and ``z`` are its heads' and columns' of the
+    token, ``ssd_state`` its heads' (B, H/M, P, N), ``dtype`` the
+    activations'; ``sumsq`` as in :func:`mamba_local`."""
+    N, P = cfg.ssm_state, cfg.ssm_head_dim
+    B = y_conv.shape[0]
+    dl = y_conv.shape[-1] - 2 * N
+    xi, Bp, Cp = torch.split(y_conv, [dl, N, N], dim=-1)
+    A = -torch.exp(p["A_log"])
+    xh = xi.reshape(B, dl // P, P)
+    y, ssd_state = L.ssd_decode_step(ssd_state, xh, dt, A, Bp, Cp)
+    y = y + xh.to(F32) * p["D"][None, :, None]
+    y = L.gated_rms_norm(y.reshape(B, 1, dl).to(dtype), z, p["gate_norm"],
+                         cfg.norm_eps, sumsq, cfg.d_inner)
+    return L.einsum("bse,ed->bsd", y, p["out_proj"]), ssd_state
+
+
 # ---------------------------------------------------------------------------
 # the product path: the rank-local parts between the collectives
 # ---------------------------------------------------------------------------
@@ -232,8 +382,8 @@ class TP:
     @classmethod
     def active(cls, cfg) -> Optional["TP"]:
         """The TP of the active context, or None (no context, or a model
-        axis of 1); a family that does not run tensor-parallel raises
-        ``NotImplementedError`` naming ROADMAP.md item 14b."""
+        axis of 1); a family outside ``sharding.TP_FAMILIES`` (every
+        family of the registry is in it) raises ``NotImplementedError``."""
         from ..distributed import sharding as sh
 
         M = sh.model_axis_size()
@@ -285,12 +435,23 @@ class TP:
     def heads_split(self) -> bool:
         return self.plan["attn"]["wq"] == ATTN_MEGATRON["wq"]
 
-    def attn(self, p, h, *, positions=None, window=None, return_kv=False):
+    def leaf(self, params, name: str):
+        """Top-level leaf ``name`` whole (gathered where it is split)."""
+        return self.whole(params[name], self.plan[name])
+
+    def attn(self, p, h, *, positions=None, window=None, return_kv=False,
+             causal: bool = True, src=None):
+        """Pre-norm attention on the rank's heads (or whole); ``src``: a
+        cross-attention memory, the source of k and v (every rank's
+        whole), as in ``attn_local``."""
         x = self._norm(h, p["norm"], self.plan["attn"]["norm"])
         heads = self.heads_split()
-        out, k, v = attn_local(self.cfg, self._attn_leaves(p, heads),
-                               self.copy(x) if heads else x, self.rank,
-                               positions=positions, window=window)
+        if heads:
+            x = self.copy(x)
+            src = None if src is None else self.copy(src)
+        out, k, v = attn_local(self.cfg, self._attn_leaves(p, heads), x,
+                               self.rank, positions=positions, window=window,
+                               causal=causal, src=src)
         out = h + (self.reduce(out) if heads else out)
         return (out, (k, v)) if return_kv else out
 
@@ -371,6 +532,112 @@ class TP:
                                      first=self.rank * lg.shape[-1],
                                      amax=self.amax, total=self.reduce)
 
+    def mamba_heads(self) -> bool:
+        """Whether the rules split the Mamba2 mixer on the SSM heads (every
+        leaf of :data:`MAMBA_MEGATRON` on its dim there)."""
+        pl = self.plan["mamba"]
+        return all(pl[n] == d for n, d in MAMBA_MEGATRON.items())
+
+    def _mamba_leaves(self, p, heads: bool) -> dict:
+        """The mixer's leaves but the norm and the conv: the rank's blocks
+        and the whole ``in_B`` / ``in_C`` (rank-partial compute reads
+        them) on the heads, else every leaf whole."""
+        pl = self.plan["mamba"]
+        if not heads:
+            return {n: self.whole(t, pl[n]) for n, t in p.items()
+                    if n not in ("norm", "conv_w", "conv_b")}
+        lp = {n: p[n] for n in MAMBA_MEGATRON}
+        for n in ("in_B", "in_C"):
+            lp[n] = self.whole(p[n], pl[n], partial=True)
+        return lp
+
+    def _sumsq(self, t):
+        """Σ over the ranks of their parts of the gated norm's squares, in
+        the forward and (every rank's part of the gradient) the
+        backward."""
+        return self.reduce(self.copy(t))
+
+    def mamba(self, p, h, return_state: bool = False):
+        """The Mamba2 block on the rank's SSM heads (or whole); with
+        ``return_state`` also (the whole conv state: the last K−1 pre-conv
+        inputs, the final SSD state of the rank's heads)."""
+        cfg, pl = self.cfg, self.plan["mamba"]
+        heads = self.mamba_heads()
+        x = self._norm(h, p["norm"], pl["norm"])
+        w = self.whole(p["conv_w"], pl["conv_w"], partial=heads)
+        b = self.whole(p["conv_b"], pl["conv_b"], partial=heads)
+        if heads:
+            x = self.copy(x)
+            n = cfg.d_inner // self.M
+            w = conv_columns(w, cfg.d_inner, self.rank, n)
+            b = conv_columns(b, cfg.d_inner, self.rank, n)
+        out, conv_in, hT = mamba_local(cfg, self._mamba_leaves(p, heads), x,
+                                       w, b, self._sumsq if heads else None)
+        out = h + (self.reduce(out) if heads else out)
+        if not return_state:
+            return out
+        tail = conv_in[:, conv_in.shape[1] - (cfg.ssm_conv - 1):]
+        if heads:
+            dl = tail.shape[-1] - 2 * cfg.ssm_state
+            tail = torch.cat([self.gather(tail[..., :dl], -1),
+                              tail[..., dl:]], dim=-1)
+        return out, (tail, hT)
+
+    def decode_mamba(self, p, h, conv_state, ssd_state, split: dict):
+        """One token through the Mamba2 block on the rank's heads →
+        (h′, the rank's block of the conv state′ (``split["conv"]``), the
+        SSD state′ of its heads).  The conv runs on every column of the
+        gathered state, so the rank writes back exactly its block."""
+        cfg, pl = self.cfg, self.plan["mamba"]
+        heads = self.mamba_heads()
+        x = self._norm(h, p["norm"], pl["norm"])
+        lp = self._mamba_leaves(p, heads)
+        z, xi, Bp, Cp, dt = mamba_project(lp, x)
+        if heads:
+            xi = self.gather(xi, -1)
+        conv_in = torch.cat([xi, Bp, Cp], dim=-1)[:, 0]
+        if split["conv"] is not None:
+            conv_state = self.gather(conv_state, split["conv"])
+        y_conv, conv_state = L.conv1d_decode(
+            conv_state, conv_in, self.whole(p["conv_w"], pl["conv_w"]),
+            self.whole(p["conv_b"], pl["conv_b"]))
+        if heads:
+            y_conv = conv_columns(y_conv, cfg.d_inner, self.rank,
+                                  cfg.d_inner // self.M)
+        del xi, Bp, Cp
+        dt = mamba_step_dt(lp, dt)
+        out, ssd_state = mamba_step_local(cfg, lp, y_conv, dt, z, ssd_state,
+                                          x.dtype,
+                                          self._sumsq if heads else None)
+        out = h + (self.reduce(out) if heads else out)
+        return out, self.block(conv_state, split["conv"]), ssd_state
+
+    def cross_kv(self, p, memory, split):
+        """The rank's block of a decoder layer's cross k/v cache (``split``:
+        2 the rank's kv heads, 1 its block of the memory's rows, None
+        whole): ``memory @ wk`` / ``memory @ wv``, un-normed, no bias."""
+        pl = self.plan["attn"]
+
+        def one(n):
+            if split == 2 and pl[n] == ATTN_MEGATRON[n]:
+                return L.einsum("bsd,dhk->bshk", memory, p[n])
+            t = L.einsum("bsd,dhk->bshk", memory, self.whole(p[n], pl[n]))
+            return self.block(t, split)
+        return one("wk"), one("wv")
+
+    def decode_cross(self, p, h, ck, cv, split):
+        """One-token cross-attention of the rank's heads to its block of
+        the cached memory k/v (``split`` as in :meth:`cross_kv`)."""
+        pl = self.plan["attn"]
+        heads = self.heads_split()
+        x = self._norm(h, p["norm"], pl["norm"])
+        lp = {n: p[n] if heads else self.whole(p[n], pl[n])
+              for n in ("wq", "wo")}
+        if split == 1:
+            ck, cv = self.gather(ck, 1), self.gather(cv, 1)
+        out = cross_decode_local(self.cfg, lp, x, ck, cv, self.rank)
+        return h + (self.reduce(out) if heads else out)
+
     # ---- cache ------------------------------------------------------------
     def cache_split(self, batch: int, ctx_len: int) -> dict:
         return cache_split(self.cfg, self.M, batch, ctx_len, self.rules)
@@ -382,19 +649,15 @@ class TP:
         n = t.shape[dim] // self.M
         return t.narrow(dim, self.rank * n, n)
 
-    def decode_positions(self, cpos, pos: int, slot: int, batch: int,
-                         ctx_len: int):
+    def decode_positions(self, cpos, pos: int, slot: int, split: dict):
         """Writes ``pos`` into the positions buffer's ``slot`` where the
-        rank holds it (``cpos``: the rank's block) → (the cache's split,
-        every slot's positions)."""
-        split = self.cache_split(batch, ctx_len)
+        rank holds it (``cpos``: the rank's block; ``split``: the cache's,
+        :meth:`cache_split`) → every slot's positions."""
         n = cpos.shape[0]
         lo = self.rank * n if split["positions"] is not None else 0
         if lo <= slot < lo + n:
             cpos[slot - lo] = pos
-        cpos_all = cpos if split["positions"] is None else \
-            self.gather(cpos, 0)
-        return split, cpos_all
+        return cpos if split["positions"] is None else self.gather(cpos, 0)
 
     def decode_attn(self, p, h, kc, vc, cpos, cpos_all, pos: int, slot: int,
                     split: dict, window):

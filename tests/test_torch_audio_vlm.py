@@ -363,22 +363,24 @@ def test_train_cli_runs_on_the_cpu(arch, capsys):
                                   "--auto-rules"])
 def test_train_cli_refuses_mesh_flags(flag, capsys, monkeypatch):
     """What the port cannot run is refused with exit 2, naming the flag:
-    the audio family on the host mesh of a launch of two ranks (a model
-    axis of 2) and on the multi-pod mesh (512 processes, a model axis of
-    8) names ROADMAP.md queue 1, item 14b, since tensor parallelism runs
-    the dense and MoE families only; ``--auto-rules`` without a mesh asks
-    for one.  The host mesh of one process trains, and of two ranks trains
-    the dense family (``tests/test_torch_dp_cli.py``)."""
+    the multi-pod mesh (512 processes) under a launch of one process;
+    ``--auto-rules`` without a mesh asks for one.  The host mesh of a
+    launch of two ranks is the audio family's too now (data 1, model 2:
+    tensor-parallel, ``tests/test_torch_tp_families_cli.py``), so it is
+    taken, not refused."""
+    argv = ["--arch", "seamless-m4t-large-v2", "--reduced", "--device",
+            "cpu", flag]
     if flag == "--host-mesh":
-        monkeypatch.setenv("WORLD_SIZE", "2")
-        monkeypatch.setenv("RANK", "0")
+        ap = launch_train.parser()
+        mesh = launch_train.choose_mesh(ap.parse_args(argv), ap, 2)
+        assert mesh.shape == {"data": 1, "model": 2}
+        return
     with pytest.raises(SystemExit) as e:
-        launch_train.main(["--arch", "seamless-m4t-large-v2", "--reduced",
-                           "--device", "cpu", flag])
+        launch_train.main(argv)
     assert e.value.code == 2
     err = capsys.readouterr().err
     assert flag in err
     if flag == "--auto-rules":
         assert "--host-mesh or --mesh" in err
     else:
-        assert "ROADMAP.md" in err and "item 14b" in err
+        assert "needs 512 processes" in err and "started 1" in err

@@ -42,8 +42,8 @@ def test_host_mesh_on_one_rank_trains(capsys):
 
 
 @pytest.mark.parametrize("flags,words", [
-    (["--arch", "mamba2-370m", "--host-mesh"],
-     ["--host-mesh", "model axis of 2", "ROADMAP.md", "item 14b"]),
+    (["--arch", "mamba2-370m", "--mesh", "data=1,model=4"],
+     ["--mesh", "needs 4 processes", "started 2"]),
     (["--multi-pod"], ["--multi-pod", "needs 512 processes",
                        "started 2"]),
     ([], ["the production mesh", "needs 256 processes", "started 2"]),

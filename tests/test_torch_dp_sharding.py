@@ -78,14 +78,15 @@ def test_activation_context_counts_and_refuses_a_model_axis():
         assert TS.data_shard_count() == 8
         assert TS.shard_activation(x, ("batch", "seq", None)) is x
     with TS.activation_sharding(Mesh({"data": 2, "model": 2})):
-        # the identity over a model axis too; a family that does not run
-        # tensor-parallel is refused there
+        # the identity over a model axis too; every family runs
+        # tensor-parallel there, and the ragged decode (the slot lane) is
+        # refused before any collective
         assert TS.shard_activation(x, ("batch", "seq", None)) is x
         assert TS.model_axis_size() == 2
         cfg = get_arch("mamba2-370m").reduced()
         with pytest.raises(NotImplementedError, match="item 14b"):
-            M.forward_logits(cfg, {}, {"tokens": torch.zeros(
-                (1, 4), dtype=torch.long)})
+            M.decode_step(cfg, {}, {}, torch.zeros(2, dtype=torch.long),
+                          torch.zeros(2, dtype=torch.long), 8)
     assert TS.data_shard_count() == 1 and TS.model_axis_size() == 1
 
 

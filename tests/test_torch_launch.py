@@ -321,11 +321,18 @@ def test_dryrun_subprocess_end_to_end(tmp_path):
 
 
 @pytest.mark.parametrize("flag", ["--multi-pod", "--both-meshes"])
-def test_dryrun_refuses_the_mesh_flags(flag, capsys):
-    with pytest.raises(SystemExit) as exc:
-        dryrun.main(["--arch", "qwen2-0.5b", flag])
-    assert exc.value.code == 2
-    assert "item 14" in capsys.readouterr().err
+def test_dryrun_refuses_the_mesh_flags(flag, capsys, tmp_path):
+    """The mesh flags are refused no more: each traces rank 0 of its
+    production meshes in place of one card (``--multi-pod`` the 2x32x8
+    mesh, ``--both-meshes`` both) and writes one record per mesh."""
+    dryrun.main(["--arch", "qwen2-0.5b", "--shape", "decode_32k", flag,
+                 "--out", str(tmp_path)])
+    meshes = {"--multi-pod": ["2x32x8"], "--both-meshes": ["32x8",
+                                                           "2x32x8"]}[flag]
+    assert sorted(p.name for p in tmp_path.glob("*.json")) == sorted(
+        f"qwen2-0.5b_decode_32k_{m}.json" for m in meshes)
+    assert f"{len(meshes)}/{len(meshes)} combinations traced OK" in \
+        capsys.readouterr().out
 
 
 def test_hillclimb_rules_variant_moves_only_the_sharded_state(capsys):

@@ -41,98 +41,21 @@ JAX_GROUPS = ([e for e in ENTRIES if e.startswith("dense")] + ["serve@1x2"],
               [e for e in ENTRIES if e.startswith("moe")])
 
 
-def _jax_state(tr, params):
-    """The JAX trainer's initial state of ``params`` (numpy), as
-    ``torch_tp.jax_main`` builds it: the tree with zero moments and
-    buffer, or the pools at the data ranks' shards."""
-    from repro_torch.models.convert import params_from_numpy, state_to_numpy
-    from repro_torch.optim.pool import init_pools
-
-    zero = np.zeros((), np.int32)
-    if tr.pooled:
-        pools = init_pools(tr.pool_layout, params_from_numpy(params, "cpu"))
-        return {"pools": state_to_numpy({"pools": pools, "opt": {
-            "count": torch.zeros((), dtype=torch.int32)},
-            "step": torch.zeros((), dtype=torch.int32)})["pools"],
-            "opt": {"count": zero}, "step": zero}
-
-    def zeros(t, dt=None):
-        return {k: zeros(v, dt) if isinstance(v, dict)
-                else np.zeros(v.shape, dt or v.dtype) for k, v in t.items()}
-    return {"params": params, "opt": {"m": zeros(params, np.float32),
-                                      "v": zeros(params, np.float32),
-                                      "count": zero},
-            "step": zero, "gbuf": zeros(params)}
-
-
-def _bitwise(a: dict, b: dict) -> bool:
-    from repro_torch.tree import tree_leaves_with_path
-
-    la, lb = dict(tree_leaves_with_path(a)), dict(tree_leaves_with_path(b))
-    return sorted(la) == sorted(lb) and all(
-        np.asarray(la[k]).dtype == np.asarray(lb[k]).dtype
-        and np.array_equal(la[k], lb[k]) for k in la)
-
-
 def _trainer_ranks(rank, world, out_dir, params_paths):
-    from repro_torch.launch.mesh import ProcessMesh
-    from repro_torch.models.convert import (params_from_numpy,
-                                            params_to_numpy,
-                                            state_from_numpy)
-
-    res = D.wait_params(params_paths)
-    out = {}
-    for d, m in MESHES:
-        mesh = ProcessMesh({"data": d, "model": m})
-        for name in NAMES:
-            params = D.unflatten(res[name]["params"])
-            tr = D.port_trainer(name, mesh)
-            np_state = _jax_state(tr, params)
-            state = state_from_numpy(np_state, "cpu",
-                                     shardings=tr.state_shardings())
-            back = params_to_numpy(D.gathered(tr, state))
-            out[f"{name}@{d}x{m}"] = {
-                "case": D.port_case(name, mesh,
-                                    params_from_numpy(params, "cpu")),
-                "jax_state": np_state, "round_trip": _bitwise(back,
-                                                             np_state)}
+    out = TT.trainer_ranks(MESHES, NAMES, params_paths)
     if rank == 0:
         with open(os.path.join(out_dir, "port.pkl"), "wb") as f:
             pickle.dump(out, f)
 
 
 def _serve_ranks(rank, world, out_dir, params_paths):
-    from repro_torch.configs import get_arch
-    from repro_torch.distributed import Server, ServeConfig
-    from repro_torch.distributed.sharding import sharded_trace
     from repro_torch.launch.mesh import ProcessMesh
-    from repro_torch.models import model as M
-    from repro_torch.models.convert import params_blocks, params_to_numpy
-    from repro_torch.tree import tree_map
 
-    arch, B, S, T, ctx, q = TT.SERVE
-    mesh = ProcessMesh({"data": 1, "model": 2})
-    cfg = get_arch(arch).reduced().with_(dtype="float32", remat="none")
-    np_params = D.unflatten(D.wait_params(params_paths)["dense_reference"][
-        "params"])
-    server = Server(cfg, ServeConfig(batch=B, ctx_len=ctx), device="cpu",
-                    mesh=mesh)
-    sh = server.param_shardings()
-    blocks = params_blocks(np_params, sh, "cpu")
-    whole = params_to_numpy(tree_map(lambda t, s: s.gather(t), blocks, sh))
-    tokens = torch.from_numpy(D.tokens(cfg.vocab, B, S, q)).long()
-    with torch.no_grad():
-        last, cache = sharded_trace(M.prefill, mesh)(
-            cfg, blocks, {"tokens": tokens}, ctx_len=ctx)
-        first = last.argmax(-1)
-        toks = server.generate(blocks, first.numpy(), T, start_pos=S,
-                               cache=cache)
+    res = TT.port_serve("serve", ProcessMesh({"data": 1, "model": 2}),
+                        params_paths)
     if rank == 0:
         with open(os.path.join(out_dir, "serve.pkl"), "wb") as f:
-            pickle.dump({"tokens": np.concatenate(
-                [first.numpy()[:, None], toks], 1),
-                "round_trip": _bitwise(whole, np_params),
-                "block_shape": tuple(blocks["embed"].shape)}, f)
+            pickle.dump(res, f)
 
 
 @pytest.fixture(scope="module")
@@ -208,5 +131,5 @@ def test_jax_params_cross_as_blocks_and_gather_back_bitwise(runs):
 
     _, port = runs
     assert port["serve"]["round_trip"]
-    cfg = get_arch(TT.SERVE[0]).reduced()
+    cfg = D.case_cfg(TT.SERVES["serve"][0], get_arch)
     assert port["serve"]["block_shape"] == (cfg.vocab // 2, cfg.d_model)

@@ -13,7 +13,9 @@
 
 Inputs come from numpy seeds: the params from the JAX initialiser (the
 JAX side saves them, the port loads them), each round's tokens from
-``default_rng(100 + q)`` and the masks from :data:`MASKS`.  This module
+``default_rng(100 + q)``, the audio frames and vlm patches from
+``default_rng(200 + q)`` (:func:`batch`) and the masks from
+:data:`MASKS`.  This module
 imports neither JAX nor the JAX package at its top: the spawned ranks
 import it, and they run the port only.
 """
@@ -50,6 +52,29 @@ CASES = {
     "dense_bf16": ("qwen2-0.5b", "pallas_pooled", 1, "bfloat16", 8, 16, 4,
                    4),
 }
+#: the tensor-parallel cases of the other four families (f32, T 4); the
+#: hybrid's reduced config (two layers, a shared block before each) has
+#: no tail, so its case takes three layers with the shared block every
+#: two: one group of two, a one-layer tail
+FAMILY_CASES = {
+    f"{fam}_{impl.split('_')[-1]}": (arch, impl, 1, "float32", 8, 16, 4, 4)
+    for fam, arch in (("ssm", "mamba2-370m"), ("hybrid", "zamba2-7b"),
+                      ("audio", "seamless-m4t-large-v2"),
+                      ("vlm", "pixtral-12b"))
+    for impl in ("reference", "pallas_pooled")}
+#: every case by name
+ALL_CASES = {**CASES, **FAMILY_CASES}
+#: arch overrides of a case's reduced config
+OVERRIDES = {"hybrid_reference": (("n_layers", 3), ("attn_every", 2)),
+             "hybrid_pooled": (("n_layers", 3), ("attn_every", 2))}
+
+
+def case_cfg(name, get_arch):
+    """Case ``name``'s config from ``get_arch`` (either package's):
+    reduced, no remat, the case's dtype and overrides."""
+    arch, _, _, dtype, *_rest = ALL_CASES[name]
+    return get_arch(arch).reduced().with_(remat="none", dtype=dtype,
+                                          **dict(OVERRIDES.get(name, ())))
 #: the cases of each JAX subprocess (each draws the params of its own)
 JAX_GROUPS = (("dense_reference", "dense_pooled", "dense_pooled_mb2",
                "dense_bf16"), ("moe_reference", "moe_pooled", "moe_fallback"))
@@ -74,6 +99,20 @@ def tokens(vocab: int, B: int, S: int, q: int) -> np.ndarray:
 
 def mask(groups: int, q: int) -> np.ndarray:
     return MASKS[q % len(MASKS), :groups]
+
+
+def batch(cfg, specs, q: int) -> dict:
+    """Round ``q``'s inputs as numpy arrays of ``specs``' shapes (either
+    package's ``batch_specs(cfg, B, S)``): the tokens of :func:`tokens`,
+    the audio frames or vlm patches standard normal (f32)."""
+    out = {}
+    for k, sp in specs.items():
+        if k == "tokens":
+            out[k] = tokens(cfg.vocab, *sp.shape, q)
+        else:
+            out[k] = np.random.default_rng(200 + q).standard_normal(
+                sp.shape).astype(np.float32)
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -139,8 +178,8 @@ def port_trainer(name, mesh, device="cpu", opt="adam", lr=LR):
     from repro_torch.distributed import AsyncConfig, AsyncTrainer
     from repro_torch.optim import OptConfig
 
-    arch, impl, mb, dtype, B, S, groups, T = CASES[name]
-    cfg = get_arch(arch).reduced().with_(remat="none", dtype=dtype)
+    arch, impl, mb, dtype, B, S, groups, T = ALL_CASES[name]
+    cfg = case_cfg(name, get_arch)
     tr = AsyncTrainer(cfg, OptConfig(name=opt, lr=lr, clip_norm=1.0,
                                      update_impl=impl),
                       AsyncConfig(delay_rounds=1, microbatches=mb),
@@ -167,21 +206,24 @@ def port_case(name, mesh, params, device="cpu", opt="adam", rounds=None,
     rounds and :data:`LR`."""
     import torch
 
+    from repro_torch.models import model as M
     from repro_torch.models.convert import params_to_numpy
     from repro_torch.optim.pool import unpool_tree
     from repro_torch.tree import tree_map
 
-    arch, impl, mb, dtype, B, S, groups, T = CASES[name]
+    arch, impl, mb, dtype, B, S, groups, T = ALL_CASES[name]
     T = rounds or T
     tr = port_trainer(name, mesh, device, opt, lr)
     state = tr.init_state(params=params)
     first = params_to_numpy(tree_map(torch.clone, gathered(tr, state)))
     step = tr.train_step_fn()
+    specs = M.batch_specs(tr.cfg, B, S)
     losses, grads = [], None
     for q in range(T):
-        batch = {"tokens": torch.from_numpy(
-            tokens(tr.cfg.vocab, B, S, q)).long().to(device)}
-        state, m = step(state, batch, torch.from_numpy(mask(groups, q)).to(
+        b = {k: torch.from_numpy(v).to(device)
+             for k, v in batch(tr.cfg, specs, q).items()}
+        b["tokens"] = b["tokens"].long()
+        state, m = step(state, b, torch.from_numpy(mask(groups, q)).to(
             device))
         losses.append(float(m["loss"]))
         if q == 0:
@@ -260,19 +302,28 @@ def jax_params(out_path: str, names) -> None:
 
     out, drawn = {}, {}
     for name in names:
-        arch, _, _, dtype, *_rest = CASES[name]
-        if (arch, dtype) not in drawn:
+        cfg = case_cfg(name, get_arch)
+        if cfg not in drawn:
             params = jax.jit(JM.init_params, static_argnums=0)(
-                get_arch(arch).reduced().with_(dtype=dtype),
-                jax.random.PRNGKey(0))
-            if dtype == "float32":
+                cfg, jax.random.PRNGKey(0))
+            if cfg.dtype == "float32":
                 params = jax.tree_util.tree_map(
                     lambda a: a.astype(jnp.float32), params)
-            drawn[arch, dtype] = params
-        _np_tree(drawn[arch, dtype], f"{name}/params", out)
+            drawn[cfg] = params
+        _np_tree(drawn[cfg], f"{name}/params", out)
     aside = out_path + ".part.npz"
     np.savez(aside, **out)
     os.replace(aside, out_path)
+
+
+def _jax_batch(cfg, B, S, q) -> dict:
+    """Round ``q``'s :func:`batch` as JAX arrays."""
+    import jax.numpy as jnp
+
+    from repro.models import model as JM
+
+    return {k: jnp.asarray(v) for k, v in
+            batch(cfg, JM.batch_specs(cfg, B, S), q).items()}
 
 
 def _np_tree(tree, prefix, out):
@@ -307,8 +358,8 @@ def jax_main(out_path: str, params_path: str, names) -> None:
     out = {}
     given = jax_results(params_path)
     for name in names:
-        arch, impl, mb, dtype, B, S, groups, T = CASES[name]
-        cfg = get_arch(arch).reduced().with_(remat="none", dtype=dtype)
+        arch, impl, mb, dtype, B, S, groups, T = ALL_CASES[name]
+        cfg = case_cfg(name, get_arch)
         jimpl = impl + "_interpret" if impl.startswith("pallas") else impl
         tr = AsyncTrainer(cfg, mesh, opt=OptConfig(
             lr=LR, clip_norm=1.0, update_impl=jimpl),
@@ -333,8 +384,8 @@ def jax_main(out_path: str, params_path: str, names) -> None:
         step = tr.jit_train_step((B, S), donate=False)
         losses = []
         for q in range(T):
-            state, m = step(state, {"tokens": jnp.asarray(
-                tokens(cfg.vocab, B, S, q))}, jnp.asarray(mask(groups, q)))
+            state, m = step(state, _jax_batch(cfg, B, S, q),
+                            jnp.asarray(mask(groups, q)))
             losses.append(float(m["loss"]))
             if q == 0:
                 g = (unpool_tree(tr.pool_layout, {
