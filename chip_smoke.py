@@ -124,8 +124,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``drain_after=64``: the queued requests drained, the rest finished; on
     mamba2-370m, crash-resume at 32 likewise, shedding, a poison without
     retry (a terminal eviction) and the prefix replay refused (its length
-    is not a multiple of the SSD chunk); the training main path through
-    the plan executor with ``AsyncSnapshotter(every=4, keep=2)``: the
+    is not a multiple of the SSD chunk); the training main path at 6 of
+    its 24 layers through the plan executor with
+    ``AsyncSnapshotter(every=4, keep=2)``: the
     snapshotted run bit-identical to a plain one, then restored at round 4
     and resumed, bit-identical again (a difference names the first leaf);
     prints a ``{"durability": ...}`` line with the card, snapshot bytes,
@@ -296,14 +297,33 @@ Phases, each of which fails the run (non-zero exit, no result line):
     (4, 1024, 16 / 4, 128)) against their plain versions, timed with
     their bounds and (flash) SDPA; prints a ``{"tensor_parallel_families":
     ...}`` line;
-23. prints a ``{"kernels": [...]}`` line (each update kernel's
+23. the slot lane over the model axis on one card, the ranks as threads
+    (as phases 21–22): each rank drives the slot lane's own ``_Lanes``
+    (the admission write, the ragged step with its masks and tap rows) on
+    its blocks, each admission a batch-1 ``prefill`` on the rank's heads
+    and each decode step a ragged ``decode_step`` with ``tp=``, under the
+    ``SlotServer``'s admission rule: 8 slots, 6 requests of 512-token
+    prompts arriving in pairs a chunk apart, 12 tokens each, K 8, f32 at
+    full width: qwen2-0.5b at model 2 (24 layers) and 4 (6 layers, its
+    ragged ring split on ctx), mamba2-370m (24 layers), zamba2-7b (15
+    layers) and deepseek-moe-16b (4 layers) at model 2.  Every request's greedy tokens
+    on every rank equal the unsharded ``SlotServer``'s on the card, each
+    decode step's logits are within 2e-5 relative L2 of the whole model's
+    lane, and flash and SSD are launched on the ranks' heads requests ×
+    ranks × layers times (counted from 0 around the ranks' run); then
+    flash and SSD at the admissions' batch-1 shapes on a rank against
+    their plain versions, timed with their bounds and (flash) SDPA;
+    prints a ``{"tensor_parallel_slots": ...}`` line, and a
+    ``{"phase_seconds": ...}`` line with every phase's wall seconds;
+24. prints a ``{"kernels": [...]}`` line (each update kernel's
     ``launches`` from its pooled path; flash's and SSD's launches on
     phase 17's and 18's paths and ``fused_adam_delayed``'s on phase 18's
     under ``family_launches``; flash's times at phase 18's shapes under
     ``family_shapes``, ``fused_adam_delayed``'s over phase 18's pools
     under ``family_pools``, phase 20's launches and row times under
-    ``data_parallel`` and phases 21's and 22's launches, local-shape
-    times and block times under ``tensor_parallel``) and, last, the
+    ``data_parallel`` and phases 21's, 22's and 23's launches,
+    local-shape times and block times under ``tensor_parallel``) and,
+    last, the
     ``{"ok": true, ...}`` line.
 """
 from __future__ import annotations
@@ -1783,11 +1803,19 @@ def _first_difference(a, b):
     return None
 
 
+#: the durability training's depth: 6 of qwen2-0.5b's 24 layers (its 14
+#: leaves, so its launches, unchanged), cut from full depth to make room
+#: for phase 23
+DURABILITY_TRAIN_LAYERS = 6
+
+
 def _durability_training(device) -> dict:
-    """The training main path through the plan executor: without
-    snapshots, with snapshots (the two uninterrupted runs must match bit
-    for bit), then restored from round 4 and resumed (bit for bit)."""
-    spec = _train_spec()
+    """The training main path through the plan executor at
+    ``DURABILITY_TRAIN_LAYERS``: without snapshots, with snapshots (the
+    two uninterrupted runs must match bit for bit), then restored from
+    round 4 and resumed (bit for bit)."""
+    spec = _train_spec(arch_overrides=(("n_layers",
+                                        DURABILITY_TRAIN_LAYERS),))
     job = spec.objective
     cfg = job.make_arch()
     groups, K = spec.n_workers, spec.rounds_per_launch
@@ -4313,59 +4341,309 @@ def phase_tp_families(device, card: str) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the slot lane over the model axis
+# ---------------------------------------------------------------------------
+#: (arch, arch overrides, model axis) of the slot-lane cells: qwen2-0.5b at
+#: model 2 (its two kv heads split) at full depth and at model 4 (attention
+#: gathered, the ragged ring split on ctx) at 6 of its 24 layers,
+#: mamba2-370m at 24 of its 48, zamba2-7b at phase 22's 15 layers and
+#: deepseek-moe-16b at phase 21's 4, at model 2 (the depths keep the
+#: whole script inside its 1200 s)
+TPS_CELLS = (("qwen2-0.5b", (), 2), ("qwen2-0.5b", (("n_layers", 6),), 4),
+             ("mamba2-370m", (("n_layers", 24),), 2),
+             ("zamba2-7b", (("n_layers", 15),), 2),
+             ("deepseek-moe-16b", (("n_layers", 4),), 2))
+#: each cell's serve: 8 slots, 6 requests of 512-token prompts arriving in
+#: pairs a chunk apart (rows at two positions in every chunk, the first
+#: pair's slots reused by the third), T tokens each, K decode steps a
+#: chunk, pure admission, greedy
+TPS_SERVE = dict(n_slots=8, n_requests=6, prompt_len=512, T=12, K=8,
+                 seed=0)
+TPS_F32_TOL = 2e-5             # relative L2 of a decode step's logits, f32
+#: the admissions' batch-1 prefill shapes on a rank: flash (label, B, Sq,
+#: Sk, H, KV, D, causal, window), SSD (label, B, nc, c, H, P, N)
+TPS_FLASH_SHAPES = (
+    ("qwen2-0.5b admission at model 2", 1, 512, 512, 7, 1, 64, True, None),
+    ("qwen2-0.5b admission at model 4 (gathered)", 1, 512, 512, 14, 2, 64,
+     True, None),
+    ("zamba2-7b admission at model 2", 1, 512, 512, 16, 16, 112, True,
+     None),
+    ("deepseek-moe-16b admission at model 2", 1, 512, 512, 8, 8, 128,
+     True, None))
+TPS_SSD_SHAPES = (
+    ("mamba2-370m admission at model 2", 1, 4, 128, 16, 64, 128),
+    ("mamba2-370m admission at model 4", 1, 4, 128, 8, 64, 128),
+    ("zamba2-7b admission at model 2", 1, 4, 128, 56, 64, 64))
+TPS_REDUCED = False            # True rehearses the phase at reduced size
+
+
+def _tps_drive(cfg, params, prompts, arrivals, ctx, tp=None, want=None):
+    """The slot lane's admissions and decode chunks, driven through its own
+    ``_Lanes`` (the admission write, the ragged step with its masks and
+    tap rows), on one rank's blocks under ``tp`` or on the whole model
+    (``tp`` None).  The host side is the ``SlotServer``'s for this cell:
+    at each chunk boundary the completed lanes free their slots and the
+    arrived requests, in request order, take the lowest free ones, each
+    through a batch-1 ``prefill`` (on the rank's heads under ``tp``).
+    ``want``: the whole model's logits of each decode step, which the
+    rank's are held to (relative L2 over the active rows).  Returns
+    (tokens (n_requests, T), the logits of each step with its active rows
+    (``want`` None) or the worst relative L2)."""
+    from repro_torch.distributed.slot_serve import _Lanes
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.launch.mesh import Mesh
+    from repro_torch.models.model import cache_specs, decode_step
+
+    n, plen = prompts.shape
+    S, K, T = TPS_SERVE["n_slots"], TPS_SERVE["K"], TPS_SERVE["T"]
+    lanes = _Lanes(cfg, SlotConfig(n_slots=S, ctx_len=ctx, seed=0,
+                                   steps_per_launch=K), prompts.device)
+    if tp is not None:
+        sh = tree_shardings(cache_specs(cfg, S, ctx, ragged=True),
+                            Mesh({"model": tp.M}))
+        lanes.cache = tree_map(lambda t, s: s.local(t, rank=tp.rank)
+                               .clone(), lanes.cache, sh)
+    logs, worst = [], [0.0]
+
+    def decode(cfg_, p, cache, toks, pos, ctx_):
+        act = lanes.active.clone()
+        lg, cache = decode_step(cfg_, p, cache, toks, pos, ctx_, tp=tp)
+        if want is None:
+            logs.append((lg.clone(), act))
+        else:
+            w, wact = want[len(logs)]
+            logs.append(None)
+            if not torch.equal(act, wact):
+                raise AssertionError("the ranks' active lanes differ from "
+                                     "the whole model's")
+            worst[0] = max(worst[0], _rel_l2(lg[act], w[act]))
+        return lg, cache
+
+    lanes.decode = decode
+    lanes.reset()
+    rid_of, fin = [-1] * S, [0] * S
+    out = {r: [] for r in range(n)}
+    t, nxt = 0, 0
+    while nxt < n or any(r >= 0 for r in rid_of):
+        for s in range(S):
+            if rid_of[s] >= 0 and fin[s] <= t:
+                rid_of[s] = -1
+        free = [s for s in range(S) if rid_of[s] < 0]
+        while free and nxt < n and arrivals[nxt] <= t:
+            s = free.pop(0)
+            last, row = prefill(cfg, params, {"tokens": prompts[nxt:nxt + 1]},
+                                ctx_len=ctx, tp=tp)
+            tok0 = torch.argmax(last, dim=-1)
+            lanes.admit(s, row, tok0, plen, T - 1, nxt)
+            out[nxt].append(int(tok0))
+            rid_of[s], fin[s] = nxt, t + T - 1
+            nxt += 1
+        if all(r < 0 for r in rid_of):
+            t += K
+            continue
+        owner = list(rid_of)
+        for j in range(K):
+            lanes.step(params, j)
+        tap = lanes.tap.cpu().numpy()
+        for j in range(K):
+            for s in range(S):
+                if tap[j, 1, s]:
+                    out[owner[s]].append(int(tap[j, 0, s]))
+        t += K
+    toks = np.array([out[r] for r in range(n)], dtype=np.int32)
+    return toks, (logs if want is None else worst[0])
+
+
+def _tps_cell(device, arch, over, M) -> dict:
+    """One cell: the slot lane on each rank's blocks at a model axis of
+    ``M`` (the ranks as threads) against the whole model's lane and the
+    unsharded ``SlotServer`` on the card, in f32: every request's greedy
+    tokens equal, each decode step's logits within ``TPS_F32_TOL``, flash
+    and SSD launched on the ranks' heads requests × ranks × layers
+    times."""
+    from repro_torch.models.tp import ThreadRanks
+
+    n, plen, T = (TPS_SERVE["n_requests"], TPS_SERVE["prompt_len"],
+                  TPS_SERVE["T"])
+    S, K = TPS_SERVE["n_slots"], TPS_SERVE["K"]
+    cfg = get_arch(arch)
+    cfg = (cfg.reduced() if TPS_REDUCED else cfg).with_(
+        use_flash_attention=True, use_ssd_kernel=True, remat="none",
+        dtype="float32", **dict(over))
+    ctx = -(-(plen + T) // 8) * 8
+    label = f"slot lane over the model axis: {arch} at model {M}"
+    prompts_np = np.random.default_rng(TPS_SERVE["seed"] + 23).integers(
+        0, cfg.vocab, (n, plen))
+    prompts = torch.as_tensor(prompts_np, dtype=torch.int64, device=device)
+    arrivals = np.arange(n, dtype=np.int64) // 2 * K
+    out = {"arch": arch, "n_layers": cfg.n_layers, "model_axis": M,
+           "slots": S, "requests": n, "prompt_len": plen, "T": T, "K": K}
+    with torch.no_grad():
+        params = tree_map(lambda t: t.float(),
+                          init_params(cfg, TPS_SERVE["seed"], device))
+        srv = SlotServer(cfg, SlotConfig(n_slots=S, ctx_len=ctx, seed=0,
+                                         steps_per_launch=K), device=device)
+        res = srv.serve(params, prompts_np, T, admission="pure",
+                        arrivals=arrivals)
+        del srv
+        torch.cuda.empty_cache()
+        whole_toks, want = _tps_drive(cfg, params, prompts, arrivals, ctx)
+        if not np.array_equal(whole_toks, res.tokens):
+            raise AssertionError(f"{label}: the whole model's lane "
+                                 f"{whole_toks.tolist()} != the SlotServer's "
+                                 f"{res.tokens.tolist()}")
+        blocks = _tp_blocks(cfg, params, M)
+        FA.launches = SSD.launches = 0
+        t0 = time.perf_counter()
+        with _dtypes_seen(FA, "flash_attention_cuda") as fseen, \
+                _dtypes_seen(SSD, "ssd_chunk_cuda") as sseen:
+            ranks = ThreadRanks(cfg, M).run(lambda tp: _tps_drive(
+                cfg, blocks[tp.rank], prompts, arrivals, ctx, tp, want))
+        out["ranks_s"] = time.perf_counter() - t0
+        launched = {"flash": FA.launches, "ssd": SSD.launches}
+        per = _split_counts(cfg)
+        hand = {k: n * M * v for k, v in per.items()}
+        out["launches_split"], out["launches_hand"] = launched, hand
+        out["routes_split"] = _routes(fseen, sseen)
+        if launched != hand:
+            raise AssertionError(f"{label}: the ranks launched {launched}, "
+                                 f"want {hand} (requests × ranks × layers)")
+        errs = [e for _, e in ranks]
+        out["f32_logits_rel_l2"] = max(errs)
+        out["decode_steps"] = len(want)
+        if not max(errs) <= TPS_F32_TOL:
+            raise AssertionError(f"{label}: the ranks' decode logits {errs} "
+                                 f"from the whole model's (tol "
+                                 f"{TPS_F32_TOL})")
+        for r, (toks, _) in enumerate(ranks):
+            if not np.array_equal(toks, res.tokens):
+                d = np.argwhere(toks != res.tokens)[0].tolist()
+                raise AssertionError(f"{label}: rank {r}'s tokens differ "
+                                     f"from the SlotServer's first at "
+                                     f"(request, token) {d}")
+        out["greedy_tokens_equal"] = int(res.tokens.size)
+        del params, blocks, want, ranks
+    torch.cuda.empty_cache()
+    log(f"{label}: L={cfg.n_layers} {S} slots, {n} requests of {plen} "
+        f"tokens, T {T}, K {K}: {out['greedy_tokens_equal']} greedy tokens "
+        f"equal to the unsharded SlotServer's on every rank; "
+        f"{out['decode_steps']} decode steps' f32 logits within "
+        f"{out['f32_logits_rel_l2']:.3e} rel L2 (worst rank); admissions "
+        f"launched on the ranks' heads {launched} (hand count {hand}, "
+        f"routes {out['routes_split']}); ranks {out['ranks_s']:.1f} s")
+    return out
+
+
+def phase_tp_slots(device, card: str) -> dict:
+    """Phase 23: the slot lane over the model axis on one card, the ranks
+    as threads (as phases 21–22): the cells of ``TPS_CELLS``, then flash
+    and SSD at the admissions' batch-1 shapes on a rank."""
+    t0 = time.perf_counter()
+    cells = []
+    for cell in TPS_CELLS:
+        cells.append(_tps_cell(device, *cell))
+        torch.cuda.empty_cache()
+    tag = "slot lane over the model axis (admission shapes)"
+    rows = (_flash_rows(device, TPS_FLASH_SHAPES, tag)
+            + _ssd_rows(device, TPS_SSD_SHAPES, tag))
+    for r in rows:
+        log(f"{tag}: {r['kernel']} at {r['arch']}'s shape {r['shape']} "
+            f"bf16: device time per call: kernel {r['ms']:.4f} ms, plain "
+            f"{r['plain_ms']:.4f} ms, sdpa {r['sdpa_ms']}, bound "
+            f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
+    torch.cuda.empty_cache()
+    out = {"card": card, "cells": cells, "local_shapes": rows,
+           "seconds": time.perf_counter() - t0}
+    log(f"slot lane over the model axis: every gate passed in "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+#: wall seconds of each phase of this run, by name, in order
+PHASE_SECONDS: dict = {}
+
+
+def run_phase(name: str, fn, *args, **kw):
+    """``fn(*args, **kw)``, its wall seconds logged and kept under
+    ``name`` in :data:`PHASE_SECONDS`."""
+    t = time.perf_counter()
+    out = fn(*args, **kw)
+    PHASE_SECONDS[name] = round(time.perf_counter() - t, 1)
+    log(f"phase {name}: {PHASE_SECONDS[name]} s")
+    return out
+
+
 def main() -> None:
     t0 = time.perf_counter()
-    kind, card = phase_device()
+    kind, card = run_phase("1 device", phase_device)
     device = torch.device("cuda")
-    phase_build()
-    flash = phase_kernels(device)
-    phase_main_path(device, flash)
-    updates = phase_update_kernels(device)
-    train = phase_train_main(device, updates["fused_adam_delayed"])
+    run_phase("2 build", phase_build)
+    flash = run_phase("3 flash", phase_kernels, device)
+    run_phase("4 main path", phase_main_path, device, flash)
+    updates = run_phase("5 update kernels", phase_update_kernels, device)
+    train = run_phase("6 train main", phase_train_main, device,
+                      updates["fused_adam_delayed"])
     plain_ms = train["warm_ms"]
-    phase_train_others(device, updates)
-    phase_momentum_paths(device, updates)
-    ssd = phase_ssd_kernel(device)
-    phase_ssm_main_path(device, ssd)
-    phase_guards(device)
-    slot_rows = [phase_slot_cell(device, cell) for cell in SLOT_CELLS]
-    slot_parity = phase_slot_parity(device)
-    theory = phase_theory_tier(device)
-    durability = phase_durability(device, card)
-    faults = phase_faults(device, updates["fused_adam_delayed"], card,
-                          plain_ms)
-    lanes = phase_trainer_lanes(device, updates, card, train)
+    run_phase("7 train others", phase_train_others, device, updates)
+    run_phase("8 momentum", phase_momentum_paths, device, updates)
+    ssd = run_phase("9 ssd", phase_ssd_kernel, device)
+    run_phase("10 ssm main path", phase_ssm_main_path, device, ssd)
+    run_phase("11 guards", phase_guards, device)
+    slot_rows = run_phase("12 slot lane", lambda: [
+        phase_slot_cell(device, cell) for cell in SLOT_CELLS])
+    slot_parity = run_phase("12 slot parity", phase_slot_parity, device)
+    theory = run_phase("13 theory tier", phase_theory_tier, device)
+    durability = run_phase("14 durability", phase_durability, device, card)
+    faults = run_phase("15 faults", phase_faults, device,
+                       updates["fused_adam_delayed"], card, plain_ms)
+    lanes = run_phase("16 trainer lanes", phase_trainer_lanes, device,
+                      updates, card, train)
     torch.cuda.empty_cache()
-    families = phase_families(device, card, {"flash": flash, "ssd": ssd})
+    families = run_phase("17 families", phase_families, device, card,
+                         {"flash": flash, "ssd": ssd})
     torch.cuda.empty_cache()
-    new = phase_new_families(device, card, {
+    new = run_phase("18 new families", phase_new_families, device, card, {
         "flash": flash, "fused_adam_delayed": updates["fused_adam_delayed"]})
     torch.cuda.empty_cache()
-    launch = phase_launch_tier(device, card)
+    launch = run_phase("19 launch tier", phase_launch_tier, device, card)
     torch.cuda.empty_cache()
-    data_parallel = phase_data_parallel(device, card)
+    data_parallel = run_phase("20 data parallel", phase_data_parallel,
+                              device, card)
     torch.cuda.empty_cache()
-    tensor_parallel = phase_tensor_parallel(device, card)
+    tensor_parallel = run_phase("21 tensor parallel",
+                                phase_tensor_parallel, device, card)
     torch.cuda.empty_cache()
-    tp_families = phase_tp_families(device, card)
+    tp_families = run_phase("22 tp families", phase_tp_families, device,
+                            card)
+    torch.cuda.empty_cache()
+    tp_slots = run_phase("23 tp slots", phase_tp_slots, device, card)
     local = lambda rows, kernel: [
         {k: r[k] for k in ("arch", "shape", "ms", "plain_ms", "bound_ms",
                            "sdpa_ms")} for r in rows if r["kernel"] == kernel]
     split = lambda kernel: {
         f"{c['arch']}@model{c['model_axis']}": c["launches_split"][kernel]
         for c in tp_families["cells"] if c["launches_split"][kernel]}
+    slot_split = lambda kernel: {
+        f"{c['arch']}@model{c['model_axis']}": c["launches_split"][kernel]
+        for c in tp_slots["cells"] if c["launches_split"][kernel]}
     flash["tensor_parallel"] = {
         "launches_split": {**{f"{c['arch']}@model{c['model_axis']}":
                               c["flash_launches_split"]
                               for c in tensor_parallel["cells"]},
                            **split("flash")},
+        "slot_lane_launches_split": slot_split("flash"),
         "local_shapes": (local(tensor_parallel["flash_local"],
                                "flash_attention")
                          + local(tp_families["local_shapes"],
+                                 "flash_attention")
+                         + local(tp_slots["local_shapes"],
                                  "flash_attention"))}
     ssd["tensor_parallel"] = {
         "launches_split": split("ssd"),
-        "local_shapes": local(tp_families["local_shapes"], "ssd_chunk")}
+        "slot_lane_launches_split": slot_split("ssd"),
+        "local_shapes": (local(tp_families["local_shapes"], "ssd_chunk")
+                         + local(tp_slots["local_shapes"], "ssd_chunk"))}
     updates["fused_adam_delayed"]["tensor_parallel"] = {
         k: tensor_parallel["fused_adam_delayed_blocks"][k]
         for k in ("leaves", "launches", "block_elements", "ms", "bound_ms")}
@@ -4390,6 +4668,8 @@ def main() -> None:
     print(json.dumps({"data_parallel": data_parallel}))
     print(json.dumps({"tensor_parallel": tensor_parallel}))
     print(json.dumps({"tensor_parallel_families": tp_families}))
+    print(json.dumps({"tensor_parallel_slots": tp_slots}))
+    print(json.dumps({"phase_seconds": PHASE_SECONDS}))
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys},
          **{k: e[k] for k in ("family_launches", "family_shapes",

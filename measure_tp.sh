@@ -15,11 +15,19 @@
 # they do not, or when a run exits non-zero; in bf16 an ulp between the
 # summation orders can move a greedy pick or the MoE's routing, so the
 # bf16 runs' tokens are compared and reported only).
-#   bash measure_tp.sh [OUT_DIR] [serve|families]   # from the repository root
+# The slot-lane set ("slots"): the continuous-batching lane (8 slots,
+# prompts of 512, 64 tokens a request, Poisson arrivals) with no mesh and
+# at (data 4, model 1), (2, 2) and (1, 4): qwen2-0.5b and mamba2-370m at
+# full depth and zamba2-7b at 13 layers in bf16 (timed: tok/s, device ms
+# a decode step split into the compute kernels' and NCCL's, TTFT; 16
+# requests, mamba2-370m 8), then in f32 at reduced depth (qwen2-0.5b and
+# mamba2-370m 4 layers, zamba2-7b 7; 8 requests), whose token matrices
+# on every mesh must equal the no-mesh run's.
+#   bash measure_tp.sh [OUT_DIR] [serve|families|slots]   # from the repository root
 # With "serve" only the dense and MoE set's serving runs are made; with
-# "families" only the ssm and hybrid set.  Each run's log goes to
-# OUT_DIR/runN.log and its numbers to OUT_DIR/{train,serve}.jsonl
-# (OUT_DIR defaults to build/tp4).
+# "families" only the ssm and hybrid set; with "slots" only the slot-lane
+# set.  Each run's log goes to OUT_DIR/runN.log and its numbers to
+# OUT_DIR/{train,serve,slots}.jsonl (OUT_DIR defaults to build/tp4).
 export PYTHONPATH=src
 OUT=${1:-build/tp4}
 mkdir -p $OUT
@@ -34,9 +42,22 @@ run() {
   torchrun --standalone --nproc-per-node $p -m "$@" > $OUT/run$n.log 2>&1
   local rc=$?
   [ $rc = 0 ] || failed=$((failed + 1))
-  echo "rc=$rc in $((SECONDS - t0)) s"; grep -E "ms per round|prefill .* ms|Error|error" $OUT/run$n.log | head -5
+  echo "rc=$rc in $((SECONDS - t0)) s"; grep -E "ms per round|prefill .* ms|tok/s|Error|error" $OUT/run$n.log | head -5
 }
 PT=repro_torch.launch.profile_train; PS=repro_torch.launch.profile_serve
+if [ "$2" = slots ]; then
+  S=$OUT/slots.jsonl
+  for A in "--arch qwen2-0.5b --slot-requests 2" "--arch mamba2-370m --slot-requests 1" \
+           "--arch zamba2-7b --n-layers 13 --slot-requests 2" \
+           "--arch qwen2-0.5b --n-layers 4 --f32 --slot-requests 1" \
+           "--arch mamba2-370m --n-layers 4 --f32 --slot-requests 1" \
+           "--arch zamba2-7b --n-layers 7 --f32 --slot-requests 1"; do
+    run 1 $PS $A --slots 8 --json-out $S
+    for M in data=4,model=1 data=2,model=2 data=1,model=4; do
+      run 4 $PS $A --slots 8 --mesh $M --json-out $S
+    done
+  done
+fi
 if [ "$2" = families ]; then
   for A in "--arch mamba2-370m" "--arch zamba2-7b --n-layers 13 --rounds 2 --warmup 1"; do
     run 1 $PT $A --update-impl pallas_pooled --json-out $T
@@ -51,7 +72,7 @@ if [ "$2" = families ]; then
     run 4 $PS $A --mesh data=1,model=4 --json-out $S
   done
 fi
-if [ "$2" != serve ] && [ "$2" != families ]; then
+if [ "$2" != serve ] && [ "$2" != families ] && [ "$2" != slots ]; then
   run 1 $PT --update-impl pallas_pooled --json-out $T
   run 2 $PT --update-impl pallas_pooled --mesh data=1,model=2 --json-out $T
   run 4 $PT --update-impl pallas_pooled --mesh data=2,model=2 --json-out $T
@@ -59,7 +80,7 @@ if [ "$2" != serve ] && [ "$2" != families ]; then
   run 4 $PT --arch deepseek-moe-16b --update-impl pallas --mesh data=1,model=4 --rounds 2 --warmup 1 --json-out $T
   run 4 $PT --arch deepseek-moe-16b --update-impl pallas --remat full --mesh data=1,model=4 --rounds 2 --warmup 1 --json-out $T
 fi
-if [ "$2" != families ]; then
+if [ "$2" != families ] && [ "$2" != slots ]; then
   run 1 $PS --arch deepseek-moe-16b --json-out $S
   run 2 $PS --arch deepseek-moe-16b --mesh data=1,model=2 --json-out $S
   run 4 $PS --arch deepseek-moe-16b --mesh data=1,model=4 --json-out $S
@@ -78,7 +99,8 @@ for r in runs:
     if r["mesh"] is None:
         continue
     one = [o for o in runs if o["mesh"] is None and all(
-        o.get(k) == r.get(k) for k in ("arch", "n_layers", "dtype"))][-1]
+        o.get(k) == r.get(k) for k in ("arch", "n_layers", "dtype",
+                                       "lane"))][-1]
     same = one["tokens"] == r["tokens"]
     print(f"{r['arch']} L={r['n_layers']} {r['dtype']} mesh={r['mesh']}: "
           f"greedy tokens {'equal to' if same else 'DIFFER from'} no mesh's")

@@ -512,8 +512,10 @@ class ServeBackend:
     the model axis (``distributed.Server``), and every rank returns the
     whole token matrix; ``extra`` adds ``mesh`` (its axis sizes) and
     ``collectives`` (each kind's ``[launches, bytes]`` over the run).  The
-    slot lane over a mesh raises ``NotImplementedError`` naming
-    ROADMAP.md item 14b before any parameter is made."""
+    slot lane runs over the mesh too (``SlotServer(mesh=...)``: each data
+    rank holds a block of the slots, each rank its blocks of the params
+    and the ragged cache), every rank returning the same token matrix and
+    ``extra`` the same two keys."""
 
     name = "serve"
 
@@ -542,10 +544,6 @@ class ServeBackend:
                 "prompt, which a ServeJob does not carry.  Serve it at the "
                 "model level: repro_torch.models.prefill with the modality "
                 "input, then Server.generate from that cache")
-        if self.mesh is not None and job.n_slots:
-            raise NotImplementedError(
-                "the slot lane over a mesh waits for ROADMAP.md queue 1, "
-                "item 14b; serve the lock-step lane (n_slots=None)")
         if job.n_slots:
             return self._run_slots(spec)
         rec = self.recorder
@@ -618,7 +616,8 @@ class ServeBackend:
         ``compile_counts``.  The job's resilience knobs build the
         :class:`RetryPolicy` and :class:`OverloadPolicy`, and the spec's
         scenario lowers to serve faults on the decode-step clock, as in
-        the JAX package."""
+        the JAX package.  On a mesh ``extra`` adds ``mesh`` and
+        ``collectives``, and every rank returns the same tokens."""
         from ..distributed import (SlotServer, SlotConfig, OverloadPolicy,
                                    RetryPolicy, draw_arrivals,
                                    parse_admission)
@@ -629,15 +628,18 @@ class ServeBackend:
         device = resolve_device(self.device)
         t0 = time.time()
         launches0 = flash_kernel.launches, ssd_kernel.launches
+        coll = collectives.snapshot()
         cfg = job.make_arch()
-        params = init_params(cfg, spec.seed, device)
         n_req = job.n_requests or job.batch
         ctx = job.prompt_len + spec.T
         server = SlotServer(
             cfg, SlotConfig(n_slots=job.n_slots, ctx_len=ctx,
                             temperature=job.temperature, seed=spec.seed,
                             steps_per_launch=job.steps_per_launch),
-            device=device, recorder=self.recorder)
+            device=device, recorder=self.recorder, mesh=self.mesh,
+            rules=self.rules)
+        params = init_params(cfg, spec.seed, device,
+                             shardings=server.param_shardings())
         # the lock-step lane's prompt stream: with n_requests == batch the
         # two lanes serve the same prompts
         prompts = np.random.default_rng(spec.seed).integers(
@@ -697,7 +699,10 @@ class ServeBackend:
                        scenario_spec=job.arrival or "",
                        evictions=res.evictions, timeouts=res.timeouts,
                        shed=res.shed, drained=res.drained,
-                       attempts=res.attempts)})
+                       attempts=res.attempts),
+                   **({} if self.mesh is None else {
+                       "mesh": dict(self.mesh.shape),
+                       "collectives": collectives.since(coll)})})
 
 
 def run(spec: ExperimentSpec, backend: Optional[Backend] = None,

@@ -343,7 +343,7 @@ class AsyncTrainer:
         per-leaf routes params, m, v and gbuf are split over the model
         axis by the rules; everything else is replicated (per-leaf ZeRO
         over the data axes is not ported: ROADMAP.md queue 1, item
-        14b)."""
+        14b (ii))."""
         if not self.ranked:
             raise ValueError("state_shardings needs a mesh")
         out = tree_map(lambda spec: NamedSharding(

@@ -38,9 +38,8 @@ per device, where the data axes are data parallelism:
   ``SEQ_PARALLEL_RULES``' ``"seq"`` is a layout lever of the JAX package
   that the port's layers do not act on (no activation carries it).
 
-What waits for ROADMAP.md queue 1, item 14b: the slot lane over a mesh
-(the ragged decode on a model axis raises) and per-leaf ZeRO over the
-data axes (``zero_pspec`` counts in the analytic bytes only).
+What waits for ROADMAP.md queue 1, item 14b (ii): per-leaf ZeRO over
+the data axes (``zero_pspec`` counts in the analytic bytes only).
 """
 from __future__ import annotations
 
@@ -119,9 +118,9 @@ def model_axis_waits(family: str, model: int) -> str:
 
 
 def check_model_axis(cfg, mesh, rules=None) -> None:
-    """Raise ``NotImplementedError`` naming ROADMAP.md item 14b when
-    ``mesh``'s model axis is larger than 1 and ``cfg``'s family does not
-    run tensor-parallel."""
+    """Raise ``NotImplementedError`` when ``mesh``'s model axis is larger
+    than 1 and ``cfg``'s family does not run tensor-parallel (every family
+    of the registry does)."""
     rules = rules or DEFAULT_RULES
     model = _mesh_size(mesh, rules.model_axis) if mesh is not None else 1
     if model > 1 and cfg.family not in TP_FAMILIES:

@@ -1,8 +1,8 @@
 """Slot-based continuous-batching serving: one captured ragged decode chunk.
 
-Counterpart of ``repro/distributed/slot_serve.py`` on one device.
-``n_slots`` persistent decode lanes, each with its own position, activity
-and budget, are stepped by ONE program:
+Counterpart of ``repro/distributed/slot_serve.py``, on one device or over a
+mesh (below).  ``n_slots`` persistent decode lanes, each with its own
+position, activity and budget, are stepped by ONE program:
 
 * **Device.**  The decode state (the ragged cache of
   ``models.init_cache(..., ragged=True)``, and per slot the last token,
@@ -63,6 +63,35 @@ and budget, are stepped by ONE program:
   resume folds each chunk's tap rows before the next sweep, so the ledger
   is whole at every sweep; a clean serve keeps the run-ahead.
 
+**Over a mesh** (``mesh``: a bound ``launch.mesh.ProcessMesh``, with the
+JAX ``SlotServer``'s ``rules``) every rank runs the same driver:
+
+* **Lanes.**  Each data rank holds a contiguous block of ``n_slots / D``
+  slots (the data axes flattened, as JAX's lanes lie on the last data
+  axis of a (data, model) mesh), its rows of every per-slot tensor and its
+  block of the ragged cache under the rules; over the model axis each
+  rank decodes on its blocks of the params and the cache
+  (``models/tp.py``), the logits whole on every model rank.
+* **One ledger.**  Every rank folds the same tap: after each chunk the
+  rank's tap rows ``(K, 3, n_slots / D)`` are all-gathered over the data
+  group into ``(K, 3, n_slots)``.  Admission, retry, shedding, drain and
+  TTFT are pure functions of that tap and of the seeded policies, so no
+  rank broadcasts a decision and the ``ServeResult`` is the same on every
+  rank.  The first tokens of a sweep's admissions are summed over the
+  data group (the owner's token, zeros elsewhere) in one all-reduce.
+* **Prefill** runs on the data rank that owns the admitted slot only: a
+  batch-1 prefill on its model group (``tp=``), outside the data context,
+  so the MoE dispatches the prompt as one group, as JAX's plain ``jit`` of
+  the replicated prompt does.
+* **The chunk runs eagerly**: each decode step holds the model group's
+  collectives (and, on the MoE, the data group's), which this slice does
+  not capture in a CUDA graph.  Without a mesh nothing changes.
+* **Resilience**: poison cells land in the owner's rows of the mask,
+  :class:`ServePreempted` is raised on every rank at the same boundary, a
+  snapshotter gathers the lanes' blocks (rank 0 writes them with the
+  ledger; the ranked checkpoint format) and ``resume_from`` gives each
+  rank its blocks back; a snapshot of another mesh is refused.
+
 The serve snapshot is the port's own structure (the cache leaves and the
 per-slot tensors; JAX's holds PRNG keys), so serve snapshots do not cross
 packages; their ``meta.json`` ledger, ``admission_policy`` and
@@ -94,6 +123,10 @@ from ..models import model as M
 from ..obs import CompileWatch
 from ..tree import tree_leaves, tree_map
 from .admission import AdmissionPolicy, AdmissionTrace, parse_admission
+from .collectives import all_gather, all_reduce
+from .sharding import (DEFAULT_RULES, NamedSharding, PSpec,
+                       check_model_axis, pool_axes, sharded_trace,
+                       tree_shardings)
 
 
 def _span(rec, name, lane, **args):
@@ -344,12 +377,25 @@ def _mix32(x):
 
 class _Lanes:
     """The decode state of ``n_slots`` lanes as tensors allocated once, and
-    one ragged decode step over them, written in place."""
+    one ragged decode step over them, written in place.  On a mesh: this
+    rank's rows (``n`` of them, from slot ``lo`` on) and its block of the
+    ragged cache (``cache_shardings``), decoded under the mesh's
+    context."""
 
-    def __init__(self, cfg: ArchConfig, slots: SlotConfig, device):
+    def __init__(self, cfg: ArchConfig, slots: SlotConfig, device,
+                 mesh=None, rules=None, cache_shardings=None):
         S, K = slots.n_slots, slots.steps_per_launch
         self.cfg, self.slots = cfg, slots
-        self.cache = M.init_cache(cfg, S, slots.ctx_len, device, ragged=True)
+        self.decode = M.decode_step
+        self.n, self.lo = S, 0
+        if mesh is not None:
+            data = pool_axes(mesh, rules)
+            self.n = S // mesh.count(data)
+            self.lo = mesh.my_index(data) * self.n
+            self.decode = sharded_trace(M.decode_step, mesh, rules)
+        S = self.n
+        self.cache = M.init_cache(cfg, slots.n_slots, slots.ctx_len, device,
+                                  ragged=True, shardings=cache_shardings)
         i64 = dict(dtype=torch.int64, device=device)
         self.toks = torch.zeros(S, **i64)
         self.pos = torch.zeros(S, dtype=torch.int32, device=device)
@@ -419,8 +465,8 @@ class _Lanes:
         """Decode step ``j`` of a chunk: every lane decodes, active lanes
         with finite logits emit, non-finite ones (a poisoned cell's logits
         are NaN) are quarantined."""
-        logits, _ = M.decode_step(self.cfg, params, self.cache, self.toks,
-                                  self.pos, self.slots.ctx_len)
+        logits, _ = self.decode(self.cfg, params, self.cache, self.toks,
+                                self.pos, self.slots.ctx_len)
         logits = logits.masked_fill(self.poison[j][:, None], float("nan"))
         act = self.active
         finite = torch.isfinite(logits).all(dim=-1)
@@ -446,21 +492,51 @@ class _Lanes:
 class SlotServer:
     """Continuous-batching decode over ``n_slots`` ragged lanes on
     ``device`` (default CUDA).  ``capture=False`` runs the chunk eagerly on
-    the card too.  ``recorder`` traces every serve (module docstring)."""
+    the card too.  ``recorder`` traces every serve (module docstring).
+
+    ``mesh`` (a bound ``launch.mesh.ProcessMesh``) and ``rules`` serve
+    over the mesh, as the port's ``Server`` takes them: every rank builds
+    the server and calls ``serve`` with the same arguments, its params
+    the rank's blocks (``init_params(..., shardings=
+    server.param_shardings())``).  ``n_slots`` must divide over the data
+    axes (``ValueError`` otherwise, before any collective), and the chunk
+    runs eagerly there (module docstring)."""
 
     def __init__(self, cfg: ArchConfig, slots: SlotConfig, device="cuda",
-                 capture: bool = True, recorder=None):
+                 capture: bool = True, recorder=None, *, mesh=None,
+                 rules=None):
         if cfg.family in ("vlm", "audio"):
             raise NotImplementedError(
                 f"slot serving admits token-only prompts; the {cfg.family!r} "
                 "family needs per-request modality inputs (follow-up)")
         self.cfg, self.slots = cfg, slots
         self.device = resolve_device(device)
-        self.capture = capture and self.device.type == "cuda"
+        self.mesh, self.rules = mesh, rules or DEFAULT_RULES
+        self._tp = None               # the admission prefill's model group
+        self._data = None             # the data group (None: one data rank)
+        if mesh is not None:
+            check_model_axis(cfg, mesh, self.rules)
+            data = pool_axes(mesh, self.rules)
+            if slots.n_slots % mesh.count(data):
+                raise ValueError(
+                    f"n_slots = {slots.n_slots} does not divide over the "
+                    f"{mesh.count(data)} data ranks of mesh {mesh.shape}")
+            if mesh.count(data) > 1:
+                self._data = mesh.group(data)
+            model = (self.rules.model_axis,)
+            if mesh.count(model) > 1:
+                from ..models.tp import TP
+
+                self._tp = TP(cfg, mesh.group(model), mesh.count(model),
+                              mesh.my_index(model), self.rules)
+        # on a mesh every decode step holds collectives: the eager chunk
+        self.capture = (capture and self.device.type == "cuda"
+                        and mesh is None)
         self.recorder = recorder      # repro_torch.obs.Recorder | None
         self.watch = CompileWatch(recorder)   # counts the chunk's captures
         self.watch.register("chunk")
-        self._lanes = _Lanes(cfg, slots, self.device)
+        self._lanes = _Lanes(cfg, slots, self.device, mesh, self.rules,
+                             self.cache_shardings())
         self._graph = None            # the captured chunk
         self._params = None           # the graph's copy of the params
         self._prefill_fns = {}        # prompt_len -> batch-1 prefill
@@ -473,6 +549,36 @@ class SlotServer:
         freed slots and serving again keep it at 1.  Admission and prefill
         run eagerly, so nothing of theirs is built."""
         return self.watch.counts()
+
+    # ---- shardings (a mesh) ------------------------------------------------
+    def param_shardings(self):
+        """The params' layout (None without a mesh): a rank holds
+        ``NamedSharding.local`` of each whole leaf."""
+        if self.mesh is None:
+            return None
+        return tree_shardings(M.param_specs(self.cfg), self.mesh, self.rules)
+
+    def cache_shardings(self):
+        """The ragged cache's layout (None without a mesh): the rules on
+        ``cache_specs(..., ragged=True)``."""
+        if self.mesh is None:
+            return None
+        return tree_shardings(M.cache_specs(
+            self.cfg, self.slots.n_slots, self.slots.ctx_len, ragged=True),
+            self.mesh, self.rules)
+
+    def state_shardings(self):
+        """The layout of the decode state a snapshot holds (None without a
+        mesh): the cache's, and every per-slot tensor's rows over the data
+        axes."""
+        if self.mesh is None:
+            return None
+        data = pool_axes(self.mesh, self.rules)
+        lane = NamedSharding(self.mesh, PSpec(
+            (data if len(data) > 1 else data[0]) if data else None))
+        out = {k: lane for k in self._lanes.state() if k != "cache"}
+        out["cache"] = self.cache_shardings()
+        return out
 
     # ---- programs ----------------------------------------------------------
     def _load_params(self, params) -> None:
@@ -519,19 +625,21 @@ class SlotServer:
     def admit_fn(self) -> Callable:
         """``admit(slot, pcache, tok0, pos0, rem0, rid, attempt)``:
         in-place index copies into any slot (one program for every
-        admission)."""
+        admission); on a mesh ``slot`` is the rank's own row."""
         return self._lanes.admit
 
     def prefill_fn(self, prompt_len: int) -> Callable:
         """Batch-1 prefill → (first token (1,), ctx-length cache row);
-        cached per prompt length."""
+        cached per prompt length.  On a mesh it runs on the rank's model
+        group (the rank's block of the row) and outside the data context:
+        one dispatch group, as JAX's prefill of a replicated prompt."""
         fn = self._prefill_fns.get(prompt_len)
         if fn is None:
-            cfg, ctx = self.cfg, self.slots.ctx_len
+            cfg, ctx, tp = self.cfg, self.slots.ctx_len, self._tp
 
             def fn(params, tokens):
                 logits, cache = M.prefill(cfg, params, {"tokens": tokens},
-                                          ctx_len=ctx)
+                                          ctx_len=ctx, tp=tp)
                 return torch.argmax(logits, dim=-1), cache
 
             self._prefill_fns[prompt_len] = fn
@@ -539,25 +647,30 @@ class SlotServer:
 
     def _restore(self, path: str) -> None:
         """Write a serve snapshot into the lanes' tensors in place (the
-        captured graph holds their addresses)."""
+        captured graph holds their addresses); on a mesh, the rank's
+        blocks of it."""
         from ..checkpoint import checkpointer
 
         state = self._lanes.state()
         tree_map(lambda dst, src: dst.copy_(src), state,
-                 checkpointer.restore(path, state))
+                 checkpointer.restore(path, state,
+                                      shardings=self.state_shardings()))
 
     # ---- tap ---------------------------------------------------------------
     def _queue_tap(self, chunk: int):
         """Queue the copy of the tap rows to the host; returns (host rows,
         event or None)."""
         lanes = self._lanes
+        tap = lanes.tap
+        if self._data is not None:    # every rank folds every slot's rows
+            tap = all_gather(tap, self._data, dim=2)
         if self.device.type != "cuda":
-            return lanes.tap.clone(), None
+            return tap.clone(), None
         if self._tap_host is None:
-            self._tap_host = [torch.empty(lanes.tap.shape, dtype=torch.int64,
+            self._tap_host = [torch.empty(tap.shape, dtype=torch.int64,
                                           pin_memory=True) for _ in range(2)]
         buf = self._tap_host[chunk % 2]
-        buf.copy_(lanes.tap, non_blocking=True)
+        buf.copy_(tap, non_blocking=True)
         ev = torch.cuda.Event()
         ev.record()
         return buf, ev
@@ -605,7 +718,9 @@ class SlotServer:
           — offer the decode state and the host ledger at every due chunk
           boundary; ``resume_from=dir`` restores such a snapshot and
           continues (``prompts``, ``max_new`` and the knobs must match the
-          original call).
+          original call).  On a mesh a snapshotter without shardings is
+          given :meth:`state_shardings`, and a snapshot resumes on the
+          mesh that wrote it only.
         """
         S, K = self.slots.n_slots, self.slots.steps_per_launch
         prompts = np.asarray(prompts)
@@ -655,6 +770,10 @@ class SlotServer:
                 or bool(preempts))
 
         lanes = self._lanes
+        mesh_shape = None if self.mesh is None else dict(self.mesh.shape)
+        if (snapshot is not None and self.mesh is not None
+                and getattr(snapshot, "shardings", None) is None):
+            snapshot.shardings = self.state_shardings()
         lanes.reset()
         if self.capture:
             self._load_params(params)
@@ -680,6 +799,11 @@ class SlotServer:
                     "snapshot geometry mismatch: ledger has "
                     f"{len(L.slot_rid)} slots / {len(L.state_of)} requests, "
                     f"server has {S} / {n_req}")
+            if meta.get("serve_mesh") != mesh_shape:
+                raise ValueError(
+                    f"snapshot mesh mismatch: {resume_from} was written on "
+                    f"mesh {meta.get('serve_mesh')}, this server runs on "
+                    f"{mesh_shape}; resume it on the mesh that wrote it")
             policy.load_state(meta["admission_policy"])
             trace.load_state(meta["admission_trace"])
             self._restore(resume_from)
@@ -736,9 +860,12 @@ class SlotServer:
                 sink(t0 + j, rows[j, 0], rows[j, 1] != 0, rows[j, 2] != 0)
 
         def ledger_meta():
-            return {"serve_ledger": L.to_json(),
+            meta = {"serve_ledger": L.to_json(),
                     "admission_policy": policy.state_dict(),
                     "admission_trace": trace.state_dict()}
+            if mesh_shape is not None:
+                meta["serve_mesh"] = mesh_shape
+            return meta
 
         def drain_events():
             """Fold tap-recorded quarantine evictions into the ledger."""
@@ -872,6 +999,7 @@ class SlotServer:
             arrived = {r for r, st_r in L.state_of.items()
                        if st_r == "queued" and L.eligible[r] <= t}
             free = [s for s in range(S) if L.slot_rid[s] < 0]
+            admitted = []             # (rid, first token | None), in order
             while free:
                 rid = policy.pick(arrived, L.in_flight)
                 if rid is None:
@@ -889,11 +1017,16 @@ class SlotServer:
                 else:
                     pf_e, ptoks = pf, prompts_dev[rid:rid + 1]
                 rem0 = max_new - 1 - e
-                with _span(rec, "prefill", "server", rid=rid, plen=plen + e):
-                    tok0, pcache = pf_e(params, ptoks)
-                with _span(rec, "admit", "server", rid=rid, slot=s):
-                    admit(s, pcache, tok0, plen + e, rem0, rid,
-                          L.tries.get(rid, 0))
+                tok0 = None
+                local = s - lanes.lo
+                if 0 <= local < lanes.n:          # this data rank's slot
+                    with _span(rec, "prefill", "server", rid=rid,
+                               plen=plen + e):
+                        tok0, pcache = pf_e(params, ptoks)
+                    with _span(rec, "admit", "server", rid=rid, slot=s):
+                        admit(local, pcache, tok0, plen + e, rem0, rid,
+                              L.tries.get(rid, 0))
+                admitted.append((rid, tok0))
                 L.outputs[rid] = [tok0]
                 L.admit_t.setdefault(rid, t)
                 L.fin[rid] = t + rem0
@@ -914,6 +1047,17 @@ class SlotServer:
                     L.slot_rid[s] = rid
                     L.state_of[rid] = "inflight"
                     free.pop(0)
+            if self._data is not None and admitted:
+                # the owners' first tokens to every data rank, one
+                # all-reduce (zeros where a rank does not own the slot)
+                firsts = torch.zeros(len(admitted), dtype=torch.int64,
+                                     device=self.device)
+                for i, (rid, tok0) in enumerate(admitted):
+                    if tok0 is not None:
+                        firsts[i:i + 1].copy_(tok0)
+                firsts = all_reduce(firsts, self._data)
+                for i, (rid, _) in enumerate(admitted):
+                    L.outputs[rid][0] = firsts[i:i + 1]
             # -- overload shedding (bounded admission queue) ---------------
             if overload is not None:
                 waiting = sorted(
@@ -961,6 +1105,7 @@ class SlotServer:
                 cells = poisons.get(t + j)
                 if cells:
                     mask[j] = [L.slot_rid[s] in cells for s in range(S)]
+            mask = mask[:, lanes.lo:lanes.lo + lanes.n]    # this rank's rows
             poisoned = bool(mask.any())
             if poisoned:
                 lanes.poison.copy_(torch.from_numpy(mask))

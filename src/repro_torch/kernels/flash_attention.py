@@ -120,7 +120,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None):
             "the flash attention kernel has no backward (the TPU kernel it "
             "replaces, flash_attention_pallas, has none either); train with "
             "use_flash_attention=False, or run under torch.no_grad().  A "
-            "backward is a later slice (ROADMAP.md queue 2, item 7)")
+            "backward is a later slice (ROADMAP.md queue 2, step item 2)")
     _check(q, k, v)
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]

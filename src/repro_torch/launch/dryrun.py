@@ -16,7 +16,9 @@ differs: ``trace_s`` for ``lower_s`` (no ``compile_s``), ``op_cost`` for
 under the sharding rules on both production H100 meshes.
 
 By default the traced program is one card's (mesh ``h100x1``,
-``n_devices`` 1) at the shape's global batch.  ``--both-meshes`` traces
+``n_devices`` 1) at the shape's global batch, and each record lands under
+``experiments/dryrun_torch/`` (the JAX dry-run's directory,
+``experiments/dryrun/``, stays the JAX package's).  ``--both-meshes`` traces
 instead the step of one rank (rank 0) of each production mesh, ``32x8``
 (data 32 × model 8, 256 cards) and ``2x32x8`` (pod 2 × data 32 × model 8,
 512 cards), and ``--multi-pod`` of the second alone: the rank holds its
@@ -28,13 +30,13 @@ trainer's data-parallel round.  No process group is made: the mesh is a
 ``launch.mesh.TracedMesh``, whose collectives return their outputs'
 shapes on ``meta`` and count their operand bytes
 (``op_cost.collective_bytes``).  Per-leaf ZeRO over the data axes is not
-ported (ROADMAP.md item 14b), so a rank's traced state keeps every
+ported (ROADMAP.md item 14b (ii)), so a rank's traced state keeps every
 model-split leaf whole over the data axes, while ``analytic_state_bytes``
 counts the rules with ZeRO, as the JAX dry-run does.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape decode_32k
-  python -m repro_torch.launch.dryrun --all [--out experiments/dryrun]
+  python -m repro_torch.launch.dryrun --all [--out experiments/dryrun_torch]
   python -m repro_torch.launch.dryrun --all --both-meshes
 """
 from __future__ import annotations
@@ -269,7 +271,7 @@ def main(argv=None):
     ap.add_argument("--both-meshes", action="store_true",
                     help="trace rank 0 of both production meshes (32x8, "
                          "2x32x8) instead of one card")
-    ap.add_argument("--out", default="experiments/dryrun")
+    ap.add_argument("--out", default="experiments/dryrun_torch")
     ap.add_argument("--auto-rules", action="store_true",
                     help="per-arch sharding rules (on one card: the "
                          "analytic sharded state bytes only)")

@@ -11,6 +11,9 @@ H100 meshes); a config variant (``update_impl``, ``microbatches``) moves
 the traced terms too.
 
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --pair grok_train
+
+writes ``experiments/hillclimb_torch_{pair}.json`` (the JAX hill-climb
+keeps ``experiments/hillclimb_{pair}.json``).
 """
 from __future__ import annotations
 
@@ -94,7 +97,7 @@ def main(argv=None):
           "the sharded state per device)")
     os.makedirs("experiments", exist_ok=True)
     compare(arch, shape, [(n, *VARIANTS[n]) for n in names],
-            out=f"experiments/hillclimb_{args.pair}.json")
+            out=f"experiments/hillclimb_torch_{args.pair}.json")
 
 
 if __name__ == "__main__":

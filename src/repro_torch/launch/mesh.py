@@ -17,7 +17,8 @@ world size is an error, as ``jax.make_mesh`` fails without the devices.
 What runs on a bound mesh: data parallelism over the data axes (the
 AsGrad trainer, :mod:`repro_torch.distributed.async_trainer`) and, for
 every family, tensor parallelism over the ``model`` axis
-(:mod:`repro_torch.models.tp`; the trainer and the lock-step ``Server``),
+(:mod:`repro_torch.models.tp`; the trainer, the lock-step ``Server`` and
+the ``SlotServer``),
 each rank holding its blocks of the params, the cache and the optimizer
 state; :func:`make_host_mesh` (data 1, model = the world) runs them.  A
 :class:`TracedMesh` is one rank of a mesh bound to no process group, its

@@ -5,8 +5,8 @@
                 seamless-m4t-large-v2|pixtral-12b] \
         [--no-flash] [--no-ssd] [--slots N] [--trace-dir DIR]
     torchrun --nproc-per-node N -m repro_torch.launch.profile_serve \
-        --arch deepseek-moe-16b --mesh data=1,model=N [--n-layers L]
-        [--f32] [--json-out PATH]
+        --arch deepseek-moe-16b --mesh data=1,model=N [--slots S]
+        [--n-layers L] [--f32] [--json-out PATH]
 
 Runs a serving main path's configuration at full width (a batch of 4
 prompts of 1024 tokens, greedy decode): qwen2-0.5b (the default) or
@@ -29,7 +29,8 @@ a second prefill and decode with the host clock around
 * the kernels that took most device time.
 
 With ``--slots N`` it profiles the continuous-batching slot lane instead:
-``SlotServer`` with N slots serves 4·N requests of 512-token prompts, 64
+``SlotServer`` with N slots serves 4·N requests (``--slot-requests R``:
+R·N) of 512-token prompts, 64
 tokens each, Poisson arrivals every 2 decode steps on average, ``pure``
 admission, 8 decode steps per captured chunk.  After one warm-up serve
 (which captures the chunk) it times a warm serve and then records one
@@ -38,19 +39,25 @@ chunk replays' device span (CUDA events around each replay) per decode
 step, host waits per chunk, occupancy, the device time by kernel and the
 idle share over the serve.
 
-``--mesh data=D[,pod=P][,model=M]`` serves the lock-step lane under
-``torchrun``, one process per card (NCCL): the prompts' rows over the data
-axes, the dense and MoE families tensor-parallel over the model axis
-(``Server(mesh=...)``, each rank holding its blocks of the params and the
-cache), every rank timing the same work; rank 0 prints, with each
-collective kind's launches and operand bytes of a prefill and of a decode
-step.  ``--json-out`` appends the timed numbers as one JSON line, with
-the timed serve's greedy tokens (the first token of the prefill and the
-``STEPS`` decoded ones), so runs on several meshes can be held to one
-another.  ``--n-layers`` cuts the lock-step lane's depth; ``--f32`` runs
-it with f32 params and activations, where a mesh's greedy tokens equal
-one card's (in bf16 an ulp between the two summation orders can move the
-MoE's routing and so a token).
+``--mesh data=D[,pod=P][,model=M]`` serves under ``torchrun``, one
+process per card (NCCL), every rank timing the same work; rank 0 prints.
+The lock-step lane: the prompts' rows over the data axes, every family
+tensor-parallel over the model axis (``Server(mesh=...)``, each rank
+holding its blocks of the params and the cache), with each collective
+kind's launches and operand bytes of a prefill and of a decode step.  The
+slot lane (``--slots N``): ``SlotServer(mesh=...)``, each data rank
+holding N / D of the slots and each rank its blocks of the params and the
+ragged cache; its chunk runs eagerly there.  ``--json-out`` appends the
+timed numbers as one JSON line, with the timed serve's greedy tokens (the
+lock-step lane's first token of the prefill and the ``STEPS`` decoded
+ones; the slot lane's token matrix and TTFT), so runs on several meshes
+can be held to one another.  The slot lane's line splits the profiled
+serve's device time into the compute kernels' and NCCL's, so a mesh's
+device time a decode step is read off the compute stream.
+``--n-layers`` cuts the depth; ``--f32`` runs with f32 params and
+activations, where a mesh's greedy tokens equal one card's (in bf16 an
+ulp between the two summation orders can move the MoE's routing and so a
+token).
 
 ``--trace-dir`` also writes the profiler's Chrome traces there
 (``prefill.json``, ``decode.json``, or ``slots.json``).  Needs a CUDA
@@ -163,6 +170,8 @@ def main(argv=None) -> None:
                     help="the einsum SSD branch (ssm and hybrid families)")
     ap.add_argument("--slots", type=int, default=None, metavar="N",
                     help="profile the slot lane with N slots")
+    ap.add_argument("--slot-requests", type=int, default=SLOT_REQUESTS,
+                    metavar="R", help="the slot lane's requests per slot")
     ap.add_argument("--trace-dir", default=None)
     ap.add_argument("--mesh", default=None,
                     metavar="data=D[,pod=P][,model=M]",
@@ -172,13 +181,10 @@ def main(argv=None) -> None:
                     help="append the timed numbers and the greedy tokens "
                          "as one JSON line")
     ap.add_argument("--n-layers", type=int, default=None,
-                    help="cut the depth (lock-step lane)")
+                    help="cut the depth")
     ap.add_argument("--f32", action="store_true",
-                    help="f32 params and activations (lock-step lane)")
+                    help="f32 params and activations")
     args = ap.parse_args(argv)
-    if args.mesh and args.slots:
-        ap.error("the slot lane over a mesh waits for ROADMAP.md queue 1, "
-                 "item 14b (omit --slots or --mesh)")
     if not args.mesh:
         return _serve(args, ap, None)
     import torch.distributed as dist
@@ -209,19 +215,22 @@ def _serve(args, ap, mesh) -> None:
     if args.slots and cfg.family in ("audio", "vlm"):
         ap.error(f"the slot lane serves token-only prompts; {args.arch} "
                  "runs at the model level only (omit --slots)")
-    server = None
-    if not args.slots:
+    if args.slots:
+        server = SlotServer(cfg, SlotConfig(
+            n_slots=args.slots, ctx_len=SLOT_PROMPT + SLOT_T, seed=SEED,
+            steps_per_launch=SLOT_K), device=device, mesh=mesh)
+    else:
         batch = model_batch(cfg, BATCH, PROMPT_LEN, SEED, device)
         plen = batch["tokens"].shape[1]    # audio: PROMPT_LEN // dec_ratio
         ctx = plen + STEPS + 1
         server = Server(cfg, ServeConfig(batch=BATCH, ctx_len=ctx),
                         device=device, mesh=mesh)
     params = init_params(cfg, SEED, device,
-                         shardings=server and server.param_shardings())
+                         shardings=server.param_shardings())
     if args.f32:
         params = tree_map(lambda t: t.float(), params)
     if args.slots:
-        _profile_slots(cfg, params, args.slots, device, args.trace_dir)
+        _profile_slots(server, params, args, lead)
         return
     run_prefill = prefill
     if mesh is not None:
@@ -289,13 +298,11 @@ def _serve(args, ap, mesh) -> None:
         p_dec.export_chrome_trace(os.path.join(args.trace_dir, "decode.json"))
 
 
-def _profile_slots(cfg, params, n_slots: int, device, trace_dir) -> None:
-    """One warm slot-lane serve timed, then one under the profiler."""
-    n_req = SLOT_REQUESTS * n_slots
-    server = SlotServer(cfg, SlotConfig(n_slots=n_slots,
-                                        ctx_len=SLOT_PROMPT + SLOT_T,
-                                        seed=SEED, steps_per_launch=SLOT_K),
-                        device=device)
+def _profile_slots(server, params, args, lead: bool) -> None:
+    """One warm slot-lane serve timed, then one under the profiler; rank 0
+    prints (and appends ``--json-out``'s line)."""
+    cfg, n_slots, mesh = server.cfg, server.slots.n_slots, server.mesh
+    n_req = args.slot_requests * n_slots
     prompts = np.random.default_rng(SEED).integers(
         0, cfg.vocab, (n_req, SLOT_PROMPT))
     arrivals = draw_arrivals(n_req, SLOT_ARRIVAL, seed=SEED)
@@ -309,25 +316,55 @@ def _profile_slots(cfg, params, n_slots: int, device, trace_dir) -> None:
         return res, time.perf_counter() - t0
 
     serve()                                     # warm-up: captures the chunk
+    before = collectives.snapshot()
     res, wall = serve()
-    kernel = _switches(cfg)
+    coll = collectives.since(before)
+    (_, _), p_wall, kernels, prof = profiled(serve)
+    nccl = sum(ms for k, (ms, _) in kernels.items() if "nccl" in k.lower())
+    compute = sum(ms for ms, _ in kernels.values()) - nccl
+    tok_s = n_req * SLOT_T / wall
+    if not lead:
+        return
     print(f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} slots={n_slots} "
           f"requests={n_req} prompt={SLOT_PROMPT} T={SLOT_T} "
           f"arrival={SLOT_ARRIVAL} admission={SLOT_ADMISSION} K={SLOT_K} "
-          f"{kernel}: serve {wall * 1e3:.3f} ms, "
-          f"{n_req * SLOT_T / wall:.1f} tok/s, {res.decode_steps} decode "
-          f"steps in {res.chunks} chunk replays, chunk device span "
-          f"{res.chunk_device_ms:.3f} ms = "
+          f"{_switches(cfg)}"
+          + (f" mesh={mesh.shape}" if mesh is not None else "") + ": "
+          f"serve {wall * 1e3:.3f} ms, {tok_s:.1f} tok/s, "
+          f"{res.decode_steps} decode steps in {res.chunks} chunks "
+          f"({'graph replays' if server.capture else 'eager'}), chunk "
+          f"device span {res.chunk_device_ms:.3f} ms = "
           f"{res.chunk_device_ms / res.decode_steps:.4f} ms/step, host waits "
           f"{res.host_waits} ({res.host_waits / res.chunks:.3f} per chunk), "
-          f"occupancy {res.occupancy:.3f}, compile counts "
-          f"{server.compile_counts()}")
-    (res, _), wall, kernels, prof = profiled(serve)
+          f"occupancy {res.occupancy:.3f}, mean TTFT "
+          f"{float(np.mean(res.ttft_steps)):.3f} steps, compile counts "
+          f"{server.compile_counts()}"
+          + (f"; collectives of a serve {coll}" if mesh is not None else ""))
     _report(f"slot serve, {res.decode_steps} decode steps, {n_req} "
-            f"prefills (profiled)", kernels, wall)
-    if trace_dir:
-        os.makedirs(trace_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(trace_dir, "slots.json"))
+            f"prefills (profiled; compute kernels {compute:.3f} ms, NCCL "
+            f"{nccl:.3f} ms)", kernels, p_wall)
+    if args.json_out:
+        with open(args.json_out, "a") as f:
+            f.write(json.dumps({
+                "arch": cfg.name, "n_layers": cfg.n_layers, "lane": "slots",
+                "mesh": None if mesh is None else mesh.shape,
+                "slots": n_slots, "requests": n_req,
+                "prompt_len": SLOT_PROMPT, "max_new": SLOT_T,
+                "dtype": cfg.dtype, "serve_ms": wall * 1e3, "tok_s": tok_s,
+                "decode_steps": res.decode_steps, "chunks": res.chunks,
+                "chunk_span_ms_per_step":
+                    res.chunk_device_ms / res.decode_steps,
+                "compute_kernel_ms_per_step": compute / res.decode_steps,
+                "nccl_kernel_ms_per_step": nccl / res.decode_steps,
+                "profiled_wall_ms": p_wall * 1e3,
+                "idle_share": idle_share(kernels, p_wall),
+                "ttft_steps_mean": float(np.mean(res.ttft_steps)),
+                "ttft_steps": res.ttft_steps.tolist(),
+                "collectives": coll, "tokens": res.tokens.tolist(),
+                "device": torch.cuda.get_device_name()}) + "\n")
+    if args.trace_dir:
+        os.makedirs(args.trace_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(args.trace_dir, "slots.json"))
 
 
 if __name__ == "__main__":

@@ -16,7 +16,7 @@ prefill; 2·N per decoded token) over the traced flops is the usefulness
 ratio: what the step computes beyond the algorithm (recompute under
 ``remat``, attention, replicated work).
 
-Usage: python -m repro_torch.launch.roofline [--dir experiments/dryrun]
+Usage: python -m repro_torch.launch.roofline [--dir experiments/dryrun_torch]
        [--mesh h100x1|32x8|2x32x8]
 """
 from __future__ import annotations
@@ -122,7 +122,7 @@ def render_markdown(rows: list) -> str:
 
 def main(argv=None):
     ap = argparse.ArgumentParser(prog="python -m repro_torch.launch.roofline")
-    ap.add_argument("--dir", default="experiments/dryrun")
+    ap.add_argument("--dir", default="experiments/dryrun_torch")
     ap.add_argument("--mesh", default="h100x1",
                     choices=["h100x1", "32x8", "2x32x8"])
     ap.add_argument("--json-out", default=None)

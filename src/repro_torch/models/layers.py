@@ -135,6 +135,24 @@ def attention(q, k, v, *, causal: bool = True, window: Optional[int] = None,
     return torch.cat(outs, dim=1)
 
 
+def _decode_bias(cache_positions, pos, window: Optional[int]):
+    """The additive f32 bias of one token's attention over ring slots
+    holding ``cache_positions`` (−1 = empty): (W,) at an int ``pos``
+    (lock-step), (B, 1, 1, 1, W) at a (B,) ``pos`` against (B, W)
+    positions (ragged), which broadcasts over the (B, KV, G, Sq, W)
+    scores."""
+    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
+        p = pos[:, None]
+        valid = (cache_positions >= 0) & (cache_positions <= p)
+        if window is not None:
+            valid &= cache_positions > p - window
+        return torch.where(valid, 0.0, NEG_INF).to(F32)[:, None, None, None]
+    valid = (cache_positions >= 0) & (cache_positions <= pos)
+    if window is not None:
+        valid &= cache_positions > pos - window
+    return torch.where(valid, 0.0, NEG_INF).to(F32)
+
+
 def decode_attention(q, k_cache, v_cache, cache_positions, pos,
                      window: Optional[int] = None):
     """One-token attention against a ring-buffer cache.
@@ -147,19 +165,7 @@ def decode_attention(q, k_cache, v_cache, cache_positions, pos,
     ``cache_positions`` is (B, W): each row decodes at its own position, so
     the validity mask is per row.  The lock-step op sequence is unchanged.
     """
-    if isinstance(pos, torch.Tensor) and pos.dim() == 1:
-        p = pos[:, None]
-        valid = (cache_positions >= 0) & (cache_positions <= p)
-        if window is not None:
-            valid &= cache_positions > p - window
-        # (B,1,1,1,W): broadcasts over the (B,KV,G,Sq,W) scores
-        bias = torch.where(valid, 0.0, NEG_INF).to(F32)[:, None, None, None]
-    else:
-        valid = (cache_positions >= 0) & (cache_positions <= pos)
-        if window is not None:
-            valid &= cache_positions > pos - window
-        bias = torch.where(valid, 0.0, NEG_INF).to(F32)    # (W,)
-
+    bias = _decode_bias(cache_positions, pos, window)
     B, Sq, H, D = q.shape
     KV = k_cache.shape[2]
     G = H // KV
@@ -182,11 +188,10 @@ def decode_attention_ctx(q, k_block, v_block, pos_block, pos,
     scores, their max over every rank (``amax``, an all-reduce of the
     max), Σ exp over every rank (``total``, an all-reduce of the sum),
     then the rank's share of the probability-weighted sum, which
-    ``total`` sums.  q holds every head; the result too, on every rank."""
-    valid = (pos_block >= 0) & (pos_block <= pos)
-    if window is not None:
-        valid &= pos_block > pos - window
-    bias = torch.where(valid, 0.0, NEG_INF).to(F32)
+    ``total`` sums.  q holds every head; the result too, on every rank.
+    Ragged, as in :func:`decode_attention`: ``pos`` is a (B,) tensor and
+    ``pos_block`` the rank's (B, W/M) block of the per-row buffer."""
+    bias = _decode_bias(pos_block, pos, window)
     B, Sq, H, D = q.shape
     KV = k_block.shape[2]
     qr = q.reshape(B, Sq, KV, H // KV, D)

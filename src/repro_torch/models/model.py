@@ -23,8 +23,8 @@ of the batch: :func:`loss_fn` returns the rank's share of the loss, and
 the MoE dispatches in JAX's groups (``layers.moe_ffn``).  Under a model
 axis larger than 1 (``distributed.sharding.model_context``) every family
 runs tensor-parallel on the rank's blocks of the params and the cache
-(:mod:`repro_torch.models.tp`); only the ragged decode (the slot lane)
-there raises ``NotImplementedError`` naming ROADMAP.md item 14b.
+(:mod:`repro_torch.models.tp`), the ragged decode (the slot lane's step)
+included.
 
 The SSM decode cache holds per-layer conv and SSD states
 (``{"ssm": {"conv", "ssd"}}``, the JAX layout) and no positions buffer.
@@ -759,20 +759,15 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int,
     hybrid), are written, and the same dict is returned; audio's cross k/v
     are read only.  The ragged path reads no
     tensor value on the host, so a CUDA graph can capture it.  ``tp``: the
-    ``models.tp.TP`` to run on (default: the active context's), lock-step
-    only, on the rank's blocks of the params and the cache: the positions
-    buffer's slot is written where the rank holds it, and each rank writes
-    back its block of every conv state.  The ragged decode over a model
-    axis raises ``NotImplementedError`` (ROADMAP.md item 14b) before any
-    collective.  Returns (logits (B, V), cache)."""
-    from ..distributed.sharding import model_axis_size
-
+    ``models.tp.TP`` to run on (default: the active context's), on the
+    rank's blocks of the params and the cache: the positions buffer's slot
+    is written where the rank holds it, and each rank writes back its
+    block of every conv state.  Ragged under ``tp``, each row writes its
+    slot ``pos mod W`` where the rank holds it through a mask (a ring
+    split on ``ctx``), so that path reads no tensor value on the host
+    either.  Returns (logits (B, V), cache)."""
     _require_family(cfg)
     ragged = isinstance(pos, torch.Tensor) and pos.dim() == 1
-    if ragged and (tp is not None or model_axis_size() > 1):
-        raise NotImplementedError(
-            "the ragged decode (the slot lane) over a model axis waits for "
-            "ROADMAP.md queue 1, item 14b")
     tp = _tp_of(cfg, tp)
     if not ragged:
         pos = int(pos)
@@ -785,7 +780,10 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int,
         if ragged:
             rows = torch.arange(tokens.shape[0], device=tokens.device)
             slot = (pos % W).long()
-            cpos[rows, slot] = pos.to(cpos.dtype)
+            if tp is None:
+                cpos[rows, slot] = pos.to(cpos.dtype)
+            else:
+                cpos_all = tp.decode_positions(cpos, pos, slot, split, rows)
         elif tp is not None:
             slot = pos % W
             cpos_all = tp.decode_positions(cpos, pos, slot, split)
@@ -798,7 +796,7 @@ def decode_step(cfg: ArchConfig, params, cache, tokens, pos, ctx_len: int,
             ``slot`` of ``kc`` / ``vc`` in place, then attends."""
             if tp is not None:
                 return tp.decode_attn(p, x, kc, vc, cpos, cpos_all, pos,
-                                      slot, split, cfg.sliding_window)
+                                      slot, split, cfg.sliding_window, rows)
             x_n = L.rms_norm(x, p["norm"], cfg.norm_eps)
             return x + decode_local(cfg, p, x_n, kc, vc, cpos, pos, slot,
                                     cfg.sliding_window, rows)

@@ -57,7 +57,11 @@ through the product path's own layers.
 Decode: a ring cache the rules split on ``kv_heads`` decodes on each
 rank's heads; one split on ``ctx`` (qwen2-0.5b at model 4: two kv heads)
 runs every head over the rank's block of the slots, with the
-distributed softmax of ``layers.decode_attention_ctx``.  The SSD state is
+distributed softmax of ``layers.decode_attention_ctx``.  The ragged
+decode (the slot lane: a position per row) does the same per row: where
+the ring is split on ``ctx``, each row writes its k/v and position
+through a mask where the rank holds its slot, so no value is read on the
+host.  The SSD state is
 split on ``ssm_heads``, in line with the heads; the conv state, split
 like ``conv_w``, is gathered, shifted by the new column (the rank's x
 columns gathered), and the rank writes its block of it back, so each rank
@@ -649,38 +653,71 @@ class TP:
         n = t.shape[dim] // self.M
         return t.narrow(dim, self.rank * n, n)
 
-    def decode_positions(self, cpos, pos: int, slot: int, split: dict):
+    def _local_slot(self, slot, n: int):
+        """Each row's ring ``slot`` (a (B,) tensor) in the rank's block of
+        ``n`` slots → (its index there, clamped into the block; whether the
+        rank holds it)."""
+        local = slot - self.rank * n
+        return local.clamp(0, n - 1), (local >= 0) & (local < n)
+
+    def decode_positions(self, cpos, pos, slot, split: dict, rows=None):
         """Writes ``pos`` into the positions buffer's ``slot`` where the
         rank holds it (``cpos``: the rank's block; ``split``: the cache's,
-        :meth:`cache_split`) → every slot's positions."""
+        :meth:`cache_split`) → every slot's positions.  Ragged (``rows``
+        is ``arange(B)``): ``pos`` and ``slot`` are (B,) tensors and
+        ``cpos`` the rank's block of the (B, W) buffer, split on its ctx
+        dim (1); each row writes its slot through a mask where the rank
+        holds it, with no host read."""
+        if rows is not None:
+            if split["positions"] is None:
+                cpos[rows, slot] = pos.to(cpos.dtype)
+                return cpos
+            local, mine = self._local_slot(slot, cpos.shape[1])
+            cpos[rows, local] = torch.where(mine, pos.to(cpos.dtype),
+                                            cpos[rows, local])
+            return self.gather(cpos, 1)
         n = cpos.shape[0]
         lo = self.rank * n if split["positions"] is not None else 0
         if lo <= slot < lo + n:
             cpos[slot - lo] = pos
         return cpos if split["positions"] is None else self.gather(cpos, 0)
 
-    def decode_attn(self, p, h, kc, vc, cpos, cpos_all, pos: int, slot: int,
-                    split: dict, window):
+    def decode_attn(self, p, h, kc, vc, cpos, cpos_all, pos, slot,
+                    split: dict, window, rows=None):
         """One-token attention on the rank's cache blocks ``kc`` / ``vc``
         (ring split per ``split["ring"]``) and positions (``cpos`` the
         rank's block, ``cpos_all`` every slot's), writing the token's k/v
-        where the rank holds its slot."""
+        where the rank holds its slot.  Lock-step: ``pos`` and ``slot`` are
+        ints.  Ragged (``rows`` is ``arange(B)``): they are (B,) tensors,
+        each row writes its own slot (through a mask on a ring split on
+        ``ctx``) and attends at its own position."""
         cfg, heads = self.cfg, self.heads_split()
         x = self._norm(h, p["norm"], self.plan["attn"]["norm"])
         lp = self._attn_leaves(p, heads)
         if split["ring"] == 2:                   # the rank's kv heads
             out = decode_local(cfg, lp, x, kc, vc, cpos_all, pos, slot,
-                               window)
+                               window, rows)
             return h + (self.reduce(out) if heads else out)
-        q, k, v = decode_qkv(cfg, lp, x, pos)
+        q, k, v = decode_qkv(cfg, lp, x, pos, ragged=rows is not None)
         hq = q.shape[2]
         if heads:
             q = self.gather(q, 2)
         n = kc.shape[1]
-        lo = self.rank * n if split["ring"] == 1 else 0
-        if lo <= slot < lo + n:
-            kc[:, slot - lo] = k[:, 0]
-            vc[:, slot - lo] = v[:, 0]
+        if rows is None:
+            lo = self.rank * n if split["ring"] == 1 else 0
+            if lo <= slot < lo + n:
+                kc[:, slot - lo] = k[:, 0]
+                vc[:, slot - lo] = v[:, 0]
+        elif split["ring"] == 1:
+            local, mine = self._local_slot(slot, n)
+            mine = mine[:, None, None]
+            kc[rows, local] = torch.where(mine, k[:, 0].to(kc.dtype),
+                                          kc[rows, local])
+            vc[rows, local] = torch.where(mine, v[:, 0].to(vc.dtype),
+                                          vc[rows, local])
+        else:
+            kc[rows, slot] = k[:, 0]
+            vc[rows, slot] = v[:, 0]
         if split["ring"] == 1:
             o = L.decode_attention_ctx(q, kc, vc, cpos, pos, window,
                                        self.amax, self.reduce)

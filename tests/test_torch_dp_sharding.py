@@ -79,14 +79,27 @@ def test_activation_context_counts_and_refuses_a_model_axis():
         assert TS.shard_activation(x, ("batch", "seq", None)) is x
     with TS.activation_sharding(Mesh({"data": 2, "model": 2})):
         # the identity over a model axis too; every family runs
-        # tensor-parallel there, and the ragged decode (the slot lane) is
-        # refused before any collective
+        # tensor-parallel there
         assert TS.shard_activation(x, ("batch", "seq", None)) is x
         assert TS.model_axis_size() == 2
-        cfg = get_arch("mamba2-370m").reduced()
-        with pytest.raises(NotImplementedError, match="item 14b"):
-            M.decode_step(cfg, {}, {}, torch.zeros(2, dtype=torch.long),
-                          torch.zeros(2, dtype=torch.long), 8)
+    # and so does the ragged decode (the slot lane): rank 0 of a traced
+    # (2, 2) mesh, its collectives stand-ins, on its blocks of the params
+    # and of the ragged cache (its two of four rows)
+    from repro_torch.launch.mesh import TracedMesh
+
+    cfg = get_arch("mamba2-370m").reduced()
+    mesh = TracedMesh({"data": 2, "model": 2})
+    params = M.init_params(cfg, 0, "cpu", shardings=TS.tree_shardings(
+        M.param_specs(cfg), mesh))
+    cache = M.init_cache(cfg, 4, 8, "cpu", ragged=True,
+                         shardings=TS.tree_shardings(M.cache_specs(
+                             cfg, 4, 8, ragged=True), mesh))
+    with TS.activation_sharding(mesh), torch.no_grad():
+        assert TS.model_axis_size() == 2 and TS.data_shard_count() == 2
+        logits, _ = M.decode_step(cfg, params, cache,
+                                  torch.zeros(2, dtype=torch.long),
+                                  torch.tensor([3, 5], dtype=torch.int32), 8)
+    assert logits.shape == (2, cfg.vocab) and torch.isfinite(logits).all()
     assert TS.data_shard_count() == 1 and TS.model_axis_size() == 1
 
 

@@ -21,10 +21,12 @@ bit for bit.  That is checked on one Mamba2 layer, where the ranks'
 arithmetic is the unsharded model's (deeper, the summed row-parallel
 outputs round differently: the forward tests hold the values).
 
-The refusals that stay, each raised before any process group or
-parameter is made and naming ROADMAP.md item 14b: the ragged decode on a
-model axis, ``ServeBackend``'s slot lane over a mesh and
-``profile_serve.py --slots --mesh``.  The plans at production widths:
+The slot lane's three entry points over a model axis run: the ragged
+decode under a model-axis context (rank 0 of a traced mesh, on its
+blocks), ``ServeBackend``'s slot lane on gloo ranks at (data 1, model 2)
+with the token matrix of one process, and ``profile_serve.py --slots
+--mesh``, which hands the slot lane the bound mesh.  The plans at
+production widths:
 zamba2-7b's 112 SSM heads as 14 a rank at model 8, pixtral's 8 kv heads
 as 1 a rank, seamless's 256206 words split at model 2 and not at 4 or 8
 (its unembedding is gathered there).
@@ -236,30 +238,85 @@ def test_conv_state_is_the_rules_block_bitwise(m):
 
 
 def test_ragged_decode_on_a_model_axis_is_refused():
+    """No longer refused: the ragged decode runs under a model-axis
+    context, on rank 0's blocks of a traced (data 1, model 2) mesh (its
+    collectives stand-ins), and returns whole-vocabulary logits."""
+    from repro_torch.launch.mesh import TracedMesh
+
     cfg = _cfg("zamba2-7b")
-    with TS.activation_sharding(Mesh({"data": 1, "model": 2})):
-        with pytest.raises(NotImplementedError, match="item 14b"):
-            M.decode_step(cfg, {}, {}, torch.zeros(2, dtype=torch.long),
-                          torch.zeros(2, dtype=torch.long), 8)
+    mesh = TracedMesh({"data": 1, "model": 2})
+    params = tree_map(lambda p: p.float(), M.init_params(
+        cfg, 0, "cpu", shardings=tree_shardings(M.param_specs(cfg), mesh)))
+    cache = M.init_cache(cfg, 2, 8, "cpu", ragged=True,
+                         shardings=tree_shardings(M.cache_specs(
+                             cfg, 2, 8, ragged=True), mesh))
+    with TS.activation_sharding(mesh), torch.no_grad():
+        logits, _ = M.decode_step(cfg, params, cache,
+                                  torch.zeros(2, dtype=torch.long),
+                                  torch.tensor([3, 5], dtype=torch.int32), 8)
+    assert logits.shape == (2, cfg.vocab)
+    assert torch.isfinite(logits).all()
+    assert cache["positions"].shape == (2, 4)
 
 
-def test_serve_backend_slot_lane_over_a_mesh_is_refused():
+def _slot_backend(rank, world, out_dir, spec):
+    import pickle
+
+    from repro_torch.api import ServeBackend
+    from repro_torch.launch.mesh import ProcessMesh
+
+    mesh = ProcessMesh({"data": 1, "model": world})
+    res = ServeBackend("cpu", mesh=mesh).run(spec)
+    with open(f"{out_dir}/rank{rank}.pkl", "wb") as f:
+        pickle.dump({"x": res.x, "mesh": res.extra["mesh"],
+                     "collectives": res.extra["collectives"]}, f)
+
+
+def test_serve_backend_slot_lane_over_a_mesh_is_refused(tmp_path):
+    """No longer refused: ``ServeBackend(mesh=)`` with ``n_slots`` serves
+    on two gloo ranks at (data 1, model 2), each rank returning the token
+    matrix of one process's slot lane, with the mesh and its
+    collectives."""
+    import pickle
+
+    import torch_dp as D
     from repro_torch.api import ExperimentSpec, ServeBackend, ServeJob
 
-    backend = ServeBackend("cpu", mesh=Mesh({"data": 1, "model": 2}))
-    with pytest.raises(NotImplementedError, match="item 14b"):
-        backend.run(ExperimentSpec(objective=ServeJob(
-            arch="mamba2-370m", n_slots=2, n_requests=3), T=4))
+    spec = ExperimentSpec(objective=ServeJob(
+        arch="mamba2-370m", n_slots=2, n_requests=3,
+        arch_overrides=(("dtype", "float32"),)), T=4)
+    out = D.spawn(_slot_backend, 2, tmp_path, spec)
+    want = ServeBackend("cpu").run(spec).x
+    assert want.shape == (3, 4) and (want >= 0).all()
+    for r in range(2):
+        with open(f"{out}/rank{r}.pkl", "rb") as f:
+            got = pickle.load(f)
+        np.testing.assert_array_equal(got["x"], want)
+        assert got["mesh"] == {"data": 1, "model": 2}
+        assert got["collectives"]["all_reduce"][0] > 0
 
 
-def test_profile_serve_slots_over_a_mesh_is_refused(capsys):
+def test_profile_serve_slots_over_a_mesh_is_refused(monkeypatch):
+    """No longer refused: ``profile_serve.main`` takes ``--slots`` with
+    ``--mesh`` and hands the slot lane's run the bound mesh (the card's
+    part, from ``init_process_group("cuda")`` on, stands in as a gloo
+    world of one and a recorder of the parsed run)."""
     import torch.distributed as dist
 
+    from repro_torch.launch import mesh as LM
     from repro_torch.launch import profile_serve
 
-    with pytest.raises(SystemExit) as e:
-        profile_serve.main(["--arch", "mamba2-370m", "--slots", "8",
-                            "--mesh", "data=1,model=2"])
-    assert e.value.code == 2
-    assert "item 14b" in capsys.readouterr().err
+    seen = {}
+    real = LM.init_process_group
+    monkeypatch.setattr(LM, "init_process_group",
+                        lambda device: (seen.setdefault("device", device),
+                                        real("cpu")))
+    monkeypatch.setattr(profile_serve, "_serve", lambda args, ap, mesh:
+                        seen.update(args=args, mesh=mesh))
+    profile_serve.main(["--arch", "mamba2-370m", "--slots", "8",
+                        "--mesh", "data=1,model=1"])
+    assert seen["device"] == "cuda"
+    assert seen["args"].slots == 8
+    assert isinstance(seen["mesh"], LM.ProcessMesh)
+    assert seen["mesh"].shape == {"data": 1, "model": 1}
     assert not dist.is_initialized()
