@@ -204,7 +204,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     non-causal, its decoder 256 × 256 causal; pixtral-12b's (4, 1024, 32
     heads, 8 kv heads, 128) causal) against its plain version in f32 and
     bf16 and timed (kernel, plain, bound, SDPA as a yardstick); each of
-    mamba2-370m, zamba2-7b (13 layers: two groups and a one-layer tail),
+    mamba2-370m (24 of its 48 layers), zamba2-7b (7 layers: one group and
+    a one-layer tail),
     deepseek-moe-16b (4 layers), seamless-m4t-large-v2 and pixtral-12b
     (4 layers) at full width on the training main path's settings with
     ``update_impl="pallas_pooled"`` (8 × 512 tokens, audio frames 8 ×
@@ -251,12 +252,23 @@ Phases, each of which fails the run (non-zero exit, no result line):
     gives the card, in this process: the main path's pool in the layout
     of 2 shards, ``fused_adam_delayed`` on each rank's rows (``p`` a row
     view of the whole pool) against its plain version and timed, and the
-    copy that views a 2-shard pool's params (``unpool_tree``) timed.  Two
-    ranks on the one card are not run: NCCL refuses two ranks on one
-    device, and gloo's all-gather of CUDA tensors ends the process with
-    SIGSEGV on the card's torch 2.11 (PERF.md); R ≥ 2 is held on
-    the CPU (``tests/test_torch_dp_*.py``).  Prints a
-    ``{"data_parallel": ...}`` line;
+    copy that views a 2-shard pool's params (``unpool_tree``) timed; (c)
+    the per-leaf routes' ZeRO blocks: for R = 2 and 4 data ranks, each
+    rank's blocks of qwen2-0.5b's 14 leaves at full width
+    (``NamedSharding.local(t, rank=r)`` under ``tree_shardings(...,
+    Mesh({"data": R, "model": 1}), zero=True)``, each made contiguous),
+    ``fused_adam_delayed`` on every block with the whole tree's scalars
+    (the clip scale from the whole buffer's norm): each output block equal
+    bit for bit to the same block of the whole-leaf kernel's outputs and
+    within tolerance of its plain version, 14 launches a rank (counted
+    from 0 around the rank's blocks), and a rank's 14 launches timed as
+    device time against their bytes bound, with its plain version and
+    the library yardstick.  Two ranks on the one card are not run: NCCL
+    refuses two ranks on one device, and gloo's all-gather of CUDA
+    tensors ends the process with SIGSEGV on the card's torch 2.11
+    (PERF.md); R ≥ 2 is held on the CPU (``tests/test_torch_dp_*.py``,
+    ``tests/test_torch_zero_*.py``) and on four cards (``measure_tp.sh
+    OUT zero``).  Prints a ``{"data_parallel": ...}`` line;
 21. tensor parallelism over the model axis, after phase 20's memory is
     freed, on the one card (two ranks cannot share it, as in phase 20):
     the ranks run as threads of this process (``models.tp.ThreadRanks``),
@@ -3222,10 +3234,12 @@ def phase_families(device, card: str, entries: dict) -> dict:
 #: 512 and tokens 8 × 128 — over 4 workers, Adam, delay 1, the pooled
 #: update, T 8, scan) at full width; depth is cut where the state (12 bytes
 #: a param) would not fit one card: zamba2-7b ≈81, deepseek-moe-16b ≈203
-#: and pixtral-12b ≈147 GB at full depth
+#: and pixtral-12b ≈147 GB at full depth; mamba2-370m and zamba2-7b are cut
+#: further to keep the whole script inside its time limit (the gates run at
+#: the cuts of ``NEW_REF_CUT``, whatever the depth)
 NEW_REDUCED = False
-NEW_TRAIN = (("mamba2-370m", ()),
-             ("zamba2-7b", (("n_layers", 13),)),        # 2 groups + a tail
+NEW_TRAIN = (("mamba2-370m", (("n_layers", 24),)),
+             ("zamba2-7b", (("n_layers", 7),)),         # 1 group + a tail
              ("deepseek-moe-16b", (("n_layers", 4),)),
              ("seamless-m4t-large-v2", ()),
              ("pixtral-12b", (("n_layers", 4),)))
@@ -3883,10 +3897,110 @@ def _dp_rows(device, base) -> dict:
     return out
 
 
+#: the data-rank counts whose per-leaf ZeRO blocks (c) gives the kernel
+ZERO_RANKS = (2, 4)
+
+
+def _zero_scalars(whole, device):
+    """The Adam scalar block of the whole tree: count 7, wd 0.1 and the
+    clip scale from the whole stale buffer's global norm (clip 1), as the
+    delayed apply forms it."""
+    from repro_torch.optim import clip_scale_from_norm, global_norm
+
+    clip = clip_scale_from_norm(global_norm(
+        {i: t["gb"] for i, t in enumerate(whole)}), 1.0)
+    c = torch.tensor(7, dtype=torch.int32, device=device)
+    bc1, bc2 = AU.adam_bias_corrections(0.9, 0.95, c)
+    return AU.adam_scalars(UPDATE_LR["adam"], bc1, bc2, clip, 0.1, device)
+
+
+def _dp_zero_blocks(device) -> dict:
+    """(c) ``fused_adam_delayed`` on each data rank's per-leaf ZeRO blocks
+    of qwen2-0.5b's 14 leaves, for R in :data:`ZERO_RANKS`: bit for bit
+    the whole-leaf kernel's blocks, within tolerance of the plain version,
+    14 launches a rank; rank 0's launches timed."""
+    from repro_torch.distributed.sharding import tree_shardings
+    from repro_torch.launch.mesh import Mesh
+
+    name, keys = "fused_adam_delayed", ("p", "m", "v", "gb", "g")
+    specs = tree_leaves(param_specs(get_arch(SERVE["arch"])))
+    whole = [{k: t.reshape(s.shape) for k, t in _update_inputs(
+        int(np.prod(s.shape)), torch.bfloat16, device, seed=60 + i).items()}
+        for i, s in enumerate(specs)]
+    scal = _zero_scalars(whole, device)
+    # the whole-leaf kernel's outputs, which every rank's blocks must equal
+    after = [_apply(name, "cuda", tree_map(torch.clone, t), scal)
+             for t in whole]
+    rtol, atol = UPDATE_TOL["adam"][torch.bfloat16]
+    out = {}
+    for R in ZERO_RANKS:
+        sh = tree_leaves(tree_shardings(param_specs(get_arch(SERVE["arch"])),
+                                        Mesh({"data": R, "model": 1}),
+                                        zero=True))
+        worst, launches = 0.0, []
+        for r in range(R):
+            blocks = [{k: s.local(t[k], rank=r).clone(
+                memory_format=torch.contiguous_format) for k in keys}
+                for t, s in zip(whole, sh)]
+            keep = [tree_map(torch.clone, b) for b in blocks]
+            AU.reset_launches()
+            for b in blocks:
+                _apply(name, "cuda", b, scal)
+            torch.cuda.synchronize()
+            launches.append(AU.launches[name])
+            for i, (b, k, s, w) in enumerate(zip(blocks, keep, sh, after)):
+                if not all(torch.equal(_bits(b[key]), _bits(
+                        s.local(w[key], rank=r))) for key in keys):
+                    raise AssertionError(f"data-parallel (c): rank {r} of "
+                                         f"{R}, leaf {i}: the block's outputs "
+                                         "differ from the whole leaf's")
+                want = _apply(name, "plain", k, scal)
+                for key in ("p", "m", "v"):
+                    err = (b[key].float() - want[key].float()).abs()
+                    if int((err > atol + rtol * want[key].float().abs()
+                            ).sum()):
+                        raise AssertionError(f"data-parallel (c): rank {r} "
+                                             f"of {R}, leaf {i}, {key}: off "
+                                             "its plain version")
+                    worst = max(worst, err.max().item())
+                del want
+            if r == 0:
+                n = sum(b["p"].numel() for b in blocks)
+                ms = device_ms(lambda: [_apply(name, "cuda", b, scal)
+                                        for b in blocks], iters=10)
+                plain_ms = time_ms(lambda: [_apply(name, "plain", b, scal)
+                                            for b in blocks], iters=3)
+                library_ms = _update_library_ms(name, blocks)
+            del blocks, keep
+            torch.cuda.empty_cache()
+        if launches != [len(specs)] * R:
+            raise AssertionError(f"data-parallel (c): launches {launches} at "
+                                 f"{R} ranks, want {len(specs)} a rank")
+        bound = op_cost.bound_ms(
+            n * op_cost.UPDATE_OPS[name],
+            n * op_cost.update_bytes_per_elem(name, 2, 2), PEAK_FLOPS_F32)[0]
+        out[str(R)] = {"ranks": R, "leaves": len(specs),
+                       "launches_per_rank": launches[0],
+                       "block_elements": n, "max_abs_err": worst, "ms": ms,
+                       "plain_ms": plain_ms, "library_ms": library_ms,
+                       "bound_ms": bound, "bound_by": "bytes"}
+        log(f"data-parallel (c): per-leaf ZeRO at {R} data ranks: "
+            f"{name} on every rank's blocks of the {len(specs)} leaves bit "
+            f"for bit the whole-leaf kernel's blocks, max abs err {worst:.3e} "
+            f"against its plain version, {launches} launches; rank 0 "
+            f"({n:,} elements): {ms:.4f} ms device time (bound {bound:.4f} "
+            f"ms, bytes), plain {plain_ms:.4f} ms, library {library_ms:.4f} "
+            "ms")
+    del whole, after
+    torch.cuda.empty_cache()
+    return out
+
+
 def phase_data_parallel(device, card: str) -> dict:
     """Phase 20: (a) one NCCL rank ≡ the no-mesh trainer at full width;
     (b) the update kernel on the rows a 2-rank round gives it, and its
-    params view's copy."""
+    params view's copy; (c) the update kernel on per-leaf ZeRO's
+    blocks."""
     t0 = time.perf_counter()
     cfg = _train_spec(update_impl=POOLED).objective.make_arch()
     base = init_params(cfg, TRAIN_SPEC["seed"], device)
@@ -3895,6 +4009,7 @@ def phase_data_parallel(device, card: str) -> dict:
     out["two_rank_rows"] = _dp_rows(device, base)
     del base
     torch.cuda.empty_cache()
+    out["zero_blocks"] = _dp_zero_blocks(device)
     out["seconds"] = time.perf_counter() - t0
     log(f"data-parallel: every gate passed in {out['seconds']:.1f} s")
     return out
@@ -4652,7 +4767,8 @@ def main() -> None:
             "fused_adam_delayed_launches"],
         "row_elements": data_parallel["two_rank_rows"]["row_elements"],
         "row_ms": data_parallel["two_rank_rows"]["row_ms"],
-        "row_bound_ms": data_parallel["two_rank_rows"]["row_bound_ms"]}
+        "row_bound_ms": data_parallel["two_rank_rows"]["row_bound_ms"],
+        "zero_blocks": data_parallel["zero_blocks"]}
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     entries = [flash] + [updates[k] for k in AU.KERNELS] + [ssd]

@@ -23,11 +23,23 @@
 # requests, mamba2-370m 8), then in f32 at reduced depth (qwen2-0.5b and
 # mamba2-370m 4 layers, zamba2-7b 7; 8 requests), whose token matrices
 # on every mesh must equal the no-mesh run's.
-#   bash measure_tp.sh [OUT_DIR] [serve|families|slots]   # from the repository root
+# The per-leaf ZeRO set ("zero"): the per-leaf fused route (--update-impl
+# pallas), each data rank holding its ZeRO blocks of params, moments and
+# the delayed buffer: qwen2-0.5b at full depth (remat none, the main
+# path's) with no mesh and at (data 4, model 1) and (2, 2); zamba2-7b at
+# full depth (81 layers) at (4, 1) and deepseek-moe-16b at full depth at
+# (2, 2), both with remat full (every gathered layer freed after use), two
+# rounds after one warm-up.  Each run's line in train.jsonl holds its warm
+# ms a round, peak and state GiB a card, collectives and update kernel
+# launches a round and the profiled device time split into the compute
+# kernels' and NCCL's.
+#   bash measure_tp.sh [OUT_DIR] [serve|families|slots|zero]   # from the repository root
 # With "serve" only the dense and MoE set's serving runs are made; with
 # "families" only the ssm and hybrid set; with "slots" only the slot-lane
-# set.  Each run's log goes to OUT_DIR/runN.log and its numbers to
-# OUT_DIR/{train,serve,slots}.jsonl (OUT_DIR defaults to build/tp4).
+# set; with "zero" only the per-leaf ZeRO set.  Each run's log goes to
+# OUT_DIR/runN.log and its numbers to OUT_DIR/{train,serve,slots}.jsonl
+# (OUT_DIR defaults to build/tp4); a run still going after 900 s is stopped
+# and counts as failed.
 export PYTHONPATH=src
 OUT=${1:-build/tp4}
 mkdir -p $OUT
@@ -39,10 +51,10 @@ run() {
   n=$((n + 1)); local p=$1; shift
   echo "== [$n] nproc $p: $*"
   local t0=$SECONDS
-  torchrun --standalone --nproc-per-node $p -m "$@" > $OUT/run$n.log 2>&1
+  timeout 900 torchrun --standalone --nproc-per-node $p -m "$@" > $OUT/run$n.log 2>&1
   local rc=$?
   [ $rc = 0 ] || failed=$((failed + 1))
-  echo "rc=$rc in $((SECONDS - t0)) s"; grep -E "ms per round|prefill .* ms|tok/s|Error|error" $OUT/run$n.log | head -5
+  echo "rc=$rc in $((SECONDS - t0)) s"; grep -E "ms per round|profiled|prefill .* ms|tok/s|Error|error" $OUT/run$n.log | head -5
 }
 PT=repro_torch.launch.profile_train; PS=repro_torch.launch.profile_serve
 if [ "$2" = slots ]; then
@@ -72,7 +84,14 @@ if [ "$2" = families ]; then
     run 4 $PS $A --mesh data=1,model=4 --json-out $S
   done
 fi
-if [ "$2" != serve ] && [ "$2" != families ] && [ "$2" != slots ]; then
+if [ "$2" = zero ]; then
+  run 1 $PT --update-impl pallas --json-out $T
+  run 4 $PT --update-impl pallas --mesh data=4,model=1 --json-out $T
+  run 4 $PT --update-impl pallas --mesh data=2,model=2 --json-out $T
+  run 4 $PT --arch zamba2-7b --update-impl pallas --remat full --mesh data=4,model=1 --rounds 2 --warmup 1 --json-out $T
+  run 4 $PT --arch deepseek-moe-16b --update-impl pallas --remat full --mesh data=2,model=2 --rounds 2 --warmup 1 --json-out $T
+fi
+if [ "$2" != serve ] && [ "$2" != families ] && [ "$2" != slots ] && [ "$2" != zero ]; then
   run 1 $PT --update-impl pallas_pooled --json-out $T
   run 2 $PT --update-impl pallas_pooled --mesh data=1,model=2 --json-out $T
   run 4 $PT --update-impl pallas_pooled --mesh data=2,model=2 --json-out $T
@@ -80,7 +99,7 @@ if [ "$2" != serve ] && [ "$2" != families ] && [ "$2" != slots ]; then
   run 4 $PT --arch deepseek-moe-16b --update-impl pallas --mesh data=1,model=4 --rounds 2 --warmup 1 --json-out $T
   run 4 $PT --arch deepseek-moe-16b --update-impl pallas --remat full --mesh data=1,model=4 --rounds 2 --warmup 1 --json-out $T
 fi
-if [ "$2" != families ] && [ "$2" != slots ]; then
+if [ "$2" != families ] && [ "$2" != slots ] && [ "$2" != zero ]; then
   run 1 $PS --arch deepseek-moe-16b --json-out $S
   run 2 $PS --arch deepseek-moe-16b --mesh data=1,model=2 --json-out $S
   run 4 $PS --arch deepseek-moe-16b --mesh data=1,model=4 --json-out $S
@@ -90,8 +109,9 @@ if [ "$2" != families ] && [ "$2" != slots ]; then
   run 4 $PS $F32 --mesh data=1,model=4
 fi
 python - "$S" "$failed" <<'PY'
-import json, sys
-runs = [json.loads(line) for line in open(sys.argv[1])]
+import json, os, sys
+runs = [json.loads(line) for line in open(sys.argv[1])] \
+    if os.path.exists(sys.argv[1]) else []
 bad = int(sys.argv[2])
 if bad:
     print(f"{bad} run(s) exited non-zero")

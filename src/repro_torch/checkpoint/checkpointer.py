@@ -187,7 +187,8 @@ def restore(path: str, like_state, shardings=None):
                 f"{path}: leaf {key} is absent from the checkpoint — the "
                 "saved state has a different structure")
         if key in shards:
-            t = shards[key].local(t).clone()
+            t = shards[key].local(t).clone(
+                memory_format=torch.contiguous_format)
         if tuple(t.shape) != tuple(old.shape):
             raise ValueError(
                 f"shape mismatch for {key}: {tuple(t.shape)} vs "

@@ -64,13 +64,26 @@ gradient share in JAX's ``(R, cols)`` layout, reduce-scatters it over the
 data group (in the grads' dtype) into its ZeRO row, runs the update
 kernel once per dtype pool on its row of p, m, v and gbuf (it keeps only
 that row of m, v and gbuf; ``p`` stays whole, since the forward reads
-every param), and all-gathers the ``p`` rows.  The per-leaf routes
-all-reduce each leaf's gradient and keep the state replicated.  With a
-sparsifier (``grad_density``) each leaf's quantile is over the whole
-gradient, so the leaves are all-reduced first and the pooled route takes
-its row of them.  The guards' raw norm and finite flag are global (the
-norm from the ranks' per-pool norms), so every rank takes the same skip
-decision with no host read.  Every collective is functional and counted
+every param), and all-gathers the ``p`` rows.  The per-leaf routes hold
+per-leaf ZeRO, the JAX trainer's ``state_shardings(fsdp_params=True)``:
+each rank keeps its block of every leaf of params, m, v and gbuf, split
+over the data axes on the first free ``zero_names`` dim they divide
+(``tree_shardings(..., zero=True)``; a leaf nothing divides stays whole
+over the data ranks).  The model gathers each layer's blocks over the
+data group when it reads them (``models.tp.ZeroGather``, inside the block
+that remat recomputes, so under ``remat="full"`` a gathered layer is
+freed after use and gathered again in the backward; under ``"none"``
+autograd keeps every gathered layer), and the gather's backward
+reduce-scatters each gradient into the rank's block: no whole gradient
+leaf is formed, and the update kernels run on the blocks.  A leaf left
+whole is all-reduced.  With a sparsifier (``grad_density``) each leaf's
+quantile is over the whole gradient, so the pooled route all-reduces the
+leaves first and takes its row of them, and the per-leaf routes gather
+each block, sparsify and take the block again.  The guards' raw norm and
+finite flag are global (the norm from the ranks' per-pool norms, or the
+blocks' squares summed over the groups each leaf is split over), so
+every rank takes the same skip decision with no host read.  Every
+collective is functional and counted
 (:mod:`repro_torch.distributed.collectives`).
 
 **Over the model axis** (a mesh whose ``model`` axis holds M > 1 ranks;
@@ -81,11 +94,11 @@ several layers read (the hybrid's shared attention and MLP, used by every
 group) sums its gradient over its uses, each already through its
 operator's rule, before the update.  On the per-leaf routes every leaf of
 the state (params, m, v, gbuf) is the rank's block under the rules
-(``state_shardings``), the data ranks keep
-it replicated, the update kernels run on the blocks, and the global clip
-norm sums the split leaves' squares over the model group and counts the
-whole ones once; the sparsifier takes each leaf's quantile over the whole
-leaf (gathered).  On the pooled route the pools stay replicated over the
+(``state_shardings``): its model block, split again over the data axes
+by per-leaf ZeRO (above); the gather over the data group hands the
+model-axis code the model block.  The global clip norm sums each leaf's
+squares over exactly the groups it is split over and counts the whole
+ones once.  On the pooled route the pools stay replicated over the
 model axis, as JAX's ``pooled_pspec`` says: the forward reads the rank's
 blocks as views of the whole params, and the fresh grads of the split
 leaves are all-gathered over the model group before they are pooled.
@@ -104,16 +117,17 @@ from ..device import resolve_device
 from ..faults.guards import GuardConfig
 from ..models import model as M
 from ..models.specs import Spec
+from ..models.tp import ZeroGather
 from ..optim import (OptConfig, adam_init, global_norm, make_delayed_apply,
                      make_optimizer, resolve_update_impl)
 from ..optim.pool import (build_layout, init_pools, pool_tree,
                           pooled_delayed_apply, pooled_global_norm,
                           pooled_update, unpool_tree)
-from ..tree import tree_map
+from ..tree import tree_leaves, tree_map
 from . import collectives as C
 from .sharding import (DEFAULT_RULES, NamedSharding, PSpec, Rules,
-                       check_model_axis, local_specs, pool_axes,
-                       pooled_pspec, sharded_trace, tree_shardings)
+                       check_model_axis, local_specs, pool_axes, pooled_pspec,
+                       sharded_trace, split_axes, tree_shardings)
 
 F32 = torch.float32
 
@@ -163,6 +177,16 @@ def sparsify(g: torch.Tensor, density) -> torch.Tensor:
     return g * keep.to(g.dtype)
 
 
+def held_state_bytes(state) -> int:
+    """Bytes of the params, moments and delayed buffer in a trainer state
+    as the rank holds it (its ZeRO blocks; a pooled state: its pools)."""
+    held = [state["pools"]] if "pools" in state else \
+        [state["params"], state["opt"]["m"], state["opt"]["v"],
+         state.get("gbuf", {})]
+    return sum(t.numel() * t.element_size()
+               for tree in held for t in tree_leaves(tree))
+
+
 @dataclasses.dataclass(frozen=True)
 class AsyncConfig:
     delay_rounds: int = 1          # 0 = synchronous baseline
@@ -199,6 +223,9 @@ class AsyncTrainer:
         self.mesh = mesh
         self.rules = rules
         self.ranks, self.rank, self.model = 1, 0, 1
+        #: per-leaf ZeRO's gather on use (None: no leaf split over data)
+        self.zero = None
+        self._norm = global_norm
         if mesh is not None:
             if not getattr(mesh, "bound", False):
                 raise TypeError("AsyncTrainer's mesh must be bound to the "
@@ -208,17 +235,6 @@ class AsyncTrainer:
             self.ranks = mesh.count(self.data_axes)
             self.rank = mesh.my_index(self.data_axes)
             self.model = mesh.count((rules.model_axis,))
-        if self.model > 1:
-            #: each param leaf's layout over the model axis
-            self.param_shardings = tree_shardings(M.param_specs(cfg), mesh,
-                                                  rules)
-            self._norm = functools.partial(
-                global_norm, group=mesh.group((rules.model_axis,)),
-                split=tree_map(lambda sh: any(e is not None
-                                              for e in sh.spec),
-                               self.param_shardings))
-        else:
-            self._norm = global_norm
         #: the worker groups: the data-axis product (1 without a mesh),
         #: until the backend sets the spec's worker count
         self.n_groups = self.ranks
@@ -229,9 +245,33 @@ class AsyncTrainer:
         self.pooled = self.update_impl.startswith("pallas_pooled")
         if self.pooled:
             self.pool_layout = build_layout(M.param_specs(cfg), self.ranks)
+            if self.model > 1:
+                #: each param leaf's layout over the model axis (the forward
+                #: reads these blocks of the whole pooled params)
+                self.param_shardings = tree_shardings(M.param_specs(cfg),
+                                                      mesh, rules)
         else:
             _, self._update = make_optimizer(opt)
             self._delayed_apply = make_delayed_apply(opt)
+        if mesh is not None and not self.pooled:
+            #: each param leaf's layout (and m's, v's and gbuf's): the
+            #: model split and per-leaf ZeRO over the data axes, JAX's
+            #: ``state_shardings(fsdp_params=True)``
+            self.leaf_shardings = tree_shardings(M.param_specs(cfg), mesh,
+                                                 rules, zero=True)
+            self.zero = ZeroGather.of(cfg, mesh, rules)
+            classes = tree_map(lambda sh: split_axes(sh.spec, mesh, rules),
+                               self.leaf_shardings)
+            #: the leaves whose gradient the backward already sums over
+            #: the data ranks (the gathered ones' reduce-scatter)
+            self._summed = tree_map(lambda c: c.startswith("data"), classes)
+            names = {n for c in tree_leaves(classes) for n in c.split("+")
+                     if n}
+            if names:
+                axes = {"data": self.data_axes, "model": (rules.model_axis,)}
+                self._norm = functools.partial(
+                    global_norm, split=classes,
+                    groups={n: mesh.group(axes[n]) for n in names})
 
     @property
     def ranked(self) -> bool:
@@ -286,26 +326,28 @@ class AsyncTrainer:
 
     def local_state_specs(self):
         """The state this rank holds, as Specs: :meth:`state_specs` with
-        each per-leaf route's model-split leaf its block (the pooled
-        route's specs are already the rank's: p whole, its row of m, v and
-        gbuf)."""
+        each per-leaf route's split leaf its block, over the model axis and
+        per-leaf ZeRO over the data axes (the pooled route's specs are
+        already the rank's: p whole, its row of m, v and gbuf)."""
         specs = self.state_specs()
         if not self.ranked or self.pooled:
             return specs
         return local_specs(specs, self.state_shardings())
 
     def init_state(self, seed: int = 0, params=None):
-        """A fresh state; ``params`` (a tree on the trainer's device)
-        replaces the port's own init from ``seed``."""
-        blocks = self.model > 1 and not self.pooled
+        """A fresh state; ``params`` (a whole tree on the trainer's device)
+        replaces the port's own init from ``seed``.  Over a mesh the
+        per-leaf routes keep each leaf's block (:meth:`state_shardings`),
+        each its own contiguous tensor, as the update kernels want."""
+        blocks = self.ranked and not self.pooled
         if params is None:
             params = M.init_params(
                 self.cfg, seed, self.device,
-                shardings=self.param_shardings if blocks else None)
+                shardings=self.leaf_shardings if blocks else None)
         elif blocks:
-            # the rank's block of each whole leaf
-            params = tree_map(lambda t, sh: sh.local(t).clone(), params,
-                              self.param_shardings)
+            params = tree_map(lambda t, sh: sh.local(t).clone(
+                memory_format=torch.contiguous_format), params,
+                self.leaf_shardings)
         zero = lambda: torch.zeros((), dtype=torch.int32, device=self.device)
         delayed = self.async_cfg.delay_rounds > 0
         if self.pooled:
@@ -337,23 +379,25 @@ class AsyncTrainer:
 
     def state_shardings(self):
         """One :class:`~repro_torch.distributed.sharding.NamedSharding` per
-        state leaf (the JAX trainer's ``state_shardings``): on the pooled
-        route m, v and gbuf are split by rows over the data axes
-        (``pooled_pspec``) and ``p`` is whole on every rank; on the
-        per-leaf routes params, m, v and gbuf are split over the model
-        axis by the rules; everything else is replicated (per-leaf ZeRO
-        over the data axes is not ported: ROADMAP.md queue 1, item
-        14b (ii))."""
+        state leaf (the JAX trainer's ``state_shardings`` with its default
+        ``fsdp_params=True``): on the pooled route m, v and gbuf are split
+        by rows over the data axes (``pooled_pspec``) and ``p`` is whole on
+        every rank; on the per-leaf routes params, m, v and gbuf are split
+        over the model axis by the rules and over the data axes by
+        per-leaf ZeRO (``tree_shardings(..., zero=True)``: the first free
+        ``zero_names`` dim the data axes divide; a leaf with none stays
+        whole over the data ranks); count, step and the guards' health
+        are replicated."""
         if not self.ranked:
             raise ValueError("state_shardings needs a mesh")
         out = tree_map(lambda spec: NamedSharding(
             self.mesh, PSpec(*([None] * len(spec.shape)))),
             self.state_specs())
-        if self.model > 1 and not self.pooled:
+        if not self.pooled:
             out["params"] = out["opt"]["m"] = out["opt"]["v"] = \
-                self.param_shardings
+                self.leaf_shardings
             if "gbuf" in out:
-                out["gbuf"] = self.param_shardings
+                out["gbuf"] = self.leaf_shardings
         rows = NamedSharding(self.mesh, pooled_pspec(self.mesh, self.rules))
         for b in out.get("pools", {}).values():
             for k in ("m", "v", "gbuf"):
@@ -385,13 +429,16 @@ class AsyncTrainer:
 
     def _value_and_grad(self, params, batch, w):
         """(loss, parts, grads in the params' dtypes) by autograd, on
-        detached leaves that share the params' storage."""
+        detached leaves that share the params' storage.  Under per-leaf
+        ZeRO the leaves are the rank's blocks, gathered on use, and each
+        gradient is its block's, summed over the data ranks."""
         with torch.enable_grad():
             leaves = tree_map(lambda p: p.detach().requires_grad_(True),
                               params)
             loss, parts = M.loss_fn(self.cfg, leaves, batch,
                                     example_weights=w,
-                                    aux_coeff=self.async_cfg.aux_coeff)
+                                    aux_coeff=self.async_cfg.aux_coeff,
+                                    zero=self.zero)
             loss.backward()
         grads = tree_map(lambda p: p.grad, leaves)
         return loss.detach(), {k: v.detach() for k, v in parts.items()}, grads
@@ -432,8 +479,9 @@ class AsyncTrainer:
         mesh_kw = {"mesh": self.mesh, "axes": self.data_axes} if ranked \
             else {}
 
-        model = self.model > 1
-        psh = self.param_shardings if model else None
+        # the pooled route over a model axis: the pools are whole there
+        psh = self.param_shardings if self.model > 1 and self.pooled \
+            else None
 
         def step(state, batch, mask, delay_scale=None, grad_density=None,
                  fault_gain=None):
@@ -441,7 +489,7 @@ class AsyncTrainer:
             # what the forward reads: the rank's blocks (views of the
             # whole params on the pooled route)
             fwd = tree_map(lambda t, sh: sh.local(t), params, psh) \
-                if model and self.pooled else params
+                if psh is not None else params
             bsz = batch["tokens"].shape[0]
             mask = mask.to(F32)
             w = self._example_weights(mask, bsz)
@@ -482,7 +530,7 @@ class AsyncTrainer:
                 parts = {"ce": loss, "aux": aux}
             else:
                 loss, parts, grads = self._value_and_grad(fwd, batch, w)
-            if model and self.pooled:
+            if psh is not None:
                 # the pool is whole over the model axis: so are its grads
                 grads = tree_map(lambda g, sh: sh.gather(g), grads, psh)
             if ranked:
@@ -499,16 +547,21 @@ class AsyncTrainer:
                 parts = {n: v * fault_c for n, v in parts.items()}
                 grads = tree_map(lambda g: g * fault_c.to(g.dtype), grads)
             # over ranks the per-leaf routes, and a sparsifier (a quantile
-            # over the whole leaf), need the global gradient leaves
+            # over the whole leaf), need the global gradient leaves: each
+            # share summed over the data ranks (per-leaf ZeRO's gathered
+            # leaves come out of the backward summed, as their blocks)
             reduced = ranked and (not self.pooled or grad_density is not None)
-            if reduced:
+            if reduced and self.pooled:
                 grads = tree_map(lambda g: C.all_reduce(g, group), grads)
-            if grad_density is not None and model and not self.pooled:
+            elif reduced:
+                grads = tree_map(lambda g, done: g if done else
+                                 C.all_reduce(g, group), grads, self._summed)
+            if grad_density is not None and ranked and not self.pooled:
                 # the quantile over the whole leaf, then the rank's block
                 grads = tree_map(
                     lambda g, sh: sh.local(sparsify(sh.gather(g),
                                                     grad_density)).contiguous(),
-                    grads, psh)
+                    grads, self.leaf_shardings)
             elif grad_density is not None:
                 grads = tree_map(lambda g: sparsify(g, grad_density), grads)
             if self.pooled:

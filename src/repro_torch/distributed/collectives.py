@@ -118,24 +118,31 @@ def _stand_in(kind: str, t: torch.Tensor, group: TracedGroup,
     return stand_in_collective(kind, t.contiguous(), group.size, dim)
 
 
-class _GatherRows(torch.autograd.Function):
-    """all-gather along dim 0; the backward reduce-scatters the gradient
-    (every rank's contribution to this rank's rows, summed)."""
+class _GatherBlocks(torch.autograd.Function):
+    """all-gather along ``dim``; the backward reduce-scatters the gradient
+    along it, in the gradient's dtype (every rank's contribution to this
+    rank's block, summed)."""
 
     @staticmethod
-    def forward(ctx, t, group):
-        ctx.group = group
-        return all_gather(t, group)
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return all_gather(t, group, dim)
 
     @staticmethod
     def backward(ctx, g):
-        return reduce_scatter(g, ctx.group), None
+        return reduce_scatter(g, ctx.group, ctx.dim), None, None
+
+
+def gather_blocks(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """:func:`all_gather` along ``dim``, differentiable: the gradient of a
+    loss summed over the ranks reaches each rank's own block (per-leaf
+    ZeRO's gather on use, ``models.tp.ZeroGather``)."""
+    return _GatherBlocks.apply(t, group, dim)
 
 
 def all_gather_rows(t: torch.Tensor, group) -> torch.Tensor:
-    """:func:`all_gather` along dim 0, differentiable: the gradient of a
-    loss summed over the ranks reaches each rank's own rows."""
-    return _GatherRows.apply(t, group)
+    """:func:`gather_blocks` along dim 0: each rank's rows."""
+    return _GatherBlocks.apply(t, group, 0)
 
 
 # ---------------------------------------------------------------------------

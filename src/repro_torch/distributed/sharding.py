@@ -38,8 +38,12 @@ per device, where the data axes are data parallelism:
   ``SEQ_PARALLEL_RULES``' ``"seq"`` is a layout lever of the JAX package
   that the port's layers do not act on (no activation carries it).
 
-What waits for ROADMAP.md queue 1, item 14b (ii): per-leaf ZeRO over
-the data axes (``zero_pspec`` counts in the analytic bytes only).
+Per-leaf ZeRO over the data axes (``zero_pspec``, the JAX trainer's
+``fsdp_params=True`` layout): each data rank holds one block of a param
+leaf's model block, split on the first free dim the data axes divide;
+``models.tp.ZeroGather`` gathers a layer's blocks over the data group when the
+model reads them, and its backward leaves each rank the summed gradient
+of its own blocks.
 """
 from __future__ import annotations
 
@@ -410,3 +414,30 @@ def local_specs(spec_tree, shardings):
     ``shardings`` leaf's ``shard_shape``."""
     return tree_map(lambda s, sh: dataclasses.replace(
         s, shape=sh.shard_shape(s.shape)), spec_tree, shardings)
+
+
+def _axes_of(entry) -> tuple:
+    return () if entry is None else (entry if isinstance(entry, tuple)
+                                     else (entry,))
+
+
+def data_dim(spec: PSpec, mesh, rules: Rules = DEFAULT_RULES):
+    """The dim of ``spec`` split over the data axes into more than one
+    block (per-leaf ZeRO's dim), or None."""
+    data = set(rules.data_axes)
+    for i, e in enumerate(spec):
+        axes = _axes_of(e)
+        if axes and set(axes) <= data and mesh.count(axes) > 1:
+            return i
+    return None
+
+
+def split_axes(spec: PSpec, mesh, rules: Rules = DEFAULT_RULES) -> str:
+    """Which groups a leaf of ``spec`` is split over, counting only groups
+    of more than one rank: ``""``, ``"data"``, ``"model"`` or
+    ``"data+model"`` (``optim.global_norm``'s classes)."""
+    model = any(rules.model_axis in _axes_of(e) for e in spec) and \
+        _mesh_size(mesh, rules.model_axis) > 1
+    data = data_dim(spec, mesh, rules) is not None
+    return "+".join(n for n, on in (("data", data), ("model", model)) if on)
+

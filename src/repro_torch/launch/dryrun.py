@@ -29,10 +29,13 @@ runs the model under the mesh's ``TP`` (``models/tp.py``) and the
 trainer's data-parallel round.  No process group is made: the mesh is a
 ``launch.mesh.TracedMesh``, whose collectives return their outputs'
 shapes on ``meta`` and count their operand bytes
-(``op_cost.collective_bytes``).  Per-leaf ZeRO over the data axes is not
-ported (ROADMAP.md item 14b (ii)), so a rank's traced state keeps every
-model-split leaf whole over the data axes, while ``analytic_state_bytes``
-counts the rules with ZeRO, as the JAX dry-run does.
+(``op_cost.collective_bytes``).  On the per-leaf routes the rank's train
+state is its per-leaf ZeRO blocks (``AsyncTrainer.state_shardings``), each
+layer gathered over the data axes on use through the stand-ins, the
+differentiable gather included; a train record's ``traced_state_bytes``
+(the params, moments and delayed buffer the traced rank holds) then
+equals ``analytic_state_bytes``, the rules with ZeRO as the JAX dry-run
+counts them.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch qwen2-0.5b --shape decode_32k
@@ -51,7 +54,8 @@ import torch
 
 from ..configs import ARCHS, SHAPES, get_arch
 from ..configs.base import ArchConfig, InputShape
-from ..distributed.async_trainer import AsyncConfig, AsyncTrainer
+from ..distributed.async_trainer import (AsyncConfig, AsyncTrainer,
+                                         held_state_bytes)
 from ..distributed.sharding import (DEFAULT_RULES, Rules, auto_rules,
                                     bytes_per_device, local_specs,
                                     sharded_trace, tree_shardings)
@@ -232,6 +236,8 @@ def run_one(arch, shape, *, rules: Rules = DEFAULT_RULES,
             mesh=TracedMesh(whole.shape) if mesh in RANK_MESHES else None)
         cost = op_cost.analyze(fn, *args)
         rec["trace_s"] = round(time.perf_counter() - t0, 2)
+        if shape.kind == "train":
+            rec["traced_state_bytes"] = held_state_bytes(args[0])
         rec["memory"] = {"argument_bytes": cost.argument_bytes,
                          "peak_bytes_est": cost.peak_live_bytes}
         rec["fits"] = cost.peak_live_bytes <= HBM_BYTES

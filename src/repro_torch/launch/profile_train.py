@@ -18,7 +18,10 @@ which waits for the device), then records the same rounds under
 ``torch.profiler`` and prints, per round:
 
 * wall time, the summed device time of its kernels (device rows only) and
-  the device's idle share (``1 − device / wall``);
+  the device's idle share (``1 − device / wall``); that device time split
+  into the compute kernels' and NCCL's (on a mesh NCCL's kernels run on
+  their own stream and include each collective's wait for the slowest
+  rank, so the compute kernels' time is the rank's busy time);
 * the update kernels' device time and their share of the device time;
 * the sorts' device time (the sparsifier of a ``sparsify`` scenario);
 * the kernels that took most device time.
@@ -45,8 +48,9 @@ over the data axes and tensor-parallel over the model axis
 (``AsyncTrainer(mesh=...)``), every rank timing the same rounds; rank 0
 prints, and adds each collective kind's launches and operand bytes a
 round.  ``--json-out`` appends the run's numbers (ms a round, the loss
-curve, the mesh, the collectives) as one JSON line, so runs at several
-rank counts can be set side by side.
+curve, the mesh, the collectives, the update kernels' launches a round as
+their wrappers count them, the state the rank holds) as one JSON line, so
+runs at several rank counts can be set side by side.
 
 ``--trace-dir`` also writes the profiler's Chrome trace there
 (``train.json``).  Needs a CUDA card.
@@ -65,6 +69,8 @@ from torch.profiler import ProfilerActivity, profile
 from ..api import ExperimentSpec, TrainerBackend, TrainJob
 from ..device import resolve_device
 from ..distributed import collectives
+from ..distributed.async_trainer import held_state_bytes
+from ..kernels import async_update as AU
 from ..runtime import PlanExecutor, compile_plan
 
 TOP = 15                        # kernels listed
@@ -102,11 +108,15 @@ def _executor(tr, spec, n_groups, rounds):
     return PlanExecutor(tr, plan)
 
 
-def _report(prof, wall_s: float, rounds: int, print=print) -> None:
+def _report(prof, wall_s: float, rounds: int, print=print) -> dict:
+    """Print the profiled rounds' breakdown; → their device, compute-kernel
+    and NCCL-kernel ms a round."""
     rows = sorted((e for e in prof.key_averages()
                    if e.device_type == DeviceType.CUDA),
                   key=lambda e: -e.self_device_time_total)
     dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 / rounds
+    nccl_ms = sum(e.self_device_time_total for e in rows
+                  if "nccl" in e.key.lower()) / 1e3 / rounds
     upd_ms = sum(e.self_device_time_total for e in rows
                  if any(k in e.key for k in UPDATE_KERNELS)) / 1e3 / rounds
     sort_ms = sum(e.self_device_time_total for e in rows
@@ -115,10 +125,14 @@ def _report(prof, wall_s: float, rounds: int, print=print) -> None:
     print(f"profiled, per round: wall {wall_ms:.3f} ms, device "
           f"{dev_ms:.3f} ms, idle share {1 - dev_ms / wall_ms:.3f}; update "
           f"kernels {upd_ms:.3f} ms = {upd_ms / dev_ms:.3f} of device time; "
-          f"sorts {sort_ms:.3f} ms = {sort_ms / dev_ms:.3f}")
+          f"sorts {sort_ms:.3f} ms = {sort_ms / dev_ms:.3f}; compute "
+          f"kernels {dev_ms - nccl_ms:.3f} ms, NCCL {nccl_ms:.3f} ms")
     for e in rows[:TOP]:
         print(f"  {e.self_device_time_total / 1e3 / rounds:9.3f} ms/round "
               f"{e.count // rounds:5d}x/round  {e.key[:90]}")
+    return {"device_ms": dev_ms, "compute_kernel_ms": dev_ms - nccl_ms,
+            "nccl_kernel_ms": nccl_ms, "profiled_wall_ms": wall_s * 1e3 /
+            rounds}
 
 
 def main(argv=None) -> None:
@@ -182,10 +196,12 @@ def _run(args, mesh) -> None:
         state = res.state
         return time.perf_counter() - t0, res
 
-    before = collectives.snapshot()
+    before, upd_before = collectives.snapshot(), dict(AU.launches)
     wall, res = timed()
     coll = {k: [n // args.rounds, b // args.rounds]
             for k, (n, b) in collectives.since(before).items()}
+    upd = {k: (n - upd_before[k]) // args.rounds
+           for k, n in AU.launches.items() if n > upd_before[k]}
     ms = wall * 1e3 / args.rounds
     peak = torch.cuda.max_memory_allocated() / 2**30
     out(f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} batch "
@@ -196,24 +212,27 @@ def _run(args, mesh) -> None:
           f"{args.scenario} mesh={None if mesh is None else mesh.shape}: "
           f"{ms:.3f} ms per round (warm, {args.rounds} rounds, one launch); "
           f"loss {res.metrics['loss'][0]:.5f} -> "
-          f"{res.metrics['loss'][-1]:.5f}; peak memory {peak:.2f} GiB"
+          f"{res.metrics['loss'][-1]:.5f}; peak memory {peak:.2f} GiB, "
+          f"state {held_state_bytes(state) / 2**30:.2f} GiB; update kernel "
+          f"launches a round {upd}"
           + (f"; collectives a round {coll}" if mesh is not None else ""))
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with prof:
+        wall, _ = timed()
+    split = _report(prof, wall, args.rounds, out)
     if args.json_out and lead:
         with open(args.json_out, "a") as f:
             f.write(json.dumps({
                 "arch": cfg.name, "n_layers": cfg.n_layers,
-                "update_impl": tr.update_impl,
+                "update_impl": tr.update_impl, "remat": cfg.remat,
                 "mesh": None if mesh is None else mesh.shape,
                 "ranks": tr.ranks, "ms_per_round": ms,
                 "losses": res.metrics["loss"].tolist(),
                 "grad_norms": res.metrics["grad_norm"].tolist(),
-                "collectives_per_round": coll, "peak_gib": peak,
+                "collectives_per_round": coll,
+                "update_launches_per_round": upd, "peak_gib": peak,
+                "state_gib": held_state_bytes(state) / 2**30, **split,
                 "device": torch.cuda.get_device_name()}) + "\n")
-
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    with prof:
-        wall, _ = timed()
-    _report(prof, wall, args.rounds, out)
     if args.trace_dir and lead:
         os.makedirs(args.trace_dir, exist_ok=True)
         prof.export_chrome_trace(os.path.join(args.trace_dir, "train.json"))

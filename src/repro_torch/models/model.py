@@ -349,27 +349,42 @@ def _runner(cfg):
     return run
 
 
+def _gathered(zero, p, kind=None):
+    """A layer's param blocks ``p`` whole over the data axes under
+    per-leaf ZeRO (``zero``: a ``models.tp.ZeroGather``; ``p`` itself
+    without one): by its kinds of block, or as one block of ``kind``."""
+    if zero is None:
+        return p
+    return zero.layer(p) if kind is None else zero.take(p, kind)
+
+
 def _decoder_stack(cfg, params, h, positions, window, memory=None,
-                   tp=None):
+                   tp=None, zero=None):
     """Every layer of the family over the sequence → (h, aux).  ``memory``:
     the audio encoder's output, which each decoder layer cross-attends to.
 
     With ``cfg.remat == "full"`` under autograd each block is recomputed in
     the backward pass (:func:`_runner`; the hybrid's shared block and each
-    of its Mamba2 layers are blocks of their own)."""
+    of its Mamba2 layers are blocks of their own).  Under per-leaf ZeRO
+    (``zero``) each block gathers its layer's params over the data axes
+    inside the function that :func:`_runner` checkpoints: with ``remat``
+    "full" the gathered layer is freed after use and gathered again in the
+    backward; with "none" autograd keeps every gathered layer alive."""
     run = _runner(cfg)
 
     def mamba(p, x):
-        return _apply_mamba(cfg, p, x, tp=tp)
+        return _apply_mamba(cfg, _gathered(zero, p, "mamba"), x, tp=tp)
 
     blocks = params["blocks"]
     if cfg.family == "hybrid":
         g, k, rem = _groups(cfg)
-        sa, sm = params["shared_attn"], params["shared_mlp"]
 
         def shared(x):
+            # the shared block's leaves gathered at each use
+            sa = _gathered(zero, params["shared_attn"], "attn")
             x = _apply_attn(cfg, sa, x, positions=positions, window=window,
                             tp=tp)
+            sm = _gathered(zero, params["shared_mlp"], "mlp")
             return _apply_mlp(cfg, sm, x, tp)
 
         for i in range(g * k):
@@ -381,6 +396,7 @@ def _decoder_stack(cfg, params, h, positions, window, memory=None,
         return h, 0.0
     if cfg.family == "moe":
         def block(p, x):
+            p = _gathered(zero, p)
             x = _apply_attn(cfg, p["attn"], x, positions=positions,
                             window=window, tp=tp)
             return _apply_moe(cfg, p["moe"], x, tp)
@@ -392,6 +408,7 @@ def _decoder_stack(cfg, params, h, positions, window, memory=None,
         return h, aux / cfg.n_layers
     if cfg.family == "audio":
         def block(p, x, mem):
+            p = _gathered(zero, p)
             x = _apply_attn(cfg, p["attn"], x, positions=positions,
                             window=window, tp=tp)
             x = _apply_attn(cfg, p["cross"], x, kv_h=mem, tp=tp)
@@ -402,8 +419,9 @@ def _decoder_stack(cfg, params, h, positions, window, memory=None,
         return h, 0.0
 
     def block(p, x):
+        p = _gathered(zero, p)
         if cfg.family == "ssm":
-            return mamba(p["mamba"], x)
+            return _apply_mamba(cfg, p["mamba"], x, tp=tp)
         x = _apply_attn(cfg, p["attn"], x, positions=positions, window=window,
                         tp=tp)
         return _apply_mlp(cfg, p["mlp"], x, tp)
@@ -413,16 +431,17 @@ def _decoder_stack(cfg, params, h, positions, window, memory=None,
     return h, 0.0
 
 
-def _encoder_stack(cfg, params, frames, tp=None):
+def _encoder_stack(cfg, params, frames, tp=None, zero=None):
     """The audio encoder over stubbed frame embeddings (B, S, frontend_dim):
     ``frontend_proj``, bidirectional self-attention blocks with RoPE (remat
-    as in :func:`_decoder_stack`), then ``enc_norm``."""
+    and per-leaf ZeRO as in :func:`_decoder_stack`), then ``enc_norm``."""
     h = L.einsum("bsf,fd->bsd", frames.to(torch_dtype(cfg.dtype)),
                  _leaf(params, "frontend_proj", tp))
     positions = torch.arange(h.shape[1], device=h.device)
     run = _runner(cfg)
 
     def block(p, x):
+        p = _gathered(zero, p)
         x = _apply_attn(cfg, p["attn"], x, causal=False, positions=positions,
                         tp=tp)
         return _apply_mlp(cfg, p["mlp"], x, tp)
@@ -432,7 +451,7 @@ def _encoder_stack(cfg, params, frames, tp=None):
     return L.rms_norm(h, _leaf(params, "enc_norm", tp), cfg.norm_eps)
 
 
-def _embed_input(cfg, params, batch, tp=None):
+def _embed_input(cfg, params, batch, tp=None, zero=None):
     """The input embedding of training and prefill → (h, cross-attention
     memory or None).  audio: the encoder over ``batch["frames"]`` gives
     the memory.  vlm: ``batch["patches"]`` (B, P, vision_dim) through
@@ -442,7 +461,7 @@ def _embed_input(cfg, params, batch, tp=None):
     the sequence), so such a prompt is refused here."""
     memory = None
     if cfg.family == "audio":
-        memory = _encoder_stack(cfg, params, batch["frames"], tp)
+        memory = _encoder_stack(cfg, params, batch["frames"], tp, zero)
     tokens = batch["tokens"]
     h = _embed(cfg, params, tokens, tp)
     if cfg.family == "vlm":
@@ -460,34 +479,40 @@ def _embed_input(cfg, params, batch, tp=None):
 
 
 def forward_logits(cfg: ArchConfig, params, batch, window=None, *,
-                   tp=None):
+                   tp=None, zero=None):
     """Full-sequence forward → (logits (B,S,V), aux loss: the MoE's
     load-balance term averaged over layers, 0.0 for the other families).
     ``batch`` holds ``tokens`` (B,S), plus ``frames`` (audio) or
     ``patches`` (vlm).  ``cfg.remat == "full"`` recomputes each block in
     the backward pass (see :func:`_decoder_stack`).  ``tp``: the
     ``models.tp.TP`` to run on (default: the active context's); the
-    logits come back whole on every model rank."""
+    logits come back whole on every model rank.  ``zero``: a
+    ``models.tp.ZeroGather`` when ``params`` are the rank's per-leaf ZeRO
+    blocks (the trainer's over data ranks): the top-level leaves are
+    gathered once here, each layer's in its block."""
     _require_family(cfg)
     tp = _tp_of(cfg, tp)
     if window is None:
         window = cfg.sliding_window
-    h, aux = _final_hidden(cfg, params, batch, window, tp)
+    if zero is not None:
+        params = zero.top(params)
+    h, aux = _final_hidden(cfg, params, batch, window, tp, zero)
     logits = _unembed(cfg, params, h, tp)
     return _shard_act(logits, ("batch", "seq", "vocab")), aux
 
 
-def _final_hidden(cfg, params, batch, window, tp):
+def _final_hidden(cfg, params, batch, window, tp, zero=None):
     """The final-normed hidden states of the whole sequence, and aux."""
     tokens = batch["tokens"]
-    h, memory = _embed_input(cfg, params, batch, tp)
+    h, memory = _embed_input(cfg, params, batch, tp, zero)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
-    h, aux = _decoder_stack(cfg, params, h, positions, window, memory, tp)
+    h, aux = _decoder_stack(cfg, params, h, positions, window, memory, tp,
+                            zero)
     return _final_norm(cfg, params, h, tp), aux
 
 
 def loss_fn(cfg: ArchConfig, params, batch, example_weights=None,
-            aux_coeff: float = 0.01, window=None, *, tp=None):
+            aux_coeff: float = 0.01, window=None, *, tp=None, zero=None):
     """Next-token CE plus ``aux_coeff`` × the MoE aux loss (0 for the other
     families).  ``example_weights`` (B,) carries the AsGrad
     worker-participation mask (see ``distributed.async_trainer``).
@@ -506,16 +531,21 @@ def loss_fn(cfg: ArchConfig, params, batch, example_weights=None,
     returns the same values.
 
     With ``cfg.remat == "full"`` the backward pass recomputes each
-    layer's activations (see :func:`forward_logits`)."""
+    layer's activations (see :func:`forward_logits`).  ``zero``: the
+    params are per-leaf ZeRO blocks, gathered on use (see
+    :func:`forward_logits`); the gradients are then the blocks'."""
     from ..distributed.sharding import data_context
 
     tp = _tp_of(cfg, tp)
     if tp is None:
-        logits, aux = forward_logits(cfg, params, batch, window=window)
+        logits, aux = forward_logits(cfg, params, batch, window=window,
+                                     zero=zero)
     else:
+        if zero is not None:
+            params = zero.top(params)
         h, aux = _final_hidden(cfg, params, batch,
                                cfg.sliding_window if window is None
-                               else window, tp)
+                               else window, tp, zero)
         logits, vp = tp.logits(params, h)
     labels = batch["tokens"][:, 1:]
     lg = logits[:, :-1]

@@ -139,7 +139,8 @@ def init_tree(specs: dict, seed: int, device="cpu", shardings=None) -> dict:
             if isinstance(v, Spec):
                 out[k] = draw(v, path)
                 if sh is not None:
-                    out[k] = sh[k].local(out[k]).clone()
+                    out[k] = sh[k].local(out[k]).clone(
+                        memory_format=torch.contiguous_format)
             else:
                 out[k] = build(v, None if sh is None else sh[k], path)
         return out

@@ -118,10 +118,17 @@ def plan(cfg, M: int, rules=None) -> dict:
     ``projector``)."""
     from ..distributed.sharding import DEFAULT_RULES
     from ..launch.mesh import Mesh
-    from .model import param_specs
 
     rules = rules or DEFAULT_RULES
     mesh = Mesh({rules.model_axis: M})
+    return by_kind(cfg, lambda s: _split_dim(s, mesh, rules))
+
+
+def by_kind(cfg, dim_of) -> dict:
+    """``dim_of(spec)`` (a dim of the whole leaf, or None) over ``cfg``'s
+    param leaves, per layer and keyed by the kind of block as
+    :func:`plan` is."""
+    from .model import param_specs
 
     def walk(tree, stacked):
         out = {}
@@ -129,7 +136,7 @@ def plan(cfg, M: int, rules=None) -> dict:
             if isinstance(v, dict):
                 out[k] = walk(v, stacked)
             else:
-                d = _split_dim(v, mesh, rules)
+                d = dim_of(v)
                 out[k] = d - 1 if stacked and d is not None else d
         return out
 
@@ -142,6 +149,71 @@ def plan(cfg, M: int, rules=None) -> dict:
         else:
             out.update(walk({k: v}, False))
     return out
+
+
+def _data_dim(spec, mesh, rules) -> Optional[int]:
+    from ..distributed.sharding import data_dim, logical_pspec, zero_pspec
+
+    ps = logical_pspec(spec.axes, spec.shape, mesh, rules)
+    return data_dim(zero_pspec(spec.axes, spec.shape, mesh, ps, rules),
+                    mesh, rules)
+
+
+class ZeroGather:
+    """Per-leaf ZeRO on the model's side.  The trainer hands the model
+    each param leaf as this rank's ZeRO block of its model block (the
+    leaf's ``tree_shardings(..., zero=True)`` layout); ``take`` gathers a
+    layer's blocks over the data group, on the dim
+    ``distributed.sharding.data_dim`` names, into the model blocks
+    :class:`TP` computes on (``collectives.gather_blocks``: the backward
+    reduce-scatters each gradient into the block, in its dtype).  ``plan``
+    holds those dims per layer and keyed by the kind of block, as
+    :func:`plan` does.
+    The group and the dims are held here, so a gather repeated in a
+    recomputed block or run in a backward on another thread reads no
+    context.  Made only where some leaf is split over more than one data
+    rank (:meth:`of`)."""
+
+    def __init__(self, cfg, mesh, rules=None):
+        from ..distributed.sharding import DEFAULT_RULES, pool_axes
+
+        rules = rules or DEFAULT_RULES
+        self.group = mesh.group(pool_axes(mesh, rules))
+        self.plan = by_kind(cfg, lambda s: _data_dim(s, mesh, rules))
+
+    @classmethod
+    def of(cls, cfg, mesh, rules=None):
+        """The gather of ``cfg``'s params on ``mesh``, or None where no
+        leaf is split over more than one data rank (no mesh, data 1)."""
+        from ..distributed.sharding import DEFAULT_RULES, pool_axes
+
+        if mesh is None or \
+                mesh.count(pool_axes(mesh, rules or DEFAULT_RULES)) == 1:
+            return None
+        return cls(cfg, mesh, rules)
+
+    def _gather(self, t, dims):
+        from ..distributed.collectives import gather_blocks
+
+        if isinstance(t, dict):
+            return {k: self._gather(v, dims[k]) for k, v in t.items()}
+        return t if dims is None else gather_blocks(t, self.group, dims)
+
+    def take(self, p, kind: str):
+        """``p`` (one layer of block kind ``kind``, or the top-level leaf
+        named ``kind``) gathered over the data group."""
+        return self._gather(p, self.plan[kind])
+
+    def layer(self, p: dict) -> dict:
+        """One layer's slice of a stacked subtree (``{kind: leaves}``)
+        gathered."""
+        return {k: self.take(v, k) for k, v in p.items()}
+
+    def top(self, params: dict) -> dict:
+        """``params`` with every top-level leaf gathered (read once per
+        forward); the layer subtrees are left as blocks."""
+        return {k: v if isinstance(v, dict) else self.take(v, k)
+                for k, v in params.items()}
 
 
 def cache_split(cfg, M: int, batch: int, ctx_len: int, rules=None) -> dict:

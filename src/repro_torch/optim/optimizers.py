@@ -75,13 +75,16 @@ class OptConfig:
     update_impl: str = "reference"
 
 
-def global_norm(tree, split=None, group=None) -> torch.Tensor:
+def global_norm(tree, split=None, groups=None) -> torch.Tensor:
     """√Σ‖leaf‖², accumulated in f32 on the leaves' device.
 
-    With ``split`` (a matching tree of bools) the tree holds a rank's
-    blocks of a tree split over the model axis: the squares of the split
-    leaves are summed over ``group`` (the model group), the other leaves,
-    whole on every rank, counted once."""
+    With ``split`` (a matching tree of ``distributed.sharding.split_axes``
+    classes: ``""``, ``"data"``, ``"model"`` or ``"data+model"``) the tree
+    holds a rank's blocks: each leaf's squares are summed over exactly the
+    groups it is split over (``groups``: ``{"data": ..., "model": ...}``),
+    and a leaf whole on every rank is counted once.  Two small
+    all-reduces do it: the model-split classes' sums over the model group,
+    then the data-split ones' over the data group."""
     leaves = tree_leaves(tree)
     norms = torch.stack([torch.linalg.vector_norm(l, dtype=F32)
                          for l in leaves])
@@ -89,11 +92,26 @@ def global_norm(tree, split=None, group=None) -> torch.Tensor:
         return torch.linalg.vector_norm(norms)
     from ..distributed.collectives import all_reduce
 
-    mask = torch.tensor(tree_leaves(split), device=norms.device)
+    classes = tree_leaves(split)
     sq = norms * norms
-    return torch.sqrt(all_reduce(torch.sum(torch.where(mask, sq, 0.0)),
-                                 group)
-                      + torch.sum(torch.where(mask, 0.0, sq)))
+
+    def part(cls):
+        mask = torch.tensor([c == cls for c in classes], device=sq.device)
+        return torch.sum(torch.where(mask, sq, 0.0))
+
+    data = any(c.startswith("data") for c in classes)
+    model = any(c.endswith("model") for c in classes)
+    whole = part("")
+    if data and model:
+        red = all_reduce(torch.stack([part("model"), part("data+model")]),
+                         groups["model"])
+        both = all_reduce(torch.stack([part("data"), red[1]]),
+                          groups["data"])
+        return torch.sqrt(both[0] + both[1] + red[0] + whole)
+    if data or model:
+        name = "data" if data else "model"
+        return torch.sqrt(all_reduce(part(name), groups[name]) + whole)
+    return torch.sqrt(whole)
 
 
 def clip_by_global_norm(tree, max_norm: float, norm_fn=global_norm):

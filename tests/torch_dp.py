@@ -62,8 +62,16 @@ FAMILY_CASES = {
                       ("audio", "seamless-m4t-large-v2"),
                       ("vlm", "pixtral-12b"))
     for impl in ("reference", "pallas_pooled")}
+#: the fused per-leaf route (per-leaf ZeRO's cases: the update kernels
+#: on each rank's blocks; their plain versions on the CPU), and two
+#: microbatches on the reference route
+LEAF_CASES = {
+    "dense_pallas": ("qwen2-0.5b", "pallas", 1, "float32", 8, 16, 4, 4),
+    "moe_pallas": ("deepseek-moe-16b", "pallas", 1, "float32", 8, 16, 4, 4),
+    "dense_reference_mb2": ("qwen2-0.5b", "reference", 2, "float32", 8, 16,
+                            4, 4)}
 #: every case by name
-ALL_CASES = {**CASES, **FAMILY_CASES}
+ALL_CASES = {**CASES, **FAMILY_CASES, **LEAF_CASES}
 #: arch overrides of a case's reduced config
 OVERRIDES = {"hybrid_reference": (("n_layers", 3), ("attn_every", 2)),
              "hybrid_pooled": (("n_layers", 3), ("attn_every", 2))}

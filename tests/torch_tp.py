@@ -343,6 +343,42 @@ def run_families(tmp, families, ckpts=()) -> tuple:
     return jres, port
 
 
+#: the per-leaf cases whose ``state_shardings()`` a ``specs@DxM`` entry
+#: dumps, one of each family
+SPEC_CASES = ("dense_reference", "moe_reference", "ssm_reference",
+              "hybrid_reference", "audio_reference", "vlm_reference")
+
+
+def spec_str(spec, ndim: int) -> str:
+    """A partition spec (either package's) as one string: its entries,
+    a tuple of axes as a tuple, padded with None to ``ndim``."""
+    ents = [tuple(e) if isinstance(e, (tuple, list)) else e for e in spec]
+    return repr(tuple(ents + [None] * (ndim - len(ents))))
+
+
+def _state_specs(d, m, out):
+    """The JAX trainer's ``state_shardings()`` (its default
+    ``fsdp_params=True``) of each of :data:`SPEC_CASES` on (d, m), as
+    :func:`spec_str` strings by leaf path."""
+    import jax
+
+    from repro.configs import get_arch
+    from repro.distributed import AsyncConfig, AsyncTrainer
+    from repro.models.specs import Spec
+    from repro.optim import OptConfig
+
+    for name in SPEC_CASES:
+        tr = AsyncTrainer(D.case_cfg(name, get_arch), _mesh(d, m),
+                          opt=OptConfig(update_impl="reference"),
+                          async_cfg=AsyncConfig(delay_rounds=1))
+        specs = dict(jax.tree_util.tree_leaves_with_path(
+            tr.state_specs(), is_leaf=lambda x: isinstance(x, Spec)))
+        for path, sh in jax.tree_util.tree_leaves_with_path(
+                tr.state_shardings()):
+            out[f"specs@{d}x{m}/{name}{jax.tree_util.keystr(path)}"] = \
+                np.asarray(spec_str(sh.spec, len(specs[path].shape)))
+
+
 def jax_main(out_path: str, params_path: str, entries) -> None:
     import jax
     import jax.numpy as jnp
@@ -353,12 +389,16 @@ def jax_main(out_path: str, params_path: str, entries) -> None:
     from repro.optim.pool import init_pools, unpool_tree
 
     assert jax.device_count() >= 4, jax.devices()
+    specs = [parse(e) for e in entries if e.startswith("specs@")]
+    entries = [e for e in entries if not e.startswith("specs@")]
     cases = [parse(e) for e in entries if e.split("@")[0] not in SERVES]
     served = [parse(e) for e in entries if e.split("@")[0] in SERVES]
     D.jax_params(params_path, sorted({n for n, _, _ in cases}
                                      | {SERVES[n][0] for n, _, _ in served}))
     given = D.jax_results(params_path)
     out: dict = {}
+    for _, d, m in specs:
+        _state_specs(d, m, out)
     for name, d, m in served:
         _serve(name, d, m, out)
     for name, d, m in cases:
