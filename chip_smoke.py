@@ -184,7 +184,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     zamba2-7b, 28 layers on deepseek-moe-16b; one SSD launch per Mamba2
     layer: 81; on the tensor-core routes; finite logits, 16 tokens a row)
     and the slot lane through ``run(ServeJob(n_slots=8))`` (16 requests
-    of 512, T 32, ``poisson:gap=2``, K 8: 16 × those launches, one chunk
+    of 512, T 16, ``poisson:gap=2``, K 8: 16 × those launches, one chunk
     capture), then on params built once (``init_params`` host seconds):
     a warm prefill and 8 lock-step decode steps under the profiler, the
     prefill at full width and reduced depth with the kernels against
@@ -204,7 +204,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
     non-causal, its decoder 256 × 256 causal; pixtral-12b's (4, 1024, 32
     heads, 8 kv heads, 128) causal) against its plain version in f32 and
     bf16 and timed (kernel, plain, bound, SDPA as a yardstick); each of
-    mamba2-370m (24 of its 48 layers), zamba2-7b (7 layers: one group and
+    mamba2-370m (12 of its 48 layers), zamba2-7b (7 layers: one group and
     a one-layer tail),
     deepseek-moe-16b (4 layers), seamless-m4t-large-v2 and pixtral-12b
     (4 layers) at full width on the training main path's settings with
@@ -276,8 +276,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ``prefill``, ``decode_step``) on its blocks of every leaf
     (``NamedSharding.local``) under its own ``TP``, whose operators
     combine the ranks' tensors where the collectives would (a sum, a
-    max, a concatenation): (a) qwen2-0.5b at full width and depth (24
-    layers) at model 2 (head-parallel, flash on 7 heads a rank) and at
+    max, a concatenation): (a) qwen2-0.5b at full width, 12 of its 24
+    layers, at model 2 (head-parallel, flash on 7 heads a rank) and at
     model 4 (its 14 heads do not divide: attention gathered, the ring
     split on ctx and decoded by the distributed softmax), and (b)
     deepseek-moe-16b at full width, 4 of its 28 layers, at model 2 (32
@@ -294,9 +294,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
     bytes bound; prints a ``{"tensor_parallel": ...}`` line;
 22. the model axis for the ssm, hybrid, audio and vlm families, as phase
     21 (the ranks as threads through the entry points, the SSD and flash
-    kernels on each rank's heads): mamba2-370m at full width and depth
-    at model 2 and 4 (16 / 8 SSM heads a rank), zamba2-7b at full width,
-    15 of its 81 layers (two groups of six and the three-layer tail), at
+    kernels on each rank's heads): mamba2-370m at full width, 12 of its
+    48 layers, at model 2 and 4 (16 / 8 SSM heads a rank), zamba2-7b at
+    full width, 9 of its 81 layers (a group of six and a three-layer tail), at
     model 2, seamless-m4t-large-v2 (4 encoder and 4 decoder layers) and
     pixtral-12b (4 layers) at full width at model 2, on 4 × 1024 inputs
     (frames, patches): the f32 logits within 1e-4 relative L2 of the
@@ -316,8 +316,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     and each decode step a ragged ``decode_step`` with ``tp=``, under the
     ``SlotServer``'s admission rule: 8 slots, 6 requests of 512-token
     prompts arriving in pairs a chunk apart, 12 tokens each, K 8, f32 at
-    full width: qwen2-0.5b at model 2 (24 layers) and 4 (6 layers, its
-    ragged ring split on ctx), mamba2-370m (24 layers), zamba2-7b (15
+    full width: qwen2-0.5b at model 2 and 4 (6 layers; at 4 its
+    ragged ring split on ctx), mamba2-370m (12 layers), zamba2-7b (9
     layers) and deepseek-moe-16b (4 layers) at model 2.  Every request's greedy tokens
     on every rank equal the unsharded ``SlotServer``'s on the card, each
     decode step's logits are within 2e-5 relative L2 of the whole model's
@@ -325,16 +325,37 @@ Phases, each of which fails the run (non-zero exit, no result line):
     ranks × layers times (counted from 0 around the ranks' run); then
     flash and SSD at the admissions' batch-1 shapes on a rank against
     their plain versions, timed with their bounds and (flash) SDPA;
-    prints a ``{"tensor_parallel_slots": ...}`` line, and a
-    ``{"phase_seconds": ...}`` line with every phase's wall seconds;
-24. prints a ``{"kernels": [...]}`` line (each update kernel's
+    prints a ``{"tensor_parallel_slots": ...}`` line;
+24. sequence parallelism over the model axis on one card, the ranks as
+    threads under ``SEQ_PARALLEL_RULES``: qwen2-0.5b at full width and
+    depth at model 4, each rank holding 256 of a 4 × 1024 batch's rows
+    between blocks: (a) ``loss_fn`` and its grads, with autograd on over
+    the threads (``ThreadRanks.run(grad=True)``: the operators' backward
+    collectives run too), the f32 loss and whole gradient within 1e-4
+    relative of the unsharded model's and every rank's gradient leaf
+    within 1.7e-4 relative L2 of its block, bf16 at 2 layers reported;
+    (b) the prefill, flash launched 96 times (4 ranks × 24 layers) on
+    each rank's 256 query rows at its offset against k / v of the
+    gathered sequence, f32 last-token logits within 1e-4 relative L2 of
+    the unsharded prefill's and 9 greedy tokens of prefill and decode
+    equal to the unsharded ``Server``'s on every rank, bf16 reported;
+    (c) flash at ``q_offset`` > 0 on the last rank's rows at the
+    prefill's shape ((4, 256, 14, 64) against (4, 1024, 2, 64)) and at
+    prefill_32k's on a rank of ``32x8`` ((1, 4096, 14, 64) against (1,
+    32768, 2, 64)), f32 and bf16, against its plain version and the same
+    rows of a whole-sequence launch, timed with its bound and SDPA with
+    the rows' explicit mask; prints a ``{"sequence_parallel": ...}``
+    line, and a ``{"phase_seconds": ...}`` line with every phase's wall
+    seconds;
+25. prints a ``{"kernels": [...]}`` line (each update kernel's
     ``launches`` from its pooled path; flash's and SSD's launches on
     phase 17's and 18's paths and ``fused_adam_delayed``'s on phase 18's
     under ``family_launches``; flash's times at phase 18's shapes under
     ``family_shapes``, ``fused_adam_delayed``'s over phase 18's pools
     under ``family_pools``, phase 20's launches and row times under
-    ``data_parallel`` and phases 21's, 22's and 23's launches,
-    local-shape times and block times under ``tensor_parallel``) and,
+    ``data_parallel``, phases 21's, 22's and 23's launches,
+    local-shape times and block times under ``tensor_parallel`` and phase
+    24's launches and offset-shape times under ``seq_parallel``) and,
     last, the
     ``{"ok": true, ...}`` line.
 """
@@ -2773,7 +2794,9 @@ FAMILY_DECODE_STEPS = 8
 #: (zamba2-7b: one insertion of the shared block and a 3-layer tail); bf16
 #: is held at 2 layers and reported at this depth
 FAMILY_PLAIN_LAYERS = {"zamba2-7b": 9, "deepseek-moe-16b": 4}
-FAMILY_SLOT = dict(n_slots=8, n_requests=16, prompt_len=512, T=32,
+#: (T 16, not 32, keeps the whole script inside its 1200 s; 16 requests
+#: in 8 slots still reuse every slot)
+FAMILY_SLOT = dict(n_slots=8, n_requests=16, prompt_len=512, T=16,
                    arrival="poisson:gap=2")
 #: slot ≡ lock-step on the hybrid: full width, 9 layers, f32, TF32 off
 FAMILY_PARITY = dict(arch="zamba2-7b", n_layers=9, batch=4, prompt_len=512,
@@ -3238,7 +3261,7 @@ def phase_families(device, card: str, entries: dict) -> dict:
 #: further to keep the whole script inside its time limit (the gates run at
 #: the cuts of ``NEW_REF_CUT``, whatever the depth)
 NEW_REDUCED = False
-NEW_TRAIN = (("mamba2-370m", (("n_layers", 24),)),
+NEW_TRAIN = (("mamba2-370m", (("n_layers", 12),)),
              ("zamba2-7b", (("n_layers", 7),)),         # 1 group + a tail
              ("deepseek-moe-16b", (("n_layers", 4),)),
              ("seamless-m4t-large-v2", ()),
@@ -4021,8 +4044,10 @@ def phase_data_parallel(device, card: str) -> dict:
 #: (arch, depth: None for the config's own, model axis) of the split ≡
 #: unsharded cells: qwen2-0.5b head-parallel at model 2; at model 4 its 14
 #: heads do not divide, so its attention leaves are gathered and its ring
-#: is split on ctx; deepseek-moe-16b expert-parallel at model 2
-TP_CELLS = (("qwen2-0.5b", None, 2), ("qwen2-0.5b", None, 4),
+#: is split on ctx; deepseek-moe-16b expert-parallel at model 2 (qwen2-0.5b
+#: at 12 of its 24 layers: the depths keep the whole script inside its
+#: 1200 s)
+TP_CELLS = (("qwen2-0.5b", 12, 2), ("qwen2-0.5b", 12, 4),
             ("deepseek-moe-16b", 4, 2))
 TP_M = 2                       # the model axis of (c) and (d)
 TP_SHAPE = dict(batch=4, prompt_len=1024, steps=8, seed=0)
@@ -4302,10 +4327,12 @@ def phase_tensor_parallel(device, card: str) -> dict:
 # phase 22: the model axis for the ssm, hybrid, audio and vlm families
 # ---------------------------------------------------------------------------
 #: (arch, arch overrides, model axis) of the split ≡ unsharded cells:
-#: mamba2-370m at full depth; zamba2-7b at two groups of six and its
-#: three-layer tail; seamless and pixtral with their depth cut
-TPF_CELLS = (("mamba2-370m", (), 2), ("mamba2-370m", (), 4),
-             ("zamba2-7b", (("n_layers", 15),), 2),
+#: mamba2-370m at 12 of its 48 layers; zamba2-7b at a group of six and a
+#: three-layer tail; seamless and pixtral with their depth cut (the
+#: depths keep the whole script inside its 1200 s)
+TPF_CELLS = (("mamba2-370m", (("n_layers", 12),), 2),
+             ("mamba2-370m", (("n_layers", 12),), 4),
+             ("zamba2-7b", (("n_layers", 9),), 2),
              ("seamless-m4t-large-v2", (("n_layers", 4), ("enc_layers", 4)),
               2),
              ("pixtral-12b", (("n_layers", 4),), 2))
@@ -4460,14 +4487,15 @@ def phase_tp_families(device, card: str) -> dict:
 # phase 23: the slot lane over the model axis
 # ---------------------------------------------------------------------------
 #: (arch, arch overrides, model axis) of the slot-lane cells: qwen2-0.5b at
-#: model 2 (its two kv heads split) at full depth and at model 4 (attention
-#: gathered, the ragged ring split on ctx) at 6 of its 24 layers,
-#: mamba2-370m at 24 of its 48, zamba2-7b at phase 22's 15 layers and
-#: deepseek-moe-16b at phase 21's 4, at model 2 (the depths keep the
-#: whole script inside its 1200 s)
-TPS_CELLS = (("qwen2-0.5b", (), 2), ("qwen2-0.5b", (("n_layers", 6),), 4),
-             ("mamba2-370m", (("n_layers", 24),), 2),
-             ("zamba2-7b", (("n_layers", 15),), 2),
+#: model 2 (its two kv heads split) and at model 4 (attention gathered,
+#: the ragged ring split on ctx) at 6 of its 24 layers, mamba2-370m at 12
+#: of its 48, zamba2-7b at phase 22's 9 layers and deepseek-moe-16b at
+#: phase 21's 4, at model 2 (the depths keep the whole script inside its
+#: 1200 s)
+TPS_CELLS = (("qwen2-0.5b", (("n_layers", 6),), 2),
+             ("qwen2-0.5b", (("n_layers", 6),), 4),
+             ("mamba2-370m", (("n_layers", 12),), 2),
+             ("zamba2-7b", (("n_layers", 9),), 2),
              ("deepseek-moe-16b", (("n_layers", 4),), 2))
 #: each cell's serve: 8 slots, 6 requests of 512-token prompts arriving in
 #: pairs a chunk apart (rows at two positions in every chunk, the first
@@ -4679,6 +4707,318 @@ def phase_tp_slots(device, card: str) -> dict:
 PHASE_SECONDS: dict = {}
 
 
+# ---------------------------------------------------------------------------
+# phase 24: sequence parallelism over the model axis
+# ---------------------------------------------------------------------------
+#: qwen2-0.5b at full width under SEQ_PARALLEL_RULES at model 4: its 14
+#: heads do not divide the axis, so each rank computes q for its 256 rows
+#: of a 1024-token prompt against k / v of the gathered sequence
+SEQ_ARCH = "qwen2-0.5b"
+SEQ_M = 4
+SEQ_SHAPE = dict(batch=4, prompt_len=1024, steps=8, seed=0)
+#: the depth of the f32 loss-and-grads gate (None: the config's own)
+SEQ_GRAD_LAYERS = None
+#: f32 relative L2 of each gradient leaf (the port's grads against JAX's,
+#: PERF.md section 2); the loss, the whole gradient and the logits are
+#: held at phase 21's TP_F32_TOL
+SEQ_LEAF_TOL = 1.7e-4
+#: flash at q_offset > 0 on a rank's block of the query rows: (label, B,
+#: rows, Sk, H, KV, D, ranks); the prefill at model 4, and prefill_32k's
+#: at model 8 (the dry-run's rank of 32x8)
+SEQ_FLASH_SHAPES = (
+    ("qwen2-0.5b prefill at model 4", 4, 256, 1024, 14, 2, 64, 4),
+    ("qwen2-0.5b prefill_32k at model 8", 1, 4096, 32768, 14, 2, 64, 8))
+SEQ_REDUCED = False            # True rehearses the phase at reduced size
+
+
+def _seq_cfg(layers=None, **kw):
+    cfg = get_arch(SEQ_ARCH)
+    cfg = cfg.reduced() if SEQ_REDUCED else cfg
+    if layers is not None:
+        kw["n_layers"] = layers
+    return cfg.with_(remat="none", **kw)
+
+
+def _seq_blocks(cfg, params, M) -> list:
+    """Each rank's blocks of ``params`` under SEQ_PARALLEL_RULES (the
+    params' split is the default rules'; only the activations differ)."""
+    from repro_torch.distributed.sharding import (SEQ_PARALLEL_RULES,
+                                                  tree_shardings)
+    from repro_torch.launch.mesh import Mesh
+
+    sh = tree_shardings(param_specs(cfg), Mesh({"model": M}),
+                        SEQ_PARALLEL_RULES)
+    return [tree_map(lambda t, s, r=r: s.local(t, rank=r), params, sh)
+            for r in range(M)], sh
+
+
+def _seq_grads(cfg, base, tokens, M) -> dict:
+    """loss_fn and its grads on the ranks (threads with autograd on,
+    ``ThreadRanks.run(grad=True)``: the operators' backward collectives
+    run over the threads) against the unsharded model's, each rank's
+    gradient against its block of the whole one: (loss rel err, the
+    whole gradient's rel L2, the worst leaf's rel L2 and path)."""
+    from repro_torch.distributed.sharding import SEQ_PARALLEL_RULES
+    from repro_torch.models.model import loss_fn
+    from repro_torch.models.tp import ThreadRanks
+    from repro_torch.tree import tree_leaves_with_path
+
+    dt = getattr(torch, cfg.dtype)
+    params = tree_map(lambda t: t.to(dt), base)
+    batch = {"tokens": tokens}
+    whole = tree_map(lambda t: t.detach().clone().requires_grad_(), params)
+    leaves = [t for _, t in tree_leaves_with_path(whole)]
+    loss = loss_fn(cfg, whole, batch)[0]
+    want = torch.autograd.grad(loss, leaves)
+    loss = loss.detach()
+    del whole, leaves
+    blocks, sh = _seq_blocks(cfg, params, M)
+    blocks = [tree_map(lambda t: t.detach().clone().requires_grad_(), b)
+              for b in blocks]
+    del params
+
+    def rank(tp):
+        b = blocks[tp.rank]
+        lo = loss_fn(cfg, b, batch, tp=tp)[0]
+        g = torch.autograd.grad(lo, [t for _, t in tree_leaves_with_path(b)])
+        return lo.detach(), g
+
+    outs = ThreadRanks(cfg, M, SEQ_PARALLEL_RULES).run(rank, grad=True)
+    del blocks
+    paths = [p for p, _ in tree_leaves_with_path(base)]
+    shs = tree_leaves(sh)
+    loss_err, num, den, worst, worst_path = 0.0, 0.0, 0.0, 0.0, ""
+    for r, (lo, grads) in enumerate(outs):
+        loss_err = max(loss_err, abs(float(lo) - float(loss))
+                       / abs(float(loss)))
+        for path, g, w, s in zip(paths, grads, want, shs):
+            w = s.local(w, rank=r)
+            d2 = float((g.double() - w.double()).square().sum())
+            n2 = float(w.double().square().sum())
+            num, den = num + d2, den + n2
+            e = math.sqrt(d2 / max(n2, 1e-300))
+            if e > worst:
+                worst, worst_path = e, f"rank {r} {path}"
+    torch.cuda.empty_cache()
+    return {"loss": float(loss), "loss_rel_err": loss_err,
+            "grads_rel_l2": math.sqrt(num / den), "worst_leaf_rel_l2": worst,
+            "worst_leaf": worst_path}
+
+
+def _seq_greedy(cfg, blocks, tokens, T, ctx, M) -> list:
+    """Every rank's (last-token logits of the prefill, greedy tokens of
+    it and ``T`` decode steps) under SEQ_PARALLEL_RULES."""
+    from repro_torch.distributed.sharding import SEQ_PARALLEL_RULES
+    from repro_torch.models.model import decode_step
+    from repro_torch.models.tp import ThreadRanks
+
+    S = tokens.shape[1]
+
+    def rank(tp):
+        params = blocks[tp.rank]
+        last, cache = prefill(cfg, params, {"tokens": tokens}, ctx_len=ctx,
+                              tp=tp)
+        toks = [last.argmax(-1)]
+        for i in range(T):
+            lg, cache = decode_step(cfg, params, cache, toks[-1], S + i, ctx,
+                                    tp=tp)
+            toks.append(lg.argmax(-1))
+        return last, torch.stack(toks, 1).cpu().numpy()
+
+    return ThreadRanks(cfg, M, SEQ_PARALLEL_RULES).run(rank)
+
+
+@contextlib.contextmanager
+def _flash_offsets():
+    """The ``q_offset`` of every flash kernel launch while it is open."""
+    fn, seen = FA.flash_attention_cuda, []
+
+    @functools.wraps(fn)
+    def recording(*args, **kw):
+        seen.append(kw.get("q_offset", 0))
+        return fn(*args, **kw)
+
+    FA.flash_attention_cuda = recording
+    try:
+        yield seen
+    finally:
+        FA.flash_attention_cuda = fn
+
+
+def _seq_prefill(cfg, base, tokens, M) -> dict:
+    """The seq-split prefill (flash at the ranks' offsets) and greedy
+    decode against the unsharded prefill and server, f32; bf16 logits
+    reported."""
+    B, S, T = tokens.shape[0], tokens.shape[1], SEQ_SHAPE["steps"]
+    ctx = -(-(S + T + 1) // 8) * 8
+    out = {}
+    cfg32 = cfg.with_(dtype="float32", use_flash_attention=True)
+    params = tree_map(lambda t: t.float(), base)
+    blocks, _ = _seq_blocks(cfg32, params, M)
+    want, cache = prefill(cfg32, params, {"tokens": tokens}, ctx_len=ctx)
+    first = want.argmax(-1)
+    served = Server(cfg32, ServeConfig(batch=B, ctx_len=ctx),
+                    device=tokens.device).generate(
+        params, first.cpu().numpy(), T, start_pos=S, cache=cache)
+    whole_toks = np.concatenate([first.cpu().numpy()[:, None], served], 1)
+    del cache
+    FA.launches = 0
+    with _dtypes_seen(FA, "flash_attention_cuda") as seen, \
+            _flash_offsets() as offsets:
+        outs = _seq_greedy(cfg32, blocks, tokens, T, ctx, M)
+    out["flash_launches_split"] = FA.launches
+    out["flash_routes_split"] = sorted(
+        {FA.route(getattr(torch, d[0])) for d in seen})
+    out["flash_offsets"] = sorted(set(offsets))
+    from repro_torch.models.tp import TP
+
+    want_offsets = [0] if TP(cfg, None, M, 0, None).heads_split() else \
+        [r * (S // M) for r in range(M)]
+    if FA.launches != M * cfg.n_layers or \
+            out["flash_offsets"] != want_offsets:
+        raise AssertionError(
+            f"sequence parallel: the prefill launched flash {FA.launches} "
+            f"times at offsets {out['flash_offsets']}, want "
+            f"{M * cfg.n_layers} at {want_offsets}")
+    errs = [_rel_l2(last, want) for last, _ in outs]
+    out["f32_logits_rel_l2"] = max(errs)
+    if not (max(errs) <= TP_F32_TOL
+            and all(torch.isfinite(last).all() for last, _ in outs)):
+        raise AssertionError(f"sequence parallel: f32 prefill logits of the "
+                             f"ranks {errs} from the unsharded model's (tol "
+                             f"{TP_F32_TOL})")
+    for r, (_, toks) in enumerate(outs):
+        if not np.array_equal(toks, whole_toks):
+            raise AssertionError(
+                f"sequence parallel: rank {r}'s greedy tokens "
+                f"{toks.tolist()} != the server's {whole_toks.tolist()}")
+    out["greedy_tokens_equal"] = T + 1
+    del outs, blocks, params
+    torch.cuda.empty_cache()
+    # bf16, the tensor-core route at the offsets: reported
+    cfg16 = cfg.with_(use_flash_attention=True)
+    blocks, _ = _seq_blocks(cfg16, base, M)
+    want16, _ = prefill(cfg16, base, {"tokens": tokens}, ctx_len=ctx)
+    FA.launches = 0
+    outs = _seq_greedy(cfg16, blocks, tokens, 0, ctx, M)
+    out["flash_launches_split_bf16"] = FA.launches
+    out["bf16_logits_rel_l2"] = max(_rel_l2(last, want16) for last, _ in outs)
+    del outs, blocks
+    torch.cuda.empty_cache()
+    return out
+
+
+def _seq_flash_rows(device) -> list:
+    """Flash at ``q_offset`` > 0 (a rank's block of the rows against the
+    whole sequence's k / v, causal) against its plain version (f32 and
+    bf16) and against the same rows of a whole-sequence launch; then bf16
+    timed on the device with its plain version, its bound (the pairs its
+    rows see) and SDPA with the rows' explicit mask."""
+    from repro_torch.kernels.ref import attention_mask
+
+    rows_out = []
+    for label, B, n, Sk, H, KV, D, ranks in SEQ_FLASH_SHAPES:
+        lo = (ranks - 1) * n                  # the last rank's rows
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _qkv(B, Sk, Sk, H, KV, D, dtype, device)
+            whole = FA.flash_attention_cuda(q, k, v, causal=True)
+            qs = q[:, lo:lo + n]
+            got = FA.flash_attention_cuda(qs, k, v, causal=True,
+                                          q_offset=lo)
+            err, bad = _compare(got, FA.flash_attention_plain(
+                qs, k, v, causal=True, q_offset=lo), TOL[dtype])
+            werr, wbad = _compare(got, whole[:, lo:lo + n], TOL[dtype])
+            log(f"sequence parallel: flash {label}, rows {lo}…{lo + n - 1} "
+                f"of {Sk}, {str(dtype)[6:]}: max_abs_err={err:.3e} against "
+                f"plain, {werr:.3e} against the whole launch's rows (tol "
+                f"{TOL[dtype]:g}) bad={bad + wbad}")
+            if bad or wbad:
+                raise AssertionError(f"sequence parallel: flash at q_offset "
+                                     f"{lo} off at {label} {dtype}")
+            del whole, got
+        q, k, v = qs.contiguous(), k, v
+        del qs
+        kw = dict(causal=True, q_offset=lo)
+        mask = attention_mask(n, Sk, True, None, device, lo)
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        row = {"kernel": "flash_attention", "arch": label,
+               "shape": [B, n, Sk, H, KV, D], "q_offset": lo,
+               "max_abs_err": err, "whole_rows_max_abs_err": werr,
+               "ms": device_ms(lambda: FA.flash_attention_cuda(q, k, v,
+                                                               **kw)),
+               "plain_ms": device_ms(
+                   lambda: FA.flash_attention_plain(q, k, v, **kw), iters=2),
+               "sdpa_ms": device_ms(lambda: F.scaled_dot_product_attention(
+                   qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=5)}
+        row["bound_ms"], row["bound_by"] = op_cost.bound_ms(
+            *op_cost.flash_cost(q, k, True, None, lo), PEAK_FLOPS[q.dtype])
+        log(f"sequence parallel: flash {label} q {tuple(q.shape)} at offset "
+            f"{lo}, k/v {tuple(k.shape)} bf16: kernel {row['ms']:.4f} ms, "
+            f"plain {row['plain_ms']:.4f} ms, sdpa (explicit mask) "
+            f"{row['sdpa_ms']:.4f} ms, bound {row['bound_ms']:.4f} ms "
+            f"({row['bound_by']})")
+        rows_out.append(row)
+        del q, k, v, qt, kt, vt, mask
+        torch.cuda.empty_cache()
+    return rows_out
+
+
+def phase_seq_parallel(device, card: str) -> dict:
+    """Phase 24: sequence parallelism on one card, the ranks as threads
+    (``models.tp.ThreadRanks``) under ``SEQ_PARALLEL_RULES``: qwen2-0.5b
+    at full width at model 4, each rank holding 256 of the 1024 rows
+    between blocks.  (a) ``loss_fn`` and its grads (the operators'
+    backward collectives over the threads) ≡ the unsharded model's, f32
+    gated, bf16 at TP_BF16_LAYERS reported; (b) a 4 × 1024 prefill (flash
+    at each rank's offset, 96 launches) and greedy decode ≡ the unsharded
+    prefill and server in f32, bf16 reported; (c) flash at q_offset > 0
+    at the prefill's and prefill_32k's rank shapes."""
+    t0 = time.perf_counter()
+    B, S, M = SEQ_SHAPE["batch"], SEQ_SHAPE["prompt_len"], SEQ_M
+    cfg = _seq_cfg()
+    base = init_params(cfg, SEQ_SHAPE["seed"], device)
+    gen = torch.Generator(device).manual_seed(SEQ_SHAPE["seed"] + 11)
+    tokens = torch.randint(0, cfg.vocab, (B, S), generator=gen,
+                           device=device)
+    out = {"card": card, "arch": SEQ_ARCH, "model_axis": M, "batch": B,
+           "prompt_len": S, "rows_a_rank": S // M}
+    gcfg = _seq_cfg(SEQ_GRAD_LAYERS, dtype="float32")
+    grads = _seq_grads(gcfg, _cut_depth(base, gcfg), tokens, M)
+    grads["n_layers"] = gcfg.n_layers
+    if not (grads["loss_rel_err"] <= TP_F32_TOL
+            and grads["grads_rel_l2"] <= TP_F32_TOL
+            and grads["worst_leaf_rel_l2"] <= SEQ_LEAF_TOL):
+        raise AssertionError(f"sequence parallel: f32 loss / grads off the "
+                             f"unsharded model's: {grads}")
+    c16 = _seq_cfg(TP_BF16_LAYERS)
+    g16 = _seq_grads(c16, _cut_depth(base, c16), tokens, M)
+    out["grads_f32"] = grads
+    out["grads_bf16"] = {**g16, "n_layers": TP_BF16_LAYERS}
+    log(f"sequence parallel (a): {SEQ_ARCH} L={gcfg.n_layers} over {M} "
+        f"ranks, {B} x {S} ({S // M} rows a rank): f32 loss "
+        f"{grads['loss']:.6f}, rel err {grads['loss_rel_err']:.3e}; grads "
+        f"rel L2 {grads['grads_rel_l2']:.3e} (worst leaf "
+        f"{grads['worst_leaf_rel_l2']:.3e}, {grads['worst_leaf']}); bf16 at "
+        f"{TP_BF16_LAYERS} layers: loss rel err {g16['loss_rel_err']:.3e}, "
+        f"grads rel L2 {g16['grads_rel_l2']:.3e} (reported)")
+    out["prefill"] = _seq_prefill(cfg, base, tokens, M)
+    p = out["prefill"]
+    log(f"sequence parallel (b): {SEQ_ARCH} L={cfg.n_layers} prefill of "
+        f"{B} x {S} over {M} ranks: flash launched "
+        f"{p['flash_launches_split']} times at offsets "
+        f"{p['flash_offsets']} ({p['flash_routes_split']}); f32 logits rel "
+        f"L2 {p['f32_logits_rel_l2']:.3e} (worst rank); "
+        f"{p['greedy_tokens_equal']} greedy tokens equal on every rank; "
+        f"bf16 logits rel L2 "
+        f"{p['bf16_logits_rel_l2']:.3e} (reported)")
+    del base, tokens
+    torch.cuda.empty_cache()
+    out["flash_offset_shapes"] = _seq_flash_rows(device)
+    out["seconds"] = time.perf_counter() - t0
+    log(f"sequence parallel: every gate passed in {out['seconds']:.1f} s")
+    return out
+
+
 def run_phase(name: str, fn, *args, **kw):
     """``fn(*args, **kw)``, its wall seconds logged and kept under
     ``name`` in :data:`PHASE_SECONDS`."""
@@ -4733,6 +5073,9 @@ def main() -> None:
                             card)
     torch.cuda.empty_cache()
     tp_slots = run_phase("23 tp slots", phase_tp_slots, device, card)
+    torch.cuda.empty_cache()
+    seq = run_phase("24 sequence parallel", phase_seq_parallel, device,
+                    card)
     local = lambda rows, kernel: [
         {k: r[k] for k in ("arch", "shape", "ms", "plain_ms", "bound_ms",
                            "sdpa_ms")} for r in rows if r["kernel"] == kernel]
@@ -4754,6 +5097,13 @@ def main() -> None:
                                  "flash_attention")
                          + local(tp_slots["local_shapes"],
                                  "flash_attention"))}
+    flash["seq_parallel"] = {
+        "launches_split": {f"{SEQ_ARCH}@model{SEQ_M}":
+                           seq["prefill"]["flash_launches_split"]},
+        "offset_shapes": [
+            {k: r[k] for k in ("arch", "shape", "q_offset", "ms", "plain_ms",
+                               "bound_ms", "sdpa_ms")}
+            for r in seq["flash_offset_shapes"]]}
     ssd["tensor_parallel"] = {
         "launches_split": split("ssd"),
         "slot_lane_launches_split": slot_split("ssd"),
@@ -4785,12 +5135,14 @@ def main() -> None:
     print(json.dumps({"tensor_parallel": tensor_parallel}))
     print(json.dumps({"tensor_parallel_families": tp_families}))
     print(json.dumps({"tensor_parallel_slots": tp_slots}))
+    print(json.dumps({"sequence_parallel": seq}))
     print(json.dumps({"phase_seconds": PHASE_SECONDS}))
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys},
          **{k: e[k] for k in ("family_launches", "family_shapes",
                                "family_pools", "data_parallel",
-                               "tensor_parallel") if k in e}}
+                               "tensor_parallel", "seq_parallel")
+            if k in e}}
         for e in entries]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

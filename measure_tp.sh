@@ -33,10 +33,18 @@
 # ms a round, peak and state GiB a card, collectives and update kernel
 # launches a round and the profiled device time split into the compute
 # kernels' and NCCL's.
-#   bash measure_tp.sh [OUT_DIR] [serve|families|slots|zero]   # from the repository root
+# The sequence-parallel set ("seq"): qwen2-0.5b (whose 14 heads do not
+# divide a model axis of 4) with no mesh and at (data 1, model 4) under
+# the default rules and under --auto-rules (SEQ_PARALLEL_RULES: each rank
+# holds its block of the rows between blocks), in bf16: the pooled
+# training round, then the 4 x 1024 prefill and decode (the prefill's
+# profiled flash device time a rank in serve.jsonl); then in f32 at 4
+# layers, whose greedy tokens on the mesh must equal the no-mesh run's.
+#   bash measure_tp.sh [OUT_DIR] [serve|families|slots|zero|seq]   # from the repository root
 # With "serve" only the dense and MoE set's serving runs are made; with
 # "families" only the ssm and hybrid set; with "slots" only the slot-lane
-# set; with "zero" only the per-leaf ZeRO set.  Each run's log goes to
+# set; with "zero" only the per-leaf ZeRO set; with "seq" only the
+# sequence-parallel set.  Each run's log goes to
 # OUT_DIR/runN.log and its numbers to OUT_DIR/{train,serve,slots}.jsonl
 # (OUT_DIR defaults to build/tp4); a run still going after 900 s is stopped
 # and counts as failed.
@@ -91,7 +99,17 @@ if [ "$2" = zero ]; then
   run 4 $PT --arch zamba2-7b --update-impl pallas --remat full --mesh data=4,model=1 --rounds 2 --warmup 1 --json-out $T
   run 4 $PT --arch deepseek-moe-16b --update-impl pallas --remat full --mesh data=2,model=2 --rounds 2 --warmup 1 --json-out $T
 fi
-if [ "$2" != serve ] && [ "$2" != families ] && [ "$2" != slots ] && [ "$2" != zero ]; then
+if [ "$2" = seq ]; then
+  run 1 $PT --update-impl pallas_pooled --json-out $T
+  run 4 $PT --update-impl pallas_pooled --mesh data=1,model=4 --json-out $T
+  run 4 $PT --update-impl pallas_pooled --mesh data=1,model=4 --auto-rules --json-out $T
+  for A in "--arch qwen2-0.5b" "--arch qwen2-0.5b --n-layers 4 --f32"; do
+    run 1 $PS $A --json-out $S
+    run 4 $PS $A --mesh data=1,model=4 --json-out $S
+    run 4 $PS $A --mesh data=1,model=4 --auto-rules --json-out $S
+  done
+fi
+if [ "$2" != serve ] && [ "$2" != families ] && [ "$2" != slots ] && [ "$2" != zero ] && [ "$2" != seq ]; then
   run 1 $PT --update-impl pallas_pooled --json-out $T
   run 2 $PT --update-impl pallas_pooled --mesh data=1,model=2 --json-out $T
   run 4 $PT --update-impl pallas_pooled --mesh data=2,model=2 --json-out $T
@@ -99,7 +117,7 @@ if [ "$2" != serve ] && [ "$2" != families ] && [ "$2" != slots ] && [ "$2" != z
   run 4 $PT --arch deepseek-moe-16b --update-impl pallas --mesh data=1,model=4 --rounds 2 --warmup 1 --json-out $T
   run 4 $PT --arch deepseek-moe-16b --update-impl pallas --remat full --mesh data=1,model=4 --rounds 2 --warmup 1 --json-out $T
 fi
-if [ "$2" != families ] && [ "$2" != slots ] && [ "$2" != zero ]; then
+if [ "$2" != families ] && [ "$2" != slots ] && [ "$2" != zero ] && [ "$2" != seq ]; then
   run 1 $PS --arch deepseek-moe-16b --json-out $S
   run 2 $PS --arch deepseek-moe-16b --mesh data=1,model=2 --json-out $S
   run 4 $PS --arch deepseek-moe-16b --mesh data=1,model=4 --json-out $S
@@ -122,7 +140,8 @@ for r in runs:
         o.get(k) == r.get(k) for k in ("arch", "n_layers", "dtype",
                                        "lane"))][-1]
     same = one["tokens"] == r["tokens"]
-    print(f"{r['arch']} L={r['n_layers']} {r['dtype']} mesh={r['mesh']}: "
+    print(f"{r['arch']} L={r['n_layers']} {r['dtype']} mesh={r['mesh']} "
+          f"rules={r.get('rules', 'default')}: "
           f"greedy tokens {'equal to' if same else 'DIFFER from'} no mesh's")
     bad += not same and r["dtype"] == "float32"
 sys.exit(1 if bad else 0)

@@ -3,9 +3,12 @@
 // Replaces the TPU kernel `flash_attention_pallas` / `_attn_kernel` in
 // src/repro/kernels/flash_attention.py.  Same function: blockwise online
 // softmax, head h reads kv head h / (H / KV), scores scaled by 1/sqrt(D),
-// masks by absolute position from 0 for both q and k (causal: kp <= qp;
-// window: kp > qp - window), running m / l / acc in f32, a row with no
-// visible key writes 0, output in the input dtype.
+// masks by absolute position (causal: kp <= qp; window: kp > qp - window),
+// running m / l / acc in f32, a row with no visible key writes 0, output in
+// the input dtype.  Key positions count from 0; query row r sits at
+// qp = q_offset + r, so a block of query rows (a rank's rows under
+// sequence parallelism) masks as those rows of the whole sequence do;
+// q_offset 0 is the TPU kernel's function.
 //
 // Bound on an H100 SXM: at the serving path's prefill shape (B=4, S=1024,
 // H=14, KV=2, D=64, bf16, causal) the work is ~7.5 GFLOP against ~16.8 MB
@@ -73,19 +76,22 @@ struct Params {
   void* o;
   Strides sq, sk, sv, so;
   int B, Sq, Sk, H, KV;
+  int q_offset;
   int causal, has_window, window;
   float scale;
 };
 
-// The key tiles [lo, hi] a q tile starting at q_start must visit: from the
-// window's first tile to the causal frontier (the TPU kernel's
-// `pl.when(relevant)` block skip).  Empty when lo > hi.
+// The key tiles [lo, hi] a q tile starting at row q_start must visit: from
+// the window's first tile to the causal frontier of its absolute positions
+// q_offset + q_start ... (the TPU kernel's `pl.when(relevant)` block skip).
+// Empty when lo > hi.
 __device__ __forceinline__ void key_range(const Params& p, int q_start, int& lo, int& hi) {
+  const int q_pos = p.q_offset + q_start;
   hi = (p.Sk + BK - 1) / BK - 1;
-  if (p.causal) hi = min(hi, (q_start + BQ - 1) / BK);
+  if (p.causal) hi = min(hi, (q_pos + BQ - 1) / BK);
   lo = 0;
   if (p.has_window) {
-    const int first = q_start - p.window + 1;  // least key visible from the tile
+    const int first = q_pos - p.window + 1;  // least key visible from the tile
     if (first > 0) lo = first / BK;
   }
 }
@@ -122,7 +128,8 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32(Params p) {
   const int tid = threadIdx.x;
   const int r = tid >> 1;        // query row within the tile
   const int half = tid & 1;      // key columns 2*jj + half, features 2*c + half
-  const int qp = q_start + r;
+  const int qr = q_start + r;    // the row of q / o
+  const int qp = p.q_offset + qr;  // its absolute position
 
   const float* Q = static_cast<const float*>(p.q) + b * p.sq.b + h * p.sq.h;
   const float* K = static_cast<const float*>(p.k) + b * p.sk.b + kvh * p.sk.h;
@@ -174,7 +181,7 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32(Params p) {
 #pragma unroll
     for (int jj = 0; jj < BK / 2; ++jj) {
       const int kp = k_start + 2 * jj + half;
-      bool ok = (qp < p.Sq) && (kp < p.Sk);
+      bool ok = (qr < p.Sq) && (kp < p.Sk);
       if (p.causal) ok = ok && (kp <= qp);
       if (p.has_window) ok = ok && (kp > qp - p.window);
       if (ok) ok_bits |= 1u << jj;
@@ -206,10 +213,10 @@ __global__ void __launch_bounds__(F32_THREADS) flash_fwd_f32(Params p) {
     }
   }
 
-  if (qp < p.Sq) {
+  if (qr < p.Sq) {
 #pragma unroll
     for (int c = 0; c < D / 2; ++c)
-      O[qp * p.so.s + (2 * c + half) * p.so.d] = l == 0.f ? 0.f : acc[c] / l;
+      O[qr * p.so.s + (2 * c + half) * p.so.d] = l == 0.f ? 0.f : acc[c] / l;
   }
 }
 
@@ -296,6 +303,7 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 4 : 2) flash_fwd_bf16(Pa
 
   const float sl = p.scale * LOG2E;       // exp(x * scale) = exp2(x * sl)
   const int qw = q_start + warp * 16;     // this warp's first query row
+  const int qwp = p.q_offset + qw;        // and its absolute position
   uint32_t qf[KD][4];
   float o[ND][4];
 #pragma unroll
@@ -339,15 +347,15 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 4 : 2) flash_fwd_bf16(Pa
     }
 
     // masks, only on tiles that cross an edge of this warp's rows
-    const bool edge = (k_start + BK > p.Sk) || (p.causal && k_start + BK - 1 > qw) ||
-                      (p.has_window && k_start + p.window <= qw + 15);
+    const bool edge = (k_start + BK > p.Sk) || (p.causal && k_start + BK - 1 > qwp) ||
+                      (p.has_window && k_start + p.window <= qwp + 15);
     if (edge) {
 #pragma unroll
       for (int nt = 0; nt < NK; ++nt)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kp = k_start + nt * 8 + 2 * t4 + (e & 1);
-          const int qp = qw + g + (e >> 1) * 8;
+          const int qp = qwp + g + (e >> 1) * 8;
           bool ok = kp < p.Sk;
           if (p.causal) ok = ok && kp <= qp;
           if (p.has_window) ok = ok && kp > qp - p.window;
@@ -416,9 +424,9 @@ __global__ void __launch_bounds__(TC_THREADS, D <= 64 ? 4 : 2) flash_fwd_bf16(Pa
   __syncwarp();
   constexpr int CH = D / 8;
   for (int i = lane; i < 16 * CH; i += 32) {
-    const int r = i / CH, ch = i % CH, qp = qw + r;
-    if (qp < p.Sq)
-      *reinterpret_cast<uint4*>(O + (long long)qp * p.so.s + ch * 8) =
+    const int r = i / CH, ch = i % CH, row = qw + r;
+    if (row < p.Sq)
+      *reinterpret_cast<uint4*>(O + (long long)row * p.so.s + ch * 8) =
           *reinterpret_cast<const uint4*>(sO + r * LD + ch * 8);
   }
 }
@@ -458,14 +466,15 @@ bool aligned16(const void* ptr, const Strides& st) {
 // strides: 16 int64, (b, s, h, d) for q, k, v, o in that order, in elements.
 // dtype: 0 = float32, 1 = bfloat16 (then every operand has d contiguous and
 // 16-byte aligned rows: pointers at 16 bytes, other strides multiples of 8).
-// window is read only when has_window.  Returns the launch's cudaError_t
-// (0 = launched).
+// window is read only when has_window; q_offset (>= 0) is the absolute
+// position of q's first row.  Returns the launch's cudaError_t (0 =
+// launched).
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                                    const long long* strides, int dtype, int B, int Sq,
-                                   int Sk, int H, int KV, int D, int causal,
+                                   int Sk, int H, int KV, int D, int q_offset, int causal,
                                    int has_window, int window, float scale,
                                    void* stream) {
-  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0)
+  if (B <= 0 || Sq <= 0 || Sk <= 0 || H <= 0 || KV <= 0 || H % KV != 0 || q_offset < 0)
     return (int)cudaErrorInvalidValue;
   Params p;
   p.q = q;
@@ -481,6 +490,7 @@ extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v, 
   p.Sk = Sk;
   p.H = H;
   p.KV = KV;
+  p.q_offset = q_offset;
   p.causal = causal;
   p.has_window = has_window;
   p.window = window;

@@ -11,6 +11,9 @@ exist in torch 2.11 and 2.13 alike.
 ``launches`` and ``nbytes`` count each kind's calls and operand bytes
 since the counters were last set (:func:`reset`), as the kernels'
 ``launches`` do: the backend reports a round's collectives from them.
+``seq_launches`` counts the sequence-parallel operators
+(:func:`gather_seq`, :func:`scatter_seq`) by name, forward calls only;
+their collectives, forward and backward, count under ``launches`` too.
 
 A collective runs on whatever device its tensor lies on, through the
 group's backend (NCCL for CUDA tensors, gloo for CPU tensors); nothing
@@ -18,25 +21,35 @@ here copies a tensor to the host or picks another backend.  Over a
 :class:`TracedGroup` (``launch.mesh.TracedMesh``: one rank of a mesh
 traced with no process group, as the dry-run traces the production
 meshes on ``meta``) a collective returns its output's shape and counts
-its operand bytes in the active ``launch/op_cost.py`` tally.
+its operand bytes in the active ``launch/op_cost.py`` tally.  Over a
+:class:`LocalGroup` (``models.tp.ThreadRanks``: ranks as threads of one
+process) the group combines the ranks' tensors itself, and nothing is
+counted.
 """
 from __future__ import annotations
 
+import functools
 import warnings
 
 import torch
 
 KINDS = ("all_reduce", "all_gather", "reduce_scatter")
 
+SEQ_KINDS = ("gather_seq", "scatter_seq")
+
 #: calls and operand bytes by kind since :func:`reset`
 launches = dict.fromkeys(KINDS, 0)
 nbytes = dict.fromkeys(KINDS, 0)
+#: forward calls of the sequence-parallel operators since :func:`reset`
+seq_launches = dict.fromkeys(SEQ_KINDS, 0)
 
 
 def reset() -> None:
     for k in KINDS:
         launches[k] = 0
         nbytes[k] = 0
+    for k in SEQ_KINDS:
+        seq_launches[k] = 0
 
 
 def snapshot() -> dict:
@@ -65,6 +78,30 @@ class TracedGroup:
         return f"TracedGroup({self.size})"
 
 
+class LocalGroup:
+    """Rank ``rank`` of ``size`` ranks that are threads of this process
+    (``models.tp.ThreadRanks``): ``combine(rank, t, how)`` hands in this
+    rank's ``t`` and returns ``how`` of every rank's (a list in rank
+    order) once all have handed theirs in.  A collective over it combines
+    the ranks' tensors as the collective would: a sum in rank order, a
+    max, a concatenation, a sum of which the rank keeps its block."""
+
+    def __init__(self, combine, size: int, rank: int):
+        self.combine, self.size, self.rank = combine, size, rank
+
+    def collective(self, kind: str, t: torch.Tensor, dim: int = 0,
+                   op: str = "sum") -> torch.Tensor:
+        if kind == "all_gather":
+            return self.combine(self.rank, t, lambda ts: torch.cat(ts, dim))
+        fold = torch.maximum if op == "max" else torch.add
+        out = self.combine(self.rank, t, lambda ts: functools.reduce(fold,
+                                                                     ts))
+        if kind == "reduce_scatter":
+            n = out.shape[dim] // self.size
+            out = out.narrow(dim, self.rank * n, n).clone()
+        return out
+
+
 def _note(kind: str, t: torch.Tensor) -> None:
     launches[kind] += 1
     nbytes[kind] += t.numel() * t.element_size()
@@ -88,6 +125,8 @@ def _call(name: str, *args) -> torch.Tensor:
 def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """Σ (or the ``op``, ``"max"``) over ``group`` of ``t`` (a new tensor;
     ``t`` is not changed)."""
+    if isinstance(group, LocalGroup):
+        return group.collective("all_reduce", t, 0, op)
     _note("all_reduce", t)
     if isinstance(group, TracedGroup):
         return _stand_in("all_reduce", t, group)
@@ -96,6 +135,8 @@ def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
 
 def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """The ranks' ``t`` concatenated along ``dim`` in group order."""
+    if isinstance(group, LocalGroup):
+        return group.collective("all_gather", t, dim)
     _note("all_gather", t)
     if isinstance(group, TracedGroup):
         return _stand_in("all_gather", t, group, dim)
@@ -105,6 +146,8 @@ def all_gather(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
 def reduce_scatter(t: torch.Tensor, group, dim: int = 0) -> torch.Tensor:
     """Σ over ``group`` of ``t``, of which this rank keeps its block along
     ``dim`` (its group position's)."""
+    if isinstance(group, LocalGroup):
+        return group.collective("reduce_scatter", t, dim)
     _note("reduce_scatter", t)
     if isinstance(group, TracedGroup):
         return _stand_in("reduce_scatter", t, group, dim)
@@ -229,3 +272,73 @@ def gather_from_model(t: torch.Tensor, group, dim: int, rank: int,
     keeps block ``rank`` of the gradient, or reduce-scatters it when the
     consumer is rank-partial (``partial``)."""
     return _GatherFromModel.apply(t, group, dim, partial, rank)
+
+
+# ---------------------------------------------------------------------------
+# sequence parallelism over the model axis (Megatron's sequence-parallel
+# g and ḡ)
+#
+# Between blocks each model rank holds its block of the sequence's rows
+# (the residual split on ``seq``).  Where a block runs on the rank's
+# heads, ff columns, experts, SSM heads or vocabulary block, gather-seq
+# takes the place of copy-to-model before it and scatter-seq the place of
+# reduce-from-model after it; norms and token-wise compute run on the
+# rank's rows.  The rule for the gradient of a gathered sequence is the
+# one of ``gather_from_model``: a rank-partial consumer (each rank's heads
+# reading every row) gives each rank a part of it, which the backward
+# reduce-scatters; a consumer every rank repeats identically (a
+# replicated region, as the MoE's routing) gives each rank the whole
+# gradient, so the backward keeps the rank's rows.  A replicated region's
+# whole output returns to the rank's rows through split-seq, whose
+# backward all-gathers the rows' gradients.
+# ---------------------------------------------------------------------------
+
+class _ScatterSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim):
+        ctx.group, ctx.dim = group, dim
+        return reduce_scatter(t, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None
+
+
+class _SplitSeq(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, t, group, dim, rank, M):
+        ctx.group, ctx.dim = group, dim
+        n = t.shape[dim] // M
+        return t.narrow(dim, rank * n, n).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_gather(g, ctx.group, ctx.dim), None, None, None, None
+
+
+def gather_seq(t: torch.Tensor, group, dim: int, rank: int,
+               partial: bool = True) -> torch.Tensor:
+    """The ranks' blocks of rows concatenated along the sequence dim
+    ``dim``: an all-gather whose backward reduce-scatters the gradient
+    (``partial``, a rank-partial consumer) or keeps the rank's rows of it
+    (a replicated consumer)."""
+    if not isinstance(group, LocalGroup):
+        seq_launches["gather_seq"] += 1
+    return _GatherFromModel.apply(t, group, dim, partial, rank)
+
+
+def scatter_seq(t: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """Σ over the ranks of their parts ``t`` of a whole sequence, of which
+    the rank keeps its block of rows along ``dim``: a reduce-scatter whose
+    backward all-gathers the rows' gradients."""
+    if not isinstance(group, LocalGroup):
+        seq_launches["scatter_seq"] += 1
+    return _ScatterSeq.apply(t, group, dim)
+
+
+def split_seq(t: torch.Tensor, group, dim: int, rank: int,
+              M: int) -> torch.Tensor:
+    """The rank's block of rows of a whole sequence ``t`` that every rank
+    holds the same (no collective forward); the backward all-gathers the
+    rows' gradients, so every rank gets the whole gradient."""
+    return _SplitSeq.apply(t, group, dim, rank, M)

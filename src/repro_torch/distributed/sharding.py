@@ -35,8 +35,13 @@ per device, where the data axes are data parallelism:
   layers compute Megatron-style where the rules' split is a Megatron
   split).  :func:`shard_activation` is the identity on every mesh: an
   activation's layout is whatever the tensor-parallel layers produce.
-  ``SEQ_PARALLEL_RULES``' ``"seq"`` is a layout lever of the JAX package
-  that the port's layers do not act on (no activation carries it).
+  Rules that give ``"seq"`` the model axis (``SEQ_PARALLEL_RULES``, which
+  :func:`auto_rules` picks where the heads do not divide the axis) make
+  the layers sequence-parallel: :func:`residual_seq_split` reads
+  :func:`logical_pspec` on the residual's ``("batch", "seq",
+  "act_embed")`` as JAX's ``_shard_act`` does, and where it splits ``seq``
+  each model rank holds its block of S/M rows between blocks
+  (``models.tp.TP.for_seq``).
 
 Per-leaf ZeRO over the data axes (``zero_pspec``, the JAX trainer's
 ``fsdp_params=True`` layout): each data rank holds one block of a param
@@ -270,6 +275,20 @@ def logical_pspec(axes, shape, mesh, rules: Rules = DEFAULT_RULES) -> PSpec:
                     used.add(rules.model_axis)
                     break
     return PSpec(*assignment)
+
+
+#: the residual stream's logical axes (JAX ``_shard_act`` on a rank-3
+#: activation)
+RESIDUAL_AXES = ("batch", "seq", "act_embed")
+
+
+def residual_seq_split(mesh, rules: Rules, S: int, d_model: int = 1) -> bool:
+    """Whether ``rules`` split the residual stream of ``S`` rows (width
+    ``d_model``) on ``seq`` over ``mesh``'s model axis: the model axis
+    larger than 1, ``seq`` named by the rules, S a multiple of it and at
+    least it, and no dim of higher priority taking it first."""
+    ps = logical_pspec(RESIDUAL_AXES, (1, S, d_model), mesh, rules)
+    return ps[1] == rules.model_axis
 
 
 def zero_pspec(axes, shape, mesh, base: PSpec,

@@ -11,9 +11,12 @@ Counterpart of ``repro/kernels/flash_attention.py``.  The kernel itself is
 * :func:`flash_attention_plain` is the same function in plain PyTorch: the
   CPU path, and the yardstick the kernel is held to on the card.
 
-Semantics (those of the TPU kernel): masks use absolute positions from 0
-for both q and k (causal ``kp <= qp``, window ``kp > qp − window``); a row
-with no visible key is 0; the output dtype is ``q.dtype``.
+Semantics (those of the TPU kernel): masks use absolute positions, keys
+from 0 and query row r at ``q_offset + r`` (causal ``kp <= qp``, window
+``kp > qp − window``); a row with no visible key is 0; the output dtype is
+``q.dtype``.  ``q_offset`` (default 0, the TPU kernel's function) lets q
+be a block of rows of a longer sequence whose k / v are whole: a rank's
+rows under sequence parallelism (``models/tp.py``).
 """
 from __future__ import annotations
 
@@ -48,15 +51,18 @@ def route(dtype) -> str:
     return ROUTES[dtype]
 
 
-def flash_attention_plain(q, k, v, *, causal=True, window=None):
+def flash_attention_plain(q, k, v, *, causal=True, window=None,
+                          q_offset=0):
     """q: (B,Sq,H,D); k/v: (B,Sk,KV,D) → (B,Sq,H,D) in q.dtype.
 
     ``reference_attention`` with the kernel's empty-row rule: a query row
     that sees no key is 0 (the JAX oracle would average v over it).  The
-    output is contiguous, as the kernel's is."""
-    out = reference_attention(q, k, v, causal=causal, window=window)
+    output is contiguous, as the kernel's is.  ``q_offset``: the absolute
+    position of q's first row."""
+    out = reference_attention(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
     seen = attention_mask(q.shape[1], k.shape[1], causal, window,
-                          q.device).any(dim=1)
+                          q.device, q_offset).any(dim=1)
     return (out * seen[None, :, None, None].to(out.dtype)).contiguous()
 
 
@@ -99,11 +105,11 @@ def _kernel():
     fn = _build.load("flash_attention").flash_attention_fwd
     fn.restype = ctypes.c_int
     fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 10 + [ctypes.c_float, ctypes.c_void_p])
+                   + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
 
-def flash_attention_cuda(q, k, v, *, causal=True, window=None):
+def flash_attention_cuda(q, k, v, *, causal=True, window=None, q_offset=0):
     """Launch the CUDA kernel on ``torch.cuda.current_stream()``.
 
     Reads q/k/v through their strides (any BSHD view; for bf16 a view
@@ -129,9 +135,13 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None):
         return out
     if Sk == 0:
         return out.zero_()
+    q_offset = int(q_offset)
+    if q_offset < 0:
+        raise ValueError(f"q_offset must be >= 0, got {q_offset}")
     if window is not None:
-        # any window ≥ Sq already sees every key from 0: clamp to C int range
-        window = min(int(window), Sq)
+        # any window ≥ q_offset + Sq already sees every key from 0: clamp
+        # to C int range
+        window = min(int(window), q_offset + Sq)
     if route(q.dtype) == "tensor_cores":
         q, k, v = _tile_ready(q), _tile_ready(k), _tile_ready(v)
     fn = _kernel()
@@ -141,7 +151,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None):
         stream = torch.cuda.current_stream().cuda_stream
         err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                  strides, _DTYPE_CODES[q.dtype], B, Sq, Sk, H, KV, D,
-                 int(causal), int(window is not None), window or 0,
+                 q_offset, int(causal), int(window is not None), window or 0,
                  1.0 / math.sqrt(D), stream)
     if err != 0:
         raise RuntimeError(f"flash attention kernel launch failed: "

@@ -44,9 +44,15 @@ def _launch(name, *args, **kw):
     return _cost.counted(name, fn, *args, **kw)
 
 
-def flash_attention(q, k, v, *, causal=True, window=None):
-    """q: (B,Sq,H,D); k/v: (B,Sk,KV,D) with H % KV == 0 → (B,Sq,H,D)."""
-    return _launch("flash_attention", q, k, v, causal=causal, window=window)
+def flash_attention(q, k, v, *, causal=True, window=None, q_offset=0):
+    """q: (B,Sq,H,D); k/v: (B,Sk,KV,D) with H % KV == 0 → (B,Sq,H,D).
+    ``q_offset``: the absolute position of q's first row (a block of the
+    rows whose k / v are whole); at 0 the call is the plain one."""
+    # passed on only when set: a call at 0 is the same call as before the
+    # argument existed, to the kernel and to anything that wraps it
+    kw = {"q_offset": q_offset} if q_offset else {}
+    return _launch("flash_attention", q, k, v, causal=causal, window=window,
+                   **kw)
 
 
 def async_update(p, gbuf, g, scal):

@@ -21,12 +21,14 @@ F32 = torch.float32
 NEG_INF = -1e30
 
 
-def attention_mask(Sq: int, Sk: int, causal: bool, window, device=None):
+def attention_mask(Sq: int, Sk: int, causal: bool, window, device=None,
+                   q_offset: int = 0):
     """(Sq, Sk) bool: key position kp is visible from query position qp.
 
-    Both positions count from 0: causal is ``kp <= qp`` (no ``Sk − Sq``
-    offset), the window keeps ``kp > qp − window``."""
-    qp = torch.arange(Sq, device=device)[:, None]
+    Key positions count from 0, query row r is at ``q_offset + r`` (0: no
+    ``Sk − Sq`` offset): causal is ``kp <= qp``, the window keeps ``kp >
+    qp − window``."""
+    qp = torch.arange(Sq, device=device)[:, None] + q_offset
     kp = torch.arange(Sk, device=device)[None, :]
     ok = torch.ones((Sq, Sk), dtype=torch.bool, device=device)
     if causal:
@@ -36,8 +38,9 @@ def attention_mask(Sq: int, Sk: int, causal: bool, window, device=None):
     return ok
 
 
-def reference_attention(q, k, v, *, causal=True, window=None):
-    """Naive softmax attention.  q: (B,Sq,H,D); k/v: (B,Sk,KV,D).
+def reference_attention(q, k, v, *, causal=True, window=None, q_offset=0):
+    """Naive softmax attention.  q: (B,Sq,H,D); k/v: (B,Sk,KV,D); q's
+    first row at absolute position ``q_offset``.
 
     A row with no visible key averages v over every key, as the JAX oracle
     does (its mask bias is finite)."""
@@ -46,7 +49,7 @@ def reference_attention(q, k, v, *, causal=True, window=None):
     G = H // KV
     qr = q.reshape(B, Sq, KV, G, D).to(F32)
     s = torch.einsum("bqkgd,bskd->bkgqs", qr, k.to(F32)) / math.sqrt(D)
-    ok = attention_mask(Sq, Sk, causal, window, q.device)
+    ok = attention_mask(Sq, Sk, causal, window, q.device, q_offset)
     s = torch.where(ok, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(F32))

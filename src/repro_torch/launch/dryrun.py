@@ -32,7 +32,11 @@ shapes on ``meta`` and count their operand bytes
 (``op_cost.collective_bytes``).  On the per-leaf routes the rank's train
 state is its per-leaf ZeRO blocks (``AsyncTrainer.state_shardings``), each
 layer gathered over the data axes on use through the stand-ins, the
-differentiable gather included; a train record's ``traced_state_bytes``
+differentiable gather included; under rules that split the residual on
+``seq`` (``--auto-rules`` where the arch's heads do not divide the model
+axis, as qwen2-0.5b's 14) the rank's layers run sequence-parallel on its
+block of the rows (``models.tp.TP.for_seq``), so its flash covers S/8
+query rows at their offset.  A train record's ``traced_state_bytes``
 (the params, moments and delayed buffer the traced rank holds) then
 equals ``analytic_state_bytes``, the rules with ZeRO as the JAX dry-run
 counts them.
@@ -45,6 +49,7 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -133,10 +138,15 @@ def input_specs(cfg: ArchConfig, shape: InputShape, device="meta", *,
     meta = device.type == "meta"
     B, S = shape.global_batch, shape.seq_len
 
-    def local(specs):
+    def local(specs, r=rules):
         if mesh is None:
             return specs
-        return local_specs(specs, tree_shardings(specs, mesh, rules))
+        return local_specs(specs, tree_shardings(specs, mesh, r))
+
+    # a rank is handed its rows of the batch with every position: the
+    # layers take their block of a sequence the rules split themselves
+    batch_rules = dataclasses.replace(rules, model_priority=tuple(
+        n for n in rules.model_priority if n != "seq"))
 
     if shape.kind == "train":
         return {"state": (meta_tree(trainer.local_state_specs()) if meta
@@ -147,7 +157,7 @@ def input_specs(cfg: ArchConfig, shape: InputShape, device="meta", *,
     params = (meta_tree(local(M.param_specs(cfg))) if meta
               else M.init_params(cfg, seed, device))
     if shape.kind == "prefill":
-        batch = meta_tree(local(M.batch_specs(cfg, B, S))) \
+        batch = meta_tree(local(M.batch_specs(cfg, B, S), batch_rules)) \
             if mesh is not None else _batch(cfg, shape, device, seed)
         return {"params": params, "batch": batch}
     if meta:
@@ -279,8 +289,10 @@ def main(argv=None):
                          "2x32x8) instead of one card")
     ap.add_argument("--out", default="experiments/dryrun_torch")
     ap.add_argument("--auto-rules", action="store_true",
-                    help="per-arch sharding rules (on one card: the "
-                         "analytic sharded state bytes only)")
+                    help="per-arch sharding rules (sequence parallelism "
+                         "where the heads do not divide the model axis; "
+                         "on one card they move only the analytic sharded "
+                         "state bytes)")
     ap.add_argument("--update-impl", default="reference",
                     choices=["reference", "pallas", "pallas_pooled"],
                     help="the train step's server update (the kernels "

@@ -5,10 +5,14 @@ Rules or config variant applied to one (arch × shape); the harness traces
 each on ``meta`` (``dryrun.run_one``), derives the roofline terms from the
 op count with H100 constants, and prints them side by side.
 
-The traced step is one card's, so on one card a Rules variant moves only
-the analytic sharded state (``sharded_state_bytes`` on the production
-H100 meshes); a config variant (``update_impl``, ``microbatches``) moves
-the traced terms too.
+The traced step is rank 0 of the production mesh ``32x8`` (data 32 ×
+model 8), as the JAX hill-climb lowers its step on the
+production mesh: a Rules variant moves the traced terms there
+(``seq_parallel`` splits the residual on ``seq`` over the model axis, so
+the rank's attention covers its block of the queries), as a config
+variant (``update_impl``, ``microbatches``) does.  (On one card's step,
+with no model axis, a Rules variant would move only the analytic sharded
+state, ``sharded_state_bytes``.)
 
   PYTHONPATH=src python -m repro_torch.launch.hillclimb --pair grok_train
 
@@ -24,6 +28,9 @@ import os
 from ..distributed.sharding import Rules, SEQ_PARALLEL_RULES
 from .dryrun import run_one
 from .roofline import terms as roofline_terms
+
+#: the production mesh whose rank 0 is traced
+MESH = "32x8"
 
 
 def terms(rec):
@@ -42,11 +49,12 @@ def terms(rec):
 
 
 def compare(arch, shape, variants, out=None):
-    """variants: list of (name, rules_or_None, extra_kwargs of run_one)."""
+    """variants: list of (name, rules_or_None, extra_kwargs of run_one),
+    each traced on rank 0 of :data:`MESH`."""
     results = {}
     for name, rules, kw in variants:
         rec = run_one(arch, shape, rules=rules or Rules(), verbose=False,
-                      **kw)
+                      mesh=MESH, **kw)
         results[name] = {"ok": rec["ok"],
                          **(terms(rec) if rec["ok"] else
                             {"error": rec.get("error")})}
@@ -93,8 +101,7 @@ def main(argv=None):
     if bad:
         ap.error(f"unknown variants {bad}; choose from {list(VARIANTS)}")
     arch, shape = PAIRS[args.pair]
-    print(f"== {arch} × {shape} (one card's step: a Rules variant moves only "
-          "the sharded state per device)")
+    print(f"== {arch} × {shape} on rank 0 of {MESH}")
     os.makedirs("experiments", exist_ok=True)
     compare(arch, shape, [(n, *VARIANTS[n]) for n in names],
             out=f"experiments/hillclimb_torch_{args.pair}.json")

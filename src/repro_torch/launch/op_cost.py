@@ -83,22 +83,26 @@ _COLLECTIVES = {"all_reduce": "all-reduce",
 # the kernels' formulas: each input read once, each output written once
 # ---------------------------------------------------------------------------
 
-def visible_pairs(Sq: int, Sk: int, causal: bool, window) -> int:
-    """(query, key) pairs the masks leave visible, positions from 0 for
-    both (causal ``kp <= qp``, window ``kp > qp − window``): the count of
-    ``kernels.ref.attention_mask(Sq, Sk, causal, window)``, in O(Sq)."""
-    qp = np.arange(Sq, dtype=np.int64)
+def visible_pairs(Sq: int, Sk: int, causal: bool, window,
+                  q_offset: int = 0) -> int:
+    """(query, key) pairs the masks leave visible, keys from 0 and query
+    row r at ``q_offset + r`` (causal ``kp <= qp``, window ``kp > qp −
+    window``): the count of ``kernels.ref.attention_mask(Sq, Sk, causal,
+    window, q_offset=q_offset)``, in O(Sq)."""
+    qp = np.arange(Sq, dtype=np.int64) + q_offset
     hi = np.minimum(qp, Sk - 1) if causal else np.full(Sq, Sk - 1)
     lo = np.maximum(qp - window + 1, 0) if window is not None else 0
     return int(np.clip(hi - lo + 1, 0, None).sum())
 
 
-def flash_cost(q, k, causal=True, window=None) -> tuple:
+def flash_cost(q, k, causal=True, window=None, q_offset=0) -> tuple:
     """(flops, bytes) of one flash attention call: 2·D multiply-adds for
-    QKᵀ and for PV on every visible (query, key) pair; q, k, v read once
-    and the output written once."""
+    QKᵀ and for PV on every visible (query, key) pair (a block of query
+    rows from ``q_offset`` counts the pairs its rows really see); q, k, v
+    read once and the output written once."""
     B, Sq, H, D = q.shape
-    flops = 4 * D * visible_pairs(Sq, k.shape[1], causal, window) * B * H
+    flops = 4 * D * visible_pairs(Sq, k.shape[1], causal, window,
+                                  q_offset) * B * H
     return flops, 2 * (q.numel() + k.numel()) * q.element_size()
 
 
@@ -396,13 +400,15 @@ def kernel_region(name: str, flops: int, nbytes: int, *,
     tally.track_tree(region.out)
 
 
-def kernel_cost(name: str, *args, causal=True, window=None, **_) -> tuple:
+def kernel_cost(name: str, *args, causal=True, window=None, q_offset=0,
+                **_) -> tuple:
     """(flops, bytes, products) of one call of kernel ``name`` on the
     arguments of its ``kernels/ops.py`` entry point: flash and SSD count
     matrix products, the update kernels (p first, g just before the
     scalar block) f32 elementwise operations."""
     if name == "flash_attention":
-        return (*flash_cost(args[0], args[1], causal, window), True)
+        return (*flash_cost(args[0], args[1], causal, window, q_offset),
+                True)
     if name == "ssd_chunk":
         return (*ssd_cost(args[0], args[3]), True)
     return (*update_cost(name, args[0], args[-2]), False)

@@ -151,6 +151,12 @@ def _report(name: str, kernels: dict, wall_s: float) -> None:
         print(f"  {ms:9.3f} ms  {n:5d}x  {key[:90]}")
 
 
+def _rules_name(rules) -> str:
+    from ..distributed.sharding import SEQ_PARALLEL_RULES
+
+    return "seq_parallel" if rules == SEQ_PARALLEL_RULES else "default"
+
+
 def _switches(cfg) -> str:
     """The kernel switches that the family reads."""
     out = []
@@ -184,8 +190,15 @@ def main(argv=None) -> None:
                     help="cut the depth")
     ap.add_argument("--f32", action="store_true",
                     help="f32 params and activations")
+    ap.add_argument("--auto-rules", action="store_true",
+                    help="per-arch sharding rules on the mesh (sequence "
+                         "parallelism where the heads do not divide the "
+                         "model axis)")
     args = ap.parse_args(argv)
     if not args.mesh:
+        if args.auto_rules:
+            ap.error("--auto-rules picks the sharding rules of a mesh: "
+                     "pass --mesh")
         return _serve(args, ap, None)
     import torch.distributed as dist
 
@@ -201,7 +214,7 @@ def main(argv=None) -> None:
 
 
 def _serve(args, ap, mesh) -> None:
-    from ..distributed.sharding import sharded_trace
+    from ..distributed.sharding import auto_rules, sharded_trace
 
     lead = mesh is None or mesh.rank == 0
     out = print if lead else (lambda *a, **k: None)
@@ -212,19 +225,22 @@ def _serve(args, ap, mesh) -> None:
         cfg = cfg.with_(n_layers=args.n_layers)
     if args.f32:
         cfg = cfg.with_(dtype="float32")
+    rules = auto_rules(cfg, mesh.shape.get("model", 1)) \
+        if getattr(args, "auto_rules", False) else None
     if args.slots and cfg.family in ("audio", "vlm"):
         ap.error(f"the slot lane serves token-only prompts; {args.arch} "
                  "runs at the model level only (omit --slots)")
     if args.slots:
         server = SlotServer(cfg, SlotConfig(
             n_slots=args.slots, ctx_len=SLOT_PROMPT + SLOT_T, seed=SEED,
-            steps_per_launch=SLOT_K), device=device, mesh=mesh)
+            steps_per_launch=SLOT_K), device=device, mesh=mesh,
+            rules=rules)
     else:
         batch = model_batch(cfg, BATCH, PROMPT_LEN, SEED, device)
         plen = batch["tokens"].shape[1]    # audio: PROMPT_LEN // dec_ratio
         ctx = plen + STEPS + 1
         server = Server(cfg, ServeConfig(batch=BATCH, ctx_len=ctx),
-                        device=device, mesh=mesh)
+                        device=device, mesh=mesh, rules=rules)
     params = init_params(cfg, SEED, device,
                          shardings=server.param_shardings())
     if args.f32:
@@ -267,27 +283,36 @@ def _serve(args, ap, mesh) -> None:
     inputs = " ".join(f"{k}={tuple(v.shape)}" for k, v in batch.items())
     peak = torch.cuda.max_memory_allocated() / 2**30
     out(f"{cfg.name} L={cfg.n_layers} d={cfg.d_model} {inputs} {kernel}"
-        + (f" mesh={mesh.shape}" if mesh is not None else "") + ": "
+        + (f" mesh={mesh.shape} rules={_rules_name(server.rules)}"
+           if mesh is not None else "") + ": "
         f"prefill {pre_s * 1e3:.3f} ms, decode {dec_s / STEPS * 1e3:.3f}"
         f" ms/step = {BATCH * STEPS / dec_s:.1f} tok/s; peak memory "
         f"{peak:.2f} GiB"
         + (f"; collectives of a prefill and {STEPS} steps {coll}"
            if mesh is not None else ""))
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    p_pre, p_dec = profile(activities=acts), profile(activities=acts)
+    prof_pre_s, prof_dec_s, _ = serve(p_pre, p_dec)
     if args.json_out and lead:
+        # the profiled prefill's device time on this rank: its attention
+        # (the flash kernel) and all of it
+        kt = kernel_times(p_pre)
+        flash = [(ms, n) for k, (ms, n) in kt.items() if "flash_fwd" in k]
         with open(args.json_out, "a") as f:
             f.write(json.dumps({
                 "arch": cfg.name, "n_layers": cfg.n_layers,
                 "mesh": None if mesh is None else mesh.shape,
+                "rules": _rules_name(server.rules),
                 "batch": BATCH, "prompt_len": plen,
                 "prefill_ms": pre_s * 1e3,
                 "decode_ms_per_step": dec_s / STEPS * 1e3,
+                "prefill_flash_device_ms": sum(ms for ms, _ in flash),
+                "prefill_flash_launches": sum(n for _, n in flash),
+                "prefill_device_ms": sum(ms for ms, _ in kt.values()),
                 "dtype": cfg.dtype, "collectives": coll, "peak_gib": peak,
                 "tokens": tokens.tolist(),
                 "device": torch.cuda.get_device_name()}) + "\n")
-
-    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    p_pre, p_dec = profile(activities=acts), profile(activities=acts)
-    pre_s, dec_s, _ = serve(p_pre, p_dec)
+    pre_s, dec_s = prof_pre_s, prof_dec_s
     if lead:
         _report("prefill (profiled)", kernel_times(p_pre), pre_s)
         _report(f"decode, {STEPS} steps (profiled)", kernel_times(p_dec),

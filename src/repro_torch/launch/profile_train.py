@@ -155,7 +155,14 @@ def main(argv=None) -> None:
                          "processes, one per card")
     ap.add_argument("--json-out", default=None, metavar="PATH",
                     help="append the run's numbers as one JSON line")
+    ap.add_argument("--auto-rules", action="store_true",
+                    help="per-arch sharding rules on the mesh (sequence "
+                         "parallelism where the heads do not divide the "
+                         "model axis)")
     args = ap.parse_args(argv)
+    if args.auto_rules and not args.mesh:
+        ap.error("--auto-rules picks the sharding rules of a mesh: pass "
+                 "--mesh")
     mesh = None
     if args.mesh:
         import torch.distributed as dist
@@ -182,7 +189,14 @@ def _run(args, mesh) -> None:
                           scenario=args.scenario, guards=args.guards,
                           remat=args.remat, arch=args.arch,
                           n_layers=args.n_layers)
-    tr, cfg, n_groups = TrainerBackend(device, mesh=mesh)._make_trainer(
+    rules = None
+    if getattr(args, "auto_rules", False):
+        from ..configs import get_arch
+        from ..distributed.sharding import auto_rules
+
+        rules = auto_rules(get_arch(args.arch), mesh.shape.get("model", 1))
+    tr, cfg, n_groups = TrainerBackend(
+        device, mesh=mesh, rules=rules)._make_trainer(
         spec, spec.objective, spec.stepsize.gamma, False, device)
     state = tr.init_state(spec.seed)
     state = _executor(tr, spec, n_groups, args.warmup).run_scan(
@@ -209,7 +223,8 @@ def _run(args, mesh) -> None:
           f"opt={args.opt} delay_rounds={args.delay_rounds} "
           f"update_impl={tr.update_impl} remat={cfg.remat} "
           f"guards={args.guards} scenario="
-          f"{args.scenario} mesh={None if mesh is None else mesh.shape}: "
+          f"{args.scenario} mesh={None if mesh is None else mesh.shape} "
+          f"seq_parallel={'seq' in tr.rules.model_priority}: "
           f"{ms:.3f} ms per round (warm, {args.rounds} rounds, one launch); "
           f"loss {res.metrics['loss'][0]:.5f} -> "
           f"{res.metrics['loss'][-1]:.5f}; peak memory {peak:.2f} GiB, "
@@ -226,6 +241,7 @@ def _run(args, mesh) -> None:
                 "arch": cfg.name, "n_layers": cfg.n_layers,
                 "update_impl": tr.update_impl, "remat": cfg.remat,
                 "mesh": None if mesh is None else mesh.shape,
+                "seq_parallel": "seq" in tr.rules.model_priority,
                 "ranks": tr.ranks, "ms_per_round": ms,
                 "losses": res.metrics["loss"].tolist(),
                 "grad_norms": res.metrics["grad_norm"].tolist(),

@@ -234,6 +234,10 @@ def _train(args, ap, mesh):
         rounds_per_launch=args.rounds_per_launch, metrics=args.metrics,
         scenario=args.scenario)
 
+    rules = None
+    if mesh is not None:
+        rules = auto_rules(cfg, mesh.shape.get("model", 1)) \
+            if args.auto_rules else DEFAULT_RULES
     out(f"arch={cfg.name} family={cfg.family} "
           f"params={n_params(cfg)/1e6:.1f}M device={args.device} "
           f"groups={args.n_groups or 'auto'} "
@@ -243,7 +247,10 @@ def _train(args, ap, mesh):
           + (f" K={args.rounds_per_launch} metrics={args.metrics}"
              if args.runtime == "scan" else "")
           + (f" scenario={args.scenario!r}" if args.scenario else "")
-          + (f" mesh={mesh.shape}" if mesh is not None else ""))
+          + (f" mesh={mesh.shape}" if mesh is not None else "")
+          + ("" if rules is None else " rules=" + (
+              "seq_parallel" if "seq" in rules.model_priority
+              else "default")))
 
     if (args.runtime == "scan" and args.ckpt and args.ckpt_every
             and args.ckpt_every % args.rounds_per_launch):
@@ -286,10 +293,6 @@ def _train(args, ap, mesh):
     # only the scan runtime honours --metrics; eager keeps its per-round
     # callbacks (the executor rejects on_step solely for scan + "none")
     strip_on_step = args.metrics == "none" and args.runtime == "scan"
-    rules = None
-    if mesh is not None:
-        rules = auto_rules(cfg, mesh.shape.get("model", 1)) \
-            if args.auto_rules else DEFAULT_RULES
     backend = TrainerBackend(
         device=args.device, on_step=None if strip_on_step else on_step,
         snapshot=snapshot, recorder=recorder, mesh=mesh, rules=rules)

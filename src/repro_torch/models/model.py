@@ -24,7 +24,11 @@ the MoE dispatches in JAX's groups (``layers.moe_ffn``).  Under a model
 axis larger than 1 (``distributed.sharding.model_context``) every family
 runs tensor-parallel on the rank's blocks of the params and the cache
 (:mod:`repro_torch.models.tp`), the ragged decode (the slot lane's step)
-included.
+included; under rules that split the residual on ``seq`` (``SEQ_PARALLEL_
+RULES``) the sequence entry points (:func:`forward_logits`,
+:func:`loss_fn`, :func:`prefill`) run sequence-parallel: each model rank
+holds its block of the rows between blocks (``models.tp.TP.for_seq``),
+where JAX's ``_shard_act`` pins the same layout.
 
 The SSM decode cache holds per-layer conv and SSD states
 (``{"ssm": {"conv", "ssd"}}``, the JAX layout) and no positions buffer.
@@ -434,10 +438,16 @@ def _decoder_stack(cfg, params, h, positions, window, memory=None,
 def _encoder_stack(cfg, params, frames, tp=None, zero=None):
     """The audio encoder over stubbed frame embeddings (B, S, frontend_dim):
     ``frontend_proj``, bidirectional self-attention blocks with RoPE (remat
-    and per-leaf ZeRO as in :func:`_decoder_stack`), then ``enc_norm``."""
+    and per-leaf ZeRO as in :func:`_decoder_stack`), then ``enc_norm``.
+    Where the rules split the frames' sequence, each rank runs the
+    encoder on its rows and the memory is gathered whole at the end."""
+    S = frames.shape[1]
+    tp = None if tp is None else tp.for_seq(S)
+    if tp is not None and tp.seq:
+        frames = tp.rows_of(frames)
     h = L.einsum("bsf,fd->bsd", frames.to(torch_dtype(cfg.dtype)),
                  _leaf(params, "frontend_proj", tp))
-    positions = torch.arange(h.shape[1], device=h.device)
+    positions = torch.arange(S, device=h.device)
     run = _runner(cfg)
 
     def block(p, x):
@@ -448,7 +458,11 @@ def _encoder_stack(cfg, params, frames, tp=None, zero=None):
 
     for i in range(cfg.enc_layers):
         h = run(block, _layer(params["enc_blocks"], i), h)
-    return L.rms_norm(h, _leaf(params, "enc_norm", tp), cfg.norm_eps)
+    h = L.rms_norm(h, _leaf(params, "enc_norm", tp), cfg.norm_eps)
+    # every decoder rank reads the whole memory the same way (its heads or
+    # its rows, each entered by a copy), so each holds its whole gradient
+    return tp.gather_seq(h, partial=False) if tp is not None and tp.seq \
+        else h
 
 
 def _embed_input(cfg, params, batch, tp=None, zero=None):
@@ -458,23 +472,30 @@ def _embed_input(cfg, params, batch, tp=None, zero=None):
     ``projector`` replace the first P token embeddings; a prompt shorter
     than P is lengthened to P, as in the JAX package, where a prompt of 2
     to P − 1 tokens then fails (its positions no longer broadcast against
-    the sequence), so such a prompt is refused here."""
+    the sequence), so such a prompt is refused here.  In seq mode
+    (``tp.seq``) h is the rank's rows: the patches that fall in them take
+    their place (the first positions: rank 0's rows, and the next ranks'
+    where P is longer)."""
     memory = None
     if cfg.family == "audio":
         memory = _encoder_stack(cfg, params, batch["frames"], tp, zero)
     tokens = batch["tokens"]
     h = _embed(cfg, params, tokens, tp)
     if cfg.family == "vlm":
-        patches = L.einsum("bpv,vd->bpd",
-                           batch["patches"].to(torch_dtype(cfg.dtype)),
-                           _leaf(params, "projector", tp))
+        patches = batch["patches"]
         P, S = patches.shape[1], tokens.shape[1]
         if 1 < S < P:
             raise ValueError(f"a vlm prompt of {S} tokens is shorter than "
                              f"its {P} patches (the JAX package's shapes "
                              "break there too)")
+        seq = tp is not None and tp.seq
+        n = max(0, min(P, tp.lo + tp.rows) - tp.lo) if seq else P
+        if seq:
+            patches = patches[:, tp.lo:tp.lo + n]
+        patches = L.einsum("bpv,vd->bpd", patches.to(torch_dtype(cfg.dtype)),
+                           _leaf(params, "projector", tp))
         dt = torch.promote_types(patches.dtype, h.dtype)   # jnp.concatenate
-        h = torch.cat([patches.to(dt), h[:, P:].to(dt)], dim=1)
+        h = torch.cat([patches.to(dt), h[:, n:].to(dt)], dim=1)
     return _shard_act(h), memory
 
 
@@ -491,7 +512,7 @@ def forward_logits(cfg: ArchConfig, params, batch, window=None, *,
     blocks (the trainer's over data ranks): the top-level leaves are
     gathered once here, each layer's in its block."""
     _require_family(cfg)
-    tp = _tp_of(cfg, tp)
+    tp = _seq_tp(cfg, tp, batch)
     if window is None:
         window = cfg.sliding_window
     if zero is not None:
@@ -501,8 +522,16 @@ def forward_logits(cfg: ArchConfig, params, batch, window=None, *,
     return _shard_act(logits, ("batch", "seq", "vocab")), aux
 
 
+def _seq_tp(cfg, tp, batch):
+    """``tp`` (default: the active context's) for ``batch``'s token
+    sequence: in seq mode where the rules split it (``TP.for_seq``)."""
+    tp = _tp_of(cfg, tp)
+    return None if tp is None else tp.for_seq(batch["tokens"].shape[1])
+
+
 def _final_hidden(cfg, params, batch, window, tp, zero=None):
-    """The final-normed hidden states of the whole sequence, and aux."""
+    """The final-normed hidden states of the whole sequence (the rank's
+    rows of it in seq mode), and aux."""
     tokens = batch["tokens"]
     h, memory = _embed_input(cfg, params, batch, tp, zero)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
@@ -536,7 +565,7 @@ def loss_fn(cfg: ArchConfig, params, batch, example_weights=None,
     :func:`forward_logits`); the gradients are then the blocks'."""
     from ..distributed.sharding import data_context
 
-    tp = _tp_of(cfg, tp)
+    tp = _seq_tp(cfg, tp, batch)
     if tp is None:
         logits, aux = forward_logits(cfg, params, batch, window=window,
                                      zero=zero)
@@ -604,9 +633,12 @@ def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None,
     ``memory @ wv`` over the encoder's output (un-normed, no bias: JAX's
     prefill computes them so), with the frames' length.  ``tp``: the
     ``models.tp.TP`` to run on (default: the active context's); the cache
-    is then the rank's block of it."""
+    is then the rank's block of it.  In seq mode the layers run on the
+    rank's rows; k / v, the Mamba2 states and the memory are the whole
+    sequence's, and the cache the same as without it."""
     _require_family(cfg)
     tp = _tp_of(cfg, tp)
+    whole_tp, tp = tp, _seq_tp(cfg, tp, batch)
     window = cfg.sliding_window
     tokens = batch["tokens"]
     S = tokens.shape[1]
@@ -682,8 +714,11 @@ def prefill(cfg: ArchConfig, params, batch, ctx_len: Optional[int] = None,
     if cfg.family == "audio":
         cache["cross_k"] = torch.stack(cks)
         cache["cross_v"] = torch.stack(cvs)
-    h = _final_norm(cfg, params, h[:, -1:], tp)
-    return _unembed(cfg, params, h, tp)[:, 0], cache
+    h = h[:, -1:]
+    if tp is not None and tp.seq:       # the last rank's last row
+        h = tp.gather(h, 1)[:, -1:]
+    h = _final_norm(cfg, params, h, whole_tp)
+    return _unembed(cfg, params, h, whole_tp)[:, 0], cache
 
 
 # ============================================================================

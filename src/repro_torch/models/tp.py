@@ -50,9 +50,10 @@ The rank-local parts (:func:`attn_local`, :func:`decode_local`,
 collective: :class:`TP` runs them between its collectives, and the
 unsharded model runs the same attention and Mamba2 parts as rank 0 of
 one.  :class:`ThreadRanks` runs
-the ranks as threads of one process whose operators combine the ranks'
-tensors themselves, so the decomposition can be checked on one device
-through the product path's own layers.
+the ranks as threads of one process whose group's collectives combine the
+ranks' tensors themselves, so the decomposition (and, with autograd on,
+its backward) can be checked on one device through the product path's
+own layers and operators.
 
 Decode: a ring cache the rules split on ``kv_heads`` decodes on each
 rank's heads; one split on ``ctx`` (qwen2-0.5b at model 4: two kv heads)
@@ -68,9 +69,31 @@ columns gathered), and the rank writes its block of it back, so each rank
 holds the rules' block after every step.  The logits of prefill and
 decode are gathered whole over the vocabulary, so a greedy pick is the
 first maximal index of the whole row on every rank.
+
+Sequence parallelism (rules that give ``seq`` the model axis, as
+``distributed.sharding.SEQ_PARALLEL_RULES``; :meth:`TP.for_seq`): where the
+rules split the residual of S rows on ``seq`` (S a multiple of the model
+axis M), each rank holds its block of S/M rows between blocks, from row
+``lo`` = rank · S/M on.  Norms and token-wise compute run on the rank's
+rows; where a block runs on the rank's heads, ff columns, experts, SSM
+heads or vocabulary block, the copy before it becomes a gather of the
+rows (``collectives.gather_seq``) and the reduce after it a
+reduce-scatter to the rank's rows (``collectives.scatter_seq``).  Where
+the attention leaves are gathered (qwen2-0.5b at model 4), each rank
+computes q for its own rows and k / v from the gathered sequence, and
+attends with its rows' first position as the masks' offset (flash at
+``q_offset``), with no reduce after.  The MoE gathers the rows before
+the dispatch, so its capacity couples the rows it couples unsharded; the
+Mamba2 mixer and the audio encoder's memory run on the gathered
+sequence; the vocab-parallel embedding ends in a reduce-scatter, and the
+logits see the gathered rows.  Decode (one row) and a length the axis
+does not divide keep the whole sequence, as JAX's layout does.  Every
+leaf a rank reads on its rows gives it a part of the leaf's gradient, so
+such a read is rank-partial (``whole(..., partial=True)``).
 """
 from __future__ import annotations
 
+import copy
 import functools
 import threading
 from typing import Optional
@@ -296,28 +319,36 @@ def project_qkv(cfg, p, x, src=None):
 
 
 def attn_local(cfg, p, x, rank: int, *, positions=None, window=None,
-               causal: bool = True, src=None):
+               causal: bool = True, src=None, kv_x=None, q_offset: int = 0):
     """A rank's attention over the sequence → (out, k, v): ``out`` is its
     part of the block's output (B, S, d), to be summed over the ranks when
     ``wq`` / ``wo`` are split on heads (else the whole output), and ``k``
     / ``v`` as projected (the rank's kv heads, or all of them), for the
     cache.  ``src``: a cross-attention memory, the source of k and v (no
     RoPE, never causal); otherwise self-attention, with RoPE at
-    ``positions`` when they are given.  Flash runs on the rank's heads
+    ``positions`` when they are given.  ``kv_x``: self-attention whose
+    queries are a block of rows from ``q_offset`` (``x``, a rank's rows
+    under sequence parallelism) of the sequence ``kv_x``, the source of k
+    and v; ``positions`` are then ``kv_x``'s, and the masks put the
+    queries at their absolute positions.  Flash runs on the rank's heads
     when ``use_flash_attention``.  With no model axis this is the whole
     attention (rank 0 of one)."""
-    q, k, v = project_qkv(cfg, p, x, src)
+    q, k, v = project_qkv(cfg, p, x, src if src is not None else kv_x)
     if src is None and positions is not None:
-        q = L.rope(q, positions, cfg.rope_theta)
+        qpos = positions if kv_x is None else \
+            positions[q_offset:q_offset + x.shape[1]]
+        q = L.rope(q, qpos, cfg.rope_theta)
         k = L.rope(k, positions, cfg.rope_theta)
     causal = causal and src is None
     hq = q.shape[2]
     ks = kv_for_heads(k, cfg.n_heads, cfg.n_kv_heads, hq, rank)
     vs = kv_for_heads(v, cfg.n_heads, cfg.n_kv_heads, hq, rank)
     if cfg.use_flash_attention:
-        o = ops.flash_attention(q, ks, vs, causal=causal, window=window)
+        o = ops.flash_attention(q, ks, vs, causal=causal, window=window,
+                                q_offset=q_offset)
     else:
-        o = L.attention(q, ks, vs, causal=causal, window=window)
+        o = L.attention(q, ks, vs, causal=causal, window=window,
+                        q_offset=q_offset)
     return L.einsum("bshk,hkd->bsd", o, p["wo"]), k, v
 
 
@@ -444,16 +475,47 @@ def mamba_step_local(cfg, p, y_conv, dt, z, ssd_state, dtype, sumsq=None):
 # ---------------------------------------------------------------------------
 # the product path: the rank-local parts between the collectives
 # ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=256)
+def _seq_on(M: int, rules, S: int, d_model: int) -> bool:
+    from ..distributed.sharding import residual_seq_split
+    from ..launch.mesh import Mesh
+
+    return residual_seq_split(Mesh({rules.model_axis: M}), rules, S, d_model)
+
+
 class TP:
     """A model group (the active context's, ``distributed.sharding.
     model_context``) and ``cfg``'s :func:`plan` on it.  The model's entry
     points take one (``tp=``) or resolve the active context's once a call
-    (:meth:`active`), and hand it down to every layer."""
+    (:meth:`active`), and hand it down to every layer; an entry point over
+    a sequence hands down :meth:`for_seq`'s, which is in seq mode
+    (``seq``: the rank holds rows ``lo`` … ``lo + rows − 1`` of the
+    residual) where the rules split the sequence."""
+
+    seq = False
+    rows = None
+    lo = 0
 
     def __init__(self, cfg, group, M: int, rank: int, rules):
         self.cfg, self.group, self.M, self.rank = cfg, group, M, rank
         self.rules = rules
         self.plan = plan(cfg, M, rules)
+
+    def for_seq(self, S: int) -> "TP":
+        """This TP for a sequence of ``S`` rows: in seq mode where the
+        rules split the residual on ``seq`` over the model axis
+        (``distributed.sharding.residual_seq_split``), whole otherwise."""
+        from ..distributed.sharding import DEFAULT_RULES
+
+        on = _seq_on(self.M, self.rules or DEFAULT_RULES, S,
+                     self.cfg.d_model)
+        if not on and not self.seq:
+            return self
+        t = copy.copy(self)
+        t.seq = on
+        t.rows = S // self.M if on else None
+        t.lo = self.rank * t.rows if on else 0
+        return t
 
     @classmethod
     def active(cls, cfg) -> Optional["TP"]:
@@ -497,9 +559,36 @@ class TP:
             return self.copy(t) if partial else t
         return gather_from_model(t, self.group, dim, self.rank, partial)
 
+    # ---- sequence-parallel operators (seq mode) ---------------------------
+    def gather_seq(self, t, partial: bool = True):
+        """The ranks' rows of ``t`` gathered into the whole sequence;
+        ``partial``: a rank-partial consumer (the backward reduce-scatters)
+        or a replicated one (it keeps the rank's rows)."""
+        from ..distributed.collectives import gather_seq
+        return gather_seq(t, self.group, 1, self.rank, partial)
+
+    def scatter_seq(self, t):
+        """Σ over the ranks of their parts of a whole sequence, the rank's
+        rows of it."""
+        from ..distributed.collectives import scatter_seq
+        return scatter_seq(t, self.group, 1)
+
+    def split_seq(self, t):
+        """The rank's rows of a whole sequence every rank holds the same."""
+        from ..distributed.collectives import split_seq
+        return split_seq(t, self.group, 1, self.rank, self.M)
+
+    def rows_of(self, t):
+        """The rank's rows of an input ``t`` (tokens, frames: no
+        gradient)."""
+        return t[:, self.lo:self.lo + self.rows]
+
     # ---- layers -----------------------------------------------------------
     def _norm(self, h, w, dim):
-        return L.rms_norm(h, self.whole(w, dim), self.cfg.norm_eps)
+        """RMSNorm of ``h`` (on the rank's rows in seq mode, where each
+        rank gives a part of the weight's gradient)."""
+        return L.rms_norm(h, self.whole(w, dim, partial=self.seq),
+                          self.cfg.norm_eps)
 
     def _attn_leaves(self, p, heads: bool) -> dict:
         pl = self.plan["attn"]
@@ -512,16 +601,23 @@ class TP:
         return self.plan["attn"]["wq"] == ATTN_MEGATRON["wq"]
 
     def leaf(self, params, name: str):
-        """Top-level leaf ``name`` whole (gathered where it is split)."""
-        return self.whole(params[name], self.plan[name])
+        """Top-level leaf ``name`` whole (gathered where it is split); in
+        seq mode it is read on the rank's rows (rank-partial)."""
+        return self.whole(params[name], self.plan[name], partial=self.seq)
 
     def attn(self, p, h, *, positions=None, window=None, return_kv=False,
              causal: bool = True, src=None):
         """Pre-norm attention on the rank's heads (or whole); ``src``: a
         cross-attention memory, the source of k and v (every rank's
-        whole), as in ``attn_local``."""
+        whole), as in ``attn_local``.  In seq mode ``h`` is the rank's
+        rows, and so is the output; k and v are the whole sequence's."""
         x = self._norm(h, p["norm"], self.plan["attn"]["norm"])
         heads = self.heads_split()
+        if self.seq:
+            out, k, v = self._attn_rows(p, x, heads, positions, window,
+                                        causal, src)
+            out = h + out
+            return (out, (k, v)) if return_kv else out
         if heads:
             x = self.copy(x)
             src = None if src is None else self.copy(src)
@@ -531,13 +627,37 @@ class TP:
         out = h + (self.reduce(out) if heads else out)
         return (out, (k, v)) if return_kv else out
 
-    def _swiglu(self, p, pl, x):
+    def _attn_rows(self, p, x, heads, positions, window, causal, src):
+        """Seq mode's attention of the rank's normed rows ``x`` → (the
+        block's output on them, k, v): on the rank's heads over the
+        gathered rows, scattered back; or, where the leaves are gathered,
+        q of the rank's rows against k / v of the gathered sequence, at
+        the rows' offset."""
+        src = None if src is None else self.copy(src)
+        if heads:
+            out, k, v = attn_local(
+                self.cfg, self._attn_leaves(p, True), self.gather_seq(x),
+                self.rank, positions=positions, window=window, causal=causal,
+                src=src)
+            return self.scatter_seq(out), k, v
+        pl = self.plan["attn"]
+        lp = {n: self.whole(t, pl[n], partial=True) for n, t in p.items()
+              if n != "norm"}
+        return attn_local(self.cfg, lp, x, 0, positions=positions,
+                          window=window, causal=causal, src=src,
+                          kv_x=None if src is not None
+                          else self.gather_seq(x), q_offset=self.lo)
+
+    def _swiglu(self, p, pl, x, rows: bool = False):
         """(rank part, whole part) of a SwiGLU: the first when it is
-        split on ``ff``."""
+        split on ``ff``.  ``rows``: ``x`` is the rank's rows (seq mode),
+        gathered into the rank's columns or computed on the rows."""
         names = ("w_gate", "w_up", "w_down")
         if pl["w_gate"] == p["w_gate"].dim() - 1:
-            return L.swiglu(self.copy(x), *(p[n] for n in names)), None
-        return None, L.swiglu(x, *(self.whole(p[n], pl[n]) for n in names))
+            return L.swiglu(self.gather_seq(x) if rows else self.copy(x),
+                            *(p[n] for n in names)), None
+        return None, L.swiglu(x, *(self.whole(p[n], pl[n], partial=rows)
+                                   for n in names))
 
     @staticmethod
     def _sum(*ts):
@@ -547,13 +667,19 @@ class TP:
     def mlp(self, p, h):
         pl = self.plan["mlp"]
         x = self._norm(h, p["norm"], pl["norm"])
-        part, whole = self._swiglu(p, pl, x)
-        y = self._sum(None if part is None else self.reduce(part), whole)
-        return h + y
+        part, whole = self._swiglu(p, pl, x, rows=self.seq)
+        if part is not None:
+            part = self.scatter_seq(part) if self.seq else self.reduce(part)
+        return h + self._sum(part, whole)
 
     def moe(self, p, h):
+        """The MoE block; in seq mode the rank's rows are gathered before
+        the dispatch (the routing replicated over the whole sequence, as
+        without seq mode) and the output returns to the rank's rows."""
         cfg, pl = self.cfg, self.plan["moe"]
         x = self._norm(h, p["norm"], pl["norm"])
+        if self.seq:
+            x = self.gather_seq(x, partial=False)
         router = self.whole(p["router"], pl["router"])
         names = ("w_gate", "w_up", "w_down")
         parts, wholes = [], []
@@ -573,27 +699,42 @@ class TP:
             parts.append(part)
             wholes.append(whole)
         parts = [t for t in parts if t is not None]
+        if self.seq:
+            wholes = [t for t in wholes if t is not None]
+            y = self._sum(self.scatter_seq(self._sum(*parts)) if parts
+                          else None,
+                          self.split_seq(self._sum(*wholes)) if wholes
+                          else None)
+            return h + y, aux
         y = self._sum(self.reduce(self._sum(*parts)) if parts else None,
                       *wholes)
         return h + y, aux
 
     def embed(self, table, tokens):
+        """The embedding of ``tokens`` (B, S); in seq mode the rank's
+        rows of it."""
         d, dt = self.plan["embed"], torch_dtype(self.cfg.dtype)
         if d == 0:
-            return self.reduce(embed_local(table, tokens, self.rank).to(dt))
-        return self.whole(table, d)[tokens].to(dt)
+            part = embed_local(table, tokens, self.rank).to(dt)
+            return self.scatter_seq(part) if self.seq else self.reduce(part)
+        if self.seq:
+            tokens = self.rows_of(tokens)
+        return self.whole(table, d, partial=self.seq)[tokens].to(dt)
 
     def logits(self, params, h):
         """→ (logits, vocab-parallel): the rank's block of the vocabulary
-        when the unembedding is split on ``vocab``, else the whole."""
+        when the unembedding is split on ``vocab``, else the whole; in
+        seq mode of every row (the rank's rows ``h`` gathered)."""
         if self.cfg.tie_embeddings:
             t, d, eq, vdim = params["embed"], self.plan["embed"], \
                 "bsd,vd->bsv", 0
         else:
             t, d, eq, vdim = params["lm_head"], self.plan["lm_head"], \
                 "bsd,dv->bsv", 1
+        if self.seq:
+            h = self.gather_seq(h, partial=d == vdim)
         if d == vdim:
-            return L.einsum(eq, self.copy(h), t), True
+            return L.einsum(eq, h if self.seq else self.copy(h), t), True
         return L.einsum(eq, h, self.whole(t, d)), False
 
     def full_logits(self, params, h):
@@ -642,14 +783,21 @@ class TP:
         x = self._norm(h, p["norm"], pl["norm"])
         w = self.whole(p["conv_w"], pl["conv_w"], partial=heads)
         b = self.whole(p["conv_b"], pl["conv_b"], partial=heads)
-        if heads:
+        if self.seq:          # the mixer runs on the gathered sequence
+            x = self.gather_seq(x, partial=heads)
+        elif heads:
             x = self.copy(x)
+        if heads:
             n = cfg.d_inner // self.M
             w = conv_columns(w, cfg.d_inner, self.rank, n)
             b = conv_columns(b, cfg.d_inner, self.rank, n)
         out, conv_in, hT = mamba_local(cfg, self._mamba_leaves(p, heads), x,
                                        w, b, self._sumsq if heads else None)
-        out = h + (self.reduce(out) if heads else out)
+        if self.seq:
+            out = h + (self.scatter_seq(out) if heads else
+                       self.split_seq(out))
+        else:
+            out = h + (self.reduce(out) if heads else out)
         if not return_state:
             return out
         tail = conv_in[:, conv_in.shape[1] - (cfg.ssm_conv - 1):]
@@ -809,11 +957,19 @@ class ThreadRanks:
     """``M`` model ranks as threads of one process on one device, for
     checking the decomposition where the ranks cannot each have a device
     of their own (two ranks cannot share a card: NCCL refuses them).
-    :meth:`run` calls ``fn(tp)`` in one thread per rank, under
-    ``torch.no_grad``, with that rank's :class:`TP`, whose operators
-    combine the ranks' tensors as the collectives would: a sum (in rank
+    :meth:`run` calls ``fn(tp)`` in one thread per rank, with that rank's
+    :class:`TP` over a ``collectives.LocalGroup``, whose collectives
+    combine the ranks' tensors as the real ones would: a sum (in rank
     order) where they all-reduce, a max, a concatenation where they
-    gather.  Every layer between them is the product path's own."""
+    gather.  Every layer and operator is the product path's own.
+
+    :meth:`run` runs under ``torch.no_grad`` by default; with ``grad`` it
+    runs with autograd on, so the operators' backward passes run their
+    collectives over the threads too, each thread's backward on that
+    thread (``torch.autograd.set_multithreading_enabled(False)``: on a
+    card the engine would otherwise run every rank's backward on the
+    device's one worker thread, where the first collective would wait for
+    ranks that never come)."""
 
     def __init__(self, cfg, M: int, rules=None, timeout: float = 600.0):
         from ..distributed.sharding import DEFAULT_RULES
@@ -834,16 +990,26 @@ class ThreadRanks:
         self._barrier.wait()
         return self._out if rank == 0 else self._out.clone()
 
-    def run(self, fn) -> list:
+    def run(self, fn, grad: bool = False) -> list:
         """``fn(tp)`` on every rank → the ranks' results, in rank order; an
-        error on any rank stops them all and is raised."""
+        error on any rank stops them all and is raised.  ``grad``: with
+        autograd on (see the class)."""
+        from ..distributed.collectives import LocalGroup
+
         outs, errs = [None] * self.M, []
         self._barrier.reset()
 
         def body(r):
             try:
-                with torch.no_grad():
-                    outs[r] = fn(_ThreadRank(self, r))
+                tp = TP(self.cfg, LocalGroup(self.combine, self.M, r),
+                        self.M, r, self.rules)
+                if grad:
+                    with torch.enable_grad(), \
+                            torch.autograd.set_multithreading_enabled(False):
+                        outs[r] = fn(tp)
+                else:
+                    with torch.no_grad():
+                        outs[r] = fn(tp)
             except BaseException as e:          # noqa: BLE001 (re-raised)
                 errs.append(e)
                 self._barrier.abort()
@@ -858,30 +1024,3 @@ class ThreadRanks:
             raise next((e for e in errs if not isinstance(
                 e, threading.BrokenBarrierError)), errs[0])
         return outs
-
-
-class _ThreadRank(TP):
-    """Rank ``rank`` of a :class:`ThreadRanks`: the operators combine over
-    the threads (forward only)."""
-
-    def __init__(self, ranks: ThreadRanks, rank: int):
-        super().__init__(ranks.cfg, None, ranks.M, rank, ranks.rules)
-        self._ranks = ranks
-
-    def copy(self, t):
-        return t
-
-    def reduce(self, t):
-        return self._ranks.combine(self.rank, t,
-                                   lambda ts: functools.reduce(torch.add, ts))
-
-    def amax(self, t):
-        return self._ranks.combine(
-            self.rank, t, lambda ts: functools.reduce(torch.maximum, ts))
-
-    def gather(self, t, dim: int):
-        d = dim % t.dim()
-        return self._ranks.combine(self.rank, t, lambda ts: torch.cat(ts, d))
-
-    def whole(self, t, dim: Optional[int], partial: bool = False):
-        return t if dim is None else self.gather(t, dim)

@@ -128,6 +128,33 @@ def test_flash_kernel_matches_plain(cuda_device, dtype, B, Sq, Sk, H, KV, D,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,window,ranks", [
+    (4, 256, 1024, 14, 2, 64, None, 4),     # qwen2-0.5b at model 4
+    (1, 200, 800, 4, 2, 64, 100, 4),        # a window, rows off the tile
+    (2, 96, 192, 4, 4, 32, None, 2),
+])
+def test_flash_kernel_at_q_offset_matches_plain_and_the_whole(
+        cuda_device, dtype, B, Sq, Sk, H, KV, D, window, ranks):
+    """Sequence parallelism's call: each rank's block of query rows at its
+    offset against the whole sequence's k / v, causal, held to its plain
+    version and to the same rows of a whole-sequence launch."""
+    q, k, v = _qkv(cuda_device, B, Sk, Sk, H, KV, D, dtype)
+    whole = FA.flash_attention_cuda(q, k, v, causal=True, window=window)
+    n = Sk // ranks
+    for r in range(ranks):
+        rows = q[:, r * n:r * n + min(n, Sq)]
+        before = FA.launches
+        got = FA.flash_attention_cuda(rows, k, v, causal=True, window=window,
+                                      q_offset=r * n)
+        assert FA.launches == before + 1
+        _close(got, FA.flash_attention_plain(rows, k, v, causal=True,
+                                             window=window, q_offset=r * n),
+               dtype)
+        _close(got, whole[:, r * n:r * n + rows.shape[1]], dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [16, 48, 80, 96, 112])
 def test_flash_kernel_every_head_dim(cuda_device, dtype, D):
     """The head dims beyond 32/64/128, zamba2-7b's 112 among them (7 k16

@@ -70,11 +70,26 @@ LEAF_CASES = {
     "moe_pallas": ("deepseek-moe-16b", "pallas", 1, "float32", 8, 16, 4, 4),
     "dense_reference_mb2": ("qwen2-0.5b", "reference", 2, "float32", 8, 16,
                             4, 4)}
+#: sequence parallelism (the cases trained under ``SEQ_PARALLEL_RULES``):
+#: reduced qwen2-0.5b on the pooled route, its 4 heads on the rank's heads
+#: at model 4; and on the per-leaf route with 6 heads, which model 4 does
+#: not divide (the gathered attention ``auto_rules`` picks the rules for)
+SEQ_CASES = {
+    "dense_seq": ("qwen2-0.5b", "pallas_pooled", 1, "float32", 8, 16, 4, 4),
+    "dense_seq_h6": ("qwen2-0.5b", "reference", 1, "float32", 8, 16, 4, 4)}
 #: every case by name
-ALL_CASES = {**CASES, **FAMILY_CASES, **LEAF_CASES}
+ALL_CASES = {**CASES, **FAMILY_CASES, **LEAF_CASES, **SEQ_CASES}
 #: arch overrides of a case's reduced config
 OVERRIDES = {"hybrid_reference": (("n_layers", 3), ("attn_every", 2)),
-             "hybrid_pooled": (("n_layers", 3), ("attn_every", 2))}
+             "hybrid_pooled": (("n_layers", 3), ("attn_every", 2)),
+             "dense_seq_h6": (("n_heads", 6),)}
+
+
+def case_rules(name, sharding):
+    """Case ``name``'s sharding rules from ``sharding`` (either package's
+    ``distributed.sharding``)."""
+    return sharding.SEQ_PARALLEL_RULES if name in SEQ_CASES \
+        else sharding.DEFAULT_RULES
 
 
 def case_cfg(name, get_arch):
@@ -184,6 +199,7 @@ def spawn(fn, world: int, tmp_path, *args, timeout: float = 240.0) -> str:
 def port_trainer(name, mesh, device="cpu", opt="adam", lr=LR):
     from repro_torch.configs import get_arch
     from repro_torch.distributed import AsyncConfig, AsyncTrainer
+    from repro_torch.distributed import sharding
     from repro_torch.optim import OptConfig
 
     arch, impl, mb, dtype, B, S, groups, T = ALL_CASES[name]
@@ -191,7 +207,8 @@ def port_trainer(name, mesh, device="cpu", opt="adam", lr=LR):
     tr = AsyncTrainer(cfg, OptConfig(name=opt, lr=lr, clip_norm=1.0,
                                      update_impl=impl),
                       AsyncConfig(delay_rounds=1, microbatches=mb),
-                      device=device, mesh=mesh)
+                      device=device, mesh=mesh,
+                      rules=case_rules(name, sharding))
     tr.n_groups = groups
     return tr
 

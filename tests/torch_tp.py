@@ -24,10 +24,13 @@ import torch_dp as D
 #: the served cases: name → (the trainer case whose config and params it
 #: takes, batch, prompt length, decode steps, ctx length, the prompts'
 #: round in ``torch_dp.tokens``); reduced qwen2-0.5b, mamba2-370m and
-#: zamba2-7b with a tail (an SSM prompt: a multiple of the SSD chunk)
+#: zamba2-7b with a tail (an SSM prompt: a multiple of the SSD chunk);
+#: the sequence-parallel cases prefill under their rules on the mesh
 SERVES = {"serve": ("dense_reference", 4, 12, 6, 24, 7),
           "serve_ssm": ("ssm_reference", 4, 16, 6, 24, 7),
-          "serve_hybrid": ("hybrid_reference", 4, 16, 6, 24, 7)}
+          "serve_hybrid": ("hybrid_reference", 4, 16, 6, 24, 7),
+          "serve_seq": ("dense_seq", 4, 12, 6, 24, 7),
+          "serve_seq_h6": ("dense_seq_h6", 4, 12, 6, 24, 7)}
 
 
 def parse(entry: str) -> tuple:
@@ -64,24 +67,35 @@ def _mesh(d, m):
 
 def _serve(name, d, m, out):
     """The JAX ``Server`` on (d, m): greedy tokens from prefilled prompts
-    of served case ``name``."""
+    of served case ``name``; a sequence-parallel case prefills on the
+    mesh under its rules."""
     import jax
     import jax.numpy as jnp
 
     from repro.configs import get_arch
+    from repro.distributed import sharding as JS
     from repro.distributed.serve import Server, ServeConfig
     from repro.models import model as JM
 
     case, B, S, T, ctx, q = SERVES[name]
     cfg = D.case_cfg(case, get_arch)
+    rules = D.case_rules(case, JS)
     params = jax.tree_util.tree_map(
         lambda a: a.astype(jnp.float32),
         jax.jit(JM.init_params, static_argnums=0)(cfg, jax.random.PRNGKey(0)))
     tokens = jnp.asarray(D.tokens(cfg.vocab, B, S, q))
-    last, cache = jax.jit(JM.prefill, static_argnums=(0, 3))(
-        cfg, params, {"tokens": tokens}, ctx)
+    server = Server(cfg, _mesh(d, m), ServeConfig(batch=B, ctx_len=ctx),
+                    rules=rules)
+    if case in D.SEQ_CASES:
+        run = JS.sharded_trace(lambda p, b: JM.prefill(cfg, p, b, ctx),
+                               server.mesh, rules)
+        last, cache = jax.jit(run)(
+            jax.device_put(params, server.param_shardings()),
+            {"tokens": tokens})
+    else:
+        last, cache = jax.jit(JM.prefill, static_argnums=(0, 3))(
+            cfg, params, {"tokens": tokens}, ctx)
     first = np.asarray(jnp.argmax(last, -1)).astype(np.int32)
-    server = Server(cfg, _mesh(d, m), ServeConfig(batch=B, ctx_len=ctx))
     params = jax.device_put(params, server.param_shardings())
     cache = jax.device_put(cache, server.cache_shardings())
     toks = server.generate(params, first, T, start_pos=S, cache=cache)
@@ -165,6 +179,7 @@ def port_serve(name: str, mesh, params_paths) -> dict:
 
     from repro_torch.configs import get_arch
     from repro_torch.distributed import Server, ServeConfig
+    from repro_torch.distributed import sharding
     from repro_torch.distributed.sharding import sharded_trace
     from repro_torch.models import model as M
     from repro_torch.models.convert import params_blocks, params_to_numpy
@@ -172,9 +187,10 @@ def port_serve(name: str, mesh, params_paths) -> dict:
 
     case, B, S, T, ctx, q = SERVES[name]
     cfg = D.case_cfg(case, get_arch)
+    rules = D.case_rules(case, sharding)
     np_params = D.unflatten(D.wait_params(params_paths)[case]["params"])
     server = Server(cfg, ServeConfig(batch=B, ctx_len=ctx), device="cpu",
-                    mesh=mesh)
+                    mesh=mesh, rules=rules)
     sh = server.param_shardings()
     blocks = params_blocks(np_params, sh, "cpu")
     whole = dict(tree_leaves_with_path(params_to_numpy(
@@ -182,7 +198,7 @@ def port_serve(name: str, mesh, params_paths) -> dict:
     want = dict(tree_leaves_with_path(np_params))
     tokens = torch.from_numpy(D.tokens(cfg.vocab, B, S, q)).long()
     with torch.no_grad():
-        last, cache = sharded_trace(M.prefill, mesh)(
+        last, cache = sharded_trace(M.prefill, mesh, rules)(
             cfg, blocks, {"tokens": tokens}, ctx_len=ctx)
         first = last.argmax(-1)
         toks = server.generate(blocks, first.numpy(), T, start_pos=S,
@@ -385,6 +401,7 @@ def jax_main(out_path: str, params_path: str, entries) -> None:
 
     from repro.configs import get_arch
     from repro.distributed import AsyncConfig, AsyncTrainer
+    from repro.distributed import sharding as JS
     from repro.optim import OptConfig, adam_init
     from repro.optim.pool import init_pools, unpool_tree
 
@@ -408,7 +425,8 @@ def jax_main(out_path: str, params_path: str, entries) -> None:
         jimpl = impl + "_interpret" if impl.startswith("pallas") else impl
         tr = AsyncTrainer(cfg, _mesh(d, m), opt=OptConfig(
             lr=D.LR, clip_norm=1.0, update_impl=jimpl),
-            async_cfg=AsyncConfig(delay_rounds=1, microbatches=mb))
+            async_cfg=AsyncConfig(delay_rounds=1, microbatches=mb),
+            rules=D.case_rules(name, JS))
         tr.n_groups = groups
         params = jax.tree_util.tree_map(
             lambda a: jnp.asarray(a.view(jnp.bfloat16) if a.dtype == np.uint16
