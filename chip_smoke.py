@@ -8,21 +8,30 @@ Phases, each of which fails the run (non-zero exit, no result line):
 1. device: CUDA must be present; prints the card's name and power limit
    and turns TF32 off for float32 products;
 2. build: compiles every kernel source of the port from ``csrc/`` with
-   ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together;
+   ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together,
+   and logs each source's build seconds, ptxas's registers and spills per
+   kernel and its wgmma performance notes (C75xx: a product made
+   synchronous);
 3. the flash kernel against its plain version, on the card: the serving
    path's prefill shape and the kernel test matrix (MHA, GQA 4:1, ragged
-   MQA, D = 128, windows, non-causal, an empty-row case) plus the edges of
-   the bf16 route's 64-row tiles (Sq 1000, H/KV 7, window 100, ragged
-   non-causal Sk > Sq, q tiles that visit no key tile) and the head dims
-   16, 48, 80, 96 and 112 (zamba2-7b's), in f32 (CUDA-core route) and bf16
-   (tensor-core route) at the kernel suite's tolerances, and the slot
-   lane's admission (q 1 × 512) and prefix-replay prefills (1 × 512 + e,
-   e = 1, 17, 63); at the main-path
-   shape the kernel, its plain version and ``scaled_dot_product_attention``
-   (a yardstick only: the port never calls it) are timed on the device
-   (CUDA graph replay, :func:`device_ms`), and the kernel's eager calls
-   too; so are the three at D = 112 on zamba2-7b's attention (4 × 1024,
-   32 heads);
+   MQA, D = 128, windows, non-causal, an empty-row case), the head dims
+   16, 48, 80, 96 and 112 (zamba2-7b's), the slot lane's admission (q 1 ×
+   512) and prefix-replay prefills (1 × 512 + e, e = 1, 17, 63), and the
+   edges of the bf16 route's tiles (128 query rows, or 64 where 128-row
+   tiles would be fewer than the SMs; 128 keys; 64-column panels): S a
+   multiple of 64 but not of 128, ragged Sk below one tile (1, 33), H/KV 7
+   on 128-row tiles, windows ending inside a tile, q tiles that visit no
+   key tile, q_offsets off the tiles, a BSHD view with a size-1 batch; in
+   f32 (CUDA-core route) and bf16 (tensor-core route: wgmma on TMA-fed
+   tiles) at the kernel suite's tolerances, every output finite; then at
+   every shape of PERF.md's flash row (the main path, D 112 and 128, the
+   audio and vlm shapes, the model-2 ranks', the batch-1 admissions', the
+   sequence-parallel ranks' q_offset shapes) the kernel and
+   ``scaled_dot_product_attention`` (a yardstick only: the port never
+   calls it) are timed on the device (CUDA graph replay,
+   :func:`device_ms`) beside the bound, with the plain version at the
+   main path and D 112, and the kernel's eager calls and the host time of
+   its three TMA tensor-map encodes at the main path;
 4. the serving main path at full width: ``run(ExperimentSpec(objective=
    ServeJob(arch="qwen2-0.5b", reduced=False, batch=4, prompt_len=1024,
    ...)))`` with the flash kernel on, which must launch it once per layer
@@ -183,8 +192,8 @@ Phases, each of which fails the run (non-zero exit, no result line):
     T 16 (one flash launch per attention block: 13 insertions on
     zamba2-7b, 28 layers on deepseek-moe-16b; one SSD launch per Mamba2
     layer: 81; on the tensor-core routes; finite logits, 16 tokens a row)
-    and the slot lane through ``run(ServeJob(n_slots=8))`` (16 requests
-    of 512, T 16, ``poisson:gap=2``, K 8: 16 × those launches, one chunk
+    and the slot lane through ``run(ServeJob(n_slots=8))`` (12 requests
+    of 512, T 16, ``poisson:gap=2``, K 8: 12 × those launches, one chunk
     capture), then on params built once (``init_params`` host seconds):
     a warm prefill and 8 lock-step decode steps under the profiler, the
     prefill at full width and reduced depth with the kernels against
@@ -459,10 +468,52 @@ CASES = [
     ("replay_e1", 1, 513, 513, 14, 2, 64, True, None),
     ("replay_e17", 1, 529, 529, 14, 2, 64, True, None),
     ("replay_e63", 1, 575, 575, 14, 2, 64, True, None),
+    # the edges of the bf16 route's tiles: 128 query rows (64 where 128-row
+    # tiles would be fewer than the SMs), 128 keys, 64-column panels
+    ("sq192", 1, 192, 192, 4, 2, 64, True, None),
+    ("sq320", 1, 320, 320, 4, 2, 64, True, None),
+    ("sq320_sk192_noncausal", 2, 320, 192, 4, 2, 64, False, None),
+    ("sk1", 1, 64, 1, 4, 2, 64, False, None),
+    ("sk33", 1, 100, 33, 4, 2, 64, False, None),
+    ("sk33_causal", 1, 33, 33, 4, 1, 64, True, None),
+    ("gqa7_128_rows", 4, 640, 640, 7, 1, 64, True, None),
+    ("window300_128_rows", 4, 1024, 1024, 8, 2, 64, True, 300),
+    ("window200", 2, 700, 700, 8, 2, 64, True, 200),
+    ("empty_tiles_128_rows", 4, 1024, 64, 14, 2, 64, False, 16),
+    ("sq1", 1, 1, 40, 4, 2, 64, False, None),
+    ("d80_128_rows", 4, 300, 300, 32, 8, 80, False, None),
 ]
-#: the shared attention block of zamba2-7b (32 heads of 112) at the serving
-#: path's prefill size: flash at D = 112, timed
-D112_SHAPE = ("d112_zamba2", 4, 1024, 1024, 32, 32, 112, True, None)
+#: (label, B, Sq, Sk, H, KV, D, window, q_offset): causal at a q_offset
+#: that is not a multiple of the tiles (the q rows a block of a longer
+#: sequence), with 64- and 128-row tiles
+OFFSET_CASES = [
+    ("offset77", 2, 200, 400, 4, 2, 64, None, 77),
+    ("offset333_128_rows", 4, 384, 1024, 14, 2, 64, None, 333),
+    ("offset333_window150_d112", 4, 384, 1024, 14, 2, 112, 150, 333),
+]
+#: the shapes of PERF.md's flash row, bf16, each timed against SDPA and
+#: its bound: (label, B, Sq, Sk, H, KV, D, causal, q_offset); the serving
+#: path's prefill first (the kernels line), zamba2-7b's D = 112 second
+FLASH_TIMED = [
+    ("main_path", 4, 1024, 1024, 14, 2, 64, True, 0),
+    ("d112_zamba2", 4, 1024, 1024, 32, 32, 112, True, 0),
+    ("d128_deepseek", 4, 1024, 1024, 16, 16, 128, True, 0),
+    ("seamless_encoder", 4, 1024, 1024, 16, 16, 64, False, 0),
+    ("seamless_cross", 4, 256, 1024, 16, 16, 64, False, 0),
+    ("seamless_decoder", 4, 256, 256, 16, 16, 64, True, 0),
+    ("pixtral", 4, 1024, 1024, 32, 8, 128, True, 0),
+    ("qwen2_model2", 4, 1024, 1024, 7, 1, 64, True, 0),
+    ("deepseek_model2", 4, 1024, 1024, 8, 8, 128, True, 0),
+    ("zamba2_model2", 4, 1024, 1024, 16, 16, 112, True, 0),
+    ("seamless_encoder_model2", 4, 1024, 1024, 8, 8, 64, False, 0),
+    ("pixtral_model2", 4, 1024, 1024, 16, 4, 128, True, 0),
+    ("admission_qwen2_model2", 1, 512, 512, 7, 1, 64, True, 0),
+    ("admission_qwen2", 1, 512, 512, 14, 2, 64, True, 0),
+    ("admission_zamba2_model2", 1, 512, 512, 16, 16, 112, True, 0),
+    ("admission_deepseek_model2", 1, 512, 512, 8, 8, 128, True, 0),
+    ("offset_prefill_model4", 4, 256, 1024, 14, 2, 64, True, 768),
+    ("offset_prefill_32k_model8", 1, 4096, 32768, 14, 2, 64, True, 28672),
+]
 SERVE = dict(arch="qwen2-0.5b", reduced=False, batch=4, prompt_len=1024,
              T=32, seed=0)
 
@@ -617,14 +668,20 @@ def phase_build() -> None:
     log(f"build: {len(SOURCES)} sources in {time.perf_counter() - t0:.2f} s")
     for name, (lib, secs) in built.items():
         log(f"  {name}.cu in {secs:.2f} s")
-        for kernel, regs, spill in _ptxas_report(lib.with_suffix(".log")):
+        report = lib.with_suffix(".log").read_text()
+        for kernel, regs, spill in _ptxas_report(report):
             log(f"  ptxas: {kernel}: {regs} registers; {spill}")
+        # ptxas's "Potential Performance Loss" notes (C75xx: wgmma made
+        # synchronous, waits injected)
+        notes = re.findall(r"\((C75\d\d)\)", report)
+        log(f"  ptxas: {len(notes)} wgmma performance notes "
+            f"{sorted(set(notes))}")
 
 
-def _ptxas_report(path):
+def _ptxas_report(text):
     """[(kernel, registers, spill line)] from ptxas's ``-v`` report."""
     rows, kernel, spill = [], "", ""
-    for line in path.read_text().splitlines():
+    for line in text.splitlines():
         if m := re.search(r"Compiling entry function '(\S+)'", line):
             kernel = m.group(1)
         elif "spill" in line:
@@ -648,65 +705,102 @@ def _qkv(B, Sq, Sk, H, KV, D, dtype, device, seed=0):
             torch.randn((B, Sk, KV, D), generator=g, device=device).to(dtype))
 
 
+def _check_flash(label, q, k, v, **kw) -> float:
+    """One launch against the plain version at the kernel suite's
+    tolerance; returns the max abs error."""
+    got = FA.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    want = FA.flash_attention_plain(q, k, v, **kw)
+    if got.dtype != q.dtype or got.shape != q.shape:
+        raise AssertionError(f"{label}: got {got.dtype} {tuple(got.shape)}")
+    err, bad = _compare(got, want, TOL[q.dtype])
+    log(f"kernel {label} {str(q.dtype)[6:]}: max_abs_err={err:.3e} "
+        f"(tol {TOL[q.dtype]:g}) bad={bad}")
+    if bad or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"flash kernel disagrees with its plain "
+                             f"version on {label} {q.dtype}")
+    return err
+
+
+def _flash_timed(device, label, B, Sq, Sk, H, KV, D, causal, q_offset):
+    """bf16 at one shape: the kernel, SDPA (with the rows' explicit mask at
+    a q_offset) and the bound, device time per call."""
+    from repro_torch.kernels.ref import attention_mask
+
+    q, k, v = _qkv(B, Sq, Sk, H, KV, D, torch.bfloat16, device)
+    kw = dict(causal=causal, q_offset=q_offset)
+    row = {"label": label, "shape": [B, Sq, Sk, H, KV, D], "causal": causal,
+           "q_offset": q_offset,
+           "ms": device_ms(lambda: FA.flash_attention_cuda(q, k, v, **kw))}
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if q_offset:
+        mask = attention_mask(Sq, Sk, causal, None, device, q_offset)
+        row["sdpa_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=mask, enable_gqa=True), iters=5)
+    else:
+        row["sdpa_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=causal, enable_gqa=True))
+    row["bound_ms"], row["bound_by"] = op_cost.bound_ms(
+        *op_cost.flash_cost(q, k, causal, None, q_offset), PEAK_FLOPS[q.dtype])
+    if label in ("main_path", "d112_zamba2"):
+        row["plain_ms"] = device_ms(
+            lambda: FA.flash_attention_plain(q, k, v, **kw),
+            iters=5 if label == "main_path" else 2)
+    log(f"flash {label} q {tuple(q.shape)} k/v {tuple(k.shape)} causal="
+        f"{causal} q_offset={q_offset} bf16: device time per call: kernel "
+        f"{row['ms']:.4f} ms, sdpa {row['sdpa_ms']:.4f} ms "
+        f"({row['ms'] / row['sdpa_ms']:.2f}x sdpa), bound "
+        f"{row['bound_ms']:.4f} ms ({row['bound_by']}, "
+        f"{row['bound_ms'] / row['ms']:.0%} of it)"
+        + (f", plain {row['plain_ms']:.4f} ms" if "plain_ms" in row else ""))
+    return row, (q, k, v, kw)
+
+
 def phase_kernels(device) -> dict:
-    """Each case in f32 and bf16, kernel against plain; returns the entry
-    for the kernels line (launches filled in after the main path)."""
+    """Each case in f32 and bf16, kernel against plain, then bf16 timed at
+    every shape of :data:`FLASH_TIMED`; returns the entry for the kernels
+    line (launches filled in after the main path)."""
     entry = {"name": "flash_attention", "route": "cuda",
              "source": "src/repro_torch/csrc/flash_attention.cu",
              "replaces": "src/repro/kernels/flash_attention.py:110"}
     for label, B, Sq, Sk, H, KV, D, causal, window in CASES:
         for dtype in (torch.float32, torch.bfloat16):
             q, k, v = _qkv(B, Sq, Sk, H, KV, D, dtype, device)
-            got = FA.flash_attention_cuda(q, k, v, causal=causal,
-                                          window=window)
-            torch.cuda.synchronize()
-            want = FA.flash_attention_plain(q, k, v, causal=causal,
-                                            window=window)
-            if got.dtype != dtype or got.shape != q.shape:
-                raise AssertionError(f"{label}: got {got.dtype} "
-                                     f"{tuple(got.shape)}")
-            err, bad = _compare(got, want, TOL[dtype])
-            log(f"kernel {label} {str(dtype)[6:]}: max_abs_err={err:.3e} "
-                f"(tol {TOL[dtype]:g}) bad={bad}")
-            if bad or not torch.isfinite(got.float()).all():
-                raise AssertionError(f"flash kernel disagrees with its "
-                                     f"plain version on {label} {dtype}")
+            err = _check_flash(label, q, k, v, causal=causal, window=window)
             if label == "main_path" and dtype == torch.bfloat16:
                 entry["max_abs_err"] = err
+    for label, B, Sq, Sk, H, KV, D, window, q_offset in OFFSET_CASES:
+        for dtype in (torch.float32, torch.bfloat16):
+            q, k, v = _qkv(B, Sq, Sk, H, KV, D, dtype, device)
+            _check_flash(label, q, k, v, causal=True, window=window,
+                         q_offset=q_offset)
+    # a BSHD view with a size-1 batch: batch row 1 of a fused (2, S, H + 2
+    # KV, D) projection, its dims of size 1 passed with stride 0
+    for dtype in (torch.float32, torch.bfloat16):
+        g = torch.Generator(device).manual_seed(1)
+        qkv = torch.randn((2, 300, 14 + 2 * 2, 64), generator=g,
+                          device=device).to(dtype)
+        q, k, v = qkv[1:2, :, :14], qkv[1:2, :, 14:16], qkv[1:2, :, 16:]
+        _check_flash("fused_view_batch1", q, k, v, causal=True, window=100)
 
-    _, B, Sq, Sk, H, KV, D, causal, window = CASES[0]
-    q, k, v = _qkv(B, Sq, Sk, H, KV, D, torch.bfloat16, device)
-    kw = dict(causal=causal, window=window)
-    kernel = lambda: FA.flash_attention_cuda(q, k, v, **kw)
-    entry["ms"] = device_ms(kernel)
-    eager = time_ms(kernel)
-    entry["plain_ms"] = device_ms(lambda: FA.flash_attention_plain(q, k, v, **kw),
-                                  iters=5)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    entry["library_ms"] = device_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True))
-    entry["bound_ms"], entry["bound_by"] = flash_bound(q, k, **kw)
-    log(f"flash main-path shape bf16 ({FA.route(q.dtype)} route): device "
-        f"time per call: kernel "
-        f"{entry['ms']:.4f} ms, plain {entry['plain_ms']:.4f} ms, sdpa "
-        f"{entry['library_ms']:.4f} ms ({entry['ms'] / entry['library_ms']:.2f}x "
-        f"sdpa), bound {entry['bound_ms']:.4f} ms ({entry['bound_by']}); eager "
-        f"calls back to back {eager:.4f} ms each")
-
-    label, B, Sq, Sk, H, KV, D, causal, window = D112_SHAPE
-    q, k, v = _qkv(B, Sq, Sk, H, KV, D, torch.bfloat16, device)
-    kw = dict(causal=causal, window=window)
-    ms = device_ms(lambda: FA.flash_attention_cuda(q, k, v, **kw))
-    plain = device_ms(lambda: FA.flash_attention_plain(q, k, v, **kw), iters=2)
-    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-    sdpa = device_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=causal, enable_gqa=True))
-    bound, by = flash_bound(q, k, **kw)
-    log(f"flash {label} q {tuple(q.shape)} k/v {tuple(k.shape)} bf16: device "
-        f"time per call: kernel {ms:.4f} ms, plain {plain:.4f} ms, sdpa "
-        f"{sdpa:.4f} ms ({ms / sdpa:.2f}x sdpa), bound {bound:.4f} ms ({by})")
-    del q, k, v, qt, kt, vt
+    rows = []
+    for shape in FLASH_TIMED:
+        row, (q, k, v, kw) = _flash_timed(device, *shape)
+        rows.append(row)
+        if row["label"] == "main_path":
+            kernel = lambda: FA.flash_attention_cuda(q, k, v, **kw)
+            row["eager_ms"] = time_ms(kernel)
+            row["encode_us"] = FA.encode_us(q, k, v)
+            log(f"flash main-path shape ({FA.route(q.dtype)} route): eager "
+                f"calls back to back {row['eager_ms']:.4f} ms each; the "
+                f"three tensor-map encodes {row['encode_us']:.2f} us of "
+                f"host time a call")
+        del q, k, v
     torch.cuda.empty_cache()
+    main = rows[0]
+    entry.update(ms=main["ms"], plain_ms=main["plain_ms"],
+                 library_ms=main["sdpa_ms"], bound_ms=main["bound_ms"],
+                 bound_by=main["bound_by"], timed_shapes=rows)
     return entry
 
 
@@ -2794,13 +2888,14 @@ FAMILY_DECODE_STEPS = 8
 #: (zamba2-7b: one insertion of the shared block and a 3-layer tail); bf16
 #: is held at 2 layers and reported at this depth
 FAMILY_PLAIN_LAYERS = {"zamba2-7b": 9, "deepseek-moe-16b": 4}
-#: (T 16, not 32, keeps the whole script inside its 1200 s; 16 requests
-#: in 8 slots still reuse every slot)
-FAMILY_SLOT = dict(n_slots=8, n_requests=16, prompt_len=512, T=16,
+#: (T 16 and 12 requests, not 32 and 16, keep the whole script inside its
+#: 1200 s; 12 requests in 8 slots still reuse slots)
+FAMILY_SLOT = dict(n_slots=8, n_requests=12, prompt_len=512, T=16,
                    arrival="poisson:gap=2")
 #: slot ≡ lock-step on the hybrid: full width, 9 layers, f32, TF32 off
+#: (T 16, not 32, for the script's time)
 FAMILY_PARITY = dict(arch="zamba2-7b", n_layers=9, batch=4, prompt_len=512,
-                     T=32)
+                     T=16)
 #: (arch, B, Sq, Sk, H, KV, D, causal, window): each family's prefill
 FAMILY_FLASH_SHAPES = (
     ("zamba2-7b", 4, 1024, 1024, 32, 32, 112, True, None),
@@ -5139,9 +5234,10 @@ def main() -> None:
     print(json.dumps({"phase_seconds": PHASE_SECONDS}))
     print(json.dumps({"kernels": [
         {**{k: e[k] for k in keys},
-         **{k: e[k] for k in ("family_launches", "family_shapes",
-                               "family_pools", "data_parallel",
-                               "tensor_parallel", "seq_parallel")
+         **{k: e[k] for k in ("timed_shapes", "family_launches",
+                               "family_shapes", "family_pools",
+                               "data_parallel", "tensor_parallel",
+                               "seq_parallel")
             if k in e}}
         for e in entries]}))
     print(json.dumps({"ok": True, "device": {

@@ -19,8 +19,11 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+#: ``--split-compile=0``: nvcc optimises a source's kernels in parallel on
+#: every core of the host (flash has 24)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "--split-compile=0", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 
 def find_nvcc() -> str:

@@ -6,8 +6,9 @@ Counterpart of ``repro/kernels/flash_attention.py``.  The kernel itself is
 
 * :func:`flash_attention_cuda` launches the kernel on a CUDA tensor and adds
   one to the module counter :data:`launches` per launch.  The dtype picks
-  the kernel's route (:func:`route`): bf16 on the tensor cores, f32 on the
-  CUDA cores.
+  the kernel's route (:func:`route`): bf16 on the tensor cores (wgmma on
+  TMA-fed tiles, a producer warp and an mbarrier ring), f32 on the CUDA
+  cores.
 * :func:`flash_attention_plain` is the same function in plain PyTorch: the
   CPU path, and the yardstick the kernel is held to on the card.
 
@@ -43,8 +44,8 @@ ROUTES = {torch.float32: "cuda_cores", torch.bfloat16: "tensor_cores"}
 
 def route(dtype) -> str:
     """Which of the kernel's two routes q/k/v of ``dtype`` take: bf16 runs
-    its products on the tensor cores (P rounded to bf16 before P·V), f32
-    keeps the f32 FMAs of the first version, which hold the f32
+    its products on the tensor cores (wgmma; P rounded to bf16 before
+    P·V), f32 keeps the f32 FMAs of the first version, which hold the f32
     tolerance."""
     if dtype not in ROUTES:
         raise TypeError(f"flash attention takes float32 or bfloat16, got {dtype}")
@@ -81,14 +82,15 @@ def _check(q, k, v):
     if D not in HEAD_DIMS:
         raise ValueError(
             f"head dim {D} not built; the kernel takes {HEAD_DIMS}: the bf16 "
-            "route's mma.sync k-steps are 16 wide, and no config's head dim "
-            "is above 128")
+            "route's wgmma k-steps are 16 wide, and no config's head dim is "
+            "above 128")
 
 
 def _tile_ready(t):
     """``t`` as the tensor-core route reads it: d contiguous, rows 16-byte
     aligned (pointer at 16 bytes, every other stride a multiple of 8
-    elements).  Any BSHD view that is not is copied first."""
+    elements: a TMA tensor map's terms).  Any BSHD view that is not is
+    copied first."""
     ok = t.data_ptr() % 16 == 0 and t.stride(-1) == 1 and all(
         st % 8 == 0 for n, st in zip(t.shape[:-1], t.stride()[:-1]) if n > 1)
     return t if ok else t.clone(memory_format=torch.contiguous_format)
@@ -100,13 +102,34 @@ def _strides(t):
 
 
 @functools.cache
-def _kernel():
-    """The C entry point, built and bound on first use."""
-    fn = _build.load("flash_attention").flash_attention_fwd
-    fn.restype = ctypes.c_int
-    fn.argtypes = ([ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
-                   + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p])
-    return fn
+def _library():
+    """The kernel's library, built and bound on first use."""
+    lib = _build.load("flash_attention")
+    lib.flash_attention_fwd.restype = ctypes.c_int
+    lib.flash_attention_fwd.argtypes = (
+        [ctypes.c_void_p] * 4 + [ctypes.POINTER(ctypes.c_longlong)]
+        + [ctypes.c_int] * 11 + [ctypes.c_float, ctypes.c_void_p])
+    lib.flash_attention_encode_ns.restype = ctypes.c_longlong
+    lib.flash_attention_encode_ns.argtypes = (
+        [ctypes.c_void_p] * 3 + [ctypes.POINTER(ctypes.c_longlong)]
+        + [ctypes.c_int] * 7)
+    return lib
+
+
+def encode_us(q, k, v, iters: int = 1000) -> float:
+    """Host µs that one bf16 launch spends encoding its three TMA tensor
+    maps (q, k, v as the kernel would read them), the mean of ``iters``;
+    no device work."""
+    _check(q, k, v)
+    q, k, v = _tile_ready(q), _tile_ready(k), _tile_ready(v)
+    B, Sq, H, D = q.shape
+    strides = (ctypes.c_longlong * 12)(*_strides(q), *_strides(k), *_strides(v))
+    ns = _library().flash_attention_encode_ns(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), strides, B, Sq, k.shape[1],
+        H, k.shape[2], D, iters)
+    if ns < 0:
+        raise RuntimeError("flash attention: a tensor map did not encode")
+    return ns / iters / 1e3
 
 
 def flash_attention_cuda(q, k, v, *, causal=True, window=None, q_offset=0):
@@ -144,7 +167,7 @@ def flash_attention_cuda(q, k, v, *, causal=True, window=None, q_offset=0):
         window = min(int(window), q_offset + Sq)
     if route(q.dtype) == "tensor_cores":
         q, k, v = _tile_ready(q), _tile_ready(k), _tile_ready(v)
-    fn = _kernel()
+    fn = _library().flash_attention_fwd
     strides = (ctypes.c_longlong * 16)(
         *_strides(q), *_strides(k), *_strides(v), *_strides(out))
     with torch.cuda.device(q.device):

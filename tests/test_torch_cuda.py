@@ -155,6 +155,57 @@ def test_flash_kernel_at_q_offset_matches_plain_and_the_whole(
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,window,q_offset", [
+    (1, 192, 192, 4, 2, 64, True, None, 0),     # S a multiple of 64, not 128
+    (1, 320, 320, 4, 2, 64, True, None, 0),
+    (2, 320, 192, 4, 2, 64, False, None, 0),
+    (1, 64, 1, 4, 2, 64, False, None, 0),       # ragged Sk below one tile
+    (1, 100, 33, 4, 2, 64, False, None, 0),
+    (1, 33, 33, 4, 1, 64, True, None, 0),
+    (4, 640, 640, 7, 1, 64, True, None, 0),     # H/KV 7 on 128-row tiles
+    (4, 1024, 1024, 8, 2, 64, True, 300, 0),    # windows ending in a tile
+    (2, 700, 700, 8, 2, 64, True, 200, 0),
+    (2, 200, 400, 4, 2, 64, True, None, 77),    # q_offsets off the tiles
+    (4, 384, 1024, 14, 2, 64, True, None, 333),
+    (4, 384, 1024, 14, 2, 112, True, 150, 333),
+    (4, 1024, 64, 14, 2, 64, False, 16, 0),     # q tiles that see no key
+    (1, 1, 40, 4, 2, 64, False, None, 0),       # one query row
+    (4, 300, 300, 32, 8, 80, False, None, 0),   # D 80 on 128-row tiles
+])
+def test_flash_kernel_at_the_tiles_edges(cuda_device, dtype, B, Sq, Sk, H,
+                                         KV, D, causal, window, q_offset):
+    """The edges of the bf16 route's tiles: 128 query rows (64 where
+    128-row tiles would be fewer than the SMs), 128 keys, 64-column
+    shared-memory panels, rows and columns past the tensor zero-filled by
+    the TMA; every output finite."""
+    q, k, v = _qkv(cuda_device, B, Sq, Sk, H, KV, D, dtype)
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    got = FA.flash_attention_cuda(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got.float()).all()
+    _close(got, FA.flash_attention_plain(q, k, v, **kw), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_kernel_reads_a_size1_batch_view(cuda_device, dtype):
+    """q / k / v as views of batch row 1 of a fused (2, S, H + 2 KV, D)
+    projection: the wrapper passes stride 0 for the size-1 batch, which a
+    TMA tensor map cannot take, and the views are read in place."""
+    g = torch.Generator(cuda_device).manual_seed(1)
+    qkv = torch.randn((2, 300, 18, 64), generator=g,
+                      device=cuda_device).to(dtype)
+    q, k, v = qkv[1:2, :, :14], qkv[1:2, :, 14:16], qkv[1:2, :, 16:]
+    got = FA.flash_attention_cuda(q, k, v, causal=True, window=100)
+    _close(got, FA.flash_attention_plain(q, k, v, causal=True, window=100),
+           dtype)
+    # the bf16 route's host work: three tensor-map encodes, no device work
+    q16, k16, v16 = (t.bfloat16() for t in (q, k, v))
+    assert 0 < FA.encode_us(q16, k16, v16, iters=100) < 1000
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("D", [16, 48, 80, 96, 112])
 def test_flash_kernel_every_head_dim(cuda_device, dtype, D):
     """The head dims beyond 32/64/128, zamba2-7b's 112 among them (7 k16
@@ -536,7 +587,7 @@ def test_pooled_kernels_match_plain_over_the_qwen2_pool(
     torch.cuda.synchronize()
     launched = dict(AU.launches)
     with monkeypatch.context() as mp:
-        mp.setattr(ops, "_route", lambda what, t: "cpu")   # plain, on card
+        mp.setattr(ops, "_route", lambda what, t: "plain")  # plain, on card
         _, want_count, want_gnorm = _pooled_call(name, momentum, delayed,
                                                  grads, want, count2)
     assert launched == {**dict.fromkeys(AU.KERNELS, 0), kernel: 1}

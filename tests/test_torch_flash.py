@@ -7,7 +7,7 @@ plain version; the CUDA kernel itself is held to it on the card by the
 ``cuda``-marked tests of ``test_torch_cuda.py``.
 
 The kernel's bf16 route rounds in one place the plain version does not:
-P, the probabilities of a 64-key tile under the running max, goes into
+P, the probabilities of a 128-key tile under the running max, goes into
 P·V as bf16 (l sums them in f32), and 1/√D scales the f32 scores.
 :func:`tensor_core_model` writes those rounding points in plain torch, tile
 by tile, and is held to the Pallas kernel at the main path's widths before
@@ -114,11 +114,12 @@ def test_cuda_request_without_cuda_raises(monkeypatch):
     assert resolve_device("cpu").type == "cpu"
 
 
-def tensor_core_model(q, k, v, *, causal=True, window=None, tile=64):
+def tensor_core_model(q, k, v, *, causal=True, window=None, tile=128):
     """The bf16 route of ``csrc/flash_attention.cu`` in plain torch: f32
-    scores of the bf16 inputs, masks as -inf, the online softmax over
-    64-key tiles in base 2 with the scale on the f32 scores, P rounded to
-    bf16 before P·V, l summed from the f32 P, an empty row 0."""
+    scores of the bf16 inputs (wgmma's f32 accumulators), masks as -inf,
+    the online softmax over key tiles of ``tile`` (the kernel's 128, from
+    key 0) in base 2 with the scale on the f32 scores, P rounded to bf16
+    before P·V, l summed from the f32 P, an empty row 0."""
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     kf = k.float().repeat_interleave(H // KV, dim=2)
@@ -144,15 +145,19 @@ def tensor_core_model(q, k, v, *, causal=True, window=None, tile=64):
 
 
 @pytest.mark.parametrize("B,Sq,Sk,H,KV,causal,window", [
-    (1, 192, 192, 14, 2, True, None),     # H/KV = 7, three tiles
+    (1, 192, 192, 14, 2, True, None),     # H/KV = 7, one and a half tiles
     (1, 200, 200, 7, 1, True, 100),       # ragged S, a window off the tile
     (1, 128, 200, 14, 2, False, None),    # non-causal, Sk > Sq
+    (1, 320, 320, 14, 2, True, None),     # S a multiple of 64, not of 128
+    (1, 100, 33, 4, 1, False, None),      # Sk below one tile
+    (1, 256, 256, 7, 1, True, 200),       # a window ending inside a tile
+    (1, 130, 260, 14, 2, False, None),    # both edges ragged, non-causal
 ])
 def test_flash_tensor_core_rounding_matches_pallas(B, Sq, Sk, H, KV, causal,
                                                    window):
     """The bf16 route's rounding points, at the main path's D = 64 and
-    H/KV = 7, against the Pallas kernel in interpret mode at the bf16
-    tolerance."""
+    H/KV = 7 and at the edges of its 128-key tiles, against the Pallas
+    kernel in interpret mode at the bf16 tolerance."""
     (qj, qt), (kj, kt), (vj, vt) = _inputs(B, Sq, Sk, H, KV, 64, "bfloat16")
     want = flash_attention_pallas(qj, kj, vj, causal=causal, window=window,
                                   block_q=64, block_k=64, interpret=True)
