@@ -11,7 +11,9 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``nvcc`` for ``sm_90a``, one ``nvcc`` per source, all started together,
    and logs each source's build seconds, ptxas's registers and spills per
    kernel and its wgmma performance notes (C75xx: a product made
-   synchronous);
+   synchronous), and the SSD kernel's Hopper design per instantiation
+   with the shared memory it asks for, failing on a spill or a note there
+   or on a layout other than ``ssd_chunk.hopper_layout``'s;
 3. the flash kernel against its plain version, on the card: the serving
    path's prefill shape and the kernel test matrix (MHA, GQA 4:1, ragged
    MQA, D = 128, windows, non-causal, an empty-row case), the head dims
@@ -66,17 +68,27 @@ Phases, each of which fails the run (non-zero exit, no result line):
    ``update_impl="reference"`` (``TrainJob`` has no momentum field);
 9. the SSD chunk kernel against its plain version, on the card: the case
    matrix of ``tests/test_kernels.py``, the serving shape of mamba2-370m
-   (x (4, 8, 128, 32, 64), B/C (4, 8, 128, 128)) and the edges of the bf16
-   route's head groups and tiles (one cell, H = 6, c 32 and 128 with
-   N = 64, c 16 with N = 128), f32 (CUDA-core route) and bf16 (tensor-core
-   route), at that file's tolerances (1e-3, 4e-2); at the serving shape
-   the kernel and its plain version are timed on the device as in phase 3
-   (no single PyTorch call computes this function);
+   (x (4, 8, 128, 32, 64), B/C (4, 8, 128, 128)), the edges of the bf16
+   route's tiles (one cell, H = 6, c 32 and 128 with N = 64, c 16 with
+   N = 128), the reduced configs' chunk, the model-2 and model-4 ranks'
+   and batch-1 admissions' shapes, zamba2-7b's, and a layout no tensor
+   map describes (P 20, N 10: the mma.sync design), f32 (CUDA-core route)
+   and bf16 (tensor-core route: the Hopper design), at that file's
+   tolerances (1e-3, 4e-2); at the serving shape the kernel and its plain
+   version are timed on the device as in phase 3 (no single PyTorch call
+   computes this function); then every SSD shape the paths launch
+   (``SSD_TIMED``) in bf16: the Hopper design's device time against the
+   mma.sync design's on the same inputs, the bound and the share, a
+   table (``timed_shapes`` in the kernels line; the earlier recorded
+   time beside each row in the log only);
 10. the SSM serving main path at full width: ``run(ExperimentSpec(
     objective=ServeJob(arch="mamba2-370m", reduced=False, batch=4,
     prompt_len=1024, arch_overrides=(("use_ssd_kernel", True),)),
     T=32))``, which must launch the SSD kernel once per layer (48) and
-    hand it bf16 x, B and C (its tensor-core route); then prefill again on
+    hand it bf16 x, B and C (its tensor-core route), every launch on the
+    Hopper design (as on phases 12, 17, 22 and 23: no SSD launch on a path
+    takes the mma.sync design; bf16 ones take the Hopper design, the f32
+    depth gates the CUDA cores); then prefill again on
     the same params: through the kernel and through its plain version in
     the same branch, whose last-token logits must agree to bf16 tolerance;
     the gap to the einsum branch (``use_ssd_kernel=False``),
@@ -371,6 +383,7 @@ Phases, each of which fails the run (non-zero exit, no result line):
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import functools
 import json
@@ -556,8 +569,32 @@ SSD_CASES = [("main_path", 4, 8, 128, 32, 64, 128),
              ("c128_n64", 2, 2, 128, 8, 64, 64),
              ("c16_n128", 1, 2, 16, 4, 64, 128),
              # the slot lane's batch-1 prefill on mamba2-370m (one admission)
-             ("slot_prefill", 1, 4, 128, 32, 64, 128)]
+             ("slot_prefill", 1, 4, 128, 32, 64, 128),
+             # the reduced configs' chunk, a rank's shapes at model 2 and 4,
+             # the ranks' batch-1 admissions (split tiles), zamba2-7b
+             ("reduced", 2, 4, 16, 16, 32, 32),
+             ("tp2", 4, 8, 128, 16, 64, 128), ("tp4", 4, 8, 128, 8, 64, 128),
+             ("tp2_zamba", 4, 8, 128, 56, 64, 64),
+             ("admit_tp2", 1, 4, 128, 16, 64, 128),
+             ("admit_tp4", 1, 4, 128, 8, 64, 128),
+             ("admit_tp2_zamba", 1, 4, 128, 56, 64, 64),
+             ("zamba", 4, 8, 128, 112, 64, 64),
+             # a layout no tensor map describes: the mma.sync design
+             ("ragged", 2, 3, 13, 3, 20, 10)]
 SSD_TOL = {torch.float32: 1e-3, torch.bfloat16: 4e-2}
+#: every SSD shape the paths launch, timed in bf16 in phase 9: (label, B,
+#: nc, c, H, P, N, the earlier time in ms that PERF.md's row 8 records, or
+#: None)
+SSD_TIMED = [
+    ("mamba2-370m prefill", 4, 8, 128, 32, 64, 128, 0.0476),
+    ("zamba2-7b prefill", 4, 8, 128, 112, 64, 64, 0.1297),
+    ("mamba2-370m at model 2", 4, 8, 128, 16, 64, 128, 0.0352),
+    ("mamba2-370m at model 4", 4, 8, 128, 8, 64, 128, None),
+    ("zamba2-7b at model 2", 4, 8, 128, 56, 64, 64, 0.0710),
+    ("admission, mamba2-370m", 1, 4, 128, 32, 64, 128, None),
+    ("admission, mamba2-370m at model 2", 1, 4, 128, 16, 64, 128, 0.0341),
+    ("admission, mamba2-370m at model 4", 1, 4, 128, 8, 64, 128, 0.0339),
+    ("admission, zamba2-7b at model 2", 1, 4, 128, 56, 64, 64, 0.0260)]
 SSM_SERVE = dict(arch="mamba2-370m", reduced=False, batch=4, prompt_len=1024,
                  T=32, seed=0)
 
@@ -676,6 +713,37 @@ def phase_build() -> None:
         notes = re.findall(r"\((C75\d\d)\)", report)
         log(f"  ptxas: {len(notes)} wgmma performance notes "
             f"{sorted(set(notes))}")
+        if name == "ssd_chunk":
+            _ssd_hopper_report(report, notes, lib)
+
+
+def _ssd_hopper_report(report, notes, lib) -> None:
+    """The SSD kernel's Hopper design, one line per instantiation (c, N
+    and P padded, consumer warpgroups): registers, spills and the shared
+    memory the built kernel asks for; it fails on a spill, a wgmma
+    performance note (a product made synchronous) or shared memory other
+    than ``SSD.hopper_layout``'s."""
+    query = ctypes.CDLL(str(lib)).ssd_chunk_hopper_smem
+    query.restype = ctypes.c_int
+    query.argtypes = [ctypes.c_int] * 4
+    rows = [(tuple(map(int, re.search(r"CfgILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)",
+                                      k).groups())), regs, spill)
+            for k, regs, spill in _ptxas_report(report) if "ssd_hopper" in k]
+    astray = []
+    for (cp, np_, pp, nwg), regs, spill in rows:
+        smem = query(cp, pp, np_, nwg)
+        want = SSD.hopper_layout(cp, pp, np_, nwg)["total"]
+        log(f"  ssd hopper c {cp} N {np_} P {pp}, {nwg} consumer "
+            f"warpgroup(s): {regs} registers at entry; {spill}; {smem} "
+            f"bytes of shared memory (hopper_layout {want})")
+        if smem != want:
+            astray.append((cp, np_, pp, nwg, smem, want))
+    spilled = [r for r in rows if not r[2].startswith("0 bytes stack frame, "
+                                                     "0 bytes spill stores")]
+    if not rows or spilled or notes or astray:
+        raise AssertionError(f"ssd hopper kernels: {len(rows)} built, spills "
+                             f"{spilled}, wgmma notes {notes}, layouts other "
+                             f"than hopper_layout {astray}")
 
 
 def _ptxas_report(text):
@@ -1246,6 +1314,46 @@ def _ssd_inputs(B, nc, c, H, P, N, dtype, device, seed=3):
             (rn((B, nc, c, N)) * 0.3).to(dtype))
 
 
+def _zero_ssd() -> None:
+    """The SSD kernel's launch counts, overall and by design, set to 0."""
+    SSD.launches = 0
+    SSD.design_launches.update(dict.fromkeys(SSD.design_launches, 0))
+
+
+def _ssd_designs(label, bf16=True) -> dict:
+    """The SSD launches since :func:`_zero_ssd`, by design: none on the
+    mma.sync design, and every one on the Hopper design where the path
+    hands the kernel bf16 (``bf16``), none where it hands it f32 (the
+    depth gates: the CUDA cores)."""
+    d = dict(SSD.design_launches)
+    want = SSD.launches if bf16 else 0
+    if d["mma_sync"] or sum(d.values()) != SSD.launches or d["hopper"] != want:
+        raise AssertionError(f"{label}: ssd launches by design {d} of "
+                             f"{SSD.launches}, want {want} on the Hopper "
+                             f"design and none on mma.sync")
+    log(f"{label}: ssd launches by design {d}")
+    return d
+
+
+def _ssd_mma_sync(x, dt, A, B_, C_):
+    """The first tensor-core design (mma.sync) on the same inputs,
+    through the C entry the wrapper keeps for layouts no tensor map
+    describes: a yardstick in phase 9 only, uncounted."""
+    (x, x_rs), (B_, b_rs), (C_, c_rs), _ = SSD._operands(x, B_, C_)
+    Bb, nc, c, H, P = x.shape
+    N = B_.shape[-1]
+    y = torch.empty(x.shape, dtype=x.dtype, device=x.device)
+    st = torch.empty((Bb, nc, H, N, P), dtype=torch.float32, device=x.device)
+    err = SSD._kernel()(x.data_ptr(), dt.contiguous().data_ptr(),
+                        A.contiguous().data_ptr(), B_.data_ptr(),
+                        C_.data_ptr(), y.data_ptr(), st.data_ptr(), Bb * nc,
+                        c, H, P, N, x_rs, b_rs, c_rs, 1, 1,
+                        torch.cuda.current_stream().cuda_stream)
+    if err:
+        raise RuntimeError(f"ssd mma.sync launch failed: cudaError_t {err}")
+    return y, st
+
+
 def ssd_bound(x, B_):
     """(bound_ms, bound_by) of one SSD chunk call: ``op_cost.ssd_cost``'s
     operations at the bf16 tensor-core peak."""
@@ -1262,6 +1370,7 @@ def phase_ssd_kernel(device) -> dict:
     for label, B, nc, c, H, P, N in SSD_CASES:
         for dtype in (torch.float32, torch.bfloat16):
             args = _ssd_inputs(B, nc, c, H, P, N, dtype, device)
+            kind = SSD.design_of(args[0], args[3], args[4])
             y, st = SSD.ssd_chunk_cuda(*args)
             torch.cuda.synchronize()
             wy, wst = SSD.ssd_chunk_plain(*args)
@@ -1271,8 +1380,8 @@ def phase_ssd_kernel(device) -> dict:
             tol = SSD_TOL[dtype]
             err_y, bad_y = _compare(y, wy, tol)
             err_s, bad_s = _compare(st, wst, tol)
-            log(f"ssd kernel {label} {str(dtype)[6:]}: max_abs_err y "
-                f"{err_y:.3e} states {err_s:.3e} (tol {tol:g}) "
+            log(f"ssd kernel {label} {str(dtype)[6:]} ({kind}): max_abs_err "
+                f"y {err_y:.3e} states {err_s:.3e} (tol {tol:g}) "
                 f"bad={bad_y + bad_s}")
             if bad_y or bad_s or not (torch.isfinite(y.float()).all()
                                       and torch.isfinite(st).all()):
@@ -1294,7 +1403,42 @@ def phase_ssd_kernel(device) -> dict:
         f"calls back to back {eager:.4f} ms each")
     del args
     torch.cuda.empty_cache()
+    entry["timed_shapes"] = _ssd_timed(device)
     return entry
+
+
+def _ssd_timed(device) -> list:
+    """Every SSD shape the paths launch (``SSD_TIMED``) in bf16: the Hopper
+    design's device time against the mma.sync design's on the same inputs
+    (both held to each other), the bound and the share; returns the
+    table's rows, each number measured or computed in this run (the
+    earlier recorded time stands beside them in the log only)."""
+    rows = []
+    log("ssd timed (bf16): shape | design | ms | mma.sync ms | earlier ms "
+        "| bound ms | share of bound")
+    for label, B, nc, c, H, P, N, earlier in SSD_TIMED:
+        args = _ssd_inputs(B, nc, c, H, P, N, torch.bfloat16, device)
+        kind = SSD.design_of(args[0], args[3], args[4])
+        if kind != "hopper":
+            raise AssertionError(f"ssd {label} takes the {kind} design")
+        (y, st), (wy, wst) = SSD.ssd_chunk_cuda(*args), _ssd_mma_sync(*args)
+        err = max(_compare(y, wy, SSD_TOL[torch.bfloat16])[0],
+                  _compare(st, wst, SSD_TOL[torch.bfloat16])[0])
+        if err > SSD_TOL[torch.bfloat16]:
+            raise AssertionError(f"ssd {label}: the designs differ by {err}")
+        ms = device_ms(lambda: SSD.ssd_chunk_cuda(*args))
+        mma_ms = device_ms(lambda: _ssd_mma_sync(*args))
+        bound, by = ssd_bound(args[0], args[3])
+        rows.append({"shape": label, "x": [B, nc, c, H, P], "N": N,
+                     "design": kind, "ms": ms, "mma_sync_ms": mma_ms,
+                     "bound_ms": bound, "bound_by": by, "share": bound / ms})
+        log(f"  {label} x ({B}, {nc}, {c}, {H}, {P}) N {N} | {kind} | "
+            f"{ms:.4f} | {mma_ms:.4f} | "
+            f"{'not measured' if earlier is None else earlier}"
+            f" | {bound:.4f} ({by}) | {bound / ms:.2f}")
+        del args, y, st, wy, wst
+    torch.cuda.empty_cache()
+    return rows
 
 
 def _prefill_plain_ssd(cfg, params, tokens, ctx):
@@ -1320,10 +1464,11 @@ def phase_ssm_main_path(device, entry: dict) -> None:
     cfg = job.make_arch()
     torch.cuda.reset_peak_memory_stats()
 
-    SSD.launches = 0
+    _zero_ssd()
     with _dtypes_seen(SSD, "ssd_chunk_cuda") as seen:
         res = run(spec, device=device)
     entry["launches"] = SSD.launches
+    entry["designs"] = _ssd_designs("ssm main path")
     routes = sorted({SSD.route(getattr(torch, d[0]), getattr(torch, d[3]))
                      for d in seen})
     log(f"ssm main path hands the ssd kernel x/dt/A/B/C of dtypes "
@@ -1512,11 +1657,14 @@ def phase_slot_cell(device, cell) -> dict:
     want_launches = n_req * cfg.n_layers
     torch.cuda.reset_peak_memory_stats()
     mod.launches = 0
+    _zero_ssd()
     with _dtypes_seen(mod, cuda_fn) as seen:
         t0 = time.perf_counter()
         res = run(spec, device=device)
         cold = time.perf_counter() - t0
     launches = mod.launches
+    if mod is SSD:
+        _ssd_designs(f"slot lane {cfg.name}")
     e = res.extra
     routes = sorted({FA.route(getattr(torch, d[0])) if mod is FA else
                      SSD.route(getattr(torch, d[0]), getattr(torch, d[3]))
@@ -1549,6 +1697,7 @@ def phase_slot_cell(device, cell) -> dict:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mod.launches = 0
+        _zero_ssd()
         r = srv.serve(params, prompts, T, admission=admission,
                       arrivals=arrivals)
         torch.cuda.synchronize()
@@ -1557,6 +1706,8 @@ def phase_slot_cell(device, cell) -> dict:
         if mod.launches != want_launches:
             raise AssertionError(f"{cfg.name} {label}: {mod.launches} "
                                  f"{cell['kernel']} launches")
+        if mod is SSD:
+            _ssd_designs(f"slot server {cfg.name} {label}")
         return r, wall
 
     first, _ = serve(server, "pure", "graph")
@@ -2944,11 +3095,14 @@ def _counted_run(label, spec, device, want) -> tuple:
     after; each must equal ``want`` and every launch take the tensor-core
     route.  Returns (result, launches, peak GiB)."""
     torch.cuda.reset_peak_memory_stats()
-    FA.launches = SSD.launches = 0
+    FA.launches = 0
+    _zero_ssd()
     with _dtypes_seen(FA, "flash_attention_cuda") as fseen, \
             _dtypes_seen(SSD, "ssd_chunk_cuda") as sseen:
         res = run(spec, device=device)
     got = {"flash": FA.launches, "ssd": SSD.launches}
+    if want["ssd"]:
+        _ssd_designs(label)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if got != want or {"flash": res.extra["flash_launches"],
                        "ssd": res.extra["ssd_launches"]} != want:
@@ -3144,9 +3298,13 @@ def _family_plain_gate(device, cfg, params, prompts) -> dict:
                        (two, "bfloat16")):
         cut = cut.with_(dtype=dtype)
         pc = _cut_depth(params, cut)
-        FA.launches = SSD.launches = 0
+        FA.launches = 0
+        _zero_ssd()
         a = prefill(cut, pc, {"tokens": tokens})[0].float()
         got = {"flash": FA.launches, "ssd": SSD.launches}
+        if got["ssd"]:
+            _ssd_designs(f"{cut.name} {dtype} at {cut.n_layers} layers",
+                         dtype == "bfloat16")
         if got != _family_counts(cut):
             raise AssertionError(f"{cut.name} at {cut.n_layers} layers: "
                                  f"launches {got}")
@@ -4466,12 +4624,15 @@ def _tpf_split_forward(label, cfg, blocks, batch, M) -> tuple:
     route of ``cfg``'s dtype.  Returns (logits, launches, routes)."""
     from repro_torch.models.tp import ThreadRanks
 
-    FA.launches = SSD.launches = 0
+    FA.launches = 0
+    _zero_ssd()
     with _dtypes_seen(FA, "flash_attention_cuda") as fseen, \
             _dtypes_seen(SSD, "ssd_chunk_cuda") as sseen:
         got = ThreadRanks(cfg, M).run(lambda tp: forward_logits(
             cfg, blocks[tp.rank], batch, tp=tp)[0])
     launched = {"flash": FA.launches, "ssd": SSD.launches}
+    if launched["ssd"]:
+        _ssd_designs(label, all(d[0] == "bfloat16" for d in sseen))
     want = {k: M * v for k, v in _split_counts(cfg).items()}
     if launched != want:
         raise AssertionError(f"{label}: the split launched {launched}, "
@@ -4732,7 +4893,8 @@ def _tps_cell(device, arch, over, M) -> dict:
                                  f"{whole_toks.tolist()} != the SlotServer's "
                                  f"{res.tokens.tolist()}")
         blocks = _tp_blocks(cfg, params, M)
-        FA.launches = SSD.launches = 0
+        FA.launches = 0
+        _zero_ssd()
         t0 = time.perf_counter()
         with _dtypes_seen(FA, "flash_attention_cuda") as fseen, \
                 _dtypes_seen(SSD, "ssd_chunk_cuda") as sseen:
@@ -4740,6 +4902,9 @@ def _tps_cell(device, arch, over, M) -> dict:
                 cfg, blocks[tp.rank], prompts, arrivals, ctx, tp, want))
         out["ranks_s"] = time.perf_counter() - t0
         launched = {"flash": FA.launches, "ssd": SSD.launches}
+        if launched["ssd"]:
+            out["ssd_designs"] = _ssd_designs(
+                label, all(d[0] == "bfloat16" for d in sseen))
         per = _split_counts(cfg)
         hand = {k: n * M * v for k, v in per.items()}
         out["launches_split"], out["launches_hand"] = launched, hand

@@ -629,31 +629,6 @@ __global__ void __launch_bounds__(Hop<D, NWG>::THREADS, NWG == 1 ? 2 : 1)
 
 // A (d, s, h, b) tensor map of a BSHD bf16 operand with a 64 x `rows` box;
 // a dim of size 1 (stride 0 from the wrapper) gets its packed stride.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled lives in libcuda: it is taken through the
-// runtime's entry-point query, so the library links no -lcuda.
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &f, 12000,
-                                                             cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
 bool encode_bshd(CUtensorMap* map, const void* ptr, const Strides& st, int D, int S, int heads,
                  int B, int rows) {
   const EncodeTiled fn = encode_tiled();

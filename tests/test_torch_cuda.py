@@ -45,6 +45,7 @@ CUDA graph chunks.  Its card tests hold the graph route to the eager loop
 and a grid to solo replays bit for bit, and the card to the CPU within
 ``chip_smoke.py``'s rtol 1e-4 / atol 1e-6.
 """
+import ctypes
 import dataclasses
 
 import numpy as np
@@ -649,16 +650,26 @@ def test_pooled_and_tap_runs_on_the_card(cuda_device):
 
 
 #: (B, nc, c, H, P, N): the kernel test matrix of test_kernels.py, ragged
-#: sizes (no multiple of 4 or of 32), the serving path's prefill shape, and
+#: sizes (no multiple of 4 or of 32; in bf16 the mma.sync design's: P 20
+#: and N 10 are no multiple of 8), the serving path's prefill shape, and
 #: the edges of the tensor-core route's tiling: one cell, H not a multiple
-#: of the 4 heads a block takes, c = 32 and c = 128 with N = 64
+#: of 4, c = 32 and c = 128 with N = 64; then the reduced configs' chunk,
+#: the model-2 and model-4 ranks' prefill shapes and the batch-1
+#: admissions' (split tiles), whose bf16 calls take the Hopper design
 SSD_CASES = [(1, 1, 16, 2, 32, 16), (1, 1, 64, 4, 64, 32),
              (2, 3, 13, 3, 20, 10), (4, 8, 128, 32, 64, 128),
              (1, 1, 128, 8, 64, 128), (1, 2, 64, 6, 64, 64),
              (2, 2, 32, 8, 64, 64), (2, 2, 128, 8, 64, 64),
              (1, 2, 16, 4, 64, 128),
              (1, 4, 128, 32, 64, 128),          # the slot lane's admission
-             (4, 8, 128, 112, 64, 64)]          # zamba2-7b's prefill
+             (4, 8, 128, 112, 64, 64),          # zamba2-7b's prefill
+             (2, 4, 16, 16, 32, 32),            # the reduced configs' chunk
+             (4, 8, 128, 16, 64, 128),          # mamba2-370m at model 2
+             (4, 8, 128, 8, 64, 128),           # ... at model 4
+             (4, 8, 128, 56, 64, 64),           # zamba2-7b at model 2
+             (1, 4, 128, 16, 64, 128),          # admissions on a rank
+             (1, 4, 128, 8, 64, 128),
+             (1, 4, 128, 56, 64, 64)]
 SSD_TOL = {torch.float32: dict(rtol=1e-3, atol=1e-3),
            torch.bfloat16: dict(rtol=4e-2, atol=4e-2)}
 
@@ -685,9 +696,12 @@ def test_ssd_kernel_matches_plain(cuda_device, dtype, bc_dtype, B, nc, c, H,
                                   P, N):
     args = _ssd_inputs(cuda_device, B, nc, c, H, P, N, dtype, bc_dtype)
     before = SSD.launches
+    kind = SSD.design(dtype, bc_dtype, c, P, N)
+    by_design = SSD.design_launches[kind]
     y, st = SSD.ssd_chunk_cuda(*args)
     torch.cuda.synchronize()
     assert SSD.launches == before + 1
+    assert SSD.design_launches[kind] == by_design + 1
     wy, wst = SSD.ssd_chunk_plain(*args)
     assert y.dtype == dtype and y.shape == args[0].shape
     assert st.dtype == torch.float32 and st.shape == (B, nc, H, N, P)
@@ -701,10 +715,13 @@ def _close_ssd(got, want, dtype):
 
 
 @pytest.mark.cuda
-def test_ssd_kernel_reads_column_slices(cuda_device):
+@pytest.mark.parametrize("B,nc,c,H,P,N", [(2, 2, 32, 4, 16, 8),
+                                          (1, 2, 128, 8, 64, 128),
+                                          (1, 4, 128, 8, 64, 128)])
+def test_ssd_kernel_reads_column_slices(cuda_device, B, nc, c, H, P, N):
     """x, B and C as column slices of one wider tensor, the way the model
-    splits the conv output: read in place, same result as contiguous."""
-    B, nc, c, H, P, N = 2, 2, 32, 4, 16, 8
+    splits the conv output: read in place (the Hopper design's tensor maps
+    at the slice's row stride), the same bits as contiguous."""
     x, dt, A, Bm, Cm = _ssd_inputs(cuda_device, B, nc, c, H, P, N,
                                    torch.bfloat16, torch.bfloat16)
     wide = torch.cat([x.reshape(B, nc, c, H * P), Bm, Cm], dim=-1)
@@ -715,6 +732,59 @@ def test_ssd_kernel_reads_column_slices(cuda_device):
     want = SSD.ssd_chunk_cuda(x, dt, A, Bm, Cm)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nc,c,H,P,N", [(4, 8, 128, 32, 64, 128),
+                                          (4, 8, 128, 112, 64, 64),
+                                          (1, 4, 128, 8, 64, 128),
+                                          (2, 4, 16, 16, 32, 32)])
+def test_ssd_kernel_is_bitwise_repeatable(cuda_device, B, nc, c, H, P, N):
+    """Two launches of the Hopper design on the same inputs give the same
+    bits: every output element is written by one block, without atomics
+    (whole tiles, split tiles, one role)."""
+    args = _ssd_inputs(cuda_device, B, nc, c, H, P, N, torch.bfloat16,
+                       torch.bfloat16)
+    assert SSD.design(torch.bfloat16, torch.bfloat16, c, P, N) == "hopper"
+    first = SSD.ssd_chunk_cuda(*args)
+    second = SSD.ssd_chunk_cuda(*args)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,nc,c,H,P,N", [(1, 4, 128, 8, 64, 128),
+                                          (1, 4, 128, 16, 64, 64),
+                                          (2, 4, 128, 28, 64, 64),
+                                          (2, 4, 64, 8, 32, 64)])
+@pytest.mark.parametrize("grid", [1, 3])
+def test_ssd_hopper_kernel_at_any_grid(cuda_device, B, nc, c, H, P, N, grid):
+    """The Hopper design at a persistent grid other than the schedule's
+    gives the schedule's bits: one block walks every tile back to back,
+    or an odd grid hands a block of split tiles both roles in turn (at
+    N 64 role 1 stores no state, so its heads commit one bulk group)."""
+    args = _ssd_inputs(cuda_device, B, nc, c, H, P, N, torch.bfloat16,
+                       torch.bfloat16)
+    assert SSD.design(torch.bfloat16, torch.bfloat16, c, P, N) == "hopper"
+    want = SSD.ssd_chunk_cuda(*args)
+    got = SSD.ssd_chunk_cuda(*args, grid=grid)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ssd_hopper_layout_is_the_kernels(cuda_device):
+    """``hopper_layout`` is the shared memory the built kernel asks for
+    (its ``Cfg``), for every instantiation."""
+    query = SSD._build.load("ssd_chunk").ssd_chunk_hopper_smem
+    query.restype = ctypes.c_int
+    query.argtypes = [ctypes.c_int] * 4
+    for c, nwg in ((128, 2), (128, 1), (64, 1)):
+        for P in (32, 64):
+            for N in (64, 128):
+                assert query(c, P, N, nwg) == \
+                    SSD.hopper_layout(c, P, N, nwg)["total"], (c, P, N, nwg)
+    assert query(128, 64, 128, 3) == -1
 
 
 @pytest.mark.cuda

@@ -226,6 +226,7 @@ def tensor_core_model(x, dt, A, B_, C_):
 @pytest.mark.parametrize("c,H,P,N", [
     (128, 2, 64, 128),   # the serving path's chunk, head dim and state
     (32, 3, 64, 64),     # the edge cases' short chunk and narrow state
+    (128, 56, 64, 64),   # zamba2-7b's heads at model 2 and its state
 ])
 def test_ssd_tensor_core_rounding_matches_pallas(c, H, P, N):
     """bf16 x, B and C: with hi + lo factors y stays within one bf16 ulp of
@@ -252,26 +253,135 @@ def test_ssd_kernel_route_follows_dtype():
         SSD.route(torch.float16, bf)
 
 
-def test_ssd_tensor_core_route_fits_two_blocks_per_sm():
-    """At the serving shape (c 128, P 64, N 128) a block of the tensor-core
-    route takes 112 KB, so two fit in an H100 SM's 228 KB with 1 KB reserved
-    per block; the widest shape the route takes still fits one."""
-    assert SSD.smem_bytes(128, 64, 128, tensor_cores=True) == 114688
-    assert 2 * (114688 + 1024) <= 228 * 1024
-    assert SSD.smem_bytes(128, SSD.TC_MAX_P, SSD.TC_MAX_N,
-                          tensor_cores=True) <= SSD.MAX_SMEM
-    # a short chunk with a wide state: the staged C tile (16 × 136 bf16)
-    # outgrows the one-slot triangle, and sizes the space they share
-    assert SSD.smem_bytes(16, 64, 128, tensor_cores=True) == \
-        2 * 16 * 136 + 4 * 16 * 72 + 2 * 16 * 136 + 4 * 16 * 12
-
-
 def _ssd_configs():
     from repro_torch.configs import ARCHS
     for name, cfg in sorted(ARCHS.items()):
         if cfg.family in ("ssm", "hybrid"):
             yield f"{name}-full", cfg
             yield f"{name}-reduced", cfg.reduced()
+
+
+def test_ssd_hopper_layout_fits_the_card():
+    """The Hopper design's shared memory (csrc/ssd_chunk.cu ``Cfg``): at the
+    serving shape (c 128, P 64, N 128) a block of two consumer warpgroups
+    holds B and C (32 KB each), a ring of 3 x stages (16 KB each), twice
+    y's two 64-row staging tiles and the state's 4 store boxes (64 rows ×
+    32 f32), and the decay terms, in 227 KB; a block of one warpgroup
+    (split tiles) keeps 2 stages and one staging buffer, and two fit an
+    SM; the widest shape the route takes fits, and so does a short chunk
+    with a wide state (one role, c padded to 64)."""
+    lay = SSD.hopper_layout(128, 64, 128, nwg=2)
+    assert lay["stages"] >= 2
+    assert lay["total"] == (1024 + 2 * 32768 + 3 * 16384 + 2 * 2 * 8192
+                            + 2 * 4 * 8192 + 3 * 128 * 12) == 218624
+    assert lay["total"] <= SSD.MAX_SMEM
+    one = SSD.hopper_layout(128, 64, 128, nwg=1)
+    assert one["stages"] >= 2
+    assert 2 * (one["total"] + SSD.BLOCK_RESERVED) <= SSD.SM_SMEM
+    for c, P, N in ((128, SSD.HOPPER_MAX_P, SSD.TC_MAX_N), (16, 64, 128)):
+        for nwg in ((1, 2) if c > 64 else (1,)):
+            assert SSD.hopper_layout(c, P, N, nwg)["total"] <= SSD.MAX_SMEM
+    # the short chunk: B and C of 64 rows × 2 panels, 2 x stages of 64
+    # rows, one y tile, every state box (2 blocks × 2), decay terms
+    assert SSD.hopper_layout(16, 64, 128, nwg=1)["total"] == \
+        1024 + 2 * 16384 + 2 * 8192 + 8192 + 4 * 8192 + 2 * 64 * 12
+    # P beyond 64 takes the mma.sync design, whose layout still fits
+    assert SSD.smem_bytes(128, SSD.TC_MAX_P, SSD.TC_MAX_N,
+                          tensor_cores=True) <= SSD.MAX_SMEM
+
+
+#: (G, H, c, P, N) the paths launch (G = B·nc), then the card tests' matrix
+PATH_SHAPES = [
+    (32, 32, 128, 64, 128),    # mamba2-370m prefill (4 × 1024)
+    (32, 112, 128, 64, 64),    # zamba2-7b
+    (32, 16, 128, 64, 128),    # mamba2-370m at model 2
+    (32, 8, 128, 64, 128),     # ... at model 4
+    (32, 56, 128, 64, 64),     # zamba2-7b at model 2
+    (4, 32, 128, 64, 128),     # batch-1 admissions: one card
+    (4, 16, 128, 64, 128),     # ... a rank at model 2, 4
+    (4, 8, 128, 64, 128),
+    (4, 56, 128, 64, 64),      # ... zamba2-7b at model 2
+    (8, 16, 16, 32, 32)]       # the reduced configs
+SCHEDULE_SHAPES = PATH_SHAPES + [
+    (1, 2, 16, 32, 16), (1, 4, 64, 64, 32), (1, 8, 128, 64, 128),
+    (2, 6, 64, 64, 64), (4, 8, 32, 64, 64), (4, 8, 128, 64, 64),
+    (2, 4, 16, 64, 128), (300, 3, 128, 64, 128)]
+ADMISSIONS = PATH_SHAPES[5:9]
+
+
+@pytest.mark.parametrize("G,H,c,P,N", SCHEDULE_SHAPES)
+def test_ssd_hopper_schedule_covers_every_output_once(G, H, c, P, N):
+    """The Hopper design's walk (``SSD.tile_walk``, the kernel's
+    ``tile_of``): every (cell, head) has each 64-row block of y and of the
+    state written by exactly one role of one block; the grid fits the
+    card's block slots, and the batch-1 admissions put at least 64 tiles on
+    the card."""
+    sms = 132
+    sched = SSD.schedule(G, H, c, P, N, sms)
+    lay = SSD.hopper_layout(c, P, N, sched["nwg"])
+    per_sm = 1 if sched["nwg"] == 2 else 2
+    assert sched["grid"] <= min(sched["tiles"], sms * per_sm)
+    want = {("y", r) for r in range(lay["cp"] // 64)} | {
+        ("state", b) for b in range(lay["np"] // 64)}
+    seen = {}
+    for block, steps in SSD.tile_walk(sched, G, H, c).items():
+        for cell, h, role in steps:
+            for part in SSD.role_parts(c, P, N, role):
+                seen.setdefault((cell, h, part), []).append(block)
+    assert set(seen) == {(cell, h, u) for cell in range(G) for h in range(H)
+                         for u in want}
+    assert all(len(b) == 1 for b in seen.values())
+    if (G, H, c, P, N) in ADMISSIONS:
+        assert sched["tiles"] >= 64 and sched["grid"] >= 64
+    if (G, H, c, P, N) in PATH_SHAPES and not sched["split"]:
+        # whole tiles on the paths: no block holds more heads than an even
+        # share of the card's block slots
+        heads = [len(steps) // (2 if c > 64 else 1)
+                 for steps in SSD.tile_walk(sched, G, H, c).values()]
+        assert max(heads) <= -(-G * H // (sms * per_sm))
+
+
+def _conv_split(cfg, model, dtype=torch.bfloat16):
+    """x, B and C of one chunk as the model hands them to the kernel: column
+    slices of the conv output (its x columns for this rank's heads, then B,
+    C), reshaped to (B, nc, c, H, P) and (B, nc, c, N)."""
+    H, P, N, c = cfg.ssm_heads // model, cfg.ssm_head_dim, cfg.ssm_state, \
+        cfg.ssm_chunk
+    conv = torch.zeros((1, c, H * P + 2 * N), dtype=dtype)
+    x, B_, C_ = torch.split(conv, [H * P, N, N], dim=-1)
+    return x.reshape(1, 1, c, H, P), B_.reshape(1, 1, c, N), \
+        C_.reshape(1, 1, c, N)
+
+
+@pytest.mark.parametrize("model", [1, 2, 4])
+@pytest.mark.parametrize("label,cfg", list(_ssd_configs()),
+                         ids=lambda v: v if isinstance(v, str) else "")
+def test_every_config_takes_the_hopper_design(label, cfg, model):
+    """Every config's SSD call, full width and reduced, whole and on a rank
+    of the model axis, takes the Hopper design in bf16 as the model lays
+    it out (column slices of the conv output); f32 keeps the CUDA cores;
+    a layout no tensor map describes, or P > 64, takes mma.sync."""
+    if cfg.ssm_heads % model:
+        pytest.skip(f"{cfg.ssm_heads} heads do not divide over {model}")
+    assert SSD.design_of(*_conv_split(cfg, model)) == "hopper"
+    assert SSD.design_of(*_conv_split(cfg, model, torch.float32)) == \
+        "cuda_cores"
+
+
+def test_ssd_design_names_the_mma_sync_layouts():
+    bf = torch.bfloat16
+    assert SSD.design(bf, bf, 13, 20, 10) == "mma_sync"     # P, N not × 8
+    assert SSD.design(bf, bf, 128, 128, 128) == "mma_sync"  # P > 64
+    assert SSD.design(bf, bf, 128, 64, 128, x_rs=2052) == "mma_sync"
+    assert SSD.design(bf, bf, 128, 64, 128, aligned=False) == "mma_sync"
+    assert SSD.design(bf, bf, 128, 64, 128, 2304, 2304, 2304) == "hopper"
+    assert SSD.design(torch.float32, bf, 128, 64, 128) == "cuda_cores"
+    # a slice that starts off a 16-byte boundary: copied or not, the
+    # wrapper asks the pointers
+    conv = torch.zeros((1, 128, 64 * 4 + 2 * 128 + 4), dtype=bf)[..., 4:]
+    x, B_, C_ = torch.split(conv, [256, 128, 128], dim=-1)
+    assert SSD.design_of(x.reshape(1, 1, 128, 4, 64), B_.reshape(1, 1, 128, 128),
+                         C_.reshape(1, 1, 128, 128)) == "mma_sync"
 
 
 @pytest.mark.parametrize("tensor_cores", [False, True])
